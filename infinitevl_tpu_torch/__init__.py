@@ -1,6 +1,7 @@
-"""InfiniteVL on PyTorch + CUDA: the hybrid SWA / Gated-DeltaNet text
-decoder of `infinitevl_tpu`, ported to torch with hand-written Hopper
-kernels (`csrc/`) for the three kernels on the serving path.
+"""InfiniteVL on PyTorch + CUDA: the ViT, the hybrid SWA / Gated-DeltaNet
+decoder, generation and the streaming video engine of `infinitevl_tpu`,
+ported to torch with hand-written Hopper kernels (`csrc/`) for the five
+kernels on the serving and streaming paths.
 
 Module paths mirror `infinitevl_tpu`; the JAX package is the reference
 the port is tested against. Nothing here imports jax."""

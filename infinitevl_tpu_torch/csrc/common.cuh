@@ -8,6 +8,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ivl {
 
@@ -52,6 +53,28 @@ __device__ __forceinline__ int ring_pos(int n_written, int m0, int slot, int cap
   int x = m0 - slot;
   if (x < 0) x += cap;
   return n_written - 1 - x;
+}
+
+// Tensor-core step D = A B + D of mma.sync m16n8k16 (bf16 operands, fp32
+// accumulation). Fragment layout (gid = lane / 4, tig = lane % 4): the
+// accumulator c[0..1] is row gid, cols 2*tig + {0,1}; c[2..3] is row
+// gid + 8.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __host__ __device__ __forceinline__ int pos_mod(int a, int m) {

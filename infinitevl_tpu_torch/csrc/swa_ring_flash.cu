@@ -34,14 +34,15 @@
 //   would fill 2 of 132 SMs at B = 1, so the ring is split into chunks of
 //   `split_len` keys, one block each (split-KV), and a second kernel
 //   combines the partial softmax states.
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace {
 
 using ivl::NEG_INF;
 using ivl::from_f;
+using ivl::ld32;
+using ivl::mma_bf16;
+using ivl::pack_bf16;
 using ivl::to_f;
 
 constexpr int HD = 128;  // head dim the kernels are written for
@@ -211,27 +212,8 @@ constexpr int M_BK = 64;            // keys per tile
 constexpr int KSTR = HD + 8;        // bf16 per row of Ks[key][d] (conflict-free B loads)
 constexpr int VSTR = M_BK + 8;      // bf16 per row of Vt[d][key]
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layout of m16n8k16 (gid = lane / 4, tig = lane % 4): the
-// accumulator c[0..1] is row gid, cols 2*tig + {0,1}; c[2..3] is row
-// gid + 8. Here S accumulators s[nt] cover keys nt*8 .. nt*8+7 of the tile.
+// Fragment layout of m16n8k16: see ivl::mma_bf16. Here S accumulators
+// s[nt] cover keys nt*8 .. nt*8+7 of the tile.
 __global__ void __launch_bounds__(32 * M_WARPS)
 swa_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Tn, Hq, HD]
                        const __nv_bfloat16* __restrict__ new_k,  // [B, Tn, Hkv, HD]

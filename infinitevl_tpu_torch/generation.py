@@ -1,5 +1,6 @@
 """Generation: prefill, decode steps and the `Generator` driver (torch port
-of the text path of infinitevl_tpu/generation.py).
+of infinitevl_tpu/generation.py: text and multimodal prompts, greedy and
+sampled decoding; speculative and beam decoding are not ported).
 
 The state is updated IN PLACE by every call that takes one (the JAX
 functions donate it and return a new value). Positions follow the
@@ -11,12 +12,13 @@ the device, and the host reads them (and the EOS flags) once per chunk."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import InfiniteVLConfig
+from .device import Device, resolve_device
 from .models.infinitevl import forward, get_rope_index
 from .models.state import DecoderState, init_decoder_state
 from .models.text import embed_tokens, lm_head, text_forward
@@ -30,11 +32,19 @@ def prefill(
     input_ids: torch.Tensor,  # [B, T]
     position_ids: torch.Tensor,  # [3, B, T]
     state: DecoderState,
+    pixel_values: Optional[torch.Tensor] = None,
+    grid_thw: Optional[Sequence[Sequence[int]]] = None,
+    pixel_values_videos: Optional[torch.Tensor] = None,
+    video_grid_thw: Optional[Sequence[Sequence[int]]] = None,
 ) -> Tuple[torch.Tensor, DecoderState]:
-    """Prefill the prompt into `state` (in place). Returns (last-token
-    logits [B, vocab] fp32, state)."""
-    logits, state = forward(params, cfg, input_ids, position_ids, state=state,
-                            logits_to_keep=1)
+    """Prefill the prompt (with its images / videos, if any) into `state`
+    (in place). Returns (last-token logits [B, vocab] fp32, state)."""
+    logits, state = forward(
+        params, cfg, input_ids, position_ids, state=state,
+        pixel_values=pixel_values, grid_thw=grid_thw,
+        pixel_values_videos=pixel_values_videos, video_grid_thw=video_grid_thw,
+        logits_to_keep=1,
+    )
     return logits[:, 0], state
 
 
@@ -143,10 +153,22 @@ def _later(what: str):
     raise NotImplementedError(f"{what} is not ported to the torch Generator yet")
 
 
+def check_params_device(params: Params, device: torch.device) -> None:
+    """The params must already live on the device the caller runs on."""
+    have = params["text"]["embed"].device
+    if have != device:
+        raise ValueError(
+            f"params are on {have} but the device is {device}: build or move "
+            "the params there (init_params / from_jax_numpy take a device), or "
+            "pass device= explicitly"
+        )
+
+
 class Generator:
-    """Text generation driver: prompt prefill (chunked for long prompts),
-    then chunks of on-device decode steps. One instance per (params,
-    config); the device is the one holding the embedding."""
+    """Generation: prompt prefill (text prompts chunked when long,
+    multimodal prompts in one pass), then chunks of on-device decode steps.
+    One instance per (params, config). `device=None` means the CUDA card;
+    the params must live on the device."""
 
     def __init__(
         self,
@@ -156,17 +178,19 @@ class Generator:
         chunk_size: int = 8,
         fuse: bool = False,
         quant: Optional[str] = None,
+        device: Optional[Device] = None,
     ):
         if fuse:
             _later("fused projections (fuse=True)")
         if quant is not None:
             _later(f"weight quantization (quant={quant!r})")
+        self.device = resolve_device(device)
+        check_params_device(params, self.device)
         embed = params["text"]["embed"]
         self.params = params
         self.cfg = cfg
         # ring / conv state dtype follows the activations (the weights')
         self.dtype = dtype if dtype is not None else embed.dtype
-        self.device = embed.device
         # decode steps per host sync; EOS overshoot is < chunk_size steps
         self.chunk_size = chunk_size
         # text prompts longer than this prefill through prefill_chunked
@@ -210,31 +234,69 @@ class Generator:
         state: Optional[DecoderState] = None,
     ) -> Tuple[torch.Tensor, DecoderState, torch.Tensor]:
         """Prompt prefill shared by the decode entry points: mRoPE indices
-        (get_rope_index), a fresh state unless one is given (updated in
-        place), chunked prefill for prompts longer than
-        prefill_chunk_size. Returns (last-token logits, state, rope_delta)."""
-        if any(x is not None for x in (pixel_values, image_grid_thw,
-                                       pixel_values_videos, video_grid_thw,
-                                       second_per_grid_ts)):
-            _later("multimodal prompts (vision inputs)")
+        (get_rope_index), the count check of vision placeholders against
+        the grids (reference get_placeholder_mask), a fresh state unless
+        one is given (updated in place), chunked prefill for text prompts
+        longer than prefill_chunk_size. Returns (last-token logits, state,
+        rope_delta)."""
         cfg = self.cfg
         input_ids = np.asarray(input_ids)
-        pos, deltas = get_rope_index(cfg, input_ids)
+        pos, deltas = get_rope_index(cfg, input_ids, image_grid_thw, video_grid_thw,
+                                     second_per_grid_ts)
         if state is None:
             state = init_decoder_state(cfg.text, input_ids.shape[0],
                                        dtype=self.dtype, device=self.device)
+        merge2 = cfg.vision.spatial_merge_unit
+
+        def grids_of(arr):
+            return [tuple(int(x) for x in g) for g in arr]
+
+        def check(grids_arr, token_id, kind):
+            if grids_arr is None:
+                raise ValueError(f"{kind} pixel values passed without the matching "
+                                 f"{kind}_grid_thw")
+            grids = tuple(grids_of(grids_arr))
+            n_feats = sum(t * h * w for t, h, w in grids) // merge2
+            n_pads = int((input_ids == token_id).sum())
+            if n_pads != n_feats:
+                raise ValueError(f"{kind} features and pad tokens do not match: "
+                                 f"{n_feats} features vs {n_pads} pad tokens")
+            return grids
+
+        def pixels(arr):
+            return torch.as_tensor(np.asarray(arr), device=self.device)
+
+        grid = vgrid = pv = pvv = None
+        if pixel_values is not None:
+            if pixel_values_videos is None and video_grid_thw is not None:
+                # images and videos already concatenated into pixel_values
+                grids = grids_of(image_grid_thw) if image_grid_thw is not None else []
+                grid = tuple(grids + grids_of(video_grid_thw))
+            else:
+                grid = check(image_grid_thw, cfg.image_token_id, "image")
+            pv = pixels(pixel_values)
+        if pixel_values_videos is not None:
+            vgrid = check(video_grid_thw, cfg.video_token_id, "video")
+            pvv = pixels(pixel_values_videos)
         ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
         pos = torch.as_tensor(pos, device=self.device)
-        if input_ids.shape[1] > self.prefill_chunk_size:
+        if pv is None and pvv is None and input_ids.shape[1] > self.prefill_chunk_size:
             logits, state = prefill_chunked(self.params, cfg, ids, pos, state,
                                             chunk=self.prefill_chunk_size)
         else:
-            logits, state = prefill(self.params, cfg, ids, pos, state)
+            logits, state = prefill(self.params, cfg, ids, pos, state,
+                                    pixel_values=pv, grid_thw=grid,
+                                    pixel_values_videos=pvv, video_grid_thw=vgrid)
         return logits, state, torch.as_tensor(deltas, device=self.device)
 
     def generate_stream(
         self,
         input_ids: np.ndarray,  # [B, T]
+        pixel_values: Optional[np.ndarray] = None,
+        image_grid_thw: Optional[np.ndarray] = None,
+        pixel_values_videos: Optional[np.ndarray] = None,
+        video_grid_thw: Optional[np.ndarray] = None,
+        second_per_grid_ts=None,
         max_new_tokens: int = 128,
         temperature: float = 0.0,
         top_k: int = 0,
@@ -243,7 +305,6 @@ class Generator:
         seed: int = 0,
         eos_token_id: Optional[int] = None,
         state: Optional[DecoderState] = None,
-        **mm_kwargs,
     ):
         """Token streaming: yields numpy token chunks ([B, 1] for the first
         sampled token, then [B, <= chunk_size] per decode chunk), one host
@@ -252,7 +313,11 @@ class Generator:
         input_ids = np.asarray(input_ids)
         B = input_ids.shape[0]
         eos = eos_token_id if eos_token_id is not None else cfg.eos_token_id
-        logits, state, rope_delta = self.prefill_prompt(input_ids, state=state, **mm_kwargs)
+        logits, state, rope_delta = self.prefill_prompt(
+            input_ids, pixel_values=pixel_values, image_grid_thw=image_grid_thw,
+            pixel_values_videos=pixel_values_videos, video_grid_thw=video_grid_thw,
+            second_per_grid_ts=second_per_grid_ts, state=state,
+        )
         rows = torch.arange(B, device=self.device)
         seen = None
         if repetition_penalty != 1.0:

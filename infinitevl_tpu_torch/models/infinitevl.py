@@ -1,6 +1,6 @@
-"""InfiniteVL model entry: 3D mRoPE position indices and the decoder
-forward (torch port of infinitevl_tpu/models/infinitevl.py, text only;
-the vision encoder and the masked scatter come with the multimodal slice).
+"""InfiniteVL model entry: 3D mRoPE position indices, the masked scatter
+of vision features and the multimodal forward (torch port of
+infinitevl_tpu/models/infinitevl.py).
 
 `get_rope_index` is host-side numpy, copied whole from the JAX module:
 data-dependent token bookkeeping done once per prompt."""
@@ -15,6 +15,7 @@ import torch
 from ..config import InfiniteVLConfig
 from .state import DecoderState
 from .text import embed_tokens, lm_head, text_forward
+from .vision import get_vision_plan, vision_forward
 
 Params = Dict[str, Any]
 
@@ -125,25 +126,73 @@ def _index_of(tokens, tok, start):
         return None
 
 
+def scatter_vision_embeds(
+    inputs_embeds: torch.Tensor,  # [B, T, D]
+    vision_embeds: torch.Tensor,  # [N, D] packed features
+    vision_mask: torch.Tensor,  # [B, T] bool, exactly N True entries
+) -> torch.Tensor:
+    """Masked scatter (reference modeling_infinitevl.py:1869-1887): the
+    i-th True position (row-major) receives vision_embeds[i]. Written as a
+    gather + where, so no host sync counts the mask."""
+    B, T, D = inputs_embeds.shape
+    flat_mask = vision_mask.reshape(-1)
+    idx = torch.cumsum(flat_mask.to(torch.int64), dim=0) - 1
+    idx = idx.clamp(0, vision_embeds.shape[0] - 1)
+    gathered = vision_embeds[idx].to(inputs_embeds.dtype)
+    out = torch.where(flat_mask[:, None], gathered, inputs_embeds.reshape(B * T, D))
+    return out.reshape(B, T, D)
+
+
+def encode_vision(
+    params: Params,
+    cfg: InfiniteVLConfig,
+    pixel_values: torch.Tensor,  # [n_patches, in_feat]
+    grid_thw: Sequence[Sequence[int]],
+) -> torch.Tensor:
+    plan = get_vision_plan(tuple(tuple(int(x) for x in g) for g in grid_thw), cfg.vision)
+    return vision_forward(params["visual"], cfg.vision, pixel_values, plan)
+
+
 def forward(
     params: Params,
     cfg: InfiniteVLConfig,
     input_ids: torch.Tensor,  # [B, T]
     position_ids: torch.Tensor,  # [3, B, T]
     state: Optional[DecoderState] = None,
-    pixel_values: Optional[torch.Tensor] = None,
-    pixel_values_videos: Optional[torch.Tensor] = None,
+    pixel_values: Optional[torch.Tensor] = None,  # packed image patches
+    grid_thw: Optional[Sequence[Sequence[int]]] = None,
+    pixel_values_videos: Optional[torch.Tensor] = None,  # packed video patches
+    video_grid_thw: Optional[Sequence[Sequence[int]]] = None,
+    vision_mask: Optional[torch.Tensor] = None,  # [B, T]
+    segment_ids: Optional[torch.Tensor] = None,
     logits_to_keep: int = 0,
 ) -> Tuple[torch.Tensor, Optional[DecoderState]]:
-    """Text forward: embed, decoder stack, head. `logits_to_keep`: 0 = all
-    positions, n > 0 = only the last n. With a state, the state is updated
-    IN PLACE and returned. Returns (fp32 logits [B, T', vocab], state)."""
-    if pixel_values is not None or pixel_values_videos is not None:
+    """Full multimodal forward: embed, encode and scatter the vision
+    features, decoder stack, head. `logits_to_keep`: 0 = all positions,
+    n > 0 = only the last n. With a state, the state is updated IN PLACE
+    and returned. Returns (fp32 logits [B, T', vocab], state).
+
+    Images and videos are encoded and scattered separately, each into its
+    own pad-token mask, so interleaved image/video prompts stay correct
+    whatever their order. When only `pixel_values` is given with no
+    explicit mask, the mask covers both pad kinds."""
+    if segment_ids is not None:
         raise NotImplementedError(
-            "vision inputs come with the multimodal slice; the torch port "
-            "serves text only so far"
+            "segment_ids (packed sequences) come with the training slice and "
+            "are not ported to torch yet"
         )
     embeds = embed_tokens(params["text"], input_ids)
+    if pixel_values is not None:
+        vis = encode_vision(params, cfg, pixel_values, grid_thw)
+        mask = vision_mask
+        if mask is None:
+            mask = input_ids == cfg.image_token_id
+            if pixel_values_videos is None:
+                mask = mask | (input_ids == cfg.video_token_id)
+        embeds = scatter_vision_embeds(embeds, vis, mask)
+    if pixel_values_videos is not None:
+        vis = encode_vision(params, cfg, pixel_values_videos, video_grid_thw)
+        embeds = scatter_vision_embeds(embeds, vis, input_ids == cfg.video_token_id)
     hidden, state = text_forward(params["text"], cfg.text, embeds, position_ids, state)
     if logits_to_keep:
         hidden = hidden[:, -logits_to_keep:]

@@ -1,22 +1,27 @@
-"""Text-decoder parameters: random init and conversion from the JAX
-package's parameters (torch port of the text part of
-infinitevl_tpu/models/params.py).
+"""Model parameters: random init and conversion from the JAX package's
+parameters (torch port of infinitevl_tpu/models/params.py without the
+checkpoint loaders).
 
-Layout is the JAX one: a dict with 'embed' [vocab, D], 'final_norm' [D],
-'inv_freq' [head_dim/2] (fp32), optional untied 'lm_head' [D, vocab], and
-'layers', a list of per-layer dicts. Linear weights are [d_in, d_out]
-'kernel's (the transpose of torch.nn.Linear), with optional 'bias'.
-Model-level functions take {'text': <this dict>}, as in JAX."""
+Layout is the JAX one. Text: a dict with 'embed' [vocab, D], 'final_norm'
+[D], 'inv_freq' [head_dim/2] (fp32), optional untied 'lm_head' [D, vocab],
+and 'layers', a list of per-layer dicts. Vision: 'patch_embed'
+[in_feat, Dv], 'blocks' (norm1, norm2, qkv, proj, mlp.gate/up/down) and
+'merger' (ln_q, fc1, fc2). Linear weights are [d_in, d_out] 'kernel's (the
+transpose of torch.nn.Linear), with optional 'bias'. Model-level functions
+take {'text': ..., 'visual': ...}, as in JAX.
+
+`device=None` means the CUDA card (device.default_device)."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import LINEAR, MAMBA2, TextConfig
+from ..config import LINEAR, MAMBA2, InfiniteVLConfig, TextConfig, VisionConfig
+from ..device import Device, resolve_device
 from ..ops.rope import rope_init
 
 Params = Dict[str, Any]
@@ -109,12 +114,13 @@ def init_delta_layer(cfg: TextConfig, gen, device, dtype) -> Params:
 def init_text_params(
     cfg: TextConfig,
     generator: torch.Generator,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Device] = None,
     dtype: torch.dtype = torch.bfloat16,
 ) -> Params:
     """Random text-decoder params at any width, drawn from `generator`
     (which must live on `device`). Same shapes and init rules as JAX
     init_text_params; the numbers differ (another generator)."""
+    device = resolve_device(device)
     layers = []
     for i in range(cfg.num_hidden_layers):
         role = cfg.layer_role(i)
@@ -139,6 +145,55 @@ def init_text_params(
     return p
 
 
+def init_vision_params(
+    cfg: VisionConfig,
+    generator: torch.Generator,
+    device: Optional[Device] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Params:
+    """Random ViT params (shapes and init rules of JAX init_vision_params)."""
+    device = resolve_device(device)
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    in_feat = cfg.in_channels * cfg.temporal_patch_size * cfg.patch_size**2
+
+    def lin(d_in, d_out):
+        return _linear(d_in, d_out, generator, device, dtype, bias=True)
+
+    ones = torch.ones((D,), dtype=dtype, device=device)
+    blocks = [
+        {
+            "norm1": ones.clone(),
+            "norm2": ones.clone(),
+            "qkv": lin(D, 3 * D),
+            "proj": lin(D, D),
+            "mlp": {"gate": lin(D, I), "up": lin(D, I), "down": lin(I, D)},
+        }
+        for _ in range(cfg.depth)
+    ]
+    merged = D * cfg.spatial_merge_unit
+    return {
+        "patch_embed": _trunc_normal((in_feat, D), 0.02, generator, device, dtype),
+        "blocks": blocks,
+        "merger": {
+            "ln_q": ones.clone(),
+            "fc1": lin(merged, merged),
+            "fc2": lin(merged, cfg.out_hidden_size),
+        },
+    }
+
+
+def init_params(
+    cfg: InfiniteVLConfig,
+    generator: torch.Generator,
+    device: Optional[Device] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Params:
+    return {
+        "text": init_text_params(cfg.text, generator, device, dtype),
+        "visual": init_vision_params(cfg.vision, generator, device, dtype),
+    }
+
+
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16 from a JAX array
@@ -146,11 +201,12 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_jax_numpy(params_np: Any, device: Union[str, torch.device] = "cpu") -> Any:
+def from_jax_numpy(params_np: Any, device: Optional[Device] = None) -> Any:
     """Convert JAX params already moved to numpy (nested dicts, lists or
-    tuples of arrays; e.g. `jax.tree.map(np.asarray, params['text'])`)
-    into the port's params: the same tree with torch tensors. Layouts are
-    shared, so no transpose happens."""
+    tuples of arrays; e.g. `jax.tree.map(np.asarray, params)`) into the
+    port's params: the same tree with torch tensors. Layouts are shared,
+    text and visual alike, so no transpose happens."""
+    device = resolve_device(device)
     if isinstance(params_np, dict):
         return {k: from_jax_numpy(v, device) for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):

@@ -8,15 +8,17 @@ L = #DeltaNet layers):
   cum_len      : int                    tokens processed so far (host int)
 
 The model updates the tensors IN PLACE; branching a stream (decoding from
-a snapshot without disturbing the original) needs `clone_state` first."""
+a snapshot without disturbing the original) needs `clone_state` first;
+`state_row` is the same for one row of a multi-stream state."""
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 from ..config import TextConfig
+from ..device import Device, resolve_device
 
 DecoderState = Dict[str, Union[torch.Tensor, int]]
 
@@ -25,8 +27,10 @@ def init_decoder_state(
     cfg: TextConfig,
     batch_size: int,
     dtype: torch.dtype = torch.bfloat16,
-    device: Union[str, torch.device] = "cpu",
+    device: Optional[Device] = None,
 ) -> DecoderState:
+    """Zero state; `device=None` means the CUDA card."""
+    device = resolve_device(device)
     if cfg.num_mamba2_layers:
         raise NotImplementedError(
             "mamba2 layers are not ported to the torch decoder yet"
@@ -65,5 +69,14 @@ def clone_state(state: DecoderState) -> DecoderState:
     stays untouched."""
     return {
         k: v.clone() if isinstance(v, torch.Tensor) else v
+        for k, v in state.items()
+    }
+
+
+def state_row(state: DecoderState, row: int) -> DecoderState:
+    """Copy of batch row `row` as a batch-1 state (every tensor is
+    [layers, B, ...])."""
+    return {
+        k: v[:, row : row + 1].clone() if isinstance(v, torch.Tensor) else v
         for k, v in state.items()
     }

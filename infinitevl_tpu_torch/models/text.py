@@ -5,9 +5,10 @@ Parameters are the JAX layout (models/params.py); the layer loop is a
 Python loop. With a state, every layer updates its part of the stacked
 state IN PLACE: T == 1 goes through the decode kernels (A2 for SWA
 layers, B for DeltaNet layers), T > 1 through the prefill kernel A1 plus a
-plain ring write for SWA layers and the plain chunked delta rule for
-DeltaNet layers. A CUDA tensor always reaches the kernel, which raises on
-what it cannot take; a CPU tensor takes the kernel's plain version."""
+plain ring write for SWA layers and, for DeltaNet layers, the chunked
+delta rule kernel C (T above cfg.recurrent_threshold; the plain recurrence
+below it). A CUDA tensor always reaches the kernel, which raises on what it
+cannot take; a CPU tensor takes the kernel's plain version."""
 
 from __future__ import annotations
 
@@ -164,14 +165,16 @@ def delta_forward(
         chunk = cfg.delta_chunk_size
         if T <= 512:
             chunk = min(chunk, 64)
-        o, new_h = gated_delta_rule(
+        # with a state, kernel C reads the layer's slab of the stacked state
+        # and writes the final state back into it
+        slab = h[layer_idx] if use_cache else None
+        o, _ = gated_delta_rule(
             q, k, v, g, beta,
-            initial_state=h[layer_idx] if use_cache else None,
+            initial_state=slab,
             chunk_size=chunk,
             recurrent_threshold=cfg.recurrent_threshold,
+            out_state=slab,
         )
-        if use_cache:
-            h[layer_idx].copy_(new_h)
     o = rms_norm_gated(o, g_lin.reshape(B, T, H, V), p["o_norm"], eps=cfg.norm_eps)
     return _dense(o.reshape(B, T, H * V), p["o_proj"])
 

@@ -1,22 +1,26 @@
-"""Wrapper of the Gated-DeltaNet decode-step kernel (B) in
-csrc/delta_step.cu, under the name of its Pallas counterpart in
-infinitevl_tpu/ops/delta_pallas.py.
+"""Wrappers of the Gated-DeltaNet kernels, under the names of their Pallas
+counterparts in infinitevl_tpu/ops/delta_pallas.py: the decode step (B,
+csrc/delta_step.cu) and the chunkwise prefill (C, csrc/delta_chunk.cu).
 
-A tensor on the CPU takes the plain version (ops/delta_rule.delta_rule_step);
-a CUDA tensor launches the kernel or raises. Launches are counted in
-`delta_step_fused_stacked.launches`."""
+A tensor on the CPU takes the plain version (ops/delta_rule.delta_rule_step,
+ops/delta_rule.delta_rule_chunk in fp32); a CUDA tensor launches the kernel
+or raises. Each wrapper counts its launches in its `launches` attribute."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .delta_rule import delta_rule_step
+from .delta_rule import delta_rule_chunk, delta_rule_step
 from .norms import l2norm
 
-KERNEL_K = 128  # the key head dim the kernel is written for
+KERNEL_K = 128  # the key head dim the kernels are written for
+CHUNK = 64  # chunk length of kernel C
+CHUNK_BV = 64  # value columns per block of kernel C's sequential pass
+
+_DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 
 
 def delta_step_fused_stacked(
@@ -83,3 +87,104 @@ def delta_step_fused_stacked(
 
 
 delta_step_fused_stacked.launches = 0
+
+
+def chunk_scratch_floats(B: int, T: int, H: int, V: int) -> int:
+    """fp32 scratch of kernel C: per (b, h, chunk) the transposed w and
+    q e^g, k e^{g_C - g}, the masked q k^T, u and e^{g_C} (csrc/delta_chunk.cu)."""
+    n_chunks = -(-T // CHUNK)
+    return B * H * n_chunks * (3 * KERNEL_K * CHUNK + CHUNK * CHUNK + CHUNK * V + 1)
+
+
+def delta_rule_chunk_fused(
+    q: torch.Tensor,  # [B, T, H, K] raw (pre-l2norm)
+    k: torch.Tensor,
+    v: torch.Tensor,  # [B, T, H, V]
+    g: torch.Tensor,  # [B, T, H] log-decay
+    beta: torch.Tensor,  # [B, T, H]
+    initial_state: Optional[torch.Tensor] = None,  # [B, H, K, V] fp32
+    scale: Optional[float] = None,
+    chunk_size: int = CHUNK,
+    out_state: Optional[torch.Tensor] = None,  # [B, H, K, V] fp32, written in place
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C: chunkwise gated delta rule forward, q and k l2-normalized
+    inside, all arithmetic in fp32. Returns (o [B, T, H, V] in v.dtype,
+    final_state [B, H, K, V] fp32). The final state is written into
+    `out_state` where one is given (it may be `initial_state` itself: a
+    layer's slab of the stacked state is then updated where it lies), else
+    into a new tensor. Semantics of
+    delta_rule_chunk(..., compute_dtype=torch.float32)."""
+    name = "delta_rule_chunk_fused"
+    if q.device.type == "cpu":
+        o, final = delta_rule_chunk(
+            q, k, v, g, beta, initial_state, scale, True, chunk_size,
+            compute_dtype=torch.float32,
+        )
+        if out_state is not None:
+            final = out_state.copy_(final)
+        return o, final
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: device {q.device} is neither cpu nor cuda")
+    B, T, H, K = q.shape
+    V = v.shape[-1]
+    if v.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {v.dtype} not supported (float32, bfloat16)")
+    if K != KERNEL_K or V % CHUNK_BV or chunk_size != CHUNK or T < 1:
+        raise ValueError(
+            f"{name}: the kernel takes key dim {KERNEL_K}, a value dim that is a "
+            f"multiple of {CHUNK_BV} and chunk_size {CHUNK} "
+            f"(got K={K}, V={V}, chunk_size={chunk_size}, T={T})"
+        )
+    shapes = dict(q=(B, T, H, K), k=(B, T, H, K), v=(B, T, H, V), g=(B, T, H),
+                  beta=(B, T, H))
+    for arg, t in dict(q=q, k=k, v=v, g=g, beta=beta).items():
+        if t.device != q.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, q on {q.device}")
+        if tuple(t.shape) != shapes[arg]:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[arg]}")
+    for arg, t in dict(q=q, k=k).items():
+        if t.dtype != v.dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, v has {v.dtype}")
+    if initial_state is not None:
+        if initial_state.device != q.device or initial_state.dtype != torch.float32:
+            raise TypeError(f"{name}: the initial state must be float32 on {q.device}")
+        if tuple(initial_state.shape) != (B, H, K, V):
+            raise ValueError(f"{name}: initial state shape "
+                             f"{tuple(initial_state.shape)} is not {(B, H, K, V)}")
+        initial_state = initial_state.contiguous()
+    if out_state is None:
+        final = torch.empty((B, H, K, V), dtype=torch.float32, device=q.device)
+    else:
+        if (out_state.device != q.device or out_state.dtype != torch.float32
+                or not out_state.is_contiguous()):
+            raise TypeError(f"{name}: out_state must be contiguous float32 on {q.device}")
+        if tuple(out_state.shape) != (B, H, K, V):
+            raise ValueError(f"{name}: out_state shape {tuple(out_state.shape)} "
+                             f"is not {(B, H, K, V)}")
+        final = out_state
+    if scale is None:
+        scale = K**-0.5
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    gf, bf = g.float().contiguous(), beta.float().contiguous()
+    o = torch.empty_like(v)
+    n_scratch = chunk_scratch_floats(B, T, H, V)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=q.device)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):  # launch on the tensors' card
+        _build.check(
+            lib.ivl_delta_chunk(
+                _DTYPES[v.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                gf.data_ptr(), bf.data_ptr(),
+                None if initial_state is None else initial_state.data_ptr(),
+                o.data_ptr(), final.data_ptr(), scratch.data_ptr(), n_scratch,
+                B, T, H, K, V, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            ),
+            name,
+        )
+    delta_rule_chunk_fused.launches += 1
+    return o, final
+
+
+delta_rule_chunk_fused.launches = 0

@@ -16,8 +16,10 @@ Python loop threads the state; the JAX `stream` order computes the same
 numbers and is not needed here.
 
 `delta_rule_step` is the plain version of the Hopper kernel
-`ops/delta_kernels.delta_step_fused_stacked`; prefill (`gated_delta_rule`)
-stays plain torch in this slice, as it is XLA (no kernel) in JAX.
+`ops/delta_kernels.delta_step_fused_stacked` (B), and `delta_rule_chunk`
+with `compute_dtype=torch.float32` that of
+`ops/delta_kernels.delta_rule_chunk_fused` (C), which `gated_delta_rule`
+dispatches to for T above the recurrent threshold.
 
 Matmuls follow the JAX precision model: operands in the compute dtype
 (the input dtype for bf16/fp16 models, fp32 otherwise) and fp32
@@ -177,13 +179,27 @@ def delta_rule_chunk(
     use_qk_l2norm: bool = True,
     chunk_size: int = 64,
     segment_ids: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunkwise-parallel gated delta rule (prefill path). Returns
-    (o [B, T, H, V] in v.dtype, final_state [B, H, K, V] fp32)."""
+    (o [B, T, H, V] in v.dtype, final_state [B, H, K, V] fp32).
+
+    `compute_dtype` None follows the JAX precision model (operands in the
+    input dtype for bf16/fp16 inputs, fp32 otherwise). torch.float32 widens
+    the inputs first and keeps every intermediate in fp32, whatever the
+    input dtype: the arithmetic of the fused kernel C."""
     _no_segments(segment_ids)
     B, T, H, K = q.shape
     V = v.shape[-1]
     C = chunk_size
+    out_dtype = v.dtype
+    if compute_dtype is None:
+        cd = v.dtype if v.dtype in (torch.bfloat16, torch.float16) else torch.float32
+    elif compute_dtype == torch.float32:
+        cd = torch.float32
+        q, k, v = q.float(), k.float(), v.float()
+    else:
+        raise ValueError(f"compute_dtype {compute_dtype} (None or torch.float32)")
     if scale is None:
         scale = K**-0.5
     if use_qk_l2norm:
@@ -204,7 +220,6 @@ def delta_rule_chunk(
         x = x.reshape(B, N, C, H, *x.shape[3:])
         return x.movedim(3, 1)
 
-    cd = v.dtype if v.dtype in (torch.bfloat16, torch.float16) else torch.float32
     qf = (chunked(q).float() * scale).to(cd)
     kf = chunked(k).to(cd)
     vf = chunked(v).to(cd)
@@ -226,7 +241,7 @@ def delta_rule_chunk(
         outs.append(q_b[:, :, n] @ sc + attn[:, :, n] @ y)
         s = s * carry[:, :, n][..., None, None] + k_out[:, :, n].transpose(-1, -2) @ y
     o = torch.stack(outs, dim=2).reshape(B, H, Tp, V)[:, :, :T]
-    return o.transpose(1, 2).to(v.dtype), s
+    return o.transpose(1, 2).to(out_dtype), s
 
 
 def gated_delta_rule(
@@ -241,14 +256,34 @@ def gated_delta_rule(
     chunk_size: int = 64,
     recurrent_threshold: int = 64,
     segment_ids: Optional[torch.Tensor] = None,
+    out_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch: the recurrence for T <= recurrent_threshold (the
-    reference's q_len <= 64 switch), else the chunk form."""
+    reference's q_len <= 64 switch), else the chunk form through the fused
+    kernel's wrapper. The kernel normalizes q and k itself, as its Pallas
+    original does, so without the l2norm a CUDA tensor raises; CPU tensors
+    take the plain chunk form. The final state is written into `out_state`
+    where one is given (it may be `initial_state` itself)."""
     _no_segments(segment_ids)
     if q.shape[1] <= recurrent_threshold:
-        return delta_rule_recurrent(
+        o, s = delta_rule_recurrent(
             q, k, v, g, beta, initial_state, scale, use_qk_l2norm
         )
-    return delta_rule_chunk(
-        q, k, v, g, beta, initial_state, scale, use_qk_l2norm, chunk_size
-    )
+    elif use_qk_l2norm:
+        from .delta_kernels import delta_rule_chunk_fused  # imports this module
+
+        return delta_rule_chunk_fused(
+            q, k, v, g, beta, initial_state, scale, chunk_size, out_state
+        )
+    elif q.device.type == "cpu":
+        o, s = delta_rule_chunk(
+            q, k, v, g, beta, initial_state, scale, False, chunk_size
+        )
+    else:
+        raise NotImplementedError(
+            "gated_delta_rule: the chunk kernel l2-normalizes q and k inside; "
+            f"use_qk_l2norm=False is not available for tensors on {q.device}"
+        )
+    if out_state is not None:
+        s = out_state.copy_(s)
+    return o, s

@@ -1,6 +1,5 @@
-"""Rotary position embeddings for the text decoder: 3D mRoPE (torch port of
-infinitevl_tpu/ops/rope.py; the vision 2D RoPE comes with the multimodal
-slice).
+"""Rotary position embeddings: 3D mRoPE for the text decoder and the 2D
+RoPE of the ViT (torch port of infinitevl_tpu/ops/rope.py).
 
 `rope_init` is numpy (it runs once, at parameter init) and mirrors the
 transformers ROPE_INIT_FUNCTIONS the reference activates: default, linear,
@@ -8,7 +7,7 @@ dynamic, yarn and llama3."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,4 +126,58 @@ def apply_rotary(
     s = sin[:, :, None, :]
     q_out = q * c + rotate_half(q) * s
     k_out = k * c + rotate_half(k) * s
+    return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Vision 2D RoPE
+# ---------------------------------------------------------------------------
+
+
+def vision_rot_pos_ids(
+    grid_thw: Sequence[Tuple[int, int, int]], spatial_merge_size: int
+) -> np.ndarray:
+    """Per-patch (h, w) position ids in merger-aware order, [S, 2]. Numpy:
+    grid shapes are fixed per bucket, so this runs once per shape (the
+    permutation of reference modeling_infinitevl.py:741-768)."""
+    m = spatial_merge_size
+    out = []
+    for t, h, w in grid_thw:
+        hpos = np.arange(h)[:, None].repeat(w, axis=1)
+        hpos = hpos.reshape(h // m, m, w // m, m).transpose(0, 2, 1, 3).reshape(-1)
+        wpos = np.arange(w)[None, :].repeat(h, axis=0)
+        wpos = wpos.reshape(h // m, m, w // m, m).transpose(0, 2, 1, 3).reshape(-1)
+        ids = np.stack([hpos, wpos], axis=-1)
+        out.append(np.tile(ids, (t, 1)))
+    return np.concatenate(out, axis=0)
+
+
+def vision_cos_sin(
+    pos_ids: np.ndarray,  # [S, 2] (h, w)
+    head_dim: int,
+    theta: float = 10000.0,
+    dtype=np.float32,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """cos/sin of shape [S, head_dim] (numpy): freqs for the (h, w) axes
+    concatenated, then duplicated (reference modeling_infinitevl.py:823,
+    838-841)."""
+    inv_freq = default_inv_freq(head_dim // 2, theta)  # [head_dim/4]
+    freqs = pos_ids[..., None].astype(np.float64) * inv_freq  # [S, 2, hd/4]
+    freqs = freqs.reshape(freqs.shape[0], -1)  # [S, hd/2]
+    emb = np.concatenate([freqs, freqs], axis=-1)  # [S, hd]
+    return np.cos(emb).astype(dtype), np.sin(emb).astype(dtype)
+
+
+def apply_rotary_vision(
+    q: torch.Tensor,  # [S, H, D]
+    k: torch.Tensor,  # [S, H, D]
+    cos: torch.Tensor,  # [S, D]
+    sin: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 rotation, cast back (reference modeling_infinitevl.py:528-542)."""
+    qf, kf = q.float(), k.float()
+    c = cos[:, None, :].float()
+    s = sin[:, None, :].float()
+    q_out = qf * c + rotate_half(qf) * s
+    k_out = kf * c + rotate_half(kf) * s
     return q_out.to(q.dtype), k_out.to(k.dtype)

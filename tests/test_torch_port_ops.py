@@ -241,3 +241,36 @@ def test_delta_rule_chunk_bf16_matches_jax():
     assert to.dtype == torch.bfloat16
     assert err_ratio(to.float(), jnp.asarray(jo, jnp.float32)) < 1e-3
     assert err_ratio(ts, js) < 1e-3
+
+
+def test_delta_rule_chunk_fp32_compute_dtype():
+    """compute_dtype=torch.float32 is kernel C's arithmetic: for fp32 inputs
+    it is today's delta_rule_chunk number for number; for bf16 inputs it
+    widens first, so it differs from the bf16 precision model only by the
+    rounding of intermediates (1e-2, a few bf16 ulps) and matches the fp32
+    run on the same (bf16-representable) values up to o's final rounding."""
+    q, k, v, g, beta, s0 = map(torch.from_numpy, _delta_inputs(13, B=1, T=50, H=2))
+    base = tdr.delta_rule_chunk(q, k, v, g, beta, s0, chunk_size=16)
+    forced = tdr.delta_rule_chunk(q, k, v, g, beta, s0, chunk_size=16,
+                                  compute_dtype=torch.float32)
+    for a, b in zip(forced, base):
+        assert torch.equal(a, b)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    o16, s16 = tdr.delta_rule_chunk(qb, kb, vb, g, beta, s0, chunk_size=16,
+                                    compute_dtype=torch.float32)
+    o32, s32 = tdr.delta_rule_chunk(qb.float(), kb.float(), vb.float(), g, beta, s0,
+                                    chunk_size=16)
+    assert o16.dtype == torch.bfloat16 and s16.dtype == torch.float32
+    assert torch.equal(s16, s32) and torch.equal(o16, o32.bfloat16())
+    ob, sb = tdr.delta_rule_chunk(qb, kb, vb, g, beta, s0, chunk_size=16)
+    assert err_ratio(ob.float(), o32) < 1e-2 and err_ratio(sb, s32) < 1e-2
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tdr.delta_rule_chunk(q, k, v, g, beta, s0, compute_dtype=torch.float16)
+
+
+def test_gated_delta_rule_without_l2norm_matches_jax():
+    (jq, jk, jv, jg, jb, js0), (tq, tk, tv, tg, tb, ts0) = both(*_delta_inputs(14, T=20))
+    kw = dict(chunk_size=8, recurrent_threshold=8, use_qk_l2norm=False, scale=0.1)
+    jo, js = jdr.gated_delta_rule(jq, jk, jv, jg, jb, js0, **kw)
+    to, ts = tdr.gated_delta_rule(tq, tk, tv, tg, tb, ts0, **kw)
+    assert err_ratio(to, jo) < TOL and err_ratio(ts, js) < TOL
