@@ -12,16 +12,18 @@ non-zero):
   1. environment: torch / CUDA / nvcc versions, the card's name and power limit
   2. build: the kernels from infinitevl_tpu_torch/csrc/ with nvcc (sm_90a),
      one compiler per source, all started together
-  3. kernel parity: each of the five kernels (A1, A2, B, C, E) against its
-     plain torch version on the card, at the main paths' shapes, with its
-     time beside the plain version's, its bound (the least time the card
-     could take for the same bytes and operations) and, where one PyTorch
-     call computes the same function (A1, A2, E:
-     scaled_dot_product_attention with the explicit mask), that call's time.
-     The library call is a yardstick only; the port never calls it
+  3. kernel parity: each of the seven kernels (A1, A2, B, C, E, G, D)
+     against its plain torch version on the card, at the main paths'
+     shapes, with its time beside the plain version's, its bound (the least
+     time the card could take for the same bytes and operations) and,
+     where one PyTorch call computes the same function (A1, A2, D, E:
+     scaled_dot_product_attention with the explicit mask; G: one bf16
+     matmul on the dequantised weight), that call's time. The library call
+     is a yardstick only; the port never calls it
   4. cross-device check: a small fp32 model on the CPU (plain versions) and
-     on the card (kernels), through Generator (text) and through
-     StreamingEngine (prime, 3 frames, ask)
+     on the card (kernels), through Generator (text; then int4 + fused
+     projections, and speculative against greedy decoding on the card) and
+     through StreamingEngine (prime, 3 frames, ask)
   5. text path: the InfiniteVL-3B decoder (bf16, random weights from seed 0)
      answering three requests through Generator (full depth; prompts of
      50, 1,000 and 9,000 tokens, 32 new tokens each: nothing was cut to
@@ -32,8 +34,16 @@ non-zero):
      frames-ask-frames state held bit for bit against the same frames with
      no ask; then one Generator request with a 1344x1344 image, which
      reaches kernel E
-Launch counts are set to 0 just before each of the three paths (the text
-requests, the stream, the image request) and read just after it. Then a JSON line of per-kernel results, the card's line, and
+  7. serving path, at full 3B width and depth: the weights quantised to
+     int4 on the card, an HTTP chat server on a loopback port answering
+     real requests (plain, streamed over SSE, n = 2 with a stop sequence,
+     one with an image as a data URI), then on the same generator
+     speculative decoding against greedy, beam search, a BatchingEngine
+     burst of 8 requests; then per weight format (int4, bf16, int8, fused)
+     one text request and 13 streamed frames
+Launch counts are set to 0 just before each of the four paths (the text
+requests, the stream, the image request, the int4 serving requests) and
+read just after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -81,8 +91,36 @@ MAIN_NEW_TOKENS = 32
 # frames of 257 tokens), between the asks, and after the second
 STREAM_FRAMES = (36, 8, 4)
 ASK_NEW_TOKENS = 17  # the first token, then 16 decode steps
+# kernel G at the 3B widths: (d_in, d_out, group size). MLP up and down,
+# the k/v projection, the fused DeltaNet projection (12320 columns: a ragged
+# last strip), the ViT MLP (3420 columns are no multiple of 16; d_in 3420
+# has a half of 1710 rows, so the column is one group), per-column scales
+G_CASE = dict(shapes=((2048, 11008, 128), (11008, 2048, 128), (2048, 256, 128),
+                      (2048, 12320, 128), (1280, 3420, 128), (3420, 1280, 128),
+                      (2048, 2048, 1 << 20)),
+              Ms=(1, 3, 8, 9, 257), big_M=2048, timed_shapes=((2048, 11008), (11008, 2048)),
+              timed_Ms=(1, 257))
 HIRES_HW = 1344
 HIRES_NEW_TOKENS = 8
+# phase 7
+SERVE_NEW_TOKENS = 24  # per HTTP request
+SERVE_IMAGE_HW = 448
+SPEC_NEW_TOKENS = 32
+SPEC_DRAFT_K = 8
+BEAM_NEW_TOKENS = 12
+BURST = 8  # BatchingEngine requests of one length
+BURST_NEW_TOKENS = 16
+MODE_NEW_TOKENS = 32  # decode rate per weight format
+MODE_FRAMES = 13  # streamed frames per weight format
+# bf16 logits of two decodings of one context (a K-token window against
+# single steps) differ by rounding; a token that differs must be a near tie
+TIE_TOL = 0.25
+# err_ratio of a verify window's bf16 logits against the single steps' (36
+# layers of bf16 rounding on two routes: A1 + recurrence + M = 8 matmuls
+# against A2 + B + M = 1; the unquantised bf16 weights are held to the same
+# limit beside int4, and the fp32 model of phase 4 to MODEL_TOL); wrong
+# positions or conv history would give ~1
+SPEC_LOGIT_TOL = 0.15
 
 
 def err_ratio(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -114,6 +152,32 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one fn() with the host out of the way: `calls` calls
+    captured into a CUDA graph (the wrappers launch on the current stream,
+    which is the capturing one), the graph replayed `reps` times between
+    two events."""
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
 
 
 def card_line() -> str:
@@ -439,11 +503,134 @@ def _e_cases(dev, gen):
     return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
 
 
+def _g_cases(dev, gen):
+    from infinitevl_tpu_torch.models.quant import dequantize_kernel_int4, quantize_kernel_int4
+    from infinitevl_tpu_torch.ops.int4_kernels import int4_matmul_fused, int4_matmul_plain
+
+    c = G_CASE
+    errs, mxs, timed = {torch.bfloat16: [], torch.float32: []}, [], {}
+    for d_in, d_out, gs in c["shapes"]:
+        w = torch.randn((d_in, d_out), generator=gen, device=dev) * 0.02
+        node = quantize_kernel_int4(w, gs)
+        G = node["scale4"].shape[0]
+        Ms = c["Ms"] + ((c["big_M"],) if (d_in, d_out) == c["timed_shapes"][0] else ())
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            for M in Ms:
+                x = torch.randn((M, d_in), generator=gen, device=dev).to(dtype)
+                if M == 3:  # a strided view: rows of a wider projection, 2 leading dims
+                    wide = torch.randn((M, d_in + 64), generator=gen, device=dev).to(dtype)
+                    x = wide[:, 32:32 + d_in].reshape(1, M, d_in)
+                    require(not x.is_contiguous(), "G: the strided case is contiguous")
+                out = int4_matmul_fused(x, node)
+                ref = int4_matmul_plain(x, node)
+                torch.cuda.synchronize()
+                e = err_ratio(out, ref)
+                require(out.shape == ref.shape and out.dtype == dtype, "G output shape/dtype")
+                require(e <= tol, f"G {dtype} {d_in}x{d_out} G={G} M={M} err_ratio {e:.3g}")
+                errs[dtype].append(e)
+                if dtype == torch.bfloat16:
+                    mxs.append(max_abs(out, ref))
+        if (d_in, d_out) in c["timed_shapes"]:
+            # the caller finds the weights cold (a decode step walks 2 GB of
+            # them): rotate over copies that together exceed the 50 MB L2
+            n_copies = -(-120_000_000 // node["kernel_q4"].numel())
+            nodes = [{k: v.clone() for k, v in node.items()} for _ in range(n_copies)]
+            wdq = [dequantize_kernel_int4(n, torch.bfloat16) for n in nodes]
+            for M in c["timed_Ms"]:
+                x = torch.randn((M, d_in), generator=gen, device=dev).to(torch.bfloat16)
+                turn = [0]
+
+                def rot(fn, pool):
+                    def run():
+                        turn[0] += 1
+                        return fn(x, pool[turn[0] % n_copies])
+                    return run
+
+                e_lib = err_ratio(x @ wdq[0], int4_matmul_plain(x, node))
+                require(e_lib <= BF16_TOL, f"G library call err_ratio {e_lib:.3g}")
+                n_bytes = (node["kernel_q4"].numel() + 4 * node["scale4"].numel()
+                           + 2 * M * d_in + 2 * M * d_out)
+                timed[(d_in, d_out, M)] = dict(
+                    ms=time_ms(rot(int4_matmul_fused, nodes)),
+                    plain_ms=time_ms(rot(int4_matmul_plain, nodes), reps=5),
+                    library_ms=time_ms(rot(torch.matmul, wdq)),
+                    device_ms=time_graph_ms(rot(int4_matmul_fused, nodes)),
+                    library_device_ms=time_graph_ms(rot(torch.matmul, wdq)),
+                    **bound(n_bytes, 2 * M * d_in * d_out, PEAK_BF16_FLOPS))
+            del nodes, wdq
+    line = "; ".join(
+        f"{k[0]}->{k[1]} M={k[2]}: kernel {r['ms']:.4f} ms around the wrapper and "
+        f"{r['device_ms']:.4f} ms of device time in a CUDA graph, plain {r['plain_ms']:.3f} ms, "
+        f"library (bf16 matmul on the dequantised copy) {r['library_ms']:.4f} ms and "
+        f"{r['library_device_ms']:.4f} ms in a graph, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})" for k, r in timed.items())
+    print(f"[3 parity] G int4_matmul_fused: max err_ratio bf16 "
+          f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}) over {len(c['shapes'])} shapes "
+          f"(grouped, G = 1, ragged 3420 and 12320 columns) x M {c['Ms']} (+{c['big_M']}), "
+          f"one strided x; bf16, cold weights: {line}", flush=True)
+    (s0, s1), (m_small, m_big) = c["timed_shapes"], c["timed_Ms"]
+    main = timed[(*s0, m_small)]
+    extra = {}
+    for (d_in, d_out, M), r in timed.items():
+        if (d_in, d_out, M) != (*s0, m_small):
+            tag = f"{d_in}x{d_out}_m{M}"
+            extra.update({f"{key}_{tag}": r[key] for key in (
+                "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")})
+    return dict(max_abs_err=max(mxs), **main, **extra)
+
+
+def _d_cases(dev, gen):
+    from infinitevl_tpu_torch.ops.swa import ring_slot_positions, sliding_window_mask
+    from infinitevl_tpu_torch.ops.swa_kernels import (
+        swa_ring_decode_plain,
+        swa_ring_flash_decode,
+    )
+
+    c = A2_CASE  # kernel D is A2 on one unstacked ring: the same shapes
+    Hq, Hkv, D, cap = c["Hq"], c["Hkv"], 128, c["cap"]
+    errs, mxs = [], []
+    for B in c["Bs"]:
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+        rk, rv = mk(B, Hkv, cap, D), mk(B, Hkv, cap, D)
+        for cum in c["cums"]:
+            q, nk, nv = mk(B, 1, Hq, D), mk(B, 1, Hkv, D), mk(B, 1, Hkv, D)
+            k_krn, v_krn, k_ref, v_ref = rk.clone(), rv.clone(), rk.clone(), rv.clone()
+            out = swa_ring_flash_decode(q, nk, nv, k_krn, v_krn, cum, cap)
+            ref = swa_ring_decode_plain(q, nk, nv, k_ref, v_ref, cum, cap)
+            torch.cuda.synchronize()
+            e = err_ratio(out, ref)
+            require(e <= BF16_TOL, f"D B={B} cum={cum} err_ratio {e:.3g}")
+            require(torch.equal(k_krn, k_ref) and torch.equal(v_krn, v_ref),
+                    f"D B={B} cum={cum}: the ring differs from the plain write")
+            errs.append(e)
+            mxs.append(max_abs(out, ref))
+            if (B, cum) == c["timed"]:
+                ms = time_ms(lambda: swa_ring_flash_decode(q, nk, nv, k_krn, v_krn, cum, cap))
+                plain = time_ms(lambda: swa_ring_decode_plain(q, nk, nv, k_ref, v_ref, cum, cap))
+                G = Hq // Hkv
+                k_pos = ring_slot_positions(cum + 1, cap, dev)
+                mask = sliding_window_mask(torch.tensor([cum], device=dev), k_pos, cap)
+                k_all = k_ref.transpose(1, 2).repeat_interleave(G, 2)
+                v_all = v_ref.transpose(1, 2).repeat_interleave(G, 2)
+                e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
+                require(e_lib <= BF16_TOL, f"D library call err_ratio {e_lib:.3g}")
+                lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
+                bnd = bound(2 * (2 * B * Hkv * cap * D + 2 * B * Hq * D + 2 * B * Hkv * D),
+                            4 * B * Hq * D * min(cap, cum + 1), PEAK_BF16_FLOPS)
+    print(f"[3 parity] D swa_ring_flash_decode (one unstacked ring): max err_ratio "
+          f"{max(errs):.3g} (tol {BF16_TOL}), ring bit-equal; (B, cum_len)={c['timed']}: "
+          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+
+
 def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     return {"a1": _a1_cases(dev, gen), "a2": _a2_cases(dev, gen), "b": _b_cases(dev, gen),
-            "c": _c_cases(dev, gen), "e": _e_cases(dev, gen)}
+            "c": _c_cases(dev, gen), "e": _e_cases(dev, gen), "g": _g_cases(dev, gen),
+            "d": _d_cases(dev, gen)}
 
 
 def _to(tree, device):
@@ -512,6 +699,55 @@ def phase_cross_device(dev) -> None:
           f"identical ({toks[0].shape[1]} tokens x 2 rows, 700-token prompt in "
           f"256-token chunks)", flush=True)
 
+    # int4 weights and fused projections: the same quantised integers on both
+    # devices (quantised on the CPU, copied), every int4 matmul through the
+    # plain version there and through kernel G here
+    from infinitevl_tpu_torch.generation import serving_params
+    from infinitevl_tpu_torch.ops.int4_kernels import int4_matmul_fused
+    from infinitevl_tpu_torch.speculative import SpecStats
+
+    q_cpu = serving_params(p_cpu, fuse=True, quant="int4")
+    q_dev = _to(q_cpu, dev)
+    short = ids[:1, :90]
+    spos, _ = get_rope_index(cfg, short)
+    outs = []
+    for params, device in ((q_cpu, "cpu"), (q_dev, dev)):
+        st = init_decoder_state(text, 1, torch.float32, device)
+        logits, _ = forward(params, cfg, torch.as_tensor(short, device=device),
+                            torch.as_tensor(spos, device=device), st)
+        g = Generator(params, cfg, device=device)
+        outs.append((logits, g.generate(short, max_new_tokens=16), g))
+    n_g = int4_matmul_fused.launches
+    worst = err_ratio(outs[1][0], outs[0][0])
+    require(worst <= MODEL_TOL, f"cross-device int4 + fused logits err_ratio {worst:.3g}")
+    require(np.array_equal(outs[0][1], outs[1][1]),
+            f"int4 + fused greedy tokens differ CPU vs card:\n{outs[0][1]}\n{outs[1][1]}")
+    require(n_g > 0, "the int4 model on the card launched kernel G no time")
+    # speculative decoding against greedy, both on the card in fp32: a
+    # repetitive prompt (prompt lookup finds drafts), then drafts from the
+    # known continuation with every third one spoiled (partial acceptance)
+    g_dev = outs[1][2]
+    rep = np.tile(ids[:1, :12], (1, 6))
+    want = g_dev.generate(rep, max_new_tokens=24)
+    stats = SpecStats()
+    got = g_dev.generate_speculative(rep, max_new_tokens=24, draft_k=5, stats=stats)
+    require(np.array_equal(got, want), f"speculative != greedy on the card:\n{got}\n{want}")
+    forced = SpecStats()
+    got = _forced_speculative(g_dev, rep, want, 24, 5, forced)
+    require(np.array_equal(got, want), f"forced-draft speculative != greedy:\n{got}\n{want}")
+    require(forced.commit_steps > 0 and forced.accepted > 0, "forced drafts: no partial window")
+    # a verify window's logits against the single steps': in fp32 the two
+    # routes (A1 + recurrence + M = 5 against A2 + B + M = 1) agree closely
+    e_window = _window_err(g_dev, rep, *_greedy_with_logits(g_dev, rep, 6), 5)
+    require(e_window <= MODEL_TOL, f"fp32 verify window logits err_ratio {e_window:.3g}")
+    print(f"[4 cross-device] int4 (group 128, int8 embedding) + fused projections: logits "
+          f"err_ratio {worst:.3g} (tol {MODEL_TOL}), greedy tokens identical (16 tokens), "
+          f"kernel G launched {n_g} times on the card; speculative == greedy on the card "
+          f"(24 tokens; prompt lookup: {stats.summary()}; forced drafts: {forced.summary()}); "
+          f"a verify window's logits against the single steps' err_ratio {e_window:.3g} "
+          f"(tol {MODEL_TOL})",
+          flush=True)
+
     # the streaming engine: 224x224 frames are 64 tokens + <vision_start>,
     # T = 65 > recurrent_threshold, so every frame runs kernel C on the card
     prompt = rng.randint(0, vocab - 8, (1, 6))
@@ -541,14 +777,17 @@ def _kernel_wrappers():
         delta_rule_chunk_fused,
         delta_step_fused_stacked,
     )
+    from infinitevl_tpu_torch.ops.int4_kernels import int4_matmul_fused
     from infinitevl_tpu_torch.ops.swa_kernels import (
         swa_ring_flash_attention,
+        swa_ring_flash_decode,
         swa_ring_flash_decode_stacked,
     )
     from infinitevl_tpu_torch.ops.vit_kernels import segment_flash_attention
 
     return (swa_ring_flash_attention, swa_ring_flash_decode_stacked,
-            delta_step_fused_stacked, delta_rule_chunk_fused, segment_flash_attention)
+            delta_step_fused_stacked, delta_rule_chunk_fused, segment_flash_attention,
+            int4_matmul_fused, swa_ring_flash_decode)
 
 
 def _reset_launches() -> None:
@@ -787,6 +1026,375 @@ def phase_stream_path(dev, card: str, params, cfg, profile: bool) -> tuple:
     return stream_launches, image_launches
 
 
+def _forced_speculative(g, ids, want, new_tokens, draft_k, stats, eos=None):
+    """Speculative decoding whose drafts are the known greedy continuation
+    `want` with every third draft token spoiled: full, partial and empty
+    acceptance all occur, whatever the model emits."""
+    from infinitevl_tpu_torch.speculative import generate_speculative
+
+    T = ids.shape[1]
+    vocab = g.cfg.text.vocab_size
+
+    def draft_fn(ctx, k):
+        done = len(ctx) - T  # tokens emitted so far
+        d = np.array(want[0, done:done + k], dtype=np.int64)
+        for i in range(len(d)):
+            if (done + i) % 3 == 2:
+                d[i] = (d[i] + 1) % vocab
+        return d
+
+    return generate_speculative(g, ids, max_new_tokens=new_tokens, draft_k=draft_k,
+                                eos_token_id=eos, stats=stats, draft_fn=draft_fn)
+
+
+def _greedy_with_logits(g, ids, new_tokens):
+    """Plain greedy decoding step by step, keeping every step's logits."""
+    from infinitevl_tpu_torch.generation import decode_step
+
+    logits, state, delta = g.prefill_prompt(ids)
+    toks, rows = [], []
+    for _ in range(new_tokens):
+        rows.append(logits[0].float().cpu())
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(int(tok[0]))
+        logits, state = decode_step(g.params, g.cfg, tok[:, None], delta, state)
+    return np.asarray([toks]), rows
+
+
+def _window_err(g, ids, want, rows, k: int) -> float:
+    """err_ratio of one verify window over the first k greedy tokens `want`
+    against the single steps' logits `rows` (rows[j] follows want[j - 1])."""
+    from infinitevl_tpu_torch.generation import spec_verify
+
+    _, state, delta = g.prefill_prompt(ids)
+    window = torch.as_tensor(want[:, :k], device=g.device)
+    vlogits, _ = spec_verify(g.params, g.cfg, window, delta, state)
+    return max(err_ratio(vlogits[0, j], rows[j + 1]) for j in range(k))
+
+
+def _same_or_tie(got, want, rows, what: str) -> str:
+    """`got` against the greedy tokens `want`: identical, or at the first
+    difference the two candidates' greedy logits lie within TIE_TOL (two
+    bf16 decodings of one context round differently; after a legitimate
+    flip the contexts differ, so the comparison ends there)."""
+    n = min(got.shape[1], want.shape[1])
+    diff = np.nonzero(got[0, :n] != want[0, :n])[0]
+    if len(diff) == 0:
+        require(got.shape == want.shape, f"{what}: {got.shape[1]} tokens, greedy {want.shape[1]}")
+        return f"identical ({n} tokens)"
+    i = int(diff[0])
+    gap = float(rows[i][want[0, i]] - rows[i][got[0, i]])
+    require(0 <= gap <= TIE_TOL, f"{what}: token {i} differs from greedy and its logit "
+            f"is {gap:.3g} below the greedy token's (near-tie tolerance {TIE_TOL})")
+    return f"identical for {i} tokens, then a bf16 near tie (logit gap {gap:.3g})"
+
+
+def _timed_request(g, ids, new_tokens):
+    """(time to first token s, decode s, tokens) of one streamed request."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = []
+    for chunk in g.generate_stream(ids, max_new_tokens=new_tokens, eos_token_id=-1):
+        chunks.append(chunk)
+        if len(chunks) == 1:
+            t_first = time.perf_counter()
+    t_end = time.perf_counter()
+    out = np.concatenate(chunks, axis=1)
+    require(out.shape == (ids.shape[0], new_tokens), f"request returned {out.shape}")
+    require(bool(((out >= 0) & (out < g.cfg.text.vocab_size)).all()), "tokens outside the vocab")
+    return t_first - t0, t_end - t_first, out
+
+
+def _http(port: int, body=None, path="/v1/chat/completions"):
+    """One request to the loopback server: (status, parsed JSON)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    if body is None:
+        conn.request("GET", path)
+    else:
+        conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data
+
+
+def _http_sse(port: int, body):
+    """A streamed request: (status, text deltas, seconds to the first delta)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    pieces, t_first, done = [], None, False
+    for raw in resp:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        if line == "data: [DONE]":
+            done = True
+            break
+        delta = json.loads(line[6:])["choices"][0]["delta"]
+        if "content" in delta:
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            pieces.append(delta["content"])
+    conn.close()
+    require(done, "the SSE stream did not end with [DONE]")
+    return resp.status, pieces, t_first
+
+
+def _count_nodes(tree, key: str) -> int:
+    if isinstance(tree, dict):
+        return int(key in tree) + sum(_count_nodes(v, key) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_count_nodes(v, key) for v in tree)
+    return 0
+
+
+def phase_serve_path(dev, card: str, params, cfg) -> dict:
+    import base64
+    import io
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from infinitevl_tpu_torch.data.loader import SimpleTokenizer
+    from infinitevl_tpu_torch.generation import (
+        Generator,
+        decode_step,
+        decode_step_preserve,
+        spec_verify,
+    )
+    from infinitevl_tpu_torch.models.quant import quantized_bytes
+    from infinitevl_tpu_torch.models.state import init_decoder_state, state_bytes
+    from infinitevl_tpu_torch.ops.int4_kernels import int4_matmul_fused
+    from infinitevl_tpu_torch.serve.api import ChatBackend, create_server
+    from infinitevl_tpu_torch.serve.batching import BatchingEngine
+    from infinitevl_tpu_torch.speculative import SpecStats
+
+    tc = cfg.text
+    expect_bytes = _expected_state_bytes(tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g4 = Generator(params, cfg, quant="int4")  # quantised on the card, node by node
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    quant_peak = torch.cuda.max_memory_allocated() / 1e9
+    bytes_bf16, bytes_int4 = quantized_bytes(params), quantized_bytes(g4.params)
+    n_q4, n_plain = _count_nodes(g4.params, "kernel_q4"), _count_nodes(g4.params, "kernel")
+    require(n_q4 == 7 * tc.num_swa_layers + 8 * tc.num_linear_layers
+            + 5 * cfg.vision.depth + 2, f"{n_q4} int4 nodes")
+    # one decode step: 7 int4 matmuls per SWA layer, 8 per DeltaNet layer
+    # (a_proj / b_proj stay bf16 under min_size), none of them on another route
+    st = init_decoder_state(tc, 1, torch.bfloat16)
+    before = int4_matmul_fused.launches
+    decode_step(g4.params, cfg, torch.zeros((1, 1), dtype=torch.long, device=dev),
+                torch.zeros((1, 1), dtype=torch.long, device=dev), st)
+    per_step = int4_matmul_fused.launches - before
+    require(per_step == 7 * tc.num_swa_layers + 8 * tc.num_linear_layers,
+            f"{per_step} int4 matmuls in one decode step")
+    print(f"[7 serve path] int4 weights (group 128, int8 embedding + head copy): quantised on "
+          f"the card in {t_quant:.2f} s, {bytes_int4 / 1e9:.3f} GB against {bytes_bf16 / 1e9:.3f} "
+          f"GB bf16 (quantized_bytes), {n_q4} int4 nodes, {n_plain} small nodes left in bf16, "
+          f"peak memory while quantising {quant_peak:.2f} GB; {per_step} kernel G launches "
+          f"per decode step on '{card}'", flush=True)
+
+    tok = SimpleTokenizer(config=cfg)
+    backend = ChatBackend(g4, tok, model_name="infinitevl-3b-int4")
+    server = create_server(backend, "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.RandomState(0)
+    words = "the quick brown fox jumps over the lazy dog while streams of video frames keep " \
+            "arriving and the state stays the same size".split()
+    question = " ".join(words[i % len(words)] for i in range(40))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    try:
+        status, models = _http(port, path="/v1/models")
+        require(status == 200 and models["data"][0]["id"] == "infinitevl-3b-int4", "/v1/models")
+        # 1. a plain completion
+        t0 = time.perf_counter()
+        status, r1 = _http(port, {"messages": [{"role": "user", "content": question}],
+                                  "max_tokens": SERVE_NEW_TOKENS})
+        t_plain = time.perf_counter() - t0
+        require(status == 200, f"plain request: {status} {r1}")
+        c1 = r1["choices"][0]
+        require(isinstance(c1["message"]["content"], str)
+                and c1["finish_reason"] in ("stop", "length")
+                and 1 <= r1["usage"]["completion_tokens"] <= SERVE_NEW_TOKENS
+                and r1["usage"]["prompt_tokens"] >= 40, f"plain request: {r1}")
+        # 2. the same request streamed: the deltas join to the same text
+        status, pieces, t_first = _http_sse(port, {
+            "messages": [{"role": "user", "content": question}],
+            "max_tokens": SERVE_NEW_TOKENS, "stream": True})
+        require(status == 200 and len(pieces) >= 2, f"streamed request: {len(pieces)} deltas")
+        require("".join(pieces) == c1["message"]["content"],
+                "the streamed text differs from the plain completion")
+        # 3. two sampled completions with a stop sequence
+        stop = "<unk> <unk> <unk>"
+        status, r3 = _http(port, {"messages": [{"role": "user", "content": question}],
+                                  "max_tokens": SERVE_NEW_TOKENS, "n": 2, "temperature": 0.8,
+                                  "stop": [stop]})
+        require(status == 200 and len(r3["choices"]) == 2, f"n = 2 request: {status} {r3}")
+        for ch in r3["choices"]:
+            require(stop not in ch["message"]["content"], "stop sequence left in the text")
+        # 4. an image as a data URI
+        img = Image.fromarray(rng.randint(0, 256, (SERVE_IMAGE_HW, SERVE_IMAGE_HW, 3))
+                              .astype(np.uint8))
+        buf = io.BytesIO()
+        img.save(buf, format="PNG")
+        uri = "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+        t0 = time.perf_counter()
+        status, r4 = _http(port, {"messages": [{"role": "user", "content": [
+            {"type": "text", "text": "what is in this picture"},
+            {"type": "image_url", "image_url": {"url": uri}}]}], "max_tokens": 8})
+        t_image = time.perf_counter() - t0
+        n_img = (SERVE_IMAGE_HW // 28) ** 2
+        require(status == 200 and r4["usage"]["prompt_tokens"] > n_img
+                and 1 <= r4["usage"]["completion_tokens"] <= 8, f"image request: {status} {r4}")
+        # a malformed request is refused, not served
+        status, bad = _http(port, {"messages": []})
+        require(status == 400, f"empty messages: {status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    print(f"[7 serve path] HTTP server on 127.0.0.1:{port}, 3B int4: plain completion "
+          f"{r1['usage']['prompt_tokens']} + {r1['usage']['completion_tokens']} tokens in "
+          f"{t_plain:.2f} s; SSE stream {len(pieces)} deltas, first after {t_first * 1e3:.0f} ms, "
+          f"text equal to the plain one; n = 2 sampled with a stop sequence: finish "
+          f"{[c['finish_reason'] for c in r3['choices']]}; image request "
+          f"{r4['usage']['prompt_tokens']} prompt tokens in {t_image:.2f} s on '{card}'",
+          flush=True)
+
+    # speculative against greedy on the same generator
+    prompt = np.tile(rng.randint(0, tc.vocab_size - 1000, (1, 16)), (1, 4))
+    want, rows = _greedy_with_logits(g4, prompt, SPEC_NEW_TOKENS)
+    again = g4.generate(prompt, max_new_tokens=SPEC_NEW_TOKENS, eos_token_id=-1)
+    require(np.array_equal(again, want), "generate disagrees with step-by-step greedy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g4.generate(prompt, max_new_tokens=SPEC_NEW_TOKENS, eos_token_id=-1)
+    t_greedy = time.perf_counter() - t0
+    # one verify window over the greedy continuation against the single
+    # steps' logits, and what a window costs beside a step (both on a copy
+    # of the state, as speculation runs them)
+    e_window = _window_err(g4, prompt, want, rows, SPEC_DRAFT_K)
+    g16 = Generator(params, cfg)  # the same weights unquantised, as a yardstick
+    e_bf16 = _window_err(g16, prompt, *_greedy_with_logits(g16, prompt, SPEC_DRAFT_K + 1),
+                         SPEC_DRAFT_K)
+    del g16
+    require(max(e_window, e_bf16) <= SPEC_LOGIT_TOL,
+            f"verify window logits err_ratio int4 {e_window:.3g}, bf16 {e_bf16:.3g}")
+    _, st0, delta = g4.prefill_prompt(prompt)
+    window = torch.as_tensor(want[:, :SPEC_DRAFT_K], device=dev)
+    t_window = _host_ms(lambda: spec_verify(g4.params, cfg, window, delta, st0))
+    t_step = _host_ms(lambda: decode_step_preserve(g4.params, cfg, window[:, :1], delta, st0))
+    del st0
+    lookup, forced = SpecStats(), SpecStats()
+    got = g4.generate_speculative(prompt, max_new_tokens=SPEC_NEW_TOKENS, draft_k=SPEC_DRAFT_K,
+                                  eos_token_id=-1, stats=lookup)
+    verdict_lookup = _same_or_tie(got, want, rows, "speculative (prompt lookup)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = _forced_speculative(g4, prompt, want, SPEC_NEW_TOKENS, SPEC_DRAFT_K, forced, eos=-1)
+    t_spec = time.perf_counter() - t0
+    verdict_forced = _same_or_tie(got, want, rows, "speculative (forced drafts)")
+    require(forced.windows > 0 and forced.accepted > 0, "forced drafts: nothing accepted")
+    print(f"[7 serve path] speculative decoding, draft_k {SPEC_DRAFT_K}: a verify window's "
+          f"logits against the single steps' err_ratio {e_window:.3g} (bf16 weights "
+          f"{e_bf16:.3g}, tol {SPEC_LOGIT_TOL}); "
+          f"a window of {SPEC_DRAFT_K} takes {t_window:.1f} ms, a single step {t_step:.1f} ms "
+          f"(each on a copy of the state); {SPEC_NEW_TOKENS} tokens against greedy: prompt lookup {verdict_lookup}, {lookup.summary()}; drafts "
+          f"from the greedy continuation with every third spoiled {verdict_forced}, "
+          f"{forced.summary()}: {t_spec:.2f} s against {t_greedy:.2f} s greedy on '{card}'",
+          flush=True)
+
+    # beam search
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beams = g4.generate_beam(prompt[:, :32], num_beams=4, max_new_tokens=BEAM_NEW_TOKENS,
+                             eos_token_id=-1)
+    t_beam = time.perf_counter() - t0
+    require(beams.shape == (1, BEAM_NEW_TOKENS)
+            and bool(((beams >= 0) & (beams < tc.vocab_size)).all()), f"beam search: {beams}")
+
+    # a burst of same-length requests through the batching engine (the
+    # weights are quantised already)
+    eng = BatchingEngine(g4.params, cfg, max_wait_ms=200.0)
+    burst = [rng.randint(0, tc.vocab_size - 1000, (48,)) for _ in range(BURST)]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(BURST) as pool:
+            outs = list(pool.map(
+                lambda ids: eng.generate(ids, max_new_tokens=BURST_NEW_TOKENS, eos_token_id=-1,
+                                         timeout=600), burst))
+        t_burst = time.perf_counter() - t0
+    finally:
+        eng.shutdown()
+    require(all(len(o) == BURST_NEW_TOKENS for o in outs), f"burst lengths {list(map(len, outs))}")
+    require(eng.stats["requests"] == BURST and eng.stats["rows"] >= BURST, f"burst {eng.stats}")
+    torch.cuda.synchronize()
+    launches = _read_launches(("int4_matmul_fused", "swa_ring_flash_attention",
+                               "swa_ring_flash_decode_stacked", "delta_step_fused_stacked",
+                               "delta_rule_chunk_fused"))
+    print(f"[7 serve path] beam search (4 beams, {BEAM_NEW_TOKENS} tokens) {t_beam:.2f} s; "
+          f"BatchingEngine burst of {BURST} x 48-token prompts, {BURST_NEW_TOKENS} tokens each: "
+          f"{eng.stats['batches']} batches, {eng.stats['rows']} rows, {t_burst:.2f} s = "
+          f"{BURST * BURST_NEW_TOKENS / t_burst:.1f} tok/s aggregate; launches of the serving "
+          f"path {launches} on '{card}'", flush=True)
+
+    # decode rate and memory per weight format, one request each
+    ids = rng.randint(0, tc.vocab_size - 1000, (1, 50))
+    frames = rng.randint(0, 256, (MODE_FRAMES, 448, 448, 3)).astype(np.uint8)
+    modes = [("int4", g4)]
+    del backend, eng
+    for name, kw in (("bf16", {}), ("int8", dict(quant="int8")), ("bf16 fused", dict(fuse=True)),
+                     ("int4 fused", dict(quant="int4", fuse=True))):
+        modes.append((name, kw))
+    for name, g in modes:
+        if isinstance(g, dict):
+            g = Generator(params, cfg, **g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_decoder_state(tc, 1, torch.bfloat16)
+        require(state_bytes(state) == expect_bytes, "state size")
+        del state
+        _timed_request(g, ids, 4)  # warm-up
+        ttft, dec, out = _timed_request(g, ids, MODE_NEW_TOKENS)
+        # the same weights under the streaming engine (a quantised or fused
+        # tree is taken as it is): a frame is M = 1024 in the ViT, 257 below
+        before = int4_matmul_fused.launches
+        eng = _stream_engine(g.params, cfg, ids[:, :8])
+        for f in frames:
+            eng.push_frame_raw(f)
+        require(state_bytes(eng.state) == expect_bytes, "state size changed by a frame")
+        for key, t in _state_tensors(eng.state).items():
+            require(bool(torch.isfinite(t.float()).all()), f"{name}: state {key} not finite")
+        frame_ms = float(np.median(eng.frame_times_ms[1:]))
+        n_g = int4_matmul_fused.launches - before
+        require((n_g > 0) == name.startswith("int4"), f"{name}: {n_g} kernel G launches")
+        print(f"[7 serve path] {name}: weights {quantized_bytes(g.params) / 1e9:.3f} GB, time "
+              f"to first token {ttft * 1e3:.1f} ms (50-token prompt), decode "
+              f"{(MODE_NEW_TOKENS - 1) / dec:.2f} tok/s ({MODE_NEW_TOKENS - 1} steps, B=1), "
+              f"448x448 frames {frame_ms:.2f} ms median = {1e3 / frame_ms:.2f} frames/s "
+              f"({MODE_FRAMES} frames, the first excluded, {n_g} kernel G launches), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, state "
+              f"{expect_bytes / 1e6:.1f} MB on '{card}'", flush=True)
+        del g, eng
+    return launches
+
+
 def _device_profile(fn, reps: int = 3):
     """Device time of fn() from torch.profiler, per call: (total ms, kernel
     count, ms by kind, [(ms, count, name)] by kernel)."""
@@ -891,6 +1499,7 @@ def main(argv) -> int:
     text_launches = phase_text_path(dev, card, params, cfg)
     stream_launches, image_launches = phase_stream_path(
         dev, card, params, cfg, "--profile" in argv)
+    serve_launches = phase_serve_path(dev, card, params, cfg)
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -902,14 +1511,21 @@ def main(argv) -> int:
          "infinitevl_tpu/ops/delta_pallas.py:128", res["c"]),
         ("segment_flash_attention", "vit_flash.cu",
          "infinitevl_tpu/ops/vit_flash.py:100", res["e"]),
+        ("int4_matmul_fused", "int4_matmul.cu",
+         "infinitevl_tpu/ops/int4_pallas.py:104", res["g"]),
+        # kernel D is on no model path (in the JAX package too): 0 launches
+        ("swa_ring_flash_decode", "swa_ring_flash.cu",
+         "infinitevl_tpu/ops/swa_pallas.py:418", res["d"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"infinitevl_tpu_torch/csrc/{src}",
          "replaces": rep,
-         "launches": text_launches[name] + stream_launches[name] + image_launches[name],
+         "launches": text_launches[name] + stream_launches[name] + image_launches[name]
+         + serve_launches[name],
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
-         "launches_image_path": image_launches[name], **r}
+         "launches_image_path": image_launches[name],
+         "launches_serve_path": serve_launches[name], **r}
         for name, src, rep, r in rows
     ]}))
     print(card)

@@ -1,9 +1,12 @@
 """Generation: prefill, decode steps and the `Generator` driver (torch port
 of infinitevl_tpu/generation.py: text and multimodal prompts, greedy and
-sampled decoding; speculative and beam decoding are not ported).
+sampled decoding, weight-only int8 / int4 and fused projections, and the
+building blocks of speculative and beam decoding).
 
 The state is updated IN PLACE by every call that takes one (the JAX
-functions donate it and return a new value). Positions follow the
+functions donate it and return a new value); `spec_verify` and
+`decode_step_preserve`, which must leave the caller's state as it was, work
+on a copy. Positions follow the
 reference's prepare_inputs: prefill takes mRoPE indices from
 get_rope_index; decode positions are cum_len + rope_delta on all 3 axes.
 
@@ -12,6 +15,7 @@ the device, and the host reads them (and the EOS flags) once per chunk."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,7 +24,7 @@ import torch
 from .config import InfiniteVLConfig
 from .device import Device, resolve_device
 from .models.infinitevl import forward, get_rope_index
-from .models.state import DecoderState, init_decoder_state
+from .models.state import DecoderState, clone_state, init_decoder_state
 from .models.text import embed_tokens, lm_head, text_forward
 
 Params = Dict[str, Any]
@@ -62,6 +66,57 @@ def decode_step(
     embeds = embed_tokens(params["text"], token)
     hidden, state = text_forward(params["text"], cfg.text, embeds, pos, state)
     return lm_head(params["text"], cfg.text, hidden[:, -1]), state
+
+
+def decode_step_preserve(
+    params: Params,
+    cfg: InfiniteVLConfig,
+    token: torch.Tensor,  # [B, 1]
+    rope_delta: torch.Tensor,  # [B, 1]
+    state: DecoderState,
+) -> Tuple[torch.Tensor, DecoderState]:
+    """decode_step from a snapshot: `state` is left untouched and the
+    stepped copy is returned (the JAX variant simply does not donate)."""
+    return decode_step(params, cfg, token, rope_delta, clone_state(state))
+
+
+def spec_commit(
+    params: Params,
+    cfg: InfiniteVLConfig,
+    tokens: torch.Tensor,  # [B, K] decode window (first entry = last emitted)
+    rope_delta: torch.Tensor,  # [B, 1]
+    state: DecoderState,
+) -> Tuple[torch.Tensor, DecoderState]:
+    """Token-parallel forward over a K-token decode window with ALL logits
+    kept; the state advances IN PLACE by K tokens. Positions are cum_len +
+    rope_delta + i, as K sequential decode steps would assign. conv_carry
+    is forced on: sequential decode steps convolve over the cached history,
+    so the window must too. Returns (logits [B, K, vocab] fp32, state)."""
+    K = tokens.shape[1]
+    tcfg = cfg.text
+    if not tcfg.conv_carry:
+        tcfg = dataclasses.replace(tcfg, conv_carry=True)
+    pos = (state["cum_len"] + rope_delta.long())[None]  # [1, B, 1]
+    pos = pos + torch.arange(K, device=tokens.device)[None, None, :]
+    pos = pos.expand(3, -1, -1)
+    embeds = embed_tokens(params["text"], tokens)
+    hidden, state = text_forward(params["text"], tcfg, embeds, pos, state)
+    return lm_head(params["text"], cfg.text, hidden), state
+
+
+def spec_verify(
+    params: Params,
+    cfg: InfiniteVLConfig,
+    tokens: torch.Tensor,  # [B, K]
+    rope_delta: torch.Tensor,
+    state: DecoderState,
+) -> Tuple[torch.Tensor, DecoderState]:
+    """spec_commit on a COPY of the state: on partial acceptance the caller
+    re-runs the accepted prefix from the original state, which therefore
+    must not change (a window written in place would also evict ring slots
+    that the accepted prefix still sees once the ring is full). The
+    returned state is exact only when every input token is accepted."""
+    return spec_commit(params, cfg, tokens, rope_delta, clone_state(state))
 
 
 def sample_token(
@@ -149,13 +204,16 @@ def prefill_chunked(
     return logits, state
 
 
-def _later(what: str):
-    raise NotImplementedError(f"{what} is not ported to the torch Generator yet")
+def embed_leaf(params: Params) -> torch.Tensor:
+    """The leaf that carries the activations' dtype and the device: the
+    embedding table, or a quantized table's scale."""
+    tp = params["text"] if "text" in params else params
+    return tp["embed"] if "embed" in tp else tp["embed_scale"]
 
 
 def check_params_device(params: Params, device: torch.device) -> None:
     """The params must already live on the device the caller runs on."""
-    have = params["text"]["embed"].device
+    have = embed_leaf(params).device
     if have != device:
         raise ValueError(
             f"params are on {have} but the device is {device}: build or move "
@@ -164,11 +222,39 @@ def check_params_device(params: Params, device: torch.device) -> None:
         )
 
 
+def serving_params(params: Params, fuse: bool, quant: Optional[str],
+                   quant_group_size: Optional[int] = None,
+                   quant_embed: bool = True) -> Params:
+    """The tree an engine serves from: projections fused first (fuse=True),
+    then weight-only quantized (quant "int8" or "int4"), in that order."""
+    if fuse:
+        from .models.fuse import fuse_projections
+
+        params = fuse_projections(params)
+    if quant in ("int8", "int4"):
+        from .models.quant import quantize_params
+
+        qkw = {}
+        if quant_group_size is not None:
+            qkw["group_size"] = int(quant_group_size)
+        params = quantize_params(params, bits=4 if quant == "int4" else 8,
+                                 quantize_embed=quant_embed, **qkw)
+    elif quant is not None:
+        raise ValueError(f"unknown quant mode {quant!r} (use 'int8'/'int4')")
+    return params
+
+
 class Generator:
     """Generation: prompt prefill (text prompts chunked when long,
     multimodal prompts in one pass), then chunks of on-device decode steps.
     One instance per (params, config). `device=None` means the CUDA card;
-    the params must live on the device."""
+    the params must live on the device.
+
+    `fuse=True` serves from fused projections (models/fuse.py); `quant`
+    "int8" / "int4" from weight-only quantized weights (models/quant.py;
+    `quant_group_size` sets the int4 group, a value >= hidden gives
+    per-column scales; `quant_embed` also quantizes the embedding / head
+    table row-wise to int8). On the card every int4 matmul runs kernel G."""
 
     def __init__(
         self,
@@ -178,32 +264,83 @@ class Generator:
         chunk_size: int = 8,
         fuse: bool = False,
         quant: Optional[str] = None,
+        quant_group_size: Optional[int] = None,
+        quant_embed: bool = True,
         device: Optional[Device] = None,
     ):
-        if fuse:
-            _later("fused projections (fuse=True)")
-        if quant is not None:
-            _later(f"weight quantization (quant={quant!r})")
         self.device = resolve_device(device)
         check_params_device(params, self.device)
-        embed = params["text"]["embed"]
-        self.params = params
+        # ring / conv state dtype follows the activations: inferred from the
+        # weights before quantization (an already quantized embed carries
+        # it on its scale)
+        self.dtype = dtype if dtype is not None else embed_leaf(params).dtype
+        self.params = serving_params(params, fuse, quant, quant_group_size, quant_embed)
         self.cfg = cfg
-        # ring / conv state dtype follows the activations (the weights')
-        self.dtype = dtype if dtype is not None else embed.dtype
         # decode steps per host sync; EOS overshoot is < chunk_size steps
         self.chunk_size = chunk_size
         # text prompts longer than this prefill through prefill_chunked
         self.prefill_chunk_size = 2048
 
-    def generate_speculative(self, *args, **kwargs):
-        _later("speculative decoding")
+    def generate_speculative(
+        self,
+        input_ids: np.ndarray,  # [1, T] prompt (text or multimodal)
+        max_new_tokens: int = 128,
+        draft_k: int = 8,
+        eos_token_id: Optional[int] = None,
+        stats=None,  # Optional[speculative.SpecStats]
+        **mm_kwargs,  # pixel_values / image_grid_thw / videos / ts
+    ) -> np.ndarray:
+        """Greedy generation with prompt-lookup speculative decoding
+        (speculative.py): token-for-token the output of `generate`, several
+        drafts verified per weight read. Batch 1."""
+        from .speculative import generate_speculative
 
-    def generate_speculative_sampled(self, *args, **kwargs):
-        _later("sampled speculative decoding")
+        return generate_speculative(
+            self, input_ids, max_new_tokens=max_new_tokens, draft_k=draft_k,
+            eos_token_id=eos_token_id, stats=stats, **mm_kwargs,
+        )
 
-    def generate_beam(self, *args, **kwargs):
-        _later("beam search")
+    def generate_speculative_sampled(
+        self,
+        input_ids: np.ndarray,  # [1, T]
+        max_new_tokens: int = 128,
+        draft_k: int = 8,
+        temperature: float = 0.7,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int = 0,
+        eos_token_id: Optional[int] = None,
+        stats=None,
+        **mm_kwargs,
+    ) -> np.ndarray:
+        """Lossless sampled speculation (rejection sampling over
+        prompt-lookup drafts): the stream is distributed as plain
+        temperature / top-k / top-p sampling."""
+        from .speculative import generate_speculative_sampled
+
+        return generate_speculative_sampled(
+            self, input_ids, max_new_tokens=max_new_tokens, draft_k=draft_k,
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            eos_token_id=eos_token_id, stats=stats, **mm_kwargs,
+        )
+
+    def generate_beam(
+        self,
+        input_ids: np.ndarray,  # [B, T] text-only
+        num_beams: int = 4,
+        max_new_tokens: int = 128,
+        eos_token_id: Optional[int] = None,
+        length_penalty: float = 1.0,
+        early_stopping=False,
+    ) -> np.ndarray:
+        """Beam search (beam.py), HF BeamSearchScorer semantics."""
+        from .beam import beam_search
+
+        return beam_search(
+            self, input_ids, num_beams=num_beams, max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id, length_penalty=length_penalty,
+            early_stopping=early_stopping,
+        )
 
     def generate(
         self,

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from ..config import FULL, LINEAR, SLIDING, TextConfig
 from ..ops.delta_kernels import delta_step_fused_stacked
 from ..ops.delta_rule import gated_delta_rule
+from ..ops.int4_kernels import int4_matmul_fused
 from ..ops.norms import rms_norm, rms_norm_gated, silu
 from ..ops.rope import apply_rotary, mrope_cos_sin
 from ..ops.short_conv import short_conv, short_conv_step
@@ -32,17 +33,11 @@ from .state import DecoderState
 
 Params = Dict[str, Any]
 
-# parameter layouts of the JAX package that later slices port
+# parameter layouts of the JAX package that are not ported yet
 _LATER = {
-    "kernel_q": "int8 weight-only serving (serving slice)",
-    "kernel_q4": "int4 weight-only serving (serving slice)",
-    "kernel_q4b": "int4 weight-only serving (serving slice)",
-    "kernel_q4f": "fused int4 serving (kernel G, serving slice)",
+    "kernel_q4b": "biased int4 storage (no entry point produces it)",
     "lora_a": "LoRA adapters (training slice)",
     "dora_scale": "DoRA adapters (training slice)",
-    "qkv_proj": "fused projections (serving slice, models/fuse.py)",
-    "fused_proj": "fused projections (serving slice, models/fuse.py)",
-    "gate_up": "fused projections (serving slice, models/fuse.py)",
 }
 
 
@@ -55,17 +50,28 @@ def _not_ported(p: Params) -> None:
 
 
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """x @ kernel (+ bias); kernel is [d_in, d_out]."""
+    """x @ kernel (+ bias); kernel is [d_in, d_out], stored in the weights'
+    dtype, as weight-only int8 (`kernel_q` + `scale`: plain torch, the
+    column scale commutes with the contraction) or as nibble-packed int4
+    (`kernel_q4` / `kernel_q4f` + `scale4`: kernel G on a CUDA tensor)."""
     _not_ported(p)
-    y = x @ p["kernel"]
+    if "kernel_q" in p:
+        y = (x @ p["kernel_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+    elif "kernel_q4" in p or "kernel_q4f" in p:
+        y = int4_matmul_fused(x, p)
+    else:
+        y = x @ p["kernel"]
     if "bias" in p:
         y = y + p["bias"]
     return y
 
 
 def mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
-    _not_ported(p)
+    """SwiGLU MLP; takes the fused `gate_up` layout of models/fuse.py."""
+    if "gate_up" in p:
+        gu = _dense(x, p["gate_up"])
+        inter = gu.shape[-1] // 2
+        return _dense(silu(gu[..., :inter]) * gu[..., inter:], p["down"])
     return _dense(silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"])
 
 
@@ -84,13 +90,21 @@ def swa_attention_forward(
     """GQA with qkv bias, mRoPE and the sliding-window mask, no o_proj bias.
     With rings, layer `layer_idx` of the stacked rings is updated IN PLACE
     with the new tokens' K/V. Returns [B, T, D]."""
-    _not_ported(p)
     B, T, _ = x.shape
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     window = window if window is not None else cfg.sliding_window
-    q = _dense(x, p["q_proj"]).reshape(B, T, Hq, Dh)
-    k = _dense(x, p["k_proj"]).reshape(B, T, Hkv, Dh)
-    v = _dense(x, p["v_proj"]).reshape(B, T, Hkv, Dh)
+    if "qkv_proj" in p:  # fused layout (models/fuse.py): one matmul
+        qkv = _dense(x, p["qkv_proj"])
+        nq, nk = Hq * Dh, Hkv * Dh
+        q = qkv[..., :nq].reshape(B, T, Hq, Dh)
+        k = qkv[..., nq : nq + nk].reshape(B, T, Hkv, Dh)
+        # q and k come out of the rotation dense; v stays a strided column
+        # slice, and the attention kernels read dense rows
+        v = qkv[..., nq + nk :].reshape(B, T, Hkv, Dh).contiguous()
+    else:
+        q = _dense(x, p["q_proj"]).reshape(B, T, Hq, Dh)
+        k = _dense(x, p["k_proj"]).reshape(B, T, Hkv, Dh)
+        v = _dense(x, p["v_proj"]).reshape(B, T, Hkv, Dh)
     q, k = apply_rotary(q, k, cos, sin)
     if rings_k is None:
         out = swa_prefill_dense(q, k, v, window)
@@ -120,15 +134,20 @@ def delta_forward(
     """Gated DeltaNet layer. With a state, layer `layer_idx` of the stacked
     conv histories and recurrent state is updated IN PLACE. Returns
     [B, T, D]."""
-    _not_ported(p)
     B, T, _ = x.shape
     H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
-    q_raw = _dense(x, p["q_proj"])
-    k_raw = _dense(x, p["k_proj"])
-    v_raw = _dense(x, p["v_proj"])
-    a_lin = _dense(x, p["a_proj"])
-    b_lin = _dense(x, p["b_proj"])
-    g_lin = _dense(x, p["g_proj"])
+    if "fused_proj" in p:  # fused layout (models/fuse.py): one matmul
+        fused = _dense(x, p["fused_proj"])  # [B, T, 2 HK + VD + 2 H + HV]
+        hk, vd = H * K, H * V
+        q_raw, k_raw, v_raw, a_lin, b_lin, g_lin = fused.split(
+            [hk, hk, vd, H, H, fused.shape[-1] - 2 * hk - vd - 2 * H], dim=-1)
+    else:
+        q_raw = _dense(x, p["q_proj"])
+        k_raw = _dense(x, p["k_proj"])
+        v_raw = _dense(x, p["v_proj"])
+        a_lin = _dense(x, p["a_proj"])
+        b_lin = _dense(x, p["b_proj"])
+        g_lin = _dense(x, p["g_proj"])
 
     use_cache = conv_q is not None
     decode = use_cache and T == 1
@@ -257,19 +276,25 @@ def text_forward(
 
 
 def lm_head(params: Params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits; tied to the embedding when cfg.tie_word_embeddings."""
-    for key in ("lm_head_q", "head_q"):
-        if key in params:
-            raise NotImplementedError(
-                f"quantized head {key!r} (serving slice) is not ported to torch yet"
-            )
-    w = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return (hidden @ w.to(hidden.dtype)).float()
+    """fp32 logits; tied to the embedding when cfg.tie_word_embeddings.
+    With a quantized table (models/quant.quantize_embed_rows) the head
+    reads the pre-transposed int8 copy `head_q` [hidden, vocab] (or an
+    untied `lm_head_q`); the row scales are per-logit column scales and
+    commute with the contraction."""
+    if "lm_head_q" in params:  # untied quantized head [hidden, vocab]
+        q, s = params["lm_head_q"], params["lm_head_scale"]
+    elif "lm_head" in params:
+        return (hidden @ params["lm_head"].to(hidden.dtype)).float()
+    elif "head_q" in params:  # tied quantized table, head copy
+        q, s = params["head_q"], params["embed_scale"]
+    else:
+        return (hidden @ params["embed"].T.to(hidden.dtype)).float()
+    return ((hidden @ q.to(hidden.dtype)) * s.to(hidden.dtype)).float()
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     if "embed_q" in params:
-        raise NotImplementedError(
-            "quantized embeddings (serving slice) are not ported to torch yet"
-        )
+        # int8 gather + per-row dequant; the output dtype rides on the scale
+        s = params["embed_scale"][input_ids]
+        return params["embed_q"][input_ids].to(s.dtype) * s[..., None]
     return params["embed"][input_ids]

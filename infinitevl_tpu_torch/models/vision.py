@@ -31,7 +31,7 @@ from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rotary_vision, vision_cos_sin, vision_rot_pos_ids
 from ..ops.swa import attention_dense
 from ..ops.vit_flash import vit_full_attention
-from .text import _dense, _not_ported
+from .text import _dense
 
 Params = Dict[str, Any]
 GridTHW = Tuple[Tuple[int, int, int], ...]
@@ -156,7 +156,10 @@ def plan_tensors(plan: VisionPlan, device) -> Dict[str, torch.Tensor]:
 
 
 def _vision_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    _not_ported(p)
+    if "gate_up" in p:  # fused layout (models/fuse.py)
+        gu = _dense(x, p["gate_up"])
+        inter = gu.shape[-1] // 2
+        return _dense(silu(gu[..., :inter]) * gu[..., inter:], p["down"])
     return _dense(silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"])
 
 

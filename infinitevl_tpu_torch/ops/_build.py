@@ -111,6 +111,8 @@ def load_library() -> ctypes.CDLL:
     lib.ivl_delta_chunk.restype = I
     lib.ivl_vit_flash.argtypes = [I, P, P, P, P, P, I, I, I, L, L, L, F, P]
     lib.ivl_vit_flash.restype = I
+    lib.ivl_int4_matmul.argtypes = [I, P, L, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.ivl_int4_matmul.restype = I
     lib.ivl_error_string.argtypes = [I]
     lib.ivl_error_string.restype = ctypes.c_char_p
     return lib

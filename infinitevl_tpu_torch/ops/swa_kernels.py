@@ -1,6 +1,7 @@
 """Wrappers of the ring sliding-window attention kernels (A1 prefill, A2
-decode) in csrc/swa_ring_flash.cu, under the names of their Pallas
-counterparts in infinitevl_tpu/ops/swa_pallas.py.
+stacked decode, D decode on one unstacked ring) in csrc/swa_ring_flash.cu,
+under the names of their Pallas counterparts in
+infinitevl_tpu/ops/swa_pallas.py.
 
 A tensor on the CPU takes the kernel's plain version (ops/swa.py); a CUDA
 tensor launches the kernel or raises. Each wrapper counts its launches in
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .swa import ring_write_stacked, swa_cached_attention
+from .swa import ring_write, ring_write_stacked, swa_cached_attention
 
 HEAD_DIM = 128  # the head dim the kernels are written for
 DECODE_SPLIT = 128  # ring keys per block of the split-KV decode pass
@@ -97,6 +98,39 @@ def swa_ring_flash_attention(
 swa_ring_flash_attention.launches = 0
 
 
+def _launch_decode(name, q, new_k, new_v, rings_k, rings_v, layer, cum_len, window,
+                   scale) -> torch.Tensor:
+    """Write the token's K/V into slot cum_len % cap of ring `layer` of
+    `rings_*` ([S, B, Hkv, cap, D], or one ring [B, Hkv, cap, D] with layer
+    0), then launch ivl_swa_decode over that ring."""
+    B, _, Hq, D = q.shape
+    Hkv, cap = rings_k.shape[-3], rings_k.shape[-2]
+    if scale is None:
+        scale = D**-0.5
+    slot = cum_len % cap
+    ring_k = rings_k[layer] if rings_k.dim() == 5 else rings_k
+    ring_v = rings_v[layer] if rings_v.dim() == 5 else rings_v
+    ring_k[:, :, slot] = new_k[:, 0].to(ring_k.dtype)
+    ring_v[:, :, slot] = new_v[:, 0].to(ring_v.dtype)
+    ns = -(-cap // DECODE_SPLIT)
+    part = torch.empty((B * Hkv, ns, Hq // Hkv, D + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):  # launch on the tensors' card
+        _build.check(
+            lib.ivl_swa_decode(
+                _DTYPES[q.dtype], q.data_ptr(), rings_k.data_ptr(),
+                rings_v.data_ptr(), part.data_ptr(), out.data_ptr(),
+                B, Hq, Hkv, D, cap, int(layer), int(cum_len) + 1, int(window),
+                float(scale), DECODE_SPLIT, ns,
+                torch.cuda.current_stream(q.device).cuda_stream,
+            ),
+            name,
+        )
+    return out
+
+
 def swa_ring_flash_decode_stacked(
     q: torch.Tensor,  # [B, 1, Hq, D]
     new_k: torch.Tensor,  # [B, 1, Hkv, D]
@@ -138,29 +172,72 @@ def swa_ring_flash_decode_stacked(
                          "write-then-attend order would evict a visible key")
     if not 0 <= layer < S:
         raise IndexError(f"{name}: layer {layer} outside the stack of {S}")
-    if scale is None:
-        scale = D**-0.5
-    slot = cum_len % cap
-    rings_k[layer, :, :, slot] = new_k[:, 0].to(rings_k.dtype)
-    rings_v[layer, :, :, slot] = new_v[:, 0].to(rings_v.dtype)
-    ns = -(-cap // DECODE_SPLIT)
-    part = torch.empty((B * Hkv, ns, Hq // Hkv, D + 2), dtype=torch.float32,
-                       device=q.device)
-    out = torch.empty_like(q)
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):  # launch on the tensors' card
-        _build.check(
-            lib.ivl_swa_decode(
-                _DTYPES[q.dtype], q.data_ptr(), rings_k.data_ptr(),
-                rings_v.data_ptr(), part.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, D, cap, int(layer), int(cum_len) + 1, int(window),
-                float(scale), DECODE_SPLIT, ns,
-                torch.cuda.current_stream(q.device).cuda_stream,
-            ),
-            name,
-        )
+    out = _launch_decode(name, q, new_k, new_v, rings_k, rings_v, layer, cum_len,
+                         window, scale)
     swa_ring_flash_decode_stacked.launches += 1
     return out
 
 
 swa_ring_flash_decode_stacked.launches = 0
+
+
+def swa_ring_decode_plain(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    new_k: torch.Tensor,  # [B, 1, Hkv, D]
+    new_v: torch.Tensor,
+    ring_k: torch.Tensor,  # [B, Hkv, cap, D], updated in place
+    ring_v: torch.Tensor,
+    cum_len: int,
+    window: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Kernel D's plain version: attend over (ring ++ the new token) with
+    the sliding-window mask, then write the token into its ring slot."""
+    out = swa_cached_attention(q, new_k, new_v, ring_k, ring_v, cum_len, window,
+                               scale, write_ring=False)
+    ring_write(ring_k, ring_v, new_k, new_v, cum_len)
+    return out
+
+
+def swa_ring_flash_decode(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    new_k: torch.Tensor,  # [B, 1, Hkv, D]
+    new_v: torch.Tensor,
+    ring_k: torch.Tensor,  # [B, Hkv, cap, D] one ring, updated in place
+    ring_v: torch.Tensor,
+    cum_len: int,  # tokens in the ring BEFORE this one
+    window: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Kernel D: kernel A2 on one unstacked ring. The ring is handed to the
+    decode kernel as a stack of one layer where it lies (no copy into a
+    stack): the token's K/V go into slot cum_len % cap IN PLACE, then the
+    query attends over the ring alone. Requires cap >= window. Returns
+    [B, 1, Hq, D] in q's dtype."""
+    name = "swa_ring_flash_decode"
+    if _on_cpu(name, q):
+        return swa_ring_decode_plain(q, new_k, new_v, ring_k, ring_v, cum_len,
+                                     window, scale)
+    B, T, Hq, D = q.shape
+    _check_cuda(name, dict(q=q, ring_k=ring_k, ring_v=ring_v), q.dtype)
+    if T != 1:
+        raise ValueError(f"{name}: decode takes one token (got T={T})")
+    if ring_k.dim() != 4 or ring_k.shape[0] != B or ring_k.shape[3] != D \
+            or ring_v.shape != ring_k.shape:
+        raise ValueError(f"{name}: ring shape {tuple(ring_k.shape)} is not "
+                         f"[B, Hkv, cap, D] for B={B}, D={D}")
+    Hkv, cap = ring_k.shape[1], ring_k.shape[2]
+    if D != HEAD_DIM or Hq % Hkv or Hq // Hkv > MAX_GROUPS:
+        raise ValueError(f"{name}: needs head_dim {HEAD_DIM}, Hq % Hkv == 0 and "
+                         f"Hq/Hkv <= {MAX_GROUPS} (got D={D}, Hq={Hq}, Hkv={Hkv})")
+    if new_k.shape != (B, 1, Hkv, D) or new_v.shape != new_k.shape:
+        raise ValueError(f"{name}: new_k/new_v shape {tuple(new_k.shape)}")
+    if cap < window:
+        raise ValueError(f"{name}: ring capacity {cap} < window {window}: the "
+                         "write-then-attend order would evict a visible key")
+    out = _launch_decode(name, q, new_k, new_v, ring_k, ring_v, 0, cum_len, window, scale)
+    swa_ring_flash_decode.launches += 1
+    return out
+
+
+swa_ring_flash_decode.launches = 0

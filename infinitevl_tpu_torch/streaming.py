@@ -25,7 +25,13 @@ import torch
 from .config import InfiniteVLConfig
 from .data.processing import patchify_device
 from .device import Device, resolve_device
-from .generation import check_params_device, decode_chunk, prefill
+from .generation import (
+    embed_leaf,
+    check_params_device,
+    decode_chunk,
+    prefill,
+    serving_params,
+)
 from .models.infinitevl import get_rope_index, scatter_vision_embeds
 from .models.state import DecoderState, clone_state, init_decoder_state, state_row
 from .models.text import embed_tokens, lm_head, text_forward
@@ -181,7 +187,9 @@ def stream_frames_batched(
 class StreamingEngine:
     """Frame-by-frame video prefill with branched QA (push_frame / ask /
     stats). `device=None` means the CUDA card; the params must live on the
-    device."""
+    device. `fuse=True` serves from fused projections; `quant` ("int8" /
+    "int4") quantizes the weights first, and an already quantized tree is
+    taken as it is (the state dtype then rides on the embedding's scale)."""
 
     def __init__(
         self,
@@ -191,18 +199,15 @@ class StreamingEngine:
         dtype: Optional[torch.dtype] = None,
         batch_size: int = 1,
         fuse: bool = False,
+        quant: Optional[str] = None,
         device: Optional[Device] = None,
     ):
-        if fuse:
-            raise NotImplementedError(
-                "fused projections (fuse=True) are not ported to torch yet"
-            )
         self.device = resolve_device(device)
         check_params_device(params, self.device)
-        self.params = params
-        self.cfg = cfg
         # the state dtype follows the activations (the weights')
-        self.dtype = dtype if dtype is not None else params["text"]["embed"].dtype
+        self.dtype = dtype if dtype is not None else embed_leaf(params).dtype
+        self.params = serving_params(params, fuse, quant)
+        self.cfg = cfg
         self.frame_hw = tuple(frame_hw)
         p = cfg.vision.patch_size
         m = cfg.vision.spatial_merge_size

@@ -1,8 +1,10 @@
-"""The plain versions behind the port's five Hopper-kernel wrappers (A1
-ring prefill, A2 stacked ring decode, B delta decode step, C chunked delta
-rule, E ViT segment flash) against the JAX Pallas kernels they replace, run
-in interpret mode on the CPU as tests/test_pallas_kernels.py runs them
-(D = 128, cap = 512, block_k = 128; K = 128, V = 256, chunk 64).
+"""The plain versions behind the port's seven Hopper-kernel wrappers (A1
+ring prefill, A2 stacked ring decode, D ring decode on one unstacked ring, B
+delta decode step, C chunked delta rule, E ViT segment flash, G fused int4
+unpack-matmul) against the JAX Pallas kernels they replace, run in
+interpret mode on the CPU as tests/test_pallas_kernels.py runs them
+(D = 128, cap = 512, block_k = 128; K = 128, V = 256, chunk 64; int4 widths
+that are multiples of 128).
 
 On CPU tensors the wrappers take the plain version, so their launch
 counters stay at 0; the CUDA kernels themselves are checked against the
@@ -13,14 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from infinitevl_tpu.models.quant import int4_matmul as j_int4_matmul
+from infinitevl_tpu.models.quant import quantize_kernel_int4 as j_quantize_int4
 from infinitevl_tpu.ops.delta_pallas import delta_rule_chunk_fused as j_delta_chunk
 from infinitevl_tpu.ops.delta_pallas import delta_step_fused_stacked as j_delta_step
 from infinitevl_tpu.ops.vit_flash import attention_segment_chunked as j_segment_chunked
 from infinitevl_tpu.ops.vit_flash import segment_flash_attention as j_segment_flash
+from infinitevl_tpu.ops.int4_pallas import int4_matmul_fused as j_int4_fused
 from infinitevl_tpu.ops.swa_pallas import (
     swa_ring_flash_attention as j_ring_prefill,
+    swa_ring_flash_decode as j_ring_decode_one,
     swa_ring_flash_decode_stacked as j_ring_decode,
 )
+from infinitevl_tpu_torch.models.quant import int4_matmul
 from infinitevl_tpu_torch.ops import _build
 from infinitevl_tpu_torch.ops.delta_kernels import (
     chunk_scratch_floats,
@@ -28,10 +35,17 @@ from infinitevl_tpu_torch.ops.delta_kernels import (
     delta_step_fused_stacked,
 )
 from infinitevl_tpu_torch.ops.delta_rule import delta_rule_recurrent, gated_delta_rule
+from infinitevl_tpu_torch.ops.int4_kernels import (
+    int4_matmul_fused,
+    int4_matmul_plain,
+    launch_plan,
+)
 from infinitevl_tpu_torch.ops.vit_flash import attention_segment_chunked, vit_full_attention
 from infinitevl_tpu_torch.ops.vit_kernels import segment_flash_attention
 from infinitevl_tpu_torch.ops.swa_kernels import (
+    swa_ring_decode_plain,
     swa_ring_flash_attention,
+    swa_ring_flash_decode,
     swa_ring_flash_decode_stacked,
 )
 
@@ -41,7 +55,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 TOL = 1e-5  # fp32 on both sides: summation order only
 WRAPPERS = (swa_ring_flash_attention, swa_ring_flash_decode_stacked,
-            delta_step_fused_stacked, delta_rule_chunk_fused, segment_flash_attention)
+            delta_step_fused_stacked, delta_rule_chunk_fused, segment_flash_attention,
+            int4_matmul_fused, swa_ring_flash_decode)
 
 
 def err_ratio(x, ref):
@@ -102,6 +117,97 @@ def test_ring_decode_plain_matches_pallas_per_layer(cum):
         keep = np.ones(trks.shape, bool)
         keep[layer, :, :, slot] = False
         np.testing.assert_array_equal(trks.numpy()[keep], rks[keep])
+
+
+@pytest.mark.parametrize("cum", [0, 511, 512, 9001])
+def test_ring_decode_unstacked_plain_matches_pallas(cum):
+    """Kernel D's plain version (the wrapper on CPU tensors) against the
+    Pallas kernel on one unstacked ring in interpret mode: output and the
+    ring after the write."""
+    rng = np.random.RandomState(cum + 7)
+    B, Hq, Hkv, D, W = 2, 4, 2, 128, 512
+    q, nk, nv = rnd(rng, B, 1, Hq, D), rnd(rng, B, 1, Hkv, D), rnd(rng, B, 1, Hkv, D)
+    rk, rv = rnd(rng, B, Hkv, W, D), rnd(rng, B, Hkv, W, D)
+    ref, jrk, jrv = j_ring_decode_one(*map(jnp.asarray, (q, nk, nv, rk, rv)),
+                                      jnp.int32(cum), W, block_k=128, interpret=True)
+    trk, trv = torch.from_numpy(rk.copy()), torch.from_numpy(rv.copy())
+    targs = tuple(map(torch.from_numpy, (q, nk, nv)))
+    out = swa_ring_flash_decode(*targs, trk, trv, cum, W)
+    assert err_ratio(out, ref) < TOL
+    np.testing.assert_array_equal(trk.numpy(), np.asarray(jrk))
+    np.testing.assert_array_equal(trv.numpy(), np.asarray(jrv))
+    # the named plain version is what the wrapper took, and the stacked
+    # wrapper on a stack of one layer gives the same
+    prk, prv = torch.from_numpy(rk.copy()), torch.from_numpy(rv.copy())
+    assert torch.equal(swa_ring_decode_plain(*targs, prk, prv, cum, W), out)
+    assert torch.equal(prk, trk)
+    srk, srv = torch.from_numpy(rk.copy())[None], torch.from_numpy(rv.copy())[None]
+    assert torch.equal(swa_ring_flash_decode_stacked(*targs, srk, srv, 0, cum, W), out)
+    assert torch.equal(srk[0], trk) and torch.equal(srv[0], trv)
+
+
+@pytest.mark.parametrize("d_in, d_out, group, lead", [
+    (256, 128, 64, (5,)),       # grouped, G = 4
+    (256, 256, 128, (1,)),      # grouped, G = 2, M = 1 (decode)
+    (512, 128, 1 << 20, (3,)),  # per-column scales, G = 1
+    (256, 128, 32, (2, 3)),     # leading dims, G = 8
+])
+def test_int4_matmul_plain_matches_pallas_and_dual_plane(d_in, d_out, group, lead):
+    """Kernel G's plain version (the wrapper on CPU tensors) against the
+    Pallas kernel in interpret mode and against both packages' dual-plane
+    int4_matmul, on weights quantised by the JAX package (fp32 <= 1e-5)."""
+    rng = np.random.RandomState(d_in + d_out + len(lead))
+    w, x = rnd(rng, d_in, d_out, scale=0.05), rnd(rng, *lead, d_in)
+    jnode = j_quantize_int4(jnp.asarray(w), group)
+    tnode = {k: torch.from_numpy(np.asarray(v)) for k, v in jnode.items()}
+    assert tnode["scale4"].shape[0] == (1 if group > d_in else d_in // group)
+    ref = j_int4_fused(jnp.asarray(x), jnode, interpret=True)
+    out = int4_matmul_fused(torch.from_numpy(x), tnode)
+    assert out.shape == (*lead, d_out) and out.dtype == torch.float32
+    assert err_ratio(out, ref) < TOL
+    assert torch.equal(int4_matmul_plain(torch.from_numpy(x), tnode), out)
+    assert err_ratio(out, j_int4_matmul(jnp.asarray(x), jnode)) < TOL
+    assert err_ratio(int4_matmul(torch.from_numpy(x), tnode), out) < TOL
+    # the rekeyed storage of prefer_fused_int4 is the same node
+    fnode = {"kernel_q4f": tnode["kernel_q4"], "scale4": tnode["scale4"]}
+    assert torch.equal(int4_matmul_fused(torch.from_numpy(x), fnode), out)
+
+
+def test_int4_matmul_ragged_widths_bf16_and_checks():
+    """Widths the Pallas kernel refuses (no multiple of 128: the ViT MLP's
+    3420 at a small size) against the dual-plane form; bf16 inputs: fp32
+    arithmetic on the widened values and one cast; the wrapper's checks."""
+    from infinitevl_tpu_torch.models.quant import quantize_kernel_int4
+
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rnd(rng, 60, 36, scale=0.05))  # half 30: one group
+    x = torch.from_numpy(rnd(rng, 4, 60))
+    node = quantize_kernel_int4(w, 16)
+    assert node["scale4"].shape == (1, 36) and node["kernel_q4"].shape == (30, 36)
+    assert err_ratio(int4_matmul_fused(x, node), int4_matmul(x, node)) < TOL
+    xb = x.bfloat16()
+    ob = int4_matmul_fused(xb, node)
+    assert ob.dtype == torch.bfloat16
+    assert torch.equal(ob, int4_matmul_fused(xb.float(), node).bfloat16())
+    # a strided view (columns of a wider projection) is read where it lies
+    wide = torch.from_numpy(rnd(rng, 4, 100))
+    assert torch.equal(int4_matmul_fused(wide[:, 20:80], node),
+                       int4_matmul_fused(wide[:, 20:80].contiguous(), node))
+    with pytest.raises(ValueError, match="d_in"):
+        int4_matmul_fused(x[:, :58], node)
+    with pytest.raises(ValueError, match="kernel_q4"):
+        int4_matmul_fused(x, {"kernel_q": node["kernel_q4"], "scale4": node["scale4"]})
+    with pytest.raises(TypeError, match="uint8"):
+        int4_matmul_fused(x, {"kernel_q4": node["kernel_q4"].to(torch.int8),
+                              "scale4": node["scale4"]})
+    with pytest.raises(ValueError, match="neither cpu nor cuda"):
+        int4_matmul_fused(torch.empty((4, 60), device="meta"), node)
+    # the launch plan: (small, rows per block, row splits) covers all rows
+    for M, half, cols in ((1, 1024, 2048), (8, 5504, 2048), (257, 1024, 11008),
+                          (32, 1024, 2048), (1, 1710, 1280), (1, 16, 8)):
+        small, rpb, ks = launch_plan(M, half, cols)
+        assert small == (M <= 8) and rpb % 32 == 0 and ks * rpb >= half > (ks - 1) * rpb
+        assert not small or rpb <= 512
 
 
 def test_delta_step_plain_matches_pallas_per_layer():
@@ -230,6 +336,8 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="neither cpu nor cuda"):
         segment_flash_attention(qe, qe, qe, torch.empty((300,), dtype=torch.int32,
                                                         device="meta"))
+    with pytest.raises(ValueError, match="neither cpu nor cuda"):
+        swa_ring_flash_decode(q[:, :1], kv[:, :1], kv[:, :1], ring, ring, 0, 512)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

@@ -48,7 +48,9 @@ for name in names:
     importlib.import_module(name)
 for needed in ("config", "device", "streaming", "generation", "data.processing",
                "models.vision", "models.infinitevl", "ops.vit_flash", "ops.vit_kernels",
-               "ops.delta_kernels"):
+               "ops.delta_kernels", "ops.int4_kernels", "models.quant", "models.fuse",
+               "speculative", "beam", "serve.batching", "serve.chat", "serve.api",
+               "data.template", "data.loader"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -138,6 +140,59 @@ def test_config_from_hf_dict_matches():
         dataclasses.asdict(jconfig.from_hf_dict(hf))
     with pytest.raises(ValueError, match="hidden_act"):
         tconfig.VisionConfig(hidden_act="gelu")
+
+
+_MESSAGES = [
+    {"role": "system", "content": "You are terse."},
+    {"role": "user", "content": "What is in <image> this\npicture?"},
+    {"role": "assistant", "content": "A cat."},
+    {"role": "user", "content": "And now?"},
+]
+_TOOLS = [{"name": "get_weather", "description": "weather by city",
+           "parameters": {"type": "object", "properties": {"city": {"type": "string"}}}}]
+
+
+@pytest.mark.parametrize("name", ["qwen2_vl", "llama3", "llama2", "gemma", "chatml",
+                                  "mistral", "glm4", "default"])
+def test_template_copy_renders_as_the_jax_package(name):
+    """The port keeps its own copy of the jax-free template module: the
+    same prompts, encodings and tool-call parsing."""
+    import infinitevl_tpu.data.template as jt
+    import infinitevl_tpu_torch.data.template as tt
+    from infinitevl_tpu.data.loader import SimpleTokenizer as JTok
+    from infinitevl_tpu_torch.data.loader import SimpleTokenizer as TTok
+
+    assert tt.__file__ != jt.__file__
+    j, t = jt.get_template(name), tt.get_template(name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for kw in (dict(add_generation_prompt=True), dict(add_generation_prompt=False),
+               dict(add_generation_prompt=True, tools=_TOOLS)):
+        assert t.render_prompt(_MESSAGES, **kw) == j.render_prompt(_MESSAGES, **kw)
+    got = t.encode_turns(TTok(), _MESSAGES)
+    want = j.encode_turns(JTok(), _MESSAGES)
+    assert [list(map(int, x)) for x in got] == [list(map(int, x)) for x in want]
+    text = 'so <tool_call>\n{"name": "f", "arguments": {"a": 1}}\n</tool_call>'
+    assert tt.extract_tool_calls(text) == jt.extract_tool_calls(text) == \
+        [{"name": "f", "arguments": {"a": 1}}]
+    assert tt.extract_tool_calls("plain") == "plain"
+    assert sorted(n for n in dir(tt) if not n.startswith("_")) == \
+        sorted(n for n in dir(jt) if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("text", ["hello world hello", "a<|image_pad|><|image_pad|>b\nc",
+                                  "<image>what <|vision_start|> now", ""])
+def test_simple_tokenizer_copy_matches(text):
+    from infinitevl_tpu.config import tiny_config
+    from infinitevl_tpu.data.loader import SimpleTokenizer as JTok
+    from infinitevl_tpu_torch.data.loader import SimpleTokenizer as TTok
+
+    cfg = tiny_config()
+    for kw in ({}, dict(config=cfg), dict(vocab={"hello": 7}, unk=3)):
+        j, t = JTok(**kw), TTok(**kw)
+        ids = t.encode(text)
+        assert ids == j.encode(text) and t.vocab == j.vocab
+        assert t.decode(ids + [999]) == j.decode(ids + [999])
+        assert (t.eos_token_id, t.unk) == (j.eos_token_id, j.unk)
 
 
 def test_chip_smoke_refuses_without_cuda():

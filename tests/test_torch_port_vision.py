@@ -165,9 +165,9 @@ def test_window_flash_branch_names_kernel_f(weights, monkeypatch):
         tvision.vision_forward(tp["visual"], TCFG.vision,
                                torch.zeros((64, in_feat(VCFG))),
                                tvision.get_vision_plan(grid, TCFG.vision))
-    with pytest.raises(NotImplementedError, match="kernel_q4f"):
+    with pytest.raises(NotImplementedError, match="kernel_q4b"):
         tvision.vision_block_forward(
-            {**tp["visual"]["blocks"][0], "qkv": {"kernel_q4f": None}}, TCFG.vision,
+            {**tp["visual"]["blocks"][0], "qkv": {"kernel_q4b": None}}, TCFG.vision,
             torch.zeros((64, 32)), tvision.get_vision_plan(grid, TCFG.vision), False,
             tvision.plan_tensors(tvision.get_vision_plan(grid, TCFG.vision), "cpu"))
 
