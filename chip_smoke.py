@@ -4,17 +4,21 @@ NVIDIA H100.
 
     python3 chip_smoke.py                 # all phases; needs one CUDA card and nvcc
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and kernel parity
-    python3 chip_smoke.py --profile       # all phases, then a torch.profiler
-                                          # breakdown of three steady frames
+    python3 chip_smoke.py --profile       # all phases, plus torch.profiler breakdowns
+                                          # of three steady frames and one LoRA step
+    python3 chip_smoke.py --kernels-only --only=h,f  # a subset of phase 3
+    python3 chip_smoke.py --train-only    # phases 1-3, then the training phases alone
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
   1. environment: torch / CUDA / nvcc versions, the card's name and power limit
   2. build: the kernels from infinitevl_tpu_torch/csrc/ with nvcc (sm_90a),
      one compiler per source, all started together
-  3. kernel parity: each of the seven kernels (A1, A2, B, C, E, G, D)
-     against its plain torch version on the card, at the main paths'
-     shapes, with its time beside the plain version's, its bound (the least
+  3. kernel parity: each of the nine kernels (A1, A2, B, C, E, G, D, F, H;
+     H forward and backward, dq, dk, dv) against its plain torch version on
+     the card, at the main paths' shapes, the gradients of the autograd
+     wrappers of C, E and F against the plain versions', the ViT's gates
+     measured, with its time beside the plain version's, its bound (the least
      time the card could take for the same bytes and operations) and,
      where one PyTorch call computes the same function (A1, A2, D, E:
      scaled_dot_product_attention with the explicit mask; G: one bf16
@@ -23,7 +27,8 @@ non-zero):
   4. cross-device check: a small fp32 model on the CPU (plain versions) and
      on the card (kernels), through Generator (text; then int4 + fused
      projections, and speculative against greedy decoding on the card) and
-     through StreamingEngine (prime, 3 frames, ask)
+     through StreamingEngine (prime, 3 frames, ask); then three training
+     steps (full, LoRA with remat, one multimodal batch) on both devices
   5. text path: the InfiniteVL-3B decoder (bf16, random weights from seed 0)
      answering three requests through Generator (full depth; prompts of
      50, 1,000 and 9,000 tokens, 32 new tokens each: nothing was cut to
@@ -41,9 +46,15 @@ non-zero):
      speculative decoding against greedy, beam search, a BatchingEngine
      burst of 8 requests; then per weight format (int4, bf16, int8, fused)
      one text request and 13 streamed frames
-Launch counts are set to 0 just before each of the four paths (the text
-requests, the stream, the image request, the int4 serving requests) and
-read just after it. Then a JSON line of per-kernel results, the card's line, and
+  8. training path, at full 3B width and depth, through run_sft / Trainer:
+     LoRA at 2,048 and 8,192 tokens, QLoRA (int8 base), full finetuning,
+     multimodal LoRA steps at 448x448 and 1344x1344, save / resume
+  9. the ViT at window_size 224 (windows of 256 patches: kernel F), one
+     1344x1344 image forward and one training step with gradients through
+     F and E
+Launch counts are set to 0 just before each path (the text requests, the
+stream, the image request, the int4 serving requests, every training
+recipe, the ViT path) and read just after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -84,6 +95,21 @@ C_CASE = dict(H=16, K=128, V=256, Bs=(1, 2), Ts=(257, 2048, 100), timed=(257, 20
 # kernel E at the ViT's shape (16 heads, head dim 80): S = 9216 is one
 # 1344x1344 image, S = 4100 a ragged length just above the model's gate
 E_CASE = dict(H=16, D=80, Ss=(9216, 4100), timed=9216)
+# kernel H at the SWA layer's shape (GQA 16/2, head dim 128): (T, window,
+# batch sizes); 8192 is the deployed window, T 4096 under a window of 1024
+# exercises the band's lower edge, 257 a ragged length. The plain version's
+# [T, T] scores at T 8192 leave room for B 1 only. Timed at B 1.
+H_CASE = dict(Hq=16, Hkv=2,
+              cases=((257, 8192, (1, 2)), (2048, 8192, (1, 2)), (4096, 1024, (1, 2)),
+                     (8192, 8192, (1,))),
+              timed=((2048, 8192), (8192, 8192), (4096, 1024)))
+H_BWD_F32_TOL = 1e-4  # fp32 gradients: sums over up to 8192 keys and 8 heads, in another order
+# kernel F at the ViT's shape: (S, win_len) with pads; 9216 patches are one
+# 1344x1344 image, 1024 one 448x448 frame; 64 is the deployed window
+# (window_size 112), 256 that of window_size 224
+F_CASE = dict(H=16, D=80, cases=((9216, 64), (9216, 256), (9216, 1024), (1024, 64), (1000, 40)),
+              timed=((9216, 256), (9216, 64), (1024, 64), (9216, 1024)))
+GATE_FULL_SEQS = (1024, 2048, 4096, 6144)
 # requests of phase 5: recurrent path, chunk path, chunked prefill + ring wrap
 MAIN_PROMPTS = (50, 1000, 9000)
 MAIN_NEW_TOKENS = 32
@@ -625,12 +651,288 @@ def _d_cases(dev, gen):
     return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
 
 
-def phase_kernels(dev) -> dict:
+def _band_pairs(T: int, window: int) -> int:
+    """Visible (query, key) pairs of one row of the causal band."""
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def _packed_segments(B: int, T: int, dev) -> torch.Tensor:
+    """Three packed sequences of unequal length and a tail of pads (id 0)."""
+    seg = torch.ones((B, T), dtype=torch.int32, device=dev)
+    seg[:, T * 2 // 5: T * 3 // 4] = 2
+    seg[:, T * 3 // 4:] = 3
+    seg[:, T - max(T // 50, 1):] = 0
+    return seg
+
+
+def _grads(fn, inputs, cot):
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, cot)
+
+
+def _h_cases(dev, gen):
+    from infinitevl_tpu_torch.ops.swa import sliding_window_mask, swa_prefill_reference
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention
+
+    c = H_CASE
+    Hq, Hkv, D = c["Hq"], c["Hkv"], 128
+    G = Hq // Hkv
+    errs = {"fwd": {}, "bwd": {}}
+    mxs = []
+    for dtype, tol_f, tol_b in ((torch.bfloat16, BF16_TOL, BF16_TOL),
+                                (torch.float32, F32_TOL, H_BWD_F32_TOL)):
+        errs["fwd"][dtype], errs["bwd"][dtype] = [], []
+        for T, W, Bs in c["cases"]:
+            for B in Bs:
+                for packed in (False, True):
+                    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+                    q, k, v = mk(B, T, Hq, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D)
+                    cot = mk(B, T, Hq, D)
+                    seg = _packed_segments(B, T, dev) if packed else None
+                    out, gk = _grads(lambda a, b_, c_: swa_train_flash_attention(
+                        a, b_, c_, W, None, seg), (q, k, v), cot)
+                    ref, gr = _grads(lambda a, b_, c_: swa_prefill_reference(
+                        a, b_, c_, W, 0, None, seg), (q, k, v), cot)
+                    torch.cuda.synchronize()
+                    what = f"H {dtype} B={B} T={T} W={W} packed={packed}"
+                    e = err_ratio(out, ref)
+                    require(e <= tol_f, f"{what} forward err_ratio {e:.3g}")
+                    errs["fwd"][dtype].append(e)
+                    for name, a, b_ in zip(("dq", "dk", "dv"), gk, gr):
+                        require(bool(torch.isfinite(a).all()), f"{what} {name} not finite")
+                        eb = err_ratio(a, b_)
+                        require(eb <= tol_b, f"{what} {name} err_ratio {eb:.3g}")
+                        errs["bwd"][dtype].append(eb)
+                    if dtype == torch.bfloat16:
+                        mxs.append(max_abs(out, ref))
+                    del out, gk, ref, gr
+    # a second backward of the same inputs gives the same bits (no atomics)
+    q, k, v, cot = (torch.randn((1, 1000, h, D), generator=gen, device=dev).to(torch.bfloat16)
+                    for h in (Hq, Hkv, Hkv, Hq))
+    fn = lambda a, b_, c_: swa_train_flash_attention(a, b_, c_, 300)
+    g1, g2 = _grads(fn, (q, k, v), cot)[1], _grads(fn, (q, k, v), cot)[1]
+    require(all(torch.equal(a, b_) for a, b_ in zip(g1, g2)), "H backward not reproducible")
+
+    timed = {}
+    for T, W in c["timed"]:
+        B = 1
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v, cot = mk(B, T, Hq, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D), mk(B, T, Hq, D)
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+        def fwd_bwd(fn, leaves):
+            torch.autograd.grad(fn(*leaves), leaves, cot)
+
+        kern = lambda a, b_, c_: swa_train_flash_attention(a, b_, c_, W)
+        plain = lambda a, b_, c_: swa_prefill_reference(a, b_, c_, W)
+        pos = torch.arange(T, device=dev)
+        mask = sliding_window_mask(pos, pos, W)
+        kr, vr = (x.repeat_interleave(G, 2).detach().requires_grad_(True) for x in (k, v))
+        lib = lambda a, b_, c_: sdpa(a, b_, c_, mask)
+        e_lib = err_ratio(lib(q, kr, vr), plain(q, k, v))
+        require(e_lib <= BF16_TOL, f"H library call err_ratio {e_lib:.3g}")
+        with torch.no_grad():
+            f_ms = time_ms(lambda: kern(q, k, v))
+            f_plain = time_ms(lambda: plain(q, k, v), reps=5)
+            f_lib = time_ms(lambda: lib(q, kr, vr))
+        fb_ms = time_ms(lambda: fwd_bwd(kern, (ql, kl, vl)))
+        fb_plain = time_ms(lambda: fwd_bwd(plain, (ql, kl, vl)), reps=5)
+        fb_lib = time_ms(lambda: fwd_bwd(lib, (ql, kr, vr)))
+        pairs = B * Hq * _band_pairs(T, W)
+        qo, kv = 2 * B * T * Hq * D, 2 * B * T * Hkv * D  # bytes of one q-shaped / kv-shaped
+        lse = 4 * B * Hq * T
+        b_f = bound(2 * qo + 2 * kv + lse, 4 * D * pairs, PEAK_BF16_FLOPS)
+        # backward: reads q, k, v, out, d_out, lse; writes dq, dk, dv; five products
+        b_b = bound(4 * qo + 4 * kv + lse, 10 * D * pairs, PEAK_BF16_FLOPS)
+        timed[(T, W)] = dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **b_f,
+                             bwd_ms=fb_ms - f_ms, fwd_bwd_ms=fb_ms,
+                             plain_fwd_bwd_ms=fb_plain, library_fwd_bwd_ms=fb_lib,
+                             bwd_bound_ms=b_b["bound_ms"], bwd_bound_by=b_b["bound_by"])
+        print(f"[3 parity] H timed B 1, T {T}, W {W}, bf16: forward kernel {f_ms:.3f} ms, "
+              f"plain {f_plain:.3f}, library {f_lib:.3f}, bound {b_f['bound_ms']:.4f} "
+              f"({b_f['bound_by']}); forward+backward kernel {fb_ms:.3f} ms (backward "
+              f"{fb_ms - f_ms:.3f}), plain {fb_plain:.3f}, library {fb_lib:.3f}, backward "
+              f"bound {b_b['bound_ms']:.4f} ({b_b['bound_by']})", flush=True)
+        del q, k, v, cot, ql, kl, vl, kr, vr, mask
+    print(f"[3 parity] H swa_train_flash_attention: max err_ratio forward bf16 "
+          f"{max(errs['fwd'][torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs['fwd'][torch.float32]):.3g} (tol {F32_TOL}); backward (dq, dk, dv) "
+          f"bf16 {max(errs['bwd'][torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs['bwd'][torch.float32]):.3g} (tol {H_BWD_F32_TOL}); (T, W, Bs) "
+          f"{c['cases']}, each with and without packed segments; backward bit-reproducible",
+          flush=True)
+    main_case = timed[c["timed"][0]]
+    return dict(max_abs_err=max(mxs), **main_case,
+                other_shapes={f"T{T}_W{W}": r for (T, W), r in timed.items()})
+
+
+def _window_segments(S: int, L: int, dev, gen) -> torch.Tensor:
+    """Window ids in window order, with pads (-2 - w) scattered over them."""
+    wi = torch.arange(S, device=dev, dtype=torch.int32) // L
+    pad = torch.zeros(S, dtype=torch.bool, device=dev)
+    pad[torch.randperm(S, generator=gen, device=dev)[: S // 20]] = True
+    return torch.where(pad, -2 - wi, wi).to(torch.int32)
+
+
+def _f_cases(dev, gen):
+    from infinitevl_tpu_torch.ops.vit_flash import window_attention_reference
+    from infinitevl_tpu_torch.ops.vit_kernels import window_flash_attention
+
+    c = F_CASE
+    H, D = c["H"], c["D"]
+    errs, mxs = {}, []
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        errs[dtype] = []
+        for S, L in c["cases"]:
+            q, k, v = torch.randn((S, 3, H, D), generator=gen, device=dev).to(dtype).unbind(1)
+            seg = _window_segments(S, L, dev, gen)
+            out = window_flash_attention(q, k, v, seg, L)
+            ref = window_attention_reference(q, k, v, seg, L)
+            torch.cuda.synchronize()
+            e = err_ratio(out, ref)
+            require(e <= tol, f"F {dtype} S={S} L={L} err_ratio {e:.3g}")
+            require(bool(torch.isfinite(out).all()), f"F {dtype} S={S} L={L}: pads not finite")
+            errs[dtype].append(e)
+            if dtype == torch.bfloat16:
+                mxs.append(max_abs(out, ref))
+    timed = {}
+    for S, L in c["timed"]:
+        q, k = (torch.randn((S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        v = torch.randn((S, 3, H, D), generator=gen, device=dev).to(torch.bfloat16)[:, 2]
+        seg = torch.arange(S, device=dev, dtype=torch.int32) // L
+        ms = time_ms(lambda: window_flash_attention(q, k, v, seg, L))
+        plain = time_ms(lambda: window_attention_reference(q, k, v, seg, L))
+        nW = S // L
+        qb, kb, vb = (x.reshape(nW, L, H, D) for x in (q, k, v))
+        mask = (seg.reshape(nW, L)[:, :, None] == seg.reshape(nW, L)[:, None, :])[:, None]
+        e_lib = err_ratio(sdpa(qb, kb, vb, mask).reshape(S, H, D),
+                          window_attention_reference(q, k, v, seg, L))
+        require(e_lib <= BF16_TOL, f"F library call err_ratio {e_lib:.3g}")
+        lib = time_ms(lambda: sdpa(qb, kb, vb, mask))
+        bnd = bound(2 * 4 * S * H * D + 4 * S, 4 * H * D * S * L, PEAK_BF16_FLOPS)
+        timed[(S, L)] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+        print(f"[3 parity] F timed S {S}, win_len {L}, bf16: kernel {ms:.3f} ms, plain "
+              f"(batched dense) {plain:.3f} ms, library {lib:.3f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    print(f"[3 parity] F window_flash_attention: max err_ratio bf16 "
+          f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}); (S, win_len) {c['cases']} "
+          f"with pads", flush=True)
+    return dict(max_abs_err=max(mxs), **timed[c["timed"][0]],
+                other_shapes={f"S{S}_L{L}": r for (S, L), r in timed.items()})
+
+
+def _gate_cases(dev, gen) -> None:
+    """The ViT's gates, measured: E against the dense full-attention path
+    around S = 4096 (F against the batched-dense window path is in F's
+    timed lines)."""
+    from infinitevl_tpu_torch.ops.swa import attention_dense
+    from infinitevl_tpu_torch.ops.vit_kernels import segment_flash_attention
+
+    H, D = E_CASE["H"], E_CASE["D"]
+    parts = []
+    for S in GATE_FULL_SEQS:
+        q, k, v = (torch.randn((S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        seg = torch.zeros(S, dtype=torch.int32, device=dev)
+        mask = (seg[:, None] == seg[None, :])[None]
+        ms = time_ms(lambda: segment_flash_attention(q, k, v, seg))
+        dense = time_ms(lambda: attention_dense(q[None], k[None], v[None], mask)[0])
+        parts.append(f"S {S}: E {ms:.3f} ms, dense {dense:.3f} ms")
+    print("[3 gates] full-attention block, one segment, bf16: " + "; ".join(parts), flush=True)
+
+
+def _grad_cases(dev, gen) -> dict:
+    """The autograd wrappers of C, E and F: forward through the kernel,
+    backward through the plain version. Gradients against autograd through
+    the plain version alone, and the time of forward + backward."""
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused
+    from infinitevl_tpu_torch.ops.delta_rule import delta_rule_chunk
+    from infinitevl_tpu_torch.ops.vit_flash import (
+        attention_segment_chunked,
+        window_attention_reference,
+    )
+    from infinitevl_tpu_torch.ops.vit_kernels import (
+        segment_flash_attention,
+        window_flash_attention,
+    )
+
+    res = {}
+    bf = torch.bfloat16
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf)
+    # C at the DeltaNet layer's shape
+    cc = C_CASE
+    H, K, V = cc["H"], cc["K"], cc["V"]
+    for T in (257, 2048):
+        q, k, v = mk(1, T, H, K), mk(1, T, H, K), mk(1, T, H, V)
+        g = -torch.rand((1, T, H), generator=gen, device=dev) * 0.1
+        beta = torch.rand((1, T, H), generator=gen, device=dev)
+        cot = mk(1, T, H, V)
+        kern = lambda *a: delta_rule_chunk_fused(*a)[0]
+        plain = lambda *a: delta_rule_chunk(*a, compute_dtype=torch.float32)[0]
+        n0 = delta_rule_chunk_fused.launches
+        _, gk = _grads(kern, (q, k, v, g, beta), cot)
+        require(delta_rule_chunk_fused.launches == n0 + 1, "C's autograd forward did not launch")
+        _, gr = _grads(plain, (q, k, v, g, beta), cot)
+        for name, a, b_ in zip(("dq", "dk", "dv", "dg", "dbeta"), gk, gr):
+            e = err_ratio(a, b_)
+            require(e <= BF16_TOL, f"C autograd T={T} {name} err_ratio {e:.3g}")
+        if T == 2048:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v, g, beta)]
+            res["c_fwd_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(kern(*leaves), leaves, cot), reps=5)
+    # E and F at the ViT's shape
+    H, D = E_CASE["H"], E_CASE["D"]
+    for name, S, L in (("e", 4100, 0), ("f", 2304, 256)):
+        q, k, v, cot = (mk(S, H, D) for _ in range(4))
+        if L:
+            seg = _window_segments(S, L, dev, gen)
+            kern = lambda a, b_, c_: window_flash_attention(a, b_, c_, seg, L)
+            plain = lambda a, b_, c_: window_attention_reference(a, b_, c_, seg, L)
+        else:
+            seg = (torch.arange(S, device=dev) * 3 // S).to(torch.int32)
+            kern = lambda a, b_, c_: segment_flash_attention(a, b_, c_, seg)
+            plain = lambda a, b_, c_: attention_segment_chunked(a, b_, c_, seg)
+        _, gk = _grads(kern, (q, k, v), cot)
+        _, gr = _grads(plain, (q, k, v), cot)
+        for gname, a, b_ in zip(("dq", "dk", "dv"), gk, gr):
+            e = err_ratio(a, b_)
+            require(e <= BF16_TOL, f"{name.upper()} autograd {gname} err_ratio {e:.3g}")
+    S = E_CASE["timed"]
+    q, k, v, cot = (mk(S, H, D) for _ in range(4))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    seg = torch.zeros(S, dtype=torch.int32, device=dev)
+    res["e_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        segment_flash_attention(*leaves, seg), leaves, cot), reps=3)
+    wseg = torch.arange(S, device=dev, dtype=torch.int32) // 256
+    res["f_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        window_flash_attention(*leaves, wseg, 256), leaves, cot), reps=5)
+    print(f"[3 parity] gradients of C, E, F (kernel forward, plain-torch backward) equal "
+          f"autograd through the plain versions (bf16, tol {BF16_TOL}); forward + backward: "
+          f"C T 2048 {res['c_fwd_bwd_ms']:.3f} ms, E S {S} {res['e_fwd_bwd_ms']:.3f} ms, "
+          f"F S {S} win_len 256 {res['f_fwd_bwd_ms']:.3f} ms", flush=True)
+    return res
+
+
+def phase_kernels(dev, only=None) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    return {"a1": _a1_cases(dev, gen), "a2": _a2_cases(dev, gen), "b": _b_cases(dev, gen),
-            "c": _c_cases(dev, gen), "e": _e_cases(dev, gen), "g": _g_cases(dev, gen),
-            "d": _d_cases(dev, gen)}
+    cases = {"a1": _a1_cases, "a2": _a2_cases, "b": _b_cases, "c": _c_cases,
+             "e": _e_cases, "g": _g_cases, "d": _d_cases, "h": _h_cases, "f": _f_cases,
+             "grad": _grad_cases, "gates": _gate_cases}
+    res = {}
+    for name, fn in cases.items():
+        if only is None or name in only:
+            res[name] = fn(dev, gen)
+            torch.cuda.empty_cache()
+    if "grad" in res:
+        for k in ("c", "e", "f"):
+            if k in res:
+                res[k]["fwd_bwd_ms"] = res["grad"][f"{k}_fwd_bwd_ms"]
+    return res
 
 
 def _to(tree, device):
@@ -645,13 +947,10 @@ def _state_tensors(state):
     return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
 
 
-def phase_cross_device(dev) -> None:
+def _small_config():
+    """A narrow fp32 model whose head dims are the kernels' own (text head
+    dim 128, DeltaNet K 128, ViT head dim 80), for CPU-against-card checks."""
     from infinitevl_tpu_torch.config import InfiniteVLConfig, TextConfig, VisionConfig
-    from infinitevl_tpu_torch.generation import Generator
-    from infinitevl_tpu_torch.models.infinitevl import forward, get_rope_index
-    from infinitevl_tpu_torch.models.params import init_params
-    from infinitevl_tpu_torch.models.state import init_decoder_state
-    from infinitevl_tpu_torch.streaming import StreamingEngine
 
     vocab = 1024
     text = TextConfig(
@@ -662,10 +961,128 @@ def phase_cross_device(dev) -> None:
     )
     vision = VisionConfig(depth=2, hidden_size=160, intermediate_size=320, num_heads=2,
                           out_hidden_size=256, fullatt_block_indexes=(1,))
-    cfg = InfiniteVLConfig(
+    return InfiniteVLConfig(
         text=text, vision=vision, image_token_id=vocab - 2, video_token_id=vocab - 3,
         vision_start_token_id=vocab - 4, vision_end_token_id=vocab - 5,
         bos_token_id=vocab - 6, eos_token_id=vocab - 7)
+
+
+def _clone_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v, device) for v in tree]
+    return tree.detach().to(device, copy=True).requires_grad_(tree.requires_grad)
+
+
+def phase_train_cross_device(dev) -> None:
+    """Three training steps on the CPU (plain versions) and on the card
+    (kernels H, C, E, F with their gradients) from the same fp32 weights
+    and batches: full finetuning, LoRA with remat, and a multimodal batch."""
+    from infinitevl_tpu_torch.models.infinitevl import get_rope_index
+    from infinitevl_tpu_torch.models.params import init_params
+    from infinitevl_tpu_torch.train.lora import init_lora, make_lora_sft_step
+    from infinitevl_tpu_torch.train.step import (
+        make_mm_sft_train_step,
+        make_optimizer,
+        make_sft_train_step,
+        set_trainable,
+        tree_leaves_with_path,
+    )
+
+    cfg = _small_config()
+    vocab = cfg.text.vocab_size
+    base = init_params(cfg, torch.Generator().manual_seed(2), "cpu", torch.float32)
+    rng = np.random.RandomState(2)
+    B, T = 2, 300
+    text_batches = []
+    for _ in range(3):
+        ids = rng.randint(0, vocab - 8, (B, T))
+        text_batches.append(dict(
+            input_ids=ids, labels=np.where(rng.uniform(size=(B, T)) < 0.7, ids, -100),
+            position_ids=np.broadcast_to(np.arange(T)[None, None], (3, B, T)).copy(),
+            segment_ids=np.ones((B, T), np.int32)))
+    # one 448x448 image: 32x32 patches = 1,024 (E and F on the card), 256 tokens
+    grid = ((1, 32, 32),)
+    n_img = 32 * 32 // 4
+    ids = np.concatenate([rng.randint(0, vocab - 8, 6), [cfg.vision_start_token_id],
+                          [cfg.image_token_id] * n_img, [cfg.vision_end_token_id],
+                          rng.randint(0, vocab - 8, 30)])[None]
+    pos, _ = get_rope_index(cfg, ids, np.asarray(grid))
+    mm_batch = dict(
+        input_ids=ids, labels=np.where(np.arange(ids.shape[1])[None] > n_img + 8, ids, -100),
+        position_ids=np.asarray(pos), segment_ids=np.ones_like(ids, dtype=np.int32),
+        pixel_values=rng.standard_normal((32 * 32, 3 * 2 * 14 * 14)).astype(np.float32))
+
+    def run(kind, device):
+        params = _clone_tree(base, device)
+        tx = make_optimizer(1e-3, warmup_steps=1, total_steps=3)
+        losses = []
+        if kind == "lora":
+            set_trainable(params, lambda path, leaf: False)
+            tree = init_lora(params, torch.Generator().manual_seed(3), rank=4)
+            tree = _clone_tree(tree, device)
+            step = make_lora_sft_step(cfg.text, tx, base_params=params, alpha=8.0, rank=4,
+                                      remat=True)
+        else:
+            set_trainable(params, lambda path, leaf: True)
+            tree = params
+            step = (make_mm_sft_train_step(cfg, tx) if kind == "mm"
+                    else make_sft_train_step(cfg.text, tx))
+        state = tx.init(tree)
+        for i in range(3):
+            if kind == "mm":
+                _, _, loss = step(tree, state, dict(mm_batch), grid, None)
+            else:
+                _, _, loss = step(tree, state, dict(text_batches[i]))
+            losses.append(float(loss))
+        return losses, tree
+
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention
+    from infinitevl_tpu_torch.ops.vit_kernels import (
+        segment_flash_attention,
+        window_flash_attention,
+    )
+
+    parts = []
+    for kind in ("full", "lora", "mm"):
+        for w in (swa_train_flash_attention, delta_rule_chunk_fused,
+                  segment_flash_attention, window_flash_attention):
+            w.launches = 0
+        swa_train_flash_attention.launches_bwd = 0
+        l_cpu, t_cpu = run(kind, "cpu")
+        require(swa_train_flash_attention.launches == 0, "a kernel launched for CPU tensors")
+        l_dev, t_dev = run(kind, dev)
+        torch.cuda.synchronize()
+        e_loss = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_dev))
+        cpu_leaves = dict(tree_leaves_with_path(t_cpu))
+        e_par = max(err_ratio(v.detach(), cpu_leaves[k].detach())
+                    for k, v in tree_leaves_with_path(t_dev) if cpu_leaves[k].abs().sum() > 0)
+        require(e_loss <= MODEL_TOL, f"training {kind}: loss differs CPU vs card {e_loss:.3g}")
+        require(e_par <= MODEL_TOL, f"training {kind}: params differ CPU vs card {e_par:.3g}")
+        require(swa_train_flash_attention.launches > 0
+                and swa_train_flash_attention.launches_bwd > 0
+                and delta_rule_chunk_fused.launches > 0, f"training {kind}: H or C not launched")
+        if kind == "mm":
+            require(segment_flash_attention.launches > 0 and window_flash_attention.launches > 0,
+                    "training mm: E or F not launched")
+        parts.append(f"{kind}: losses {[round(x, 4) for x in l_dev]}, loss err {e_loss:.2g}, "
+                     f"params err_ratio {e_par:.2g}")
+    print(f"[4 cross-device] three training steps, fp32 small model, CPU (plain) against "
+          f"card (H, C, E, F and their gradients), tol {MODEL_TOL}: " + "; ".join(parts),
+          flush=True)
+
+
+def phase_cross_device(dev) -> None:
+    from infinitevl_tpu_torch.generation import Generator
+    from infinitevl_tpu_torch.models.infinitevl import forward, get_rope_index
+    from infinitevl_tpu_torch.models.params import init_params
+    from infinitevl_tpu_torch.models.state import init_decoder_state
+    from infinitevl_tpu_torch.streaming import StreamingEngine
+
+    cfg = _small_config()
+    text, vocab = cfg.text, cfg.text.vocab_size
     gen = torch.Generator().manual_seed(1)
     p_cpu = init_params(cfg, gen, "cpu", torch.float32)
     p_dev = _to(p_cpu, dev)
@@ -782,17 +1199,24 @@ def _kernel_wrappers():
         swa_ring_flash_attention,
         swa_ring_flash_decode,
         swa_ring_flash_decode_stacked,
+        swa_train_flash_attention,
     )
-    from infinitevl_tpu_torch.ops.vit_kernels import segment_flash_attention
+    from infinitevl_tpu_torch.ops.vit_kernels import (
+        segment_flash_attention,
+        window_flash_attention,
+    )
 
     return (swa_ring_flash_attention, swa_ring_flash_decode_stacked,
             delta_step_fused_stacked, delta_rule_chunk_fused, segment_flash_attention,
-            int4_matmul_fused, swa_ring_flash_decode)
+            int4_matmul_fused, swa_ring_flash_decode, window_flash_attention,
+            swa_train_flash_attention)
 
 
 def _reset_launches() -> None:
     for kfn in _kernel_wrappers():
         kfn.launches = 0
+        if hasattr(kfn, "launches_bwd"):
+            kfn.launches_bwd = 0
 
 
 def _read_launches(needed) -> dict:
@@ -1395,12 +1819,354 @@ def phase_serve_path(dev, card: str, params, cfg) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- training
+
+
+def _free() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _long_text_dataset(root: str, min_words: int) -> None:
+    """A dataset directory with one alpaca example: the outputs of
+    data/demo.json repeated until the answer is longer than `min_words`
+    words (the word-level tokenizer gives about a token per word), so one
+    row fills cutoff_len without pads and every step sees the same batch."""
+    import os
+
+    demo = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "data", "demo.json")))
+    words = " ".join(ex["output"] for ex in demo).split()
+    answer = " ".join(words[i % len(words)] for i in range(min_words + 64))
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "demo_long.json"), "w") as f:
+        json.dump([{"instruction": demo[0]["instruction"], "input": "", "output": answer}], f)
+    with open(os.path.join(root, "dataset_info.json"), "w") as f:
+        json.dump({"demo_long": {"file_name": "demo_long.json", "formatting": "alpaca"}}, f)
+
+
+def _train_args(out_dir: str, **over):
+    from infinitevl_tpu_torch.hparams import parse_args
+
+    conf = dict(stage="sft", config_preset="infinitevl_3b", template="qwen2_vl",
+                per_device_train_batch_size=1, bf16=True, logging_steps=1, save_steps=10**6,
+                lr_scheduler_type="constant", learning_rate=1e-3, num_train_epochs=1000.0,
+                output_dir=out_dir, seed=0)
+    conf.update(over)
+    return parse_args(conf)
+
+
+def _run_recipe(name: str, args, card: str, expect_launches=None) -> dict:
+    """One run_sft call at 3B width: per-step losses and times from its
+    trainer_log.jsonl, peak memory, launch counts (set to 0 just before,
+    read just after)."""
+    import os
+
+    from infinitevl_tpu_torch.train.trainer import run_sft
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    final = run_sft(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches(())
+    launches["swa_train_flash_attention_bwd"] = h.launches_bwd
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    recs = [json.loads(line) for line in
+            open(os.path.join(args.train.output_dir, "trainer_log.jsonl"))]
+    recs = [r for r in recs if "loss" in r]
+    losses = [r["loss"] for r in recs]
+    steps = args.train.max_steps
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"{name}: losses {losses} for {steps} steps")
+    # the log's clock starts before the first step; steady steps are the later ones
+    times = np.diff([r["elapsed_s"] for r in recs]) * 1e3
+    step_ms = float(np.median(times)) if len(times) else float("nan")
+    ntok = args.data.cutoff_len * args.train.per_device_train_batch_size
+    if expect_launches:
+        for key, per_step in expect_launches.items():
+            require(launches[key] == per_step * steps,
+                    f"{name}: {key} launched {launches[key]} times, expected "
+                    f"{per_step} x {steps} steps")
+    print(f"[8 train] {name}: {steps} steps, losses {[round(x, 4) for x in losses]}, "
+          f"{step_ms:.0f} ms per step (median of steps 2..), "
+          f"{ntok / step_ms * 1e3:.0f} tok/s at {ntok} tokens per step, peak memory "
+          f"{peak:.2f} GB, whole call {wall:.1f} s (weights from seed and dataset included); "
+          f"launches H fwd {launches['swa_train_flash_attention']} bwd {h.launches_bwd}, "
+          f"C {launches['delta_rule_chunk_fused']}, E {launches['segment_flash_attention']}, "
+          f"F {launches['window_flash_attention']} on '{card}'", flush=True)
+    del final
+    _free()
+    return dict(losses=losses, step_ms=step_ms, peak_gb=peak, launches=launches)
+
+
+def phase_train_path(dev, card: str, profile: bool) -> dict:
+    """Phase 8: SFT at 3B width and depth through run_sft / Trainer."""
+    import os
+    import tempfile
+
+    from infinitevl_tpu_torch.config import infinitevl_3b
+    from infinitevl_tpu_torch.data.loader import resolve_tokenizer
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.lora import init_lora, make_lora_sft_step
+    from infinitevl_tpu_torch.train.step import (
+        make_optimizer,
+        set_trainable,
+        sft_loss_fn,
+        tree_leaves_with_path,
+    )
+
+    tc = infinitevl_3b().text
+    n_swa, n_lin = tc.num_swa_layers, tc.num_linear_layers
+    root = tempfile.mkdtemp(prefix="ivl_train_")
+    data_dir = os.path.join(root, "data")
+    _long_text_dataset(data_dir, 8192)
+    text = dict(dataset="demo_long", dataset_dir=data_dir)
+    lora = dict(finetuning_type="lora", lora_rank=8, lora_alpha=16, remat=True)
+    # remat runs every layer's forward twice: 2 x 9 H forwards, 9 H backwards, 2 x 27 C
+    remat_launches = {"swa_train_flash_attention": 2 * n_swa,
+                      "swa_train_flash_attention_bwd": n_swa,
+                      "delta_rule_chunk_fused": 2 * n_lin}
+    total = {}
+    res = {}
+
+    def add(r):
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    res["lora_2048"] = _run_recipe(
+        "(a) LoRA r 8 on q/k/v/o, remat, cutoff_len 2048, B 1",
+        _train_args(os.path.join(root, "a"), cutoff_len=2048, max_steps=6, **text, **lora),
+        card, remat_launches)
+    la = res["lora_2048"]["losses"]
+    require(la[-1] < la[0], f"(a): the loss did not fall on the repeated batch: {la}")
+    add(res["lora_2048"])
+    res["lora_8192"] = _run_recipe(
+        "(b) the same at cutoff_len 8192",
+        _train_args(os.path.join(root, "b"), cutoff_len=8192, max_steps=3, **text, **lora),
+        card, remat_launches)
+    add(res["lora_8192"])
+    res["qlora_2048"] = _run_recipe(
+        "(c) QLoRA: int8 frozen base, cutoff_len 2048",
+        _train_args(os.path.join(root, "c"), cutoff_len=2048, max_steps=3,
+                    quantization_bit=8, **text, **lora),
+        card, remat_launches)
+    add(res["qlora_2048"])
+    res["full_2048"] = _run_recipe(
+        f"(d) full finetuning of the decoder, depth {tc.num_hidden_layers}, remat, "
+        "cutoff_len 2048",
+        _train_args(os.path.join(root, "d"), cutoff_len=2048, max_steps=3, remat=True,
+                    learning_rate=1e-5, **text),
+        card, remat_launches)
+    add(res["full_2048"])
+
+    # (e) multimodal LoRA steps on data/mllm_demo.json's first image, resized by
+    # the processor to 448x448 and to 1344x1344; cutoff_len = the row's length
+    repo_data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    for hw in (448, 1344):
+        mm = dict(dataset="mllm_demo", dataset_dir=repo_data, max_samples=1,
+                  image_min_pixels=hw * hw, image_max_pixels=hw * hw, **lora)
+        probe = _train_args(os.path.join(root, f"e{hw}"), cutoff_len=16384, max_steps=1, **mm)
+        cfg = T.build_config(probe)
+        row = T.build_dataset(probe, cfg=cfg)[0]
+        require(tuple(row["image_grid_thw"][0]) == (1, hw // 14, hw // 14),
+                f"(e) image grid {row['image_grid_thw']}")
+        n_row = len(row["input_ids"])
+        r = _run_recipe(
+            f"(e) multimodal LoRA, one {hw}x{hw} image ({(hw // 14) ** 2} patches, "
+            f"{n_row} tokens)",
+            _train_args(os.path.join(root, f"e{hw}"), cutoff_len=n_row, max_steps=2, **mm),
+            card, remat_launches)
+        # the ViT is frozen under LoRA: its kernels launch forward only, once per step
+        require(r["launches"]["segment_flash_attention"] == 2 * 4
+                and r["launches"]["window_flash_attention"] == 2 * 28,
+                f"(e) {hw}: E / F launches {r['launches']}")
+        res[f"mm_lora_{hw}"] = r
+        add(r)
+
+    # (f) Trainer by hand: the base loss, base weights unchanged, save / resume
+    _free()
+    args = _train_args(os.path.join(root, "f"), cutoff_len=2048, max_steps=3, **text, **lora)
+    cfg = T.build_config(args)
+    # the tokenizer run_sft makes (its word ids grow while it encodes)
+    data = T.build_dataset(args, resolve_tokenizer(args, cfg, None), cfg=cfg)
+    params = T._load_or_init_params(args, cfg, False, torch.bfloat16, dev)
+    set_trainable(params, lambda path, leaf: False)
+    sums = {k: v.double().sum().item() for k, v in tree_leaves_with_path(params)}
+    batch = next(iter(T._batches(args, data, cfg, False)))
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if k != "_n_tokens"}
+    with torch.no_grad():
+        base_loss = float(sft_loss_fn(params["text"], cfg.text, tb["input_ids"], tb["labels"],
+                                      tb["position_ids"], tb["segment_ids"], remat=True))
+    require(abs(base_loss - la[0]) <= 1e-6 * abs(base_loss),
+            f"(f) LoRA's first loss {la[0]} is not the base model's {base_loss} (b = 0)")
+
+    def trainer(out):
+        tx = make_optimizer(1e-3, schedule="constant")
+        ad = init_lora(params, torch.Generator(device=dev).manual_seed(1), rank=8)
+        step = make_lora_sft_step(cfg, tx, alpha=16, rank=8, remat=True)
+        return T.Trainer(step, ad, tx.init(ad), out, logging_steps=1, save_steps=10**6,
+                         extra_step_args=(params,)), step
+
+    straight, step_fn = trainer(os.path.join(root, "f_straight"))
+    straight.train(T._batches(args, data, cfg, False), max_steps=3)
+    first, _ = trainer(os.path.join(root, "f_resumed"))
+    first.train(T._batches(args, data, cfg, False), max_steps=2)  # saves at its end
+    second, _ = trainer(os.path.join(root, "f_resumed"))
+    second.resume()
+    require(second.step == 2, f"(f) resumed at step {second.step}")
+    second.train(T._batches(args, data, cfg, False), max_steps=3)
+    loss_a = [r["loss"] for r in straight.log.records if "loss" in r]
+    loss_b = [r["loss"] for r in second.log.records if "loss" in r]
+    require(loss_a[:1] == la[:1] or abs(loss_a[0] - la[0]) < 1e-6, "(f) first loss")
+    require(loss_b == loss_a[2:], f"(f) resumed step's loss {loss_b} != straight {loss_a[2:]}")
+    a_leaves = dict(tree_leaves_with_path(straight.params))
+    require(all(torch.equal(v, a_leaves[k]) for k, v in tree_leaves_with_path(second.params)),
+            "(f) adapters after resume differ from the uninterrupted run's")
+    require(all(v.double().sum().item() == sums[k] for k, v in tree_leaves_with_path(params)),
+            "(f) a base weight changed under LoRA")
+    print(f"[8 train] (f) LoRA's first loss equals the base model's ({base_loss:.6f}); "
+          f"save after 2 steps, resume, 1 more step: loss {loss_b[0]:.6f} and adapters "
+          f"bit-equal to 3 steps straight ({loss_a}); base weights unchanged "
+          f"(per-leaf sums) on '{card}'", flush=True)
+    if profile:
+        it = iter(T._batches(args, data, cfg, False))
+
+        def one_step():
+            b = dict(next(it))
+            b.pop("_n_tokens")
+            step_fn(straight.params, straight.opt_state, params, b)
+
+        wall = _host_ms(one_step, reps=3)
+        total_ms, count, sums_k, rows = _device_profile(one_step, reps=1)
+        print(f"[profile] one LoRA step, 3B, T 2048, remat: {wall:.0f} ms unprofiled, device "
+              f"busy {total_ms:.0f} ms ({100 * total_ms / wall:.0f}%, idle "
+              f"{100 - 100 * total_ms / wall:.0f}%), {count} device kernels; by kind (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sums_k.items()) + f" on '{card}'",
+              flush=True)
+        for ms, n, name in rows[:14]:
+            print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name}", flush=True)
+    del straight, first, second, params
+    _free()
+    res["total_launches"] = total
+    return res
+
+
+def phase_vit_window_path(dev, card: str) -> dict:
+    """Second path of the training slice: the ViT at window_size 224 (3B
+    vision width, 32 blocks): windows of 256 patches, so its 28 window
+    blocks launch F and its 4 full blocks E. One 1344x1344 image through
+    vision_forward, the same forward with both gates forced dense on a
+    448x448 image (where dense fits), and one full-finetuning step of the
+    ViT under a 4-layer decoder through the multimodal train step."""
+    import dataclasses
+
+    from infinitevl_tpu_torch.config import infinitevl_3b
+    from infinitevl_tpu_torch.models import vision as V
+    from infinitevl_tpu_torch.models.infinitevl import get_rope_index
+    from infinitevl_tpu_torch.models.params import init_params
+    from infinitevl_tpu_torch.train.step import (
+        make_mm_sft_train_step,
+        make_optimizer,
+        set_trainable,
+    )
+
+    base = infinitevl_3b()
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, window_size=224),
+        text=dataclasses.replace(base.text, num_hidden_layers=4, layer_types=None))
+    _free()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    in_feat = 3 * 2 * 14 * 14
+
+    def pixels(hw):
+        return torch.randn(((hw // 14) ** 2, in_feat), generator=gen, device=dev).to(torch.bfloat16)
+
+    _reset_launches()
+    plan = V.get_vision_plan(((1, 96, 96),), cfg.vision)
+    require(plan.win_len == 256 and plan.pad_seq == 9216, f"plan {plan.win_len} {plan.pad_seq}")
+    px = pixels(1344)
+    with torch.no_grad():
+        out = V.vision_forward(params["visual"], cfg.vision, px, plan)
+        torch.cuda.synchronize()
+        ms = _host_ms(lambda: V.vision_forward(params["visual"], cfg.vision, px, plan), reps=3)
+    launches = _read_launches(("window_flash_attention", "segment_flash_attention"))
+    require(out.shape == (2304, cfg.vision.out_hidden_size) and bool(torch.isfinite(out).all()),
+            "ViT output at 1344x1344")
+    require(launches["window_flash_attention"] == 28 * 4
+            and launches["segment_flash_attention"] == 4 * 4,
+            f"ViT launches {launches}")  # 1 + 3 timed forwards
+    # against the dense paths on a 448x448 image (S 1,024, 4 windows of 256)
+    plan_s = V.get_vision_plan(((1, 32, 32),), cfg.vision)
+    px_s = pixels(448)
+    with torch.no_grad():
+        flash = V.vision_forward(params["visual"], cfg.vision, px_s, plan_s)
+        gates = ("FLASH_FULL_ATTN_MIN_SEQ_CUDA", "WINDOW_FLASH_MIN_SEQ_CUDA")
+        saved = {g: getattr(V, g) for g in gates}
+        try:
+            for g in gates:
+                setattr(V, g, 1 << 30)
+            dense = V.vision_forward(params["visual"], cfg.vision, px_s, plan_s)
+        finally:
+            for g, val in saved.items():
+                setattr(V, g, val)
+    e = err_ratio(flash, dense)
+    require(e <= 5 * BF16_TOL, f"ViT through F and E against the dense paths: {e:.3g}")
+
+    # one training step: every leaf trainable, so F and E carry gradients
+    set_trainable(params, lambda path, leaf: True)
+    tx = make_optimizer(1e-5)
+    state = tx.init(params)
+    step = make_mm_sft_train_step(cfg, tx, remat=True)
+    rng = np.random.RandomState(0)
+    n_img = 9216 // 4
+    ids = np.concatenate([rng.randint(0, 1000, 8), [cfg.vision_start_token_id],
+                          [cfg.image_token_id] * n_img, [cfg.vision_end_token_id],
+                          rng.randint(0, 1000, 32)])[None]
+    pos, _ = get_rope_index(cfg, ids, np.asarray(((1, 96, 96),)))
+    batch = dict(input_ids=ids, labels=np.where(np.arange(ids.shape[1])[None] > n_img + 9,
+                                                ids, -100),
+                 position_ids=np.asarray(pos), segment_ids=np.ones_like(ids, dtype=np.int32),
+                 pixel_values=px.float().cpu().numpy())
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, loss = step(params, state, batch, ((1, 96, 96),), None)
+    loss = float(loss)
+    step_s = time.perf_counter() - t0
+    train_launches = _read_launches(("window_flash_attention", "segment_flash_attention",
+                                     "swa_train_flash_attention", "delta_rule_chunk_fused"))
+    require(np.isfinite(loss), f"ViT training step loss {loss}")
+    require(train_launches["window_flash_attention"] == 28
+            and train_launches["segment_flash_attention"] == 4, f"{train_launches}")
+    print(f"[9 vit window 224] ViT 32 blocks x 1280, window_size 224 (win_len 256): one "
+          f"1344x1344 image (S 9216) forward {ms:.1f} ms, 28 F + 4 E launches per forward; "
+          f"448x448 through F and E against the dense paths err_ratio {e:.3g} (bf16, 32 "
+          f"blocks); one full-finetuning step (ViT + 4-layer decoder, {ids.shape[1]} tokens, "
+          f"gradients through F and E): loss {loss:.4f}, {step_s:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on '{card}'", flush=True)
+    for k, v in train_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    del params, state
+    _free()
+    return launches
+
+
 def _device_profile(fn, reps: int = 3):
     """Device time of fn() from torch.profiler, per call: (total ms, kernel
     count, ms by kind, [(ms, count, name)] by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     kinds = {"C delta_chunk": ("delta_chunk",), "A1 swa_prefill": ("swa_prefill",),
+             "H swa_train": ("swa_train",), "E/F vit_flash": ("vit_flash",),
              "GEMM": ("gemm", "cutlass", "cublas", "xmma", "nvjet"),
              "copies and casts": ("copy_kernel",), "other": ()}
     fn()
@@ -1470,6 +2236,7 @@ def _profile_frames(eng, frames, frame_ms: float, card: str) -> None:
 
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
+    only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
               "False); the port's kernels run only on an NVIDIA GPU (H100)",
@@ -1484,10 +2251,16 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = phase_env()
     phase_build()
-    res = phase_kernels(dev)
+    res = phase_kernels(dev, only)
     if kernels_only:
         return 0
+    if "--train-only" in argv:  # the training phases alone (4's training part, 8, 9)
+        phase_train_cross_device(dev)
+        phase_train_path(dev, card, "--profile" in argv)
+        phase_vit_window_path(dev, card)
+        return 0
     phase_cross_device(dev)
+    phase_train_cross_device(dev)
 
     cfg = infinitevl_3b()
     t0 = time.perf_counter()
@@ -1500,6 +2273,11 @@ def main(argv) -> int:
     stream_launches, image_launches = phase_stream_path(
         dev, card, params, cfg, "--profile" in argv)
     serve_launches = phase_serve_path(dev, card, params, cfg)
+    del params  # phase 8 makes its own weights from the seed, recipe by recipe
+    _free()
+    train = phase_train_path(dev, card, "--profile" in argv)
+    train_launches = train["total_launches"]
+    vit_launches = phase_vit_window_path(dev, card)
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -1516,16 +2294,25 @@ def main(argv) -> int:
         # kernel D is on no model path (in the JAX package too): 0 launches
         ("swa_ring_flash_decode", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:418", res["d"]),
+        ("window_flash_attention", "vit_flash.cu",
+         "infinitevl_tpu/ops/vit_flash.py:169", res["f"]),
+        # kernel H: `launches` counts forward launches; the backward's are beside them
+        ("swa_train_flash_attention", "swa_train_flash.cu",
+         "infinitevl_tpu/ops/swa.py:178", res["h"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"infinitevl_tpu_torch/csrc/{src}",
          "replaces": rep,
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
-         + serve_launches[name],
+         + serve_launches[name] + train_launches[name] + vit_launches[name],
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
-         "launches_serve_path": serve_launches[name], **r}
+         "launches_serve_path": serve_launches[name],
+         "launches_train_path": train_launches[name],
+         "launches_vit_window_path": vit_launches[name],
+         **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]}
+            if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))
     print(card)

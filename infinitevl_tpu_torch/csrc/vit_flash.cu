@@ -1,7 +1,8 @@
-// Kernel E: non-causal flash attention over the packed ViT sequence,
-// masked by segment id.
+// Kernels E and F: non-causal flash attention over the packed ViT sequence,
+// masked by segment id (E), and the same on diagonal blocks for the window
+// layers (F).
 //
-// Replaces infinitevl_tpu/ops/vit_flash.py::segment_flash_attention
+// E replaces infinitevl_tpu/ops/vit_flash.py::segment_flash_attention
 // (_vit_flash_kernel). For each head, softmax(scale Q K^T masked by
 // seg_q == seg_k) V with an online softmax in fp32. Pads carry segment -1
 // and attend only each other, so their rows stay finite; l is floored at
@@ -25,6 +26,17 @@
 //     query rows); tensor cores would round fp32 operands.
 //   Both skip a key tile that no query row of the block may see (another
 //   image's or frame's segment) before loading it.
+//
+// F replaces infinitevl_tpu/ops/vit_flash.py::window_flash_attention: the
+// same kernels entered with win_len > 0. The sequence is in window order,
+// window w holding tokens [w * win_len, (w + 1) * win_len) with pads of
+// segment -2 - w, and a query sees the keys of its own window that share
+// its segment id. A block's key loop covers only the windows its query
+// rows lie in (one window when win_len >= the block's rows, else the few
+// it straddles), so the work is S * win_len and not S^2: at S = 9216,
+// win_len = 256 the products are 12 GFLOP against 94 MB of q, k, v and
+// out, which makes F bytes-bound. Any win_len >= 1 is taken; there is no
+// upper bound (the TPU kernel's was a scoped-stack limit).
 #include <limits.h>
 
 #include "common.cuh"
@@ -41,6 +53,23 @@ using ivl::to_f;
 constexpr int VD = 80;            // head dim the kernels are written for
 constexpr int SEG_NONE = INT_MIN; // segment of a key past the sequence end
 
+// Keys a block of `rows` query rows starting at row0 has to visit: the
+// whole sequence for E (win_len 0), the windows its rows lie in for F.
+struct KeyRange {
+  int begin, end;
+};
+__device__ __forceinline__ KeyRange key_range(int row0, int rows, int S, int win_len) {
+  KeyRange r;
+  r.begin = 0;
+  r.end = S;
+  if (win_len > 0) {
+    const int last = min(row0 + rows, S) - 1;
+    r.begin = row0 / win_len * win_len;
+    r.end = min(S, (last / win_len + 1) * win_len);
+  }
+  return r;
+}
+
 // ---------------------------------------------------------------- fp32
 constexpr int F_BR = 32;        // query rows per block
 constexpr int F_BK = 64;        // keys per tile
@@ -55,7 +84,8 @@ vit_flash_kernel(const T* __restrict__ q,  // [S, H, VD], rows sq elements apart
                  const T* __restrict__ v,  // rows sv apart
                  const int* __restrict__ seg,  // [S]
                  T* __restrict__ out,          // [S, H, VD] contiguous
-                 int S, int H, size_t sq, size_t sk, size_t sv, float scale) {
+                 int S, int H, size_t sq, size_t sk, size_t sv, float scale,
+                 int win_len) {
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BR][VD + 1]
   float* Ks = Qs + F_BR * (VD + 1);   // [BK][VD + 1]
@@ -82,12 +112,16 @@ vit_flash_kernel(const T* __restrict__ q,  // [S, H, VD], rows sq elements apart
 #pragma unroll
   for (int i = 0; i < VD / 4; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += F_BK) {
+  const KeyRange kr = key_range(row0, F_BR, S, win_len);
+  const int my_win = win_len > 0 ? row / win_len : 0;
+  for (int k0 = kr.begin; k0 < kr.end; k0 += F_BK) {
     unsigned vis = 0;  // bit m: key k0 + c4 + 4m visible to this row
 #pragma unroll
     for (int m = 0; m < F_BK / 4; ++m) {
       const int j = k0 + c4 + 4 * m;
-      if (row_ok && j < S && seg[j] == my_seg) vis |= 1u << m;
+      if (row_ok && j < kr.end && seg[j] == my_seg &&
+          (win_len <= 0 || j / win_len == my_win))
+        vis |= 1u << m;
     }
     // also the barrier that retires the previous tile's readers
     if (!__syncthreads_or(vis != 0u)) continue;
@@ -171,10 +205,12 @@ vit_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, VD], rows s
                      const __nv_bfloat16* __restrict__ v,  // rows sv apart
                      const int* __restrict__ seg,          // [S]
                      __nv_bfloat16* __restrict__ out,      // [S, H, VD] contiguous
-                     int S, int H, size_t sq, size_t sk, size_t sv, float scale) {
+                     int S, int H, size_t sq, size_t sk, size_t sv, float scale,
+                     int win_len) {
   __shared__ __align__(16) __nv_bfloat16 Ks[M_BK * KSTR];
   __shared__ __align__(16) __nv_bfloat16 Vt[VD * VSTR];
   __shared__ int segs[M_BK];
+  __shared__ int wins[M_BK];
 
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -182,13 +218,14 @@ vit_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, VD], rows s
 
   // this thread's two query rows: gid and gid + 8 of the warp's 16
   bool rok[2];
-  int my_seg[2];
+  int my_seg[2], my_win[2];
   size_t qoff[2], ooff[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = blockIdx.x * M_BR + warp * 16 + gid + 8 * i;
     rok[i] = row < S;
     my_seg[i] = rok[i] ? seg[row] : 0;
+    my_win[i] = win_len > 0 ? row / win_len : 0;
     qoff[i] = (size_t)(rok[i] ? row : 0) * sq + h * VD;
     ooff[i] = ((size_t)(rok[i] ? row : 0) * H + h) * VD;
   }
@@ -209,11 +246,13 @@ vit_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, VD], rows s
     for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < S; k0 += M_BK) {
+  const KeyRange kr = key_range(blockIdx.x * M_BR, M_BR, S, win_len);
+  for (int k0 = kr.begin; k0 < kr.end; k0 += M_BK) {
     __syncthreads();  // the previous tile's readers are done
     if (threadIdx.x < M_BK) {
       const int j = k0 + threadIdx.x;
-      segs[threadIdx.x] = j < S ? seg[j] : SEG_NONE;
+      segs[threadIdx.x] = j < kr.end ? seg[j] : SEG_NONE;
+      wins[threadIdx.x] = win_len > 0 ? j / win_len : 0;
     }
     __syncthreads();
     uint32_t vis = 0;  // bit i*16 + nt*2 + e: row i, key k0 + nt*8 + 2*tig + e
@@ -222,9 +261,11 @@ vit_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, VD], rows s
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key_seg = segs[nt * 8 + 2 * tig + e];
+        const int key_win = wins[nt * 8 + 2 * tig + e];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          if (rok[i] && key_seg == my_seg[i]) vis |= 1u << (i * 16 + nt * 2 + e);
+          if (rok[i] && key_seg == my_seg[i] && key_win == my_win[i])
+            vis |= 1u << (i * 16 + nt * 2 + e);
       }
     if (!__syncthreads_or(vis != 0u)) continue;
 
@@ -331,16 +372,18 @@ vit_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, VD], rows s
 
 extern "C" {
 
-// Kernel E. sq, sk, sv: elements between consecutive tokens of q, k, v
+// Kernel E (win_len 0) and kernel F (win_len > 0: attention within windows
+// of win_len consecutive tokens). sq, sk, sv: elements between consecutive
+// tokens of q, k, v
 // (H * D when contiguous); within a token the layout is [H, D]. For bf16
 // they must be multiples of 8, and the pointers 16-byte aligned. Returns a
 // cudaError_t code (0 = success).
 int ivl_vit_flash(int dtype, const void* q, const void* k, const void* v,
                   const void* seg, void* out, int S, int H, int D,
                   long long sq, long long sk, long long sv, float scale,
-                  void* stream) {
+                  int win_len, void* stream) {
   if (D != VD || S <= 0 || H <= 0 || H > 65535 || sq < H * D || sk < H * D ||
-      sv < H * D)
+      sv < H * D || win_len < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ivl::DTYPE_F32) {
@@ -350,7 +393,7 @@ int ivl_vit_flash(int dtype, const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     vit_flash_kernel<float><<<dim3((S + F_BR - 1) / F_BR, H), F_THREADS, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const int*)seg,
-        (float*)out, S, H, (size_t)sq, (size_t)sk, (size_t)sv, scale);
+        (float*)out, S, H, (size_t)sq, (size_t)sk, (size_t)sv, scale, win_len);
     return (int)cudaGetLastError();
   }
   if (dtype == ivl::DTYPE_BF16) {
@@ -360,7 +403,7 @@ int ivl_vit_flash(int dtype, const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;  // the 16-byte tile loads
     vit_flash_mma_kernel<<<dim3((S + M_BR - 1) / M_BR, H), 32 * M_WARPS, 0, st>>>(
         (const bf*)q, (const bf*)k, (const bf*)v, (const int*)seg, (bf*)out, S, H,
-        (size_t)sq, (size_t)sk, (size_t)sv, scale);
+        (size_t)sq, (size_t)sk, (size_t)sv, scale, win_len);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

@@ -175,12 +175,8 @@ def forward(
     Images and videos are encoded and scattered separately, each into its
     own pad-token mask, so interleaved image/video prompts stay correct
     whatever their order. When only `pixel_values` is given with no
-    explicit mask, the mask covers both pad kinds."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (packed sequences) come with the training slice and "
-            "are not ported to torch yet"
-        )
+    explicit mask, the mask covers both pad kinds. `segment_ids` [B, T]
+    (packed sequences) belong to the stateless forward."""
     embeds = embed_tokens(params["text"], input_ids)
     if pixel_values is not None:
         vis = encode_vision(params, cfg, pixel_values, grid_thw)
@@ -193,7 +189,8 @@ def forward(
     if pixel_values_videos is not None:
         vis = encode_vision(params, cfg, pixel_values_videos, video_grid_thw)
         embeds = scatter_vision_embeds(embeds, vis, input_ids == cfg.video_token_id)
-    hidden, state = text_forward(params["text"], cfg.text, embeds, position_ids, state)
+    hidden, state = text_forward(params["text"], cfg.text, embeds, position_ids, state,
+                                 segment_ids=segment_ids)
     if logits_to_keep:
         hidden = hidden[:, -logits_to_keep:]
     return lm_head(params["text"], cfg.text, hidden), state

@@ -201,14 +201,36 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_jax_numpy(params_np: Any, device: Optional[Device] = None) -> Any:
-    """Convert JAX params already moved to numpy (nested dicts, lists or
+def from_jax_numpy(params_np: Any, device: Optional[Device] = None,
+                   trainable: bool = False) -> Any:
+    """Convert a JAX tree already moved to numpy (nested dicts, lists or
     tuples of arrays; e.g. `jax.tree.map(np.asarray, params)`) into the
-    port's params: the same tree with torch tensors. Layouts are shared,
-    text and visual alike, so no transpose happens."""
+    port's: the same tree with torch tensors. Layouts are shared, text and
+    visual alike, so no transpose happens. The tree may be model params, or
+    a LoRA adapter tree (`init_lora` output: {'a', 'b'} nodes, `{}` for a
+    layer without adapters), which `trainable=True` marks as trainable
+    leaves. None leaves stay None."""
     device = resolve_device(device)
     if isinstance(params_np, dict):
-        return {k: from_jax_numpy(v, device) for k, v in params_np.items()}
+        return {k: from_jax_numpy(v, device, trainable) for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):
-        return [from_jax_numpy(v, device) for v in params_np]
-    return _tensor(params_np, device)
+        return [from_jax_numpy(v, device, trainable) for v in params_np]
+    if params_np is None:
+        return None
+    out = _tensor(params_np, device)
+    return out.requires_grad_(True) if trainable and out.is_floating_point() else out
+
+
+def adamw_state_from_jax_numpy(trainable_tree: Any, mu_np: Any, nu_np: Any, count,
+                               device: Optional[Device] = None) -> dict:
+    """A JAX AdamW state as the port's (train/step.AdamW): `mu_np` and
+    `nu_np` are the first and second moments as numpy trees shaped like the
+    optimised tree, `count` the steps taken. `trainable_tree` is the port's
+    tree the optimizer will update: its trainable leaves, in its order,
+    pick their moments by path."""
+    from ..train.step import trainable_leaves, tree_leaves_with_path
+
+    mu = dict(tree_leaves_with_path(from_jax_numpy(mu_np, device)))
+    nu = dict(tree_leaves_with_path(from_jax_numpy(nu_np, device)))
+    paths = [path for path, _ in trainable_leaves(trainable_tree)]
+    return {"count": int(count), "mu": [mu[p] for p in paths], "nu": [nu[p] for p in paths]}

@@ -1,5 +1,6 @@
-"""Hybrid SWA / Gated-DeltaNet text decoder (torch port of the inference
-path of infinitevl_tpu/models/text.py).
+"""Hybrid SWA / Gated-DeltaNet text decoder (torch port of
+infinitevl_tpu/models/text.py: the serving paths and the stateless
+training forward).
 
 Parameters are the JAX layout (models/params.py); the layer loop is a
 Python loop. With a state, every layer updates its part of the stacked
@@ -8,7 +9,15 @@ layers, B for DeltaNet layers), T > 1 through the prefill kernel A1 plus a
 plain ring write for SWA layers and, for DeltaNet layers, the chunked
 delta rule kernel C (T above cfg.recurrent_threshold; the plain recurrence
 below it). A CUDA tensor always reaches the kernel, which raises on what it
-cannot take; a CPU tensor takes the kernel's plain version."""
+cannot take; a CPU tensor takes the kernel's plain version.
+
+Without a state the forward is stateless and differentiable (training):
+SWA layers go through kernel H (forward and backward), DeltaNet layers
+through kernel C with its autograd wrapper, `segment_ids` mask packed
+sequences, dense nodes may carry LoRA side paths (`lora_a` / `lora_b`,
+train/lora.attach_lora), and `remat` checkpoints each layer (or group of
+layers) so its internals are recomputed in the backward. Nothing is
+updated in place on that path."""
 
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import FULL, LINEAR, SLIDING, TextConfig
 from ..ops.delta_kernels import delta_step_fused_stacked
@@ -36,8 +46,7 @@ Params = Dict[str, Any]
 # parameter layouts of the JAX package that are not ported yet
 _LATER = {
     "kernel_q4b": "biased int4 storage (no entry point produces it)",
-    "lora_a": "LoRA adapters (training slice)",
-    "dora_scale": "DoRA adapters (training slice)",
+    "dora_scale": "DoRA adapters",
 }
 
 
@@ -53,7 +62,10 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     """x @ kernel (+ bias); kernel is [d_in, d_out], stored in the weights'
     dtype, as weight-only int8 (`kernel_q` + `scale`: plain torch, the
     column scale commutes with the contraction) or as nibble-packed int4
-    (`kernel_q4` / `kernel_q4f` + `scale4`: kernel G on a CUDA tensor)."""
+    (`kernel_q4` / `kernel_q4f` + `scale4`: kernel G on a CUDA tensor).
+    `lora_a` [d_in, r] and `lora_b` [r, d_out] (pre-scaled) add the low-rank
+    side path (x @ a) @ b to the frozen kernel's output, so gradients and
+    intermediates stay rank-r sized."""
     _not_ported(p)
     if "kernel_q" in p:
         y = (x @ p["kernel_q"].to(x.dtype)) * p["scale"].to(x.dtype)
@@ -61,6 +73,8 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
         y = int4_matmul_fused(x, p)
     else:
         y = x @ p["kernel"]
+    if "lora_a" in p:
+        y = y + ((x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)).to(y.dtype)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -86,6 +100,7 @@ def swa_attention_forward(
     cum_len: Optional[int],
     layer_idx: int = 0,
     window: Optional[int] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]; stateless forward only
 ) -> torch.Tensor:
     """GQA with qkv bias, mRoPE and the sliding-window mask, no o_proj bias.
     With rings, layer `layer_idx` of the stacked rings is updated IN PLACE
@@ -107,7 +122,7 @@ def swa_attention_forward(
         v = _dense(x, p["v_proj"]).reshape(B, T, Hkv, Dh)
     q, k = apply_rotary(q, k, cos, sin)
     if rings_k is None:
-        out = swa_prefill_dense(q, k, v, window)
+        out = swa_prefill_dense(q, k, v, window, segment_ids=segment_ids)
     elif T == 1:
         # write-then-attend over the ring alone (kernel A2)
         out = swa_ring_flash_decode_stacked(
@@ -130,6 +145,7 @@ def delta_forward(
     conv_v: Optional[torch.Tensor],
     h: Optional[torch.Tensor],  # stacked [L, B, H, K, V] fp32 or None
     layer_idx: int = 0,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]; stateless forward only
 ) -> torch.Tensor:
     """Gated DeltaNet layer. With a state, layer `layer_idx` of the stacked
     conv histories and recurrent state is updated IN PLACE. Returns
@@ -160,7 +176,7 @@ def delta_forward(
         else:
             y, new_c = short_conv(
                 raw, w, bias, stack[layer_idx] if use_cache else None,
-                carry_history=cfg.conv_carry,
+                carry_history=cfg.conv_carry, segment_ids=segment_ids,
             )
         if use_cache:
             stack[layer_idx].copy_(new_c)
@@ -192,6 +208,7 @@ def delta_forward(
             initial_state=slab,
             chunk_size=chunk,
             recurrent_threshold=cfg.recurrent_threshold,
+            segment_ids=segment_ids,
             out_state=slab,
         )
     o = rms_norm_gated(o, g_lin.reshape(B, T, H, V), p["o_norm"], eps=cfg.norm_eps)
@@ -207,9 +224,13 @@ def decoder_layer_forward(
     sin: torch.Tensor,
     state: Optional[DecoderState],
     stack_idx: int,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pre-norm residual block. `stack_idx` is the layer's index within the
     SWA or DeltaNet stack of `state` (updated in place)."""
+    if segment_ids is not None and state is not None:
+        raise ValueError("segment_ids (packed sequences) belong to the stateless "
+                         "forward; a cached forward takes one sequence per row")
     h = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
     if role in (SLIDING, FULL):
         if role == FULL and state is not None:
@@ -220,7 +241,7 @@ def decoder_layer_forward(
         window = cfg.sliding_window if role == SLIDING else (1 << 30)
         if state is None:
             attn = swa_attention_forward(p, cfg, h, cos, sin, None, None, None,
-                                         window=window)
+                                         window=window, segment_ids=segment_ids)
         else:
             attn = swa_attention_forward(
                 p, cfg, h, cos, sin, state["swa_k"], state["swa_v"],
@@ -228,7 +249,8 @@ def decoder_layer_forward(
             )
     elif role == LINEAR:
         if state is None:
-            attn = delta_forward(p, cfg, h, None, None, None, None)
+            attn = delta_forward(p, cfg, h, None, None, None, None,
+                                 segment_ids=segment_ids)
         else:
             attn = delta_forward(
                 p, cfg, h, state["conv_q"], state["conv_k"], state["conv_v"],
@@ -240,35 +262,65 @@ def decoder_layer_forward(
     return x + mlp_forward(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
 
 
+def _run_layers(layers, cfg, roles, x, cos, sin, segment_ids):
+    """A run of stateless layers (one checkpointed unit of `remat_group`)."""
+    for layer_p, role in zip(layers, roles):
+        x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, None, 0, segment_ids)
+    return x
+
+
 def text_forward(
     params: Params,
     cfg: TextConfig,
     inputs_embeds: torch.Tensor,  # [B, T, D]
     position_ids: torch.Tensor,  # [3, B, T]
     state: Optional[DecoderState] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]; packed sequences
+    remat: bool = False,
+    remat_group: int = 1,
 ) -> Tuple[torch.Tensor, Optional[DecoderState]]:
     """Run the decoder stack. With a state, the state is updated IN PLACE
     (rings, conv histories, delta_h, and cum_len += T) and returned.
-    Returns (final-normed hidden [B, T, D], state)."""
+    Returns (final-normed hidden [B, T, D], state).
+
+    Without a state the forward is stateless (training). `remat` then wraps
+    each layer in torch.utils.checkpoint: only the layer boundaries stay
+    alive and a layer's internals are recomputed in its backward;
+    `remat_group` > 1 checkpoints runs of that many layers instead (fewer
+    boundaries, the run's interior recomputed as a whole). The Python loop
+    recomputes one unit at a time by construction, which is what the JAX
+    package's stacked layout (`layer_stacks`, scan_layers, remat_mode) is
+    for: that layout is not built here."""
     if "layer_stacks" in params:
         raise NotImplementedError(
-            "scan-over-layers params (layer_stacks) belong to the training "
-            "slice and are not ported to torch yet"
+            "scan-over-layers params (layer_stacks) are not ported to torch: the "
+            "Python layer loop with per-layer checkpointing takes their place"
         )
     cos, sin = mrope_cos_sin(
         position_ids, params["inv_freq"], cfg.mrope_section,
         cfg.attention_scaling, dtype=inputs_embeds.dtype,
     )
     x = inputs_embeds
-    swa_i = lin_i = 0
-    for idx, layer_p in enumerate(params["layers"]):
-        role = cfg.layer_role(idx)
-        stack_idx = swa_i if role in (SLIDING, FULL) else lin_i
-        x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, stack_idx)
-        if role in (SLIDING, FULL):
-            swa_i += 1
-        else:
-            lin_i += 1
+    layers = params["layers"]
+    roles = [cfg.layer_role(idx) for idx in range(len(layers))]
+    if remat and state is None and torch.is_grad_enabled():
+        group = max(int(remat_group), 1)
+        for start in range(0, len(layers), group):
+            x = checkpoint(
+                _run_layers, layers[start : start + group], cfg,
+                roles[start : start + group], x, cos, sin, segment_ids,
+                use_reentrant=False,
+            )
+    else:
+        swa_i = lin_i = 0
+        for layer_p, role in zip(layers, roles):
+            stack_idx = swa_i if role in (SLIDING, FULL) else lin_i
+            x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, stack_idx,
+                                      segment_ids)
+            if role in (SLIDING, FULL):
+                swa_i += 1
+            else:
+                lin_i += 1
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if state is not None:
         state["cum_len"] += inputs_embeds.shape[1]

@@ -30,21 +30,28 @@ from ..config import VisionConfig
 from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rotary_vision, vision_cos_sin, vision_rot_pos_ids
 from ..ops.swa import attention_dense
-from ..ops.vit_flash import vit_full_attention
+from ..ops.vit_flash import vit_full_attention, vit_window_attention
 from .text import _dense
 
 Params = Dict[str, Any]
 GridTHW = Tuple[Tuple[int, int, int], ...]
 
 # Packed-sequence length at which full-attention blocks switch from the
-# dense-mask path to the segment flash kernel. The JAX package's value; to
-# be measured again on the H100.
+# dense-mask path to the segment flash kernel's wrapper (E), and the packed
+# length and window length from which window blocks take the window flash
+# kernel's wrapper (F) instead of the batched-dense path. On a CPU tensor
+# the wrappers run their plain versions and the thresholds only bound the
+# score memory. On a CUDA tensor the `_CUDA` values apply: they are the
+# smallest sizes at which the kernels were measured against the dense paths
+# on an H100 (chip_smoke.py, lines "[3 gates]" and "F timed"; both kernels
+# won at every size measured, down to one 448x448 frame: S 1024, windows of
+# 64). F takes any window length: there is no upper bound.
 FLASH_FULL_ATTN_MIN_SEQ = 4096
-# The JAX package routes window blocks with long windows through its window
-# flash kernel (F) from these sizes on; F is not ported yet, so the branch
-# raises. The deployed window length is 64.
 WINDOW_FLASH_MIN_SEQ = 4096
 WINDOW_FLASH_MIN_WIN_LEN = 256
+FLASH_FULL_ATTN_MIN_SEQ_CUDA = 1024
+WINDOW_FLASH_MIN_SEQ_CUDA = 1024
+WINDOW_FLASH_MIN_WIN_LEN_CUDA = 64
 
 
 class VisionPlan:
@@ -144,6 +151,7 @@ def _plan_tensors(grid_thw: GridTHW, cfg: VisionConfig, device: torch.device):
         "merged_inverse": torch.as_tensor(plan.merged_inverse.astype(np.int64), device=device),
         "token_valid": torch.as_tensor(plan.token_valid, device=device),
         "seg_full": torch.as_tensor(plan.seg_full, device=device),
+        "win_seg": torch.as_tensor(plan.win_seg.astype(np.int32), device=device),
         "cos": torch.as_tensor(plan.cos, device=device),
         "sin": torch.as_tensor(plan.sin, device=device),
     }
@@ -165,24 +173,21 @@ def _vision_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _window_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: VisionPlan,
-    valid: torch.Tensor,
+    valid: torch.Tensor, win_seg: torch.Tensor,
 ) -> torch.Tensor:
-    """Batched per-window dense attention. q/k/v: [S, H, D] in window
-    order. Real queries see real keys and pad queries pad keys, which keeps
-    pad rows finite."""
+    """Per-window attention. q/k/v: [S, H, D] in window order. Real queries
+    see real keys and pad queries pad keys, which keeps pad rows finite.
+    Long windows of a long sequence go through the window flash kernel's
+    wrapper (F; its plain version on a CPU tensor); everything else is
+    batched dense attention."""
     S, H, D = q.shape
     nW, L = plan.num_windows, plan.win_len
-    if (
-        S >= WINDOW_FLASH_MIN_SEQ
-        and L % 8 == 0
-        and WINDOW_FLASH_MIN_WIN_LEN <= L <= 1536
-    ):
-        raise NotImplementedError(
-            f"window attention over {L}-token windows at packed length {S} "
-            "takes the window flash kernel (kernel F, "
-            "ops/vit_flash.window_flash_attention), which is not ported to "
-            "torch yet"
-        )
+    min_seq, min_len = (
+        (WINDOW_FLASH_MIN_SEQ_CUDA, WINDOW_FLASH_MIN_WIN_LEN_CUDA) if q.is_cuda
+        else (WINDOW_FLASH_MIN_SEQ, WINDOW_FLASH_MIN_WIN_LEN)
+    )
+    if S >= min_seq and L >= min_len:
+        return vit_window_attention(q, k, v, win_seg, L)
     vm = valid.reshape(nW, L)
     mask = vm[:, :, None] == vm[:, None, :]
     out = attention_dense(
@@ -216,7 +221,7 @@ def _full_attention(
             mask,
         )
         return out.reshape(S, H, D)
-    if S >= FLASH_FULL_ATTN_MIN_SEQ:
+    if S >= (FLASH_FULL_ATTN_MIN_SEQ_CUDA if q.is_cuda else FLASH_FULL_ATTN_MIN_SEQ):
         # long packed sequence (high-resolution image, multi-image prefill)
         return vit_full_attention(q, k, v, seg)
     mask = seg[:, None] == seg[None, :]
@@ -240,7 +245,7 @@ def vision_block_forward(
     if full:
         attn = _full_attention(q, k, v, tensors["seg_full"], plan.equal_frame_len)
     else:
-        attn = _window_attention(q, k, v, plan, tensors["token_valid"])
+        attn = _window_attention(q, k, v, plan, tensors["token_valid"], tensors["win_seg"])
     x = x + _dense(attn.reshape(S, H * D), p["proj"])
     return x + _vision_mlp(p["mlp"], rms_norm(x, p["norm2"], 1e-6))
 

@@ -125,6 +125,19 @@ def delta_rule_chunk_fused(
         return o, final
     if q.device.type != "cuda":
         raise ValueError(f"{name}: device {q.device} is neither cpu nor cuda")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, g, beta, initial_state)
+    ):
+        if out_state is not None:
+            raise ValueError(f"{name}: out_state is written in place and carries "
+                             "no gradient; training forwards are stateless")
+        return _DeltaChunkFn.apply(q, k, v, g, beta, initial_state, scale, chunk_size)
+    return _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state)
+
+
+def _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state):
+    """Check the operands and launch kernel C (CUDA tensors only)."""
+    name = "delta_rule_chunk_fused"
     B, T, H, K = q.shape
     V = v.shape[-1]
     if v.dtype not in _DTYPES:
@@ -188,3 +201,39 @@ def delta_rule_chunk_fused(
 
 
 delta_rule_chunk_fused.launches = 0
+
+
+class _DeltaChunkFn(torch.autograd.Function):
+    """Kernel C with a gradient. The forward launches the kernel; the
+    backward recomputes the plain fp32 chunk form under autograd and returns
+    its gradients (the JAX package differentiates its plain chunk form too:
+    there is no backward kernel on either side yet)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, beta, initial_state, scale, chunk_size):
+        ctx.save_for_backward(q, k, v, g, beta, initial_state)
+        ctx.scale, ctx.chunk_size = scale, chunk_size
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+        o, final = _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, None)
+        return o, final
+
+    @staticmethod
+    def backward(ctx, d_o, d_final):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(t.is_floating_point())
+                      for t in saved]
+            o, final = delta_rule_chunk(
+                *leaves[:5], leaves[5], ctx.scale, True, ctx.chunk_size,
+                compute_dtype=torch.float32,
+            )
+            wanted = [i for i, t in enumerate(saved)
+                      if t is not None and ctx.needs_input_grad[i]]
+            pairs = [(y, ct) for y, ct in ((o, d_o), (final, d_final)) if ct is not None]
+            outs, cots = [y for y, _ in pairs], [ct for _, ct in pairs]
+            grads = torch.autograd.grad(outs, [leaves[i] for i in wanted], cots,
+                                        allow_unused=True)
+        result = [None] * 8
+        for i, gr in zip(wanted, grads):
+            result[i] = gr
+        return tuple(result)

@@ -10,7 +10,8 @@ Per head, with state S in R^{K x V} kept in float32:
 
 with q, k L2-normalized first and scale = K^-0.5. The chunk form
 compresses C tokens at a time (A = beta K K^T .* decay, strictly lower;
-(I + A)^{-1} by Newton-Schulz; w/u pseudo-keys/values; inter-chunk state
+(I + A)^{-1} by forward substitution in fp32, by Newton-Schulz in half
+precision; w/u pseudo-keys/values; inter-chunk state
 carried in fp32). The chunk precompute runs for all chunks at once and a
 Python loop threads the state; the JAX `stream` order computes the same
 numbers and is not needed here.
@@ -48,34 +49,28 @@ def _solve_unit_lower(
 ) -> torch.Tensor:
     """Solve (I + A) X = rhs for strictly-lower-triangular A [..., C, C].
 
+    In fp32 by forward substitution. With a half-precision compute dtype by
     Newton-Schulz X <- X (2I - L X): E_0 = -A is nilpotent of index <= C,
-    so ceil(log2 C) - 1 iterations after the first-order seed are exact.
-    A half-precision compute dtype rounds the operands (fp32 accumulation),
-    as the reference Triton kernels do."""
+    so ceil(log2 C) - 1 iterations after the first-order seed are exact;
+    the operands are rounded (fp32 accumulation), as the reference Triton
+    kernels do."""
+    af = a.float()
+    if compute_dtype in (torch.float32, torch.float64):
+        # fp32: forward substitution, as kernel C solves it. The values are
+        # those of the Newton-Schulz product; the gradient is two more
+        # triangular solves, where differentiating through the squarings of
+        # X overflows fp32 once a chunk's keys are nearly parallel
+        return torch.linalg.solve_triangular(
+            af, rhs.float(), upper=False, unitriangular=True).to(rhs.dtype)
     C = a.shape[-1]
     eye = torch.eye(C, dtype=torch.float32, device=a.device)
     n_iter = max(int(math.ceil(math.log2(max(C, 2)))) - 1, 0)
-    af = a.float()
-    if compute_dtype in (torch.float32, torch.float64):
-        l = af + eye
-        x = eye - af
-        for _ in range(n_iter):
-            x = x @ (2.0 * eye - l @ x)
-        return (x @ rhs.float()).to(rhs.dtype)
     lb = (af + eye).to(compute_dtype)
     x = (eye - af).to(compute_dtype)
     for _ in range(n_iter):
         t = _mm(lb, x)
         x = _mm(x, (2.0 * eye - t).to(compute_dtype)).to(compute_dtype)
     return _mm(x, rhs.to(compute_dtype)).to(rhs.dtype)
-
-
-def _no_segments(segment_ids) -> None:
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (packed sequences) are not ported to the torch "
-            "delta rule yet; they come with the training slice"
-        )
 
 
 def _prep(q, k, v, g, beta, scale, use_qk_l2norm):
@@ -142,9 +137,11 @@ def delta_rule_step(
     return o.to(v.dtype), s
 
 
-def _wyut_precompute(qf, kf, vf, gf, bf, compute_dtype):
+def _wyut_precompute(qf, kf, vf, gf, bf, compute_dtype, seg=None):
     """Per-chunk WY/UT precompute over [..., C, *] (all chunks at once).
-    Returns (w, u, q_b, attn, k_out, carry)."""
+    `seg` [..., C] (head axis broadcast) masks interactions across packed
+    segments; `gf` then has the segment starts already zeroed. Returns
+    (w, u, q_b, attn, k_out, carry)."""
     K = qf.shape[-1]
     C = qf.shape[-2]
     dev = qf.device
@@ -154,17 +151,32 @@ def _wyut_precompute(qf, kf, vf, gf, bf, compute_dtype):
     stril = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), diagonal=-1)
     diff = gcs[..., :, None] - gcs[..., None, :]
     ratio = torch.where(tril, torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+    if seg is not None:
+        first, last = seg[..., :1], seg[..., -1:]
+        same_as_start = (seg == first)[..., None]
+        ratio = torch.where(seg[..., :, None] == seg[..., None, :], ratio, 0.0)
     kk = _mm(kf, kf.transpose(-1, -2))
     a_mat = torch.where(stril, kk * ratio, 0.0) * bf[..., :, None]
     kb = kf.float() * torch.exp(gcs)[..., None]
+    if seg is not None:
+        # the decay from the chunk start holds within its first segment only
+        kb = torch.where(same_as_start, kb, 0.0)
     rhs = (torch.cat([kb, vf.float()], dim=-1) * bf[..., None]).to(compute_dtype)
     x = _solve_unit_lower(a_mat, rhs, compute_dtype)
     w, u = x[..., :K], x[..., K:]
     qk = _mm(qf, kf.transpose(-1, -2))
     attn = torch.where(tril, qk * ratio, 0.0).to(compute_dtype)
-    q_b = (qf.float() * torch.exp(gcs)[..., None]).to(compute_dtype)
+    q_b = qf.float() * torch.exp(gcs)[..., None]
+    if seg is not None:
+        q_b = torch.where(same_as_start, q_b, 0.0)
+    q_b = q_b.to(compute_dtype)
     k_out = kf.float() * torch.exp(b_end[..., None] - gcs)[..., None]
     carry = torch.exp(b_end)
+    if seg is not None:
+        # only the chunk's last segment carries state into the next chunk; a
+        # boundary inside the chunk kills the incoming state's carry
+        k_out = torch.where((seg == last)[..., None], k_out, 0.0)
+        carry = torch.where((first == last)[..., 0], carry, 0.0)
     return w, u, q_b, attn, k_out.to(compute_dtype), carry
 
 
@@ -187,8 +199,12 @@ def delta_rule_chunk(
     `compute_dtype` None follows the JAX precision model (operands in the
     input dtype for bf16/fp16 inputs, fp32 otherwise). torch.float32 widens
     the inputs first and keeps every intermediate in fp32, whatever the
-    input dtype: the arithmetic of the fused kernel C."""
-    _no_segments(segment_ids)
+    input dtype: the arithmetic of the fused kernel C.
+
+    `segment_ids` [B, T] marks independent sequences packed along T: the
+    state is reset at segment boundaries by zeroing the decay carried over
+    and masking interactions across segments. `initial_state` then seeds
+    the first segment only."""
     B, T, H, K = q.shape
     V = v.shape[-1]
     C = chunk_size
@@ -205,6 +221,12 @@ def delta_rule_chunk(
     if use_qk_l2norm:
         q = l2norm(q)
         k = l2norm(k)
+    is_start = None
+    if segment_ids is not None:
+        # token t starts a packed sequence iff its id differs from token t-1's
+        is_start = torch.cat(
+            [torch.zeros((B, 1), dtype=torch.bool, device=q.device),
+             segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1)
     pad = (-T) % C
     if pad:
         # zero-padded tail tokens have beta = 0 and g = 0: inert
@@ -213,6 +235,11 @@ def delta_rule_chunk(
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         g = torch.nn.functional.pad(g, (0, 0, 0, pad))
         beta = torch.nn.functional.pad(beta, (0, 0, 0, pad))
+        if segment_ids is not None:
+            # pad tokens continue the last segment
+            segment_ids = torch.cat(
+                [segment_ids, segment_ids[:, -1:].expand(B, pad)], dim=1)
+            is_start = torch.nn.functional.pad(is_start, (0, pad))
     Tp = T + pad
     N = Tp // C
 
@@ -225,7 +252,15 @@ def delta_rule_chunk(
     vf = chunked(v).to(cd)
     gf = chunked(g).float()
     bf = chunked(beta).float()
-    w, u, q_b, attn, k_out, carry = _wyut_precompute(qf, kf, vf, gf, bf, cd)
+    seg = edge_start = None
+    if segment_ids is not None:
+        seg = segment_ids.reshape(B, 1, N, C)
+        # the decay resets at a segment's first token
+        gf = torch.where(is_start.reshape(B, 1, N, C), 0.0, gf)
+        # a boundary exactly at a chunk edge is invisible to the masks within
+        # the chunk: the incoming state is severed per chunk [B, N]
+        edge_start = is_start.reshape(B, N, C)[:, :, 0].float()
+    w, u, q_b, attn, k_out, carry = _wyut_precompute(qf, kf, vf, gf, bf, cd, seg)
     # the per-chunk operands hold cd-rounded values: widening them to fp32
     # once keeps _mm's numbers and takes the casts out of the chunk loop
     w, u, q_b, attn, k_out = (x.float() for x in (w, u, q_b, attn, k_out))
@@ -236,6 +271,8 @@ def delta_rule_chunk(
         s = initial_state.float()
     outs = []
     for n in range(N):
+        if edge_start is not None:
+            s = s * (1.0 - edge_start[:, n])[:, None, None, None]
         sc = s.to(cd).float()  # half-precision state READ; the accumulator stays fp32
         y = (u[:, :, n] - w[:, :, n] @ sc).to(cd).float()
         outs.append(q_b[:, :, n] @ sc + attn[:, :, n] @ y)
@@ -263,9 +300,23 @@ def gated_delta_rule(
     kernel's wrapper. The kernel normalizes q and k itself, as its Pallas
     original does, so without the l2norm a CUDA tensor raises; CPU tensors
     take the plain chunk form. The final state is written into `out_state`
-    where one is given (it may be `initial_state` itself)."""
-    _no_segments(segment_ids)
-    if q.shape[1] <= recurrent_threshold:
+    where one is given (it may be `initial_state` itself).
+
+    `segment_ids` (packed sequences) exist in the chunk form only, as in
+    the JAX package. Kernel C has no packed (varlen) path yet, so on a CUDA
+    tensor they raise; CPU tensors take the plain chunk form."""
+    if segment_ids is not None:
+        if q.shape[1] <= recurrent_threshold:
+            raise ValueError("segment_ids only supported in chunk mode")
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "gated_delta_rule: kernel C (delta_rule_chunk_fused) has no packed "
+                f"(varlen) path yet; segment_ids on {q.device} are not supported. "
+                "Train unpacked rows on the card"
+            )
+        o, s = delta_rule_chunk(q, k, v, g, beta, initial_state, scale,
+                                use_qk_l2norm, chunk_size, segment_ids)
+    elif q.shape[1] <= recurrent_threshold:
         o, s = delta_rule_recurrent(
             q, k, v, g, beta, initial_state, scale, use_qk_l2norm
         )

@@ -7,8 +7,9 @@ Reference semantics kept exactly: the multi-token path convolves the
 current inputs with ZERO left padding and does not read the cached history
 (`carry_history=False`, the reference's quirk that token parity depends
 on); the new state is the last W raw inputs of (state ++ inputs); the
-single-step path shifts the history and convolves over it. Packed
-`segment_ids` are not ported yet and raise."""
+single-step path shifts the history and convolves over it. With
+`segment_ids` (packed sequences) a tap that would read across a segment
+boundary contributes zero."""
 
 from __future__ import annotations
 
@@ -19,25 +20,18 @@ import torch
 from .norms import silu
 
 
-def _no_segments(segment_ids) -> None:
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids (packed sequences) are not ported to the torch "
-            "short conv yet; they come with the training slice"
-        )
-
-
 def causal_conv1d(
     x: torch.Tensor,  # [B, T, D]
     weight: torch.Tensor,  # [W, D] time-major taps; tap W-1 hits the current token
     bias: Optional[torch.Tensor] = None,  # [D]
     activation: str = "silu",
     initial_state: Optional[torch.Tensor] = None,  # [B, W, D] left context
-    segment_ids: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]; packing boundaries
 ) -> torch.Tensor:
     """y[t] = sum_i w[i] * x[t - (W-1-i)], zero-padded (or padded with the
-    tail of `initial_state`), accumulated in fp32."""
-    _no_segments(segment_ids)
+    tail of `initial_state`), accumulated in fp32. With `segment_ids`, taps
+    from another packed segment contribute zero; the left context matches
+    no segment."""
     B, T, D = x.shape
     W = weight.shape[0]
     if initial_state is not None:
@@ -45,9 +39,16 @@ def causal_conv1d(
     else:
         left = x.new_zeros((B, W - 1, D))
     xp = torch.cat([left, x], dim=1)  # [B, T + W - 1, D]
+    segp = None
+    if segment_ids is not None:
+        left_seg = segment_ids.new_full((B, W - 1), -1)
+        segp = torch.cat([left_seg, segment_ids], dim=1)
     acc = torch.zeros((B, T, D), dtype=torch.float32, device=x.device)
     for i in range(W):
-        acc = acc + xp[:, i : i + T, :].float() * weight[i].float()
+        tap = xp[:, i : i + T, :].float()
+        if segp is not None and i < W - 1:
+            tap = tap * (segp[:, i : i + T] == segment_ids).float()[..., None]
+        acc = acc + tap * weight[i].float()
     if bias is not None:
         acc = acc + bias.float()
     if activation in ("silu", "swish"):

@@ -93,6 +93,26 @@ def sliding_window_mask(
     return (kp >= 0) & (kp <= qp) & (kp > qp - window)
 
 
+def swa_prefill_reference(
+    q: torch.Tensor,  # [B, T, Hq, D], positions = offset + arange(T)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    window: int,
+    offset: int = 0,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]
+) -> torch.Tensor:
+    """Cache-less banded attention through the dense [T, T] mask: the plain
+    version of kernel H (ops/swa_kernels.swa_train_flash_attention);
+    autograd gives its gradient."""
+    T = q.shape[1]
+    pos = torch.arange(T, device=q.device) + offset
+    mask = sliding_window_mask(pos, pos, window)[None]  # [1, T, T]
+    if segment_ids is not None:
+        mask = mask & (segment_ids[:, :, None] == segment_ids[:, None, :])
+    return attention_dense(q, k, v, mask, scale)
+
+
 def swa_prefill_dense(
     q: torch.Tensor,  # [B, T, Hq, D], positions = offset + arange(T)
     k: torch.Tensor,
@@ -100,12 +120,16 @@ def swa_prefill_dense(
     window: int,
     offset: int = 0,
     scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]; packed sequences
 ) -> torch.Tensor:
-    """Cache-less banded attention (stateless forward)."""
-    T = q.shape[1]
-    pos = torch.arange(T, device=q.device) + offset
-    mask = sliding_window_mask(pos, pos, window)[None]
-    return attention_dense(q, k, v, mask, scale)
+    """Cache-less banded attention for stateless (training) forwards. A
+    CUDA tensor goes to kernel H, forward and backward, so no [T, T] score
+    tensor exists; a CPU tensor takes the dense-mask plain version. The
+    band depends on position differences only, so `offset` does not change
+    the result."""
+    from .swa_kernels import swa_train_flash_attention  # imports this module
+
+    return swa_train_flash_attention(q, k, v, window, scale, segment_ids)
 
 
 def swa_cached_attention(

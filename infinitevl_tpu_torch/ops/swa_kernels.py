@@ -1,7 +1,9 @@
 """Wrappers of the ring sliding-window attention kernels (A1 prefill, A2
 stacked decode, D decode on one unstacked ring) in csrc/swa_ring_flash.cu,
 under the names of their Pallas counterparts in
-infinitevl_tpu/ops/swa_pallas.py.
+infinitevl_tpu/ops/swa_pallas.py, and of the stateless training attention
+(H, forward and backward) in csrc/swa_train_flash.cu, which takes the place
+of infinitevl_tpu/ops/swa.py::_swa_prefill_splash.
 
 A tensor on the CPU takes the kernel's plain version (ops/swa.py); a CUDA
 tensor launches the kernel or raises. Each wrapper counts its launches in
@@ -14,7 +16,12 @@ from typing import Optional
 import torch
 
 from . import _build
-from .swa import ring_write, ring_write_stacked, swa_cached_attention
+from .swa import (
+    ring_write,
+    ring_write_stacked,
+    swa_cached_attention,
+    swa_prefill_reference,
+)
 
 HEAD_DIM = 128  # the head dim the kernels are written for
 DECODE_SPLIT = 128  # ring keys per block of the split-KV decode pass
@@ -241,3 +248,109 @@ def swa_ring_flash_decode(
 
 
 swa_ring_flash_decode.launches = 0
+
+
+def _check_train(name, q, k, v, segment_ids, window):
+    B, T, Hq, D = q.shape
+    _check_cuda(name, dict(q=q, k=k, v=v), q.dtype)
+    Hkv = k.shape[2]
+    if D != HEAD_DIM or Hq % Hkv:
+        raise ValueError(f"{name}: needs head_dim {HEAD_DIM} and Hq % Hkv == 0 "
+                         f"(got D={D}, Hq={Hq}, Hkv={Hkv})")
+    if k.shape != (B, T, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if window < 1:
+        raise ValueError(f"{name}: window {window} < 1")
+    if segment_ids is not None and (
+        segment_ids.device != q.device or segment_ids.dtype != torch.int32
+        or segment_ids.shape != (B, T) or not segment_ids.is_contiguous()
+    ):
+        raise ValueError(f"{name}: segment_ids must be contiguous int32 [{B}, {T}] "
+                         f"on {q.device}")
+
+
+class _SwaTrainFlashFn(torch.autograd.Function):
+    """Kernel H: the forward keeps q, k, v, the output and the row
+    log-sum-exp; the backward launches the delta, dQ and dK/dV kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, window, scale):
+        name = "swa_train_flash_attention"
+        B, T, Hq, D = q.shape
+        Hkv = k.shape[2]
+        out = torch.empty_like(q)
+        lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+        lib = _build.load_library()
+        with torch.cuda.device(q.device):  # launch on the tensors' card
+            _build.check(
+                lib.ivl_swa_train_fwd(
+                    _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if segment_ids is None else segment_ids.data_ptr(),
+                    out.data_ptr(), lse.data_ptr(), B, T, Hq, Hkv, D,
+                    int(window), float(scale),
+                    torch.cuda.current_stream(q.device).cuda_stream,
+                ),
+                name,
+            )
+        swa_train_flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, segment_ids, out, lse)
+        ctx.window, ctx.scale = int(window), float(scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        name = "swa_train_flash_attention (backward)"
+        q, k, v, segment_ids, out, lse = ctx.saved_tensors
+        B, T, Hq, D = q.shape
+        Hkv = k.shape[2]
+        d_out = d_out.contiguous()
+        if d_out.dtype != q.dtype:
+            raise TypeError(f"{name}: cotangent dtype {d_out.dtype}, q has {q.dtype}")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty_like(lse)
+        lib = _build.load_library()
+        with torch.cuda.device(q.device):
+            _build.check(
+                lib.ivl_swa_train_bwd(
+                    _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if segment_ids is None else segment_ids.data_ptr(),
+                    out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    B, T, Hq, Hkv, D, ctx.window, ctx.scale,
+                    torch.cuda.current_stream(q.device).cuda_stream,
+                ),
+                name,
+            )
+        swa_train_flash_attention.launches_bwd += 1
+        return dq, dk, dv, None, None, None
+
+
+def swa_train_flash_attention(
+    q: torch.Tensor,  # [B, T, Hq, D]
+    k: torch.Tensor,  # [B, T, Hkv, D]
+    v: torch.Tensor,
+    window: int,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T] integer ids
+) -> torch.Tensor:
+    """Kernel H: causal sliding-window attention of a stateless forward.
+    Query t sees keys in (t - window, t] of its own row that share its
+    segment id. Differentiable: on a CUDA tensor the backward is the
+    hand-written dQ and dK/dV kernels (reproducible, no atomics). T needs
+    no multiple. Returns [B, T, Hq, D] in q's dtype. `launches` counts
+    forward launches, `launches_bwd` backward ones."""
+    name = "swa_train_flash_attention"
+    if _on_cpu(name, q):
+        return swa_prefill_reference(q, k, v, window, 0, scale, segment_ids)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+    _check_train(name, q, k, v, segment_ids, window)
+    return _SwaTrainFlashFn.apply(q, k, v, segment_ids, min(int(window), 1 << 30), scale)
+
+
+swa_train_flash_attention.launches = 0
+swa_train_flash_attention.launches_bwd = 0

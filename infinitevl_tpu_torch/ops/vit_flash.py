@@ -1,6 +1,7 @@
 """Segment-masked non-causal attention over the packed ViT sequence (torch
-port of infinitevl_tpu/ops/vit_flash.py without the backward and without
-the window variant, kernel F).
+port of infinitevl_tpu/ops/vit_flash.py): the plain versions of kernel E
+(full-attention blocks) and kernel F (window blocks) and the model's two
+entries, `vit_full_attention` and `vit_window_attention`.
 
 The full-attention blocks of the vision trunk attend within each image /
 temporal frame of the packed sequence. A dense pass materializes the
@@ -18,8 +19,20 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from .swa import attention_dense
 
 NEG_INF = -1e30
+
+
+def _segment_chunk(qi, k, v, seg_q, seg, scale):
+    """One query chunk of `attention_segment_chunked`."""
+    logits = torch.einsum("qhd,khd->hqk", qi.float() * scale, k.float())
+    mask = seg_q[:, None] == seg[None, :]
+    logits = logits.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("hqk,khd->qhd", p.to(v.dtype), v).to(qi.dtype)
 
 
 def attention_segment_chunked(
@@ -32,21 +45,47 @@ def attention_segment_chunked(
 ) -> torch.Tensor:
     """Exact attention with query chunking: scores exist only as
     [H, block_q, S] fp32 per chunk, so it runs at S = 9216 on the card and
-    on the CPU. Softmax in fp32; probabilities are cast to v's dtype for
-    the value product, as in the kernel. Returns [S, H, D] in q's dtype."""
+    on the CPU. Under autograd every chunk is checkpointed (its scores are
+    recomputed in the backward), so only one chunk's scores are alive in
+    the backward too: the differentiable twin of kernel E. Softmax in fp32;
+    probabilities are cast to v's dtype for the value product, as in the
+    kernel. Returns [S, H, D] in q's dtype."""
     S, H, D = q.shape
     if scale is None:
         scale = D**-0.5
-    kf = k.float()
-    out = torch.empty_like(q)
+    track = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    outs = []
     for s0 in range(0, S, block_q):
-        qi = q[s0 : s0 + block_q].float() * scale
-        logits = torch.einsum("qhd,khd->hqk", qi, kf)
-        mask = seg[s0 : s0 + block_q, None] == seg[None, :]
-        logits = logits.masked_fill(~mask[None], NEG_INF)
-        p = torch.softmax(logits, dim=-1)
-        out[s0 : s0 + block_q] = torch.einsum("hqk,khd->qhd", p.to(v.dtype), v).to(q.dtype)
-    return out
+        args = (q[s0 : s0 + block_q], k, v, seg[s0 : s0 + block_q], seg, scale)
+        if track:
+            outs.append(checkpoint(_segment_chunk, *args, use_reentrant=False))
+        else:
+            outs.append(_segment_chunk(*args))
+    return torch.cat(outs, dim=0)
+
+
+def window_attention_reference(
+    q: torch.Tensor,  # [S, H, D] window order, S = nW * win_len
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg: torch.Tensor,  # [S] integer window ids (pads -2-w)
+    win_len: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Batched dense attention over [nW, win_len] with the segment mask:
+    the plain version of kernel F. Scores live as [nW, H, L, L] fp32."""
+    S, H, D = q.shape
+    if S % win_len:
+        raise ValueError(f"sequence length {S} is not a multiple of win_len {win_len}")
+    nW = S // win_len
+    sw = seg.reshape(nW, win_len)
+    mask = sw[:, :, None] == sw[:, None, :]
+    out = attention_dense(
+        q.reshape(nW, win_len, H, D), k.reshape(nW, win_len, H, D),
+        v.reshape(nW, win_len, H, D), mask, scale=scale,
+    )
+    return out.reshape(S, H, D)
 
 
 def vit_full_attention(
@@ -62,3 +101,19 @@ def vit_full_attention(
     from .vit_kernels import segment_flash_attention  # imports this module
 
     return segment_flash_attention(q, k, v, seg, scale)
+
+
+def vit_window_attention(
+    q: torch.Tensor,  # [S, H, D] window order
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg: torch.Tensor,  # [S] int32 window ids (pads -2-w)
+    win_len: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """ViT window-attention blocks: kernel F's wrapper (the diagonal-block
+    flash kernel on a CUDA tensor, the batched-dense plain version on a CPU
+    tensor)."""
+    from .vit_kernels import window_flash_attention  # imports this module
+
+    return window_flash_attention(q, k, v, seg, win_len, scale)

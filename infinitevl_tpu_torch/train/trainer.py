@@ -1,0 +1,631 @@
+"""Training loop and the SFT / PT workflow (torch port of the one-device
+part of infinitevl_tpu/train/trainer.py): build config and params ->
+dataset -> optimizer -> step loop with JSONL logging, checkpoints and
+resume.
+
+`run_sft(args)` runs on the CUDA card unless `device="cpu"` is passed.
+Collators are numpy (their batches equal the JAX package's arrays); the
+step functions move each batch to the parameters' device. Stages and
+options that are not ported yet raise NotImplementedError naming
+themselves; none is silently ignored."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import InfiniteVLConfig, infinitevl_3b, tiny_config
+from ..data.loader import (
+    encode_supervised,
+    encode_supervised_mm,
+    load_dataset_info,
+    load_mixed_examples,
+    pack_examples,
+    resolve_tokenizer,
+    shift_labels,
+)
+from ..device import Device, resolve_device
+from ..hparams import AllArgs
+from ..models.params import init_params, init_text_params
+from ..utils.checkpoint import restore_train_state, save_train_state
+from ..utils.logging import TrainerLog, get_logger, make_reporter
+from .step import (
+    make_mm_sft_train_step,
+    make_optimizer,
+    make_sft_eval_fn,
+    make_sft_train_step,
+    set_trainable,
+)
+
+logger = get_logger(__name__)
+
+# Optional cooperative abort: an Event checked once per step.
+ABORT_EVENT = None
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to torch yet")
+
+
+def build_config(args: AllArgs) -> InfiniteVLConfig:
+    ckpt_cfg = (
+        os.path.join(args.model.model_name_or_path, "config.json")
+        if args.model.model_name_or_path
+        else None
+    )
+    if ckpt_cfg and os.path.exists(ckpt_cfg):
+        from ..config import from_hf_json
+
+        cfg = from_hf_json(ckpt_cfg)
+    elif args.model.config_preset == "tiny":
+        cfg = tiny_config()
+    else:
+        cfg = infinitevl_3b()
+    text = dataclasses.replace(
+        cfg.text,
+        use_pallas_swa=args.model.use_pallas_swa,
+        conv_carry=args.model.conv_carry,
+    )
+    if args.model.rope_scaling:
+        # enlarge the context window and derive the scaling factor from it
+        cur = text.max_position_embeddings
+        mml = args.model.model_max_length
+        kw = {"rope_type": args.model.rope_scaling}
+        if mml and mml > cur:
+            kw["rope_factor"] = float(int(np.ceil(mml / cur)))
+            kw["max_position_embeddings"] = mml
+            if args.model.rope_scaling in ("dynamic", "yarn", "llama3"):
+                kw["rope_original_max_position_embeddings"] = cur
+        else:
+            if mml:
+                logger.warning(
+                    "model_max_length <= max_position_embeddings; using rope factor 2.0"
+                )
+            kw["rope_factor"] = 2.0
+        text = dataclasses.replace(text, **kw)
+    return dataclasses.replace(cfg, text=text)
+
+
+def build_dataset(
+    args: AllArgs, tokenizer=None, cfg: Optional[InfiniteVLConfig] = None
+) -> List[Dict[str, np.ndarray]]:
+    if args.data.streaming:
+        raise _later("streaming datasets (`streaming: true`)")
+    info_path = os.path.join(args.data.dataset_dir, "dataset_info.json")
+    registry = load_dataset_info(info_path)
+    names = [n.strip() for n in args.data.dataset.split(",") if n.strip()]
+    examples = load_mixed_examples(
+        names, registry, args.data.dataset_dir,
+        mix_strategy=args.data.mix_strategy,
+        interleave_probs=(
+            list(args.data.interleave_probs) if args.data.interleave_probs else None
+        ),
+        seed=args.train.seed,
+    )
+    if args.data.max_samples:
+        examples = examples[: args.data.max_samples]
+    has_media = any(ex.get("images") or ex.get("videos") for ex in examples)
+    if has_media:
+        cfg = cfg or build_config(args)
+        tokenizer = resolve_tokenizer(args, cfg, tokenizer)
+        if args.data.packing:
+            logger.warning("packing is not supported for multimodal datasets; disabled")
+        return encode_supervised_mm(
+            examples, tokenizer, cfg, args.data.template, args.data.cutoff_len,
+            dataset_dir=args.data.dataset_dir,
+            min_pixels=args.data.image_min_pixels,
+            max_pixels=args.data.image_max_pixels,
+            video_fps=args.data.video_fps,
+            video_min_pixels=args.data.video_min_pixels,
+            video_max_pixels=args.data.video_max_pixels,
+        )
+    tokenizer = resolve_tokenizer(args, None, tokenizer)
+    enc = encode_supervised(examples, tokenizer, args.data.template, args.data.cutoff_len)
+    if args.data.packing:
+        return pack_examples(enc, args.data.cutoff_len)
+    return enc
+
+
+def is_multimodal(data: List[Dict[str, Any]]) -> bool:
+    return any(
+        e.get("pixel_values") is not None or e.get("pixel_values_videos") is not None
+        for e in data
+    )
+
+
+def _rows_to_batch(
+    rows: List[Dict[str, np.ndarray]],
+    batch_size: int,
+    cutoff_len: int,
+    pad_id: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Build one fixed-shape [B, cutoff_len] text batch from <= B rows."""
+    ids = np.full((batch_size, cutoff_len), pad_id, np.int64)
+    labels = np.full((batch_size, cutoff_len), -100, np.int64)
+    seg = np.zeros((batch_size, cutoff_len), np.int32)
+    for r, e in enumerate(rows):
+        L = min(len(e["input_ids"]), cutoff_len)
+        ids[r, :L] = e["input_ids"][:L]
+        labels[r, :L] = e["labels"][:L]
+        seg[r, :L] = e.get("segment_ids", np.ones(len(e["input_ids"]), np.int32))[:L]
+    # rope positions restart at every packed-segment boundary
+    pos = np.zeros((batch_size, cutoff_len), np.int64)
+    ar = np.arange(cutoff_len)
+    for r in range(batch_size):
+        boundary = np.zeros(cutoff_len, bool)
+        boundary[0] = True
+        boundary[1:] = seg[r, 1:] != seg[r, :-1]
+        starts = np.where(boundary, ar, 0)
+        pos[r] = ar - np.maximum.accumulate(starts)
+    pos3 = np.ascontiguousarray(np.broadcast_to(pos[None], (3, batch_size, cutoff_len)))
+    shifted = shift_labels(labels)
+    # never supervise across a packed-segment boundary
+    cross = np.zeros_like(seg, dtype=bool)
+    cross[:, :-1] = seg[:, 1:] != seg[:, :-1]
+    shifted[cross] = -100
+    return {
+        "input_ids": ids,
+        "labels": shifted,
+        "position_ids": pos3,
+        "segment_ids": seg,
+        "_n_tokens": np.int64((seg > 0).sum()),
+    }
+
+
+def _epoch_order(n: int, batch_size: int, seed: int, epochs: float):
+    rng = np.random.RandomState(seed)
+    total = int(np.ceil(epochs * n / batch_size))
+    order: List[int] = []
+    for _ in range(int(np.ceil(total * batch_size / n)) + 1):
+        order.extend(rng.permutation(n).tolist())
+    return total, order
+
+
+def collate(
+    examples: List[Dict[str, np.ndarray]],
+    batch_size: int,
+    cutoff_len: int,
+    pad_id: int = 0,
+    seed: int = 0,
+    epochs: float = 1.0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield fixed-shape [B, cutoff_len] batches up to `epochs`."""
+    total, order = _epoch_order(len(examples), batch_size, seed, epochs)
+    for b in range(total):
+        idxs = order[b * batch_size : (b + 1) * batch_size]
+        yield _rows_to_batch([examples[i] for i in idxs], batch_size, cutoff_len, pad_id)
+
+
+def _grids_key(grids) -> Optional[tuple]:
+    """Hashable grid signature (the key of the vision plan cache)."""
+    if grids is None or len(grids) == 0:
+        return None
+    return tuple(tuple(int(x) for x in g) for g in grids)
+
+
+def collate_mm(
+    examples: List[Dict[str, Any]],
+    cfg: InfiniteVLConfig,
+    batch_size: int,
+    cutoff_len: int,
+    pad_id: int = 0,
+    seed: int = 0,
+    epochs: float = 1.0,
+) -> Iterator[tuple]:
+    """Multimodal collator: yields (batch, image_grids, video_grids) with the
+    batch carrying packed pixel tensors and vision-aware mrope positions
+    from get_rope_index."""
+    from ..models.infinitevl import get_rope_index
+
+    total, order = _epoch_order(len(examples), batch_size, seed, epochs)
+    for b in range(total):
+        idxs = order[b * batch_size : (b + 1) * batch_size]
+        ids = np.full((batch_size, cutoff_len), pad_id, np.int64)
+        labels = np.full((batch_size, cutoff_len), -100, np.int64)
+        am = np.zeros((batch_size, cutoff_len), np.int64)
+        pvs, igrids, pvvs, vgrids, spgs = [], [], [], [], []
+        for r, i in enumerate(idxs):
+            e = examples[i]
+            L = min(len(e["input_ids"]), cutoff_len)
+            ids[r, :L] = e["input_ids"][:L]
+            labels[r, :L] = e["labels"][:L]
+            am[r, :L] = 1
+            if e.get("pixel_values") is not None:
+                pvs.append(e["pixel_values"])
+                igrids.extend(map(tuple, e["image_grid_thw"].tolist()))
+            if e.get("pixel_values_videos") is not None:
+                pvvs.append(e["pixel_values_videos"])
+                vgrids.extend(map(tuple, e["video_grid_thw"].tolist()))
+                spgs.extend(e["second_per_grid_ts"])
+        pos, _ = get_rope_index(
+            cfg, ids,
+            image_grid_thw=np.asarray(igrids) if igrids else None,
+            video_grid_thw=np.asarray(vgrids) if vgrids else None,
+            second_per_grid_ts=spgs or None,
+            attention_mask=am,
+        )
+        batch = {
+            "input_ids": ids,
+            "labels": shift_labels(labels),
+            "position_ids": np.asarray(pos),
+            # 1 = real token, 0 = padding (masked in attention and delta rule)
+            "segment_ids": am.astype(np.int32),
+            "_n_tokens": np.int64(am.sum()),
+        }
+        if pvs:
+            batch["pixel_values"] = np.concatenate(pvs)
+        if pvvs:
+            batch["pixel_values_videos"] = np.concatenate(pvvs)
+        yield batch, _grids_key(igrids), _grids_key(vgrids)
+
+
+def _maybe_resume(trainer: "Trainer", args: AllArgs) -> None:
+    """resume_from_checkpoint: a path, or "auto" to pick up the latest
+    checkpoint under output_dir/checkpoints (starts fresh when none exists)."""
+    rfc = args.train.resume_from_checkpoint
+    if not rfc:
+        return
+    trainer.resume(None if str(rfc).lower() in ("auto", "true", "1") else rfc)
+
+
+class Trainer:
+    """Step loop with logging, checkpoints and resume. `params` (or the
+    adapter tree) and `opt_state` are updated in place by `step_fn`."""
+
+    def __init__(
+        self,
+        step_fn: Callable,  # (params, opt_state, *extra, batch, *statics) -> (params, opt_state, loss)
+        params,
+        opt_state,
+        output_dir: str,
+        logging_steps: int = 10,
+        save_steps: int = 5000,
+        extra_step_args: tuple = (),
+        eval_hook: Optional[Callable] = None,  # (params) -> eval loss
+        eval_steps: Optional[int] = None,  # None = once at the end of training
+        report_to=None,
+    ):
+        self.step_fn = step_fn
+        self.params = params
+        self.opt_state = opt_state
+        self.output_dir = output_dir
+        self.logging_steps = logging_steps
+        self.save_steps = save_steps
+        self.extra = extra_step_args
+        self.eval_hook = eval_hook
+        self.eval_steps = eval_steps
+        self.log = TrainerLog(output_dir)
+        self.reporter = make_reporter(report_to, output_dir)
+        self.step = 0
+        self._eval_at = -1
+
+    def evaluate(self):
+        """Eval-loss pass over the held-out split."""
+        if self.eval_hook is None or self.step == self._eval_at:
+            return None
+        self._eval_at = self.step
+        el = float(self.eval_hook(self.params))
+        self.log.log(self.step, eval_loss=round(el, 6))
+        self.reporter.log(self.step, eval_loss=el)
+        logger.info(f"step {self.step}: eval_loss={el:.4f}")
+        return el
+
+    def resume(self, path: Optional[str] = None):
+        ckpt_dir = path or os.path.join(self.output_dir, "checkpoints")
+        step, state = restore_train_state(
+            ckpt_dir, template={"params": self.params, "opt_state": self.opt_state}
+        )
+        if state is not None:
+            self.params = state["params"]
+            self.opt_state = state["opt_state"]
+            self.step = step
+            logger.info(f"resumed from step {step}")
+
+    def save(self):
+        save_train_state(
+            os.path.join(self.output_dir, "checkpoints"), self.step,
+            {"params": self.params, "opt_state": self.opt_state},
+        )
+
+    def train(self, batches: Iterable, max_steps: Optional[int] = None):
+        """Run the step loop over `batches`. After `resume`, the batches the
+        restored steps already consumed are skipped (the collators are
+        deterministic in their seed), so a resumed run takes the steps the
+        uninterrupted run would have taken."""
+        t0 = time.time()
+        tokens = 0
+        skip = self.step
+        for item in batches:
+            if skip > 0:
+                skip -= 1
+                continue
+            if max_steps is not None and self.step >= max_steps:
+                break
+            if ABORT_EVENT is not None and ABORT_EVENT.is_set():
+                logger.info(f"abort requested at step {self.step}")
+                break
+            # collators may yield (batch, *grids) for the multimodal step
+            batch, statics = (item[0], item[1:]) if isinstance(item, tuple) else (item, ())
+            # honest tokens/sec: collators report real (non-pad) counts
+            ntok = batch.pop("_n_tokens", None)
+            if ntok is None:
+                ids = batch.get("input_ids")
+                ntok = np.prod(ids.shape) if ids is not None else 0
+            self.params, self.opt_state, loss = self.step_fn(
+                self.params, self.opt_state, *self.extra, batch, *statics
+            )
+            self.step += 1
+            tokens += int(ntok)
+            if self.step % self.logging_steps == 0 or self.step == 1:
+                lv = float(loss)  # the host waits for the device here
+                tps = tokens / (time.time() - t0)
+                self.log.log(self.step, loss=lv, tokens_per_sec=round(tps, 1))
+                self.reporter.log(self.step, loss=lv, tokens_per_sec=tps)
+                logger.info(f"step {self.step}: loss={lv:.4f} tps={tps:.0f}")
+            if self.eval_hook is not None and self.eval_steps \
+                    and self.step % self.eval_steps == 0:
+                self.evaluate()
+            if self.step % self.save_steps == 0:
+                self.save()
+        self.evaluate()
+        self.save()
+        self.log.plot_loss()
+        self.reporter.close()
+        return self.params
+
+
+def _make_tx(args: AllArgs, steps: int):
+    """Optimizer from TrainArgs; gradient_accumulation_steps > 1 takes one
+    optimizer update per k micro-batches (the mean of their gradients)."""
+    if args.finetune.use_optimizer:
+        raise _later(f"use_optimizer: {args.finetune.use_optimizer} (train/optim.py: "
+                     "GaLore, APOLLO, LoRA+, BAdam, Adam-mini)")
+    return make_optimizer(
+        args.train.learning_rate,
+        args.train.weight_decay,
+        grad_clip=args.train.max_grad_norm,
+        warmup_steps=args.train.warmup_steps,
+        total_steps=steps,
+        schedule=args.train.lr_scheduler_type,
+        accumulation_steps=args.train.gradient_accumulation_steps,
+    )
+
+
+def _load_or_init_params(args: AllArgs, cfg, mm: bool, dtype, device):
+    """Full (text + visual) tree for multimodal training, text-only otherwise."""
+    if args.model.model_name_or_path:
+        raise _later("loading an HF checkpoint (`model_name_or_path`, the "
+                     "safetensors loader)")
+    gen = torch.Generator(device=device).manual_seed(args.train.seed)
+    if mm:
+        return init_params(cfg, gen, device, dtype)
+    return {"text": init_text_params(cfg.text, gen, device, dtype)}
+
+
+def _batches(args: AllArgs, data, cfg, mm: bool):
+    B = args.train.per_device_train_batch_size
+    kw = dict(seed=args.train.seed, epochs=args.train.num_train_epochs)
+    if mm:
+        return collate_mm(data, cfg, B, args.data.cutoff_len, **kw)
+    return collate(data, B, args.data.cutoff_len, **kw)
+
+
+def _split_val(args: AllArgs, data, mm: bool):
+    """Carve the val_size held-out split off the training data: a fraction
+    samples a seeded permutation, an integer >= 1 takes an absolute count.
+    Text-only: multimodal data skips it with a warning."""
+    vs = args.data.val_size
+    if not vs:
+        return data, None
+    if mm:
+        logger.warning("val_size eval is text-only; skipped for multimodal data")
+        return data, None
+    n = len(data)
+    n_val = int(vs) if vs >= 1 else max(1, int(n * vs))
+    n_val = min(n_val, n - 1)
+    order = np.random.RandomState(args.train.seed).permutation(n)
+    return [data[i] for i in order[n_val:]], [data[i] for i in order[:n_val]]
+
+
+def _eval_hook_factory(args: AllArgs, eval_data, eval_fn, extra: tuple = ()):
+    """Token-weighted mean loss over the held-out split; `eval_fn` is
+    (params, *extra, batch) -> scalar loss."""
+    B = args.train.per_device_eval_batch_size or args.train.per_device_train_batch_size
+
+    def hook(params):
+        tot, n = 0.0, 0
+        for batch in collate(eval_data, B, args.data.cutoff_len, seed=0):
+            ntok = int(batch.pop("_n_tokens"))
+            tot += float(eval_fn(params, *extra, batch)) * ntok
+            n += ntok
+        return tot / max(n, 1)
+
+    return hook
+
+
+def predict_and_score(params, cfg, data, tokenizer, args: AllArgs, device=None):
+    """Greedy-generate each example's prompt through `Generator`, score
+    BLEU-4 / ROUGE against the gold completion, and write
+    generated_predictions.jsonl and predict_results.json to output_dir."""
+    from ..eval.text_metrics import compute_similarity
+    from ..generation import Generator
+
+    dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    gen = Generator(params, cfg, dtype=dtype, device=device)
+    preds, refs, rows = [], [], []
+    for ex in data[: args.train.predict_samples]:
+        ids = np.asarray(ex["input_ids"])
+        labels = np.asarray(ex["labels"])
+        sup = np.where(labels != -100)[0]
+        if len(sup) == 0 or sup[0] == 0:
+            continue
+        cut = int(sup[0])
+        # score only the first assistant span: the generation prompt ends
+        # before turn 1
+        after = labels[cut:]
+        span_end = np.argmax(after == -100) if (after == -100).any() else len(after)
+        gold = [int(t) for t in after[:span_end]]
+        out = gen.generate(
+            ids[None, :cut],
+            max_new_tokens=min(len(gold) + 8, args.gen.max_new_tokens),
+            temperature=0.0,
+        )
+        pred = tokenizer.decode(out[0].tolist(), skip_special_tokens=True)
+        ref = tokenizer.decode(gold, skip_special_tokens=True)
+        preds.append(pred)
+        refs.append(ref)
+        rows.append({"predict": pred, "label": ref})
+    scores = compute_similarity(preds, refs)
+    scores["samples"] = len(rows)
+    os.makedirs(args.train.output_dir, exist_ok=True)
+    with open(os.path.join(args.train.output_dir, "generated_predictions.jsonl"), "w") as f:
+        for row in rows:
+            f.write(json.dumps(row, ensure_ascii=False) + "\n")
+    with open(os.path.join(args.train.output_dir, "predict_results.json"), "w") as f:
+        json.dump(scores, f, indent=2)
+    return scores
+
+
+def _refuse_later_options(args: AllArgs) -> None:
+    """Options of the JAX package that the port does not have yet raise by
+    name. scan_layers / scan_unroll / remat_mode / remat_barrier are
+    accepted: they pick a memory layout of the JAX layer loop and change no
+    number, and the torch layer loop with per-layer checkpointing needs
+    none of them (the stacked layout is not built)."""
+    t, f = args.train, args.finetune
+    if t.pipeline_stages > 1 or t.data_parallel * t.model_parallel > 1:
+        raise _later("parallel/ (pipeline_stages, data_parallel, model_parallel > 1)")
+    if f.use_dora:
+        raise _later("use_dora (DoRA)")
+
+
+def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
+    """SFT / PT workflow: text-only or multimodal, full / freeze / lora
+    finetuning, QLoRA with `quantization_bit: 8`. Runs on the CUDA card
+    unless `device="cpu"`. Returns the final params (LoRA: merged)."""
+    _refuse_later_options(args)
+    device = resolve_device(device)
+    cfg = build_config(args)
+    tcfg = cfg.text
+    dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    # one tokenizer instance for the whole workflow: SimpleTokenizer grows
+    # its vocab while encoding, so do_predict must decode with the instance
+    # that encoded the dataset
+    tokenizer = resolve_tokenizer(args, cfg, tokenizer)
+    data = build_dataset(args, tokenizer, cfg=cfg)
+    mm = is_multimodal(data)
+    data, eval_data = _split_val(args, data, mm)
+    params = _load_or_init_params(args, cfg, mm, dtype, device)
+    if args.model.quantization_bit is not None:
+        # QLoRA: int8 frozen base + rank-r adapters
+        if args.model.quantization_bit != 8:
+            raise ValueError(
+                "only quantization_bit: 8 is supported for TRAINING (QLoRA); int4 "
+                "is a serving-only mode (Generator(quant='int4'))"
+            )
+        if args.finetune.finetuning_type != "lora":
+            raise ValueError(
+                "quantization_bit requires finetuning_type: lora (the quantized "
+                "base is frozen; int8 leaves carry no gradients)"
+            )
+        from ..models.quant import quantize_params
+
+        params = quantize_params(params)
+    steps = args.train.max_steps or int(
+        np.ceil(args.train.num_train_epochs * len(data)
+                / args.train.per_device_train_batch_size)
+    )
+    tx = _make_tx(args, steps)
+    ft = args.finetune.finetuning_type
+    common = dict(eval_steps=args.train.eval_steps, report_to=args.train.report_to)
+    if ft == "lora":
+        from .lora import init_lora, make_lora_eval_fn, make_lora_sft_step, merge_lora
+
+        kw = dict(alpha=args.finetune.lora_alpha, rank=args.finetune.lora_rank,
+                  use_rslora=args.finetune.use_rslora)
+        set_trainable(params, lambda path, leaf: False)
+        lora = init_lora(
+            params, torch.Generator(device=device).manual_seed(args.train.seed + 1),
+            rank=args.finetune.lora_rank, target=args.finetune.lora_target,
+        )
+        opt_state = tx.init(lora)
+        step_fn = make_lora_sft_step(cfg, tx, remat=args.train.remat,
+                                     remat_group=args.train.remat_group, **kw)
+        eval_hook = None
+        if eval_data:
+            eval_fn = make_lora_eval_fn(cfg, **kw)
+            eval_hook = _eval_hook_factory(
+                args, eval_data, lambda l, b: eval_fn(l, params, b))
+        trainer = Trainer(
+            step_fn, lora, opt_state, args.train.output_dir,
+            args.train.logging_steps, args.train.save_steps,
+            extra_step_args=(params,), eval_hook=eval_hook, **common,
+        )
+        _maybe_resume(trainer, args)
+        lora = trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
+        merged = merge_lora(params, lora, **kw)
+        if args.train.do_predict and not mm:
+            predict_and_score(merged, cfg, data, tokenizer, args, device)
+        return merged
+    if ft == "freeze":
+        # train only the last freeze_trainable_layers decoder layers. Frozen
+        # leaves get no gradient here, so the clip norm is taken over the
+        # trainable leaves (the JAX package differentiates every leaf, clips
+        # by the norm of all of them and zeroes the frozen updates)
+        first = tcfg.num_hidden_layers - args.finetune.freeze_trainable_layers
+        set_trainable(
+            params,
+            lambda path, leaf: path.startswith("text/layers/")
+            and int(path.split("/")[2]) >= first,
+        )
+    elif ft == "full":
+        set_trainable(params, lambda path, leaf: True)
+    else:
+        raise ValueError(f"unknown finetuning_type {ft!r} (full | freeze | lora)")
+    opt_state = tx.init(params)
+    if mm:
+        step_fn = make_mm_sft_train_step(cfg, tx, remat=args.train.remat,
+                                         remat_group=args.train.remat_group)
+    else:
+        step_fn = make_sft_train_step(tcfg, tx, remat=args.train.remat,
+                                      remat_group=args.train.remat_group)
+    eval_hook = None
+    if eval_data:
+        eval_hook = _eval_hook_factory(args, eval_data, make_sft_eval_fn(tcfg))
+    trainer = Trainer(
+        step_fn, params, opt_state, args.train.output_dir,
+        args.train.logging_steps, args.train.save_steps, eval_hook=eval_hook, **common,
+    )
+    _maybe_resume(trainer, args)
+    final = trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
+    if args.train.do_predict and not mm:
+        # text-only scoring
+        predict_and_score(final, cfg, data, tokenizer, args, device)
+    return final
+
+
+_LATER_STAGES = {
+    "dt": "stage dt (models/convert.py + train/distill.py, run_dt)",
+    "rm": "stage rm (train/dpo.py)",
+    "dpo": "stage dpo (train/dpo.py)",
+    "kto": "stage kto (train/dpo.py)",
+    "ppo": "stage ppo (train/ppo.py)",
+}
+
+
+def run_exp(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
+    """Stage dispatch: sft and pt run; the other stages are not ported yet."""
+    stage = args.finetune.stage
+    if stage in ("sft", "pt"):
+        return run_sft(args, tokenizer, device)
+    if stage in _LATER_STAGES:
+        raise _later(_LATER_STAGES[stage])
+    raise NotImplementedError(
+        f"unknown stage {stage!r} (pt | sft | dt | rm | dpo | kto | ppo)"
+    )

@@ -179,14 +179,76 @@ def test_gated_delta_rule_dispatch_matches_jax(T):
     assert err_ratio(to, jo) < TOL and err_ratio(ts, js) < TOL
 
 
+def _segments(B, T):
+    seg = np.ones((B, T), np.int32)
+    seg[:, T // 3: 2 * T // 3] = 2
+    seg[:, 2 * T // 3:] = 3
+    seg[1, T // 3 - 2: T // 3] = 5  # row 1: another boundary, inside a chunk
+    seg[1, T - 2:] = 0
+    return seg
+
+
 def test_segment_ids_not_ported_yet():
-    _, (tq, tk, tv, tg, tb, _) = both(*_delta_inputs(8, T=12))
-    seg = torch.zeros((2, 12), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tdr.gated_delta_rule(tq, tk, tv, tg, tb, segment_ids=seg, recurrent_threshold=4)
-    with pytest.raises(NotImplementedError):
-        tconv.short_conv(tq.reshape(2, 12, -1), torch.ones(4, 48), None, None,
-                         segment_ids=seg)
+    """The name dates from the serving slices, when packed `segment_ids`
+    raised. They are ported now: the recurrence still refuses them (as in
+    the JAX package: chunk mode only), the short conv and the dispatch take
+    them and match JAX to 1e-5."""
+    (jq, jk, jv, jg, jb, _), (tq, tk, tv, tg, tb, _) = both(*_delta_inputs(8, T=12))
+    seg = _segments(2, 12)
+    with pytest.raises(ValueError, match="chunk mode"):
+        tdr.gated_delta_rule(tq, tk, tv, tg, tb, segment_ids=torch.from_numpy(seg),
+                             recurrent_threshold=12)
+    kw = dict(chunk_size=4, recurrent_threshold=4)
+    jo, js = jdr.gated_delta_rule(jq, jk, jv, jg, jb, segment_ids=jnp.asarray(seg), **kw)
+    to, ts = tdr.gated_delta_rule(tq, tk, tv, tg, tb, segment_ids=torch.from_numpy(seg), **kw)
+    assert err_ratio(to, jo) < TOL and err_ratio(ts, js) < TOL
+    x = tq.reshape(2, 12, -1)
+    w = rnd(np.random.RandomState(0), 4, 48)
+    jy, _ = jconv.short_conv(jnp.asarray(x.numpy()), jnp.asarray(w), None, None,
+                             segment_ids=jnp.asarray(seg))
+    ty, _ = tconv.short_conv(x, torch.from_numpy(w), None, None,
+                             segment_ids=torch.from_numpy(seg))
+    assert err_ratio(ty, jy) < TOL
+
+
+@pytest.mark.parametrize("chunk_size", [8, 16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_delta_rule_chunk_segments_match_jax(chunk_size, with_state):
+    """Packed sequences in the chunk rule: boundaries inside a chunk and
+    (T = 48, thirds at 16 and 32) exactly at chunk edges, a ragged tail
+    (T = 37) that pads with the last segment; outputs and final state
+    <= 1e-5 of JAX's."""
+    for T in (37, 48):
+        (jq, jk, jv, jg, jb, js0), (tq, tk, tv, tg, tb, ts0) = both(*_delta_inputs(6, T=T))
+        seg = _segments(2, T)
+        jo, js = jdr.delta_rule_chunk(jq, jk, jv, jg, jb, js0 if with_state else None,
+                                      chunk_size=chunk_size, segment_ids=jnp.asarray(seg))
+        to, ts = tdr.delta_rule_chunk(tq, tk, tv, tg, tb, ts0 if with_state else None,
+                                      chunk_size=chunk_size,
+                                      segment_ids=torch.from_numpy(seg))
+        assert err_ratio(to, jo) < TOL and err_ratio(ts, js) < TOL
+        # a packed row equals its segments run alone: segment 2 of row 0
+        lo, hi = T // 3, 2 * T // 3
+        alone, _ = tdr.delta_rule_chunk(tq[:1, lo:hi], tk[:1, lo:hi], tv[:1, lo:hi],
+                                        tg[:1, lo:hi], tb[:1, lo:hi], chunk_size=chunk_size)
+        assert err_ratio(to[:1, lo:hi], alone) < 1e-4
+
+
+@pytest.mark.parametrize("carry_history", [False, True])
+def test_short_conv_segments_match_jax(carry_history):
+    rng = np.random.RandomState(12)
+    B, T, D, W = 2, 19, 6, 4
+    x, w, bias, st = rnd(rng, B, T, D), rnd(rng, W, D), rnd(rng, D), rnd(rng, B, W, D)
+    seg = _segments(B, T)
+    (jx, jw, jbias, jst), (tx, tw, tbias, tst) = both(x, w, bias, st)
+    for state_j, state_t in ((None, None), (jst, tst)):
+        jy, jns = jconv.short_conv(jx, jw, jbias, state_j, carry_history=carry_history,
+                                   segment_ids=jnp.asarray(seg))
+        ty, tns = tconv.short_conv(tx, tw, tbias, state_t, carry_history=carry_history,
+                                   segment_ids=torch.from_numpy(seg))
+        assert err_ratio(ty, jy) < TOL
+        if state_j is not None:
+            np.testing.assert_array_equal(tns.numpy(), np.asarray(jns))
 
 
 # ---------------------------------------------------------------- swa
@@ -274,3 +336,21 @@ def test_gated_delta_rule_without_l2norm_matches_jax():
     jo, js = jdr.gated_delta_rule(jq, jk, jv, jg, jb, js0, **kw)
     to, ts = tdr.gated_delta_rule(tq, tk, tv, tg, tb, ts0, **kw)
     assert err_ratio(to, jo) < TOL and err_ratio(ts, js) < TOL
+
+
+@pytest.mark.parametrize("window", [5, 64])
+def test_swa_prefill_dense_segments_match_jax(window):
+    """The stateless banded attention with packed segment ids (on the CPU
+    its dense path on both sides), window below and above T."""
+    rng = np.random.RandomState(13)
+    B, T, Hq, Hkv, D = 2, 21, 4, 2, 8
+    q, k, v = rnd(rng, B, T, Hq, D), rnd(rng, B, T, Hkv, D), rnd(rng, B, T, Hkv, D)
+    seg = _segments(B, T)
+    for s in (None, seg):
+        want = jswa.swa_prefill_dense(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window,
+            segment_ids=None if s is None else jnp.asarray(s))
+        got = tswa.swa_prefill_dense(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), window,
+            segment_ids=None if s is None else torch.from_numpy(s))
+        assert err_ratio(got, want) < TOL

@@ -146,8 +146,10 @@ def test_state_size_clone_and_init(weights):
 
 
 def test_paths_of_later_slices_raise(weights):
-    """What is still to be ported raises; what the serving slice ported
-    (fuse, quant, speculative, beam) no longer does."""
+    """What is still to be ported raises (DoRA scales, biased int4 storage,
+    the stacked layer layout); what the serving slice (fuse, quant,
+    speculative, beam) and the training slice (segment_ids, LoRA side
+    paths) ported no longer does."""
     jp, tp = weights
     assert Generator(tp, TCFG, fuse=True, device="cpu").params is not tp
     assert Generator(tp, TCFG, quant="int8", device="cpu").cfg is TCFG
@@ -157,9 +159,23 @@ def test_paths_of_later_slices_raise(weights):
     assert StreamingEngine(tp, TCFG, frame_hw=(28, 28), fuse=True, device="cpu").frames == 0
     ids = torch.as_tensor(_ids(0, 1, 4))
     pos = torch.arange(4).expand(3, 1, 4)
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        forward(tp, TCFG, ids, pos, segment_ids=torch.zeros((1, 4), dtype=torch.long))
-    for key in ("lora_a", "dora_scale", "kernel_q4b"):
+    # packed segment ids: the stateless forward takes them (logits <= 1e-4
+    # of JAX's); a cached forward refuses them
+    ids12, pos12 = _ids(3, 1, 12), np.broadcast_to(np.arange(12), (3, 1, 12)).copy()
+    seg = np.array([[1] * 5 + [2] * 7], np.int32)
+    want, _ = jforward(jp, CFG, jnp.asarray(ids12), jnp.asarray(pos12),
+                       segment_ids=jnp.asarray(seg))
+    got, _ = forward(tp, TCFG, torch.as_tensor(ids12), torch.as_tensor(pos12),
+                     segment_ids=torch.from_numpy(seg))
+    assert err_ratio(got, want) < TOL
+    with pytest.raises(ValueError, match="stateless"):
+        forward(tp, TCFG, ids, pos, init_decoder_state(TCFG.text, 1, device="cpu"),
+                segment_ids=torch.ones((1, 4), dtype=torch.int32))
+    # the LoRA side path: y = x W + (x a) b
+    x, w, a, b = (torch.randn(*s) for s in ((3, 4), (4, 5), (4, 2), (2, 5)))
+    assert torch.allclose(_dense(x, {"kernel": w, "lora_a": a, "lora_b": b}),
+                          x @ w + (x @ a) @ b, atol=1e-6)
+    for key in ("dora_scale", "kernel_q4b"):
         with pytest.raises(NotImplementedError, match=key):
             _dense(torch.zeros(1, 4), {key: torch.zeros(4, 4), "kernel": torch.zeros(4, 4)})
     with pytest.raises(NotImplementedError, match="layer_stacks"):

@@ -50,7 +50,9 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "models.vision", "models.infinitevl", "ops.vit_flash", "ops.vit_kernels",
                "ops.delta_kernels", "ops.int4_kernels", "models.quant", "models.fuse",
                "speculative", "beam", "serve.batching", "serve.chat", "serve.api",
-               "data.template", "data.loader"):
+               "data.template", "data.loader", "hparams", "utils.logging",
+               "utils.checkpoint", "train.step", "train.lora", "train.trainer",
+               "eval.text_metrics", "ops.swa_kernels"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -61,6 +63,41 @@ bad = sorted(m for m in sys.modules
              or m == "infinitevl_tpu" or m.startswith("infinitevl_tpu."))
 print("FOREIGN_MODULES", bad)
 """
+
+
+TRAINING_PROGRAM = r"""
+import sys, tempfile
+import torch
+import infinitevl_tpu_torch.train.trainer as trainer
+from infinitevl_tpu_torch.hparams import load_yaml_args
+torch.set_num_threads(1)
+args = load_yaml_args("examples/sft_tiny.yaml")
+args.train.output_dir = tempfile.mkdtemp()
+args.train.max_steps = 2
+args.finetune.finetuning_type = "lora"
+final = trainer.run_sft(args, device="cpu")
+assert "kernel" in final["text"]["layers"][0]["q_proj"]
+try:
+    trainer.run_sft(args)  # no device named: the card, and there is none here
+except RuntimeError as e:
+    assert "CUDA" in str(e), e
+else:
+    raise AssertionError("run_sft defaulted to the CPU")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "infinitevl_tpu"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+def test_training_entry_point_loads_nothing_of_jax_and_defaults_to_the_card():
+    """`import infinitevl_tpu_torch.train.trainer` and a run_sft call load
+    neither jax, optax nor the JAX package; with no device named, run_sft
+    asks for the CUDA card (and raises where there is none)."""
+    proc = subprocess.run([sys.executable, "-c", TRAINING_PROGRAM], cwd=REPO,
+                          env={**ENV, "CUDA_VISIBLE_DEVICES": ""},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
 
 
 def test_port_never_loads_jax():

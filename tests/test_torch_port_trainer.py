@@ -1,0 +1,259 @@
+"""The training slice as a whole against the JAX package on the CPU in
+fp32: the port's dataset pipeline and collators (batches equal the JAX
+collators' arrays exactly), `Trainer` loss curves from JAX-initialised
+weights carried across (<= 1e-4 of JAX's), `run_sft` on the two tiny
+recipes end to end, resume (bit-equal continuation), and the stages and
+options of later slices, which raise by name."""
+
+import glob
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_helpers import carry_train_state, to_port_config
+
+import infinitevl_tpu.hparams as jhparams
+import infinitevl_tpu.train.step as jstep
+import infinitevl_tpu.train.trainer as jtrainer
+import infinitevl_tpu_torch.hparams as thparams
+import infinitevl_tpu_torch.train.step as tstep
+import infinitevl_tpu_torch.train.trainer as ttrainer
+from infinitevl_tpu.models.params import init_params
+from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+from infinitevl_tpu_torch.utils.checkpoint import latest_step, restore_train_state
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAMLS = sorted(glob.glob(os.path.join(REPO, "examples", "*.yaml")))
+
+
+def _args(mod, name, tmp_path=None, **over):
+    args = mod.load_yaml_args(os.path.join(REPO, "examples", name))
+    args.data.dataset_dir = os.path.join(REPO, "data")
+    if tmp_path is not None:
+        args.train.output_dir = str(tmp_path)
+    for key, val in over.items():
+        group = next(g for g in (args.model, args.data, args.train, args.finetune, args.gen)
+                     if hasattr(g, key))
+        setattr(group, key, val)
+    return args
+
+
+@pytest.mark.parametrize("path", YAMLS, ids=[os.path.basename(p) for p in YAMLS])
+def test_every_example_yaml_parses_as_in_jax(path):
+    import dataclasses
+
+    want, got = jhparams.load_yaml_args(path), thparams.load_yaml_args(path)
+    for group in ("model", "data", "train", "finetune", "gen", "eval"):
+        assert dataclasses.asdict(getattr(got, group)) == dataclasses.asdict(
+            getattr(want, group)), group
+    with pytest.raises(ValueError, match="unknown config keys"):
+        thparams.parse_args({"no_such_key": 1})
+
+
+def _same_batches(jbatches, tbatches, n):
+    seen = 0
+    for jitem, titem in zip(jbatches, tbatches):
+        jb, jrest = (jitem[0], jitem[1:]) if isinstance(jitem, tuple) else (jitem, ())
+        tb, trest = (titem[0], titem[1:]) if isinstance(titem, tuple) else (titem, ())
+        assert jrest == trest
+        assert set(jb) == set(tb)
+        for k in jb:
+            a, b = np.asarray(jb[k]), np.asarray(tb[k])
+            # jnp.asarray narrows the collator's 64-bit integers to 32 bits
+            assert a.shape == b.shape and a.dtype.kind == b.dtype.kind, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        seen += 1
+    assert seen == n
+
+
+def test_text_dataset_and_collate_equal_jax():
+    ja, ta = _args(jhparams, "sft_tiny.yaml"), _args(thparams, "sft_tiny.yaml")
+    jd, td = jtrainer.build_dataset(ja), ttrainer.build_dataset(ta)
+    assert len(jd) == len(td) and not ttrainer.is_multimodal(td)
+    for a, b in zip(jd, td):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+    _same_batches(jtrainer.collate(jd, 2, 64, seed=3, epochs=2.0),
+                  ttrainer.collate(td, 2, 64, seed=3, epochs=2.0), len(td))
+    # unpacked rows too
+    ja.data.packing = ta.data.packing = False
+    jd, td = jtrainer.build_dataset(ja), ttrainer.build_dataset(ta)
+    _same_batches(jtrainer.collate(jd, 3, 48, seed=1), ttrainer.collate(td, 3, 48, seed=1),
+                  int(np.ceil(len(td) / 3)))
+
+
+def test_multimodal_dataset_and_collate_equal_jax():
+    ja, ta = _args(jhparams, "mm_sft_tiny.yaml"), _args(thparams, "mm_sft_tiny.yaml")
+    jcfg = jtrainer.build_config(ja)
+    tcfg = ttrainer.build_config(ta)
+    assert tcfg == to_port_config(jcfg)
+    jd, td = jtrainer.build_dataset(ja, cfg=jcfg), ttrainer.build_dataset(ta, cfg=tcfg)
+    assert len(jd) == len(td) and ttrainer.is_multimodal(td)
+    _same_batches(jtrainer.collate_mm(jd, jcfg, 1, 256, seed=0, epochs=1.0),
+                  ttrainer.collate_mm(td, tcfg, 1, 256, seed=0, epochs=1.0), len(td))
+
+
+def _jax_losses(args, cfg, data, params, mm, n_steps):
+    tx = jtrainer._make_tx(args, n_steps)
+    state = tx.init(params)
+    if mm:
+        step = jax.jit(jstep.make_mm_sft_train_step(cfg, tx), static_argnums=(3, 4))
+    else:
+        step = jax.jit(jstep.make_sft_train_step(cfg.text, tx))
+    losses = []
+    for item in jtrainer._batches(args, data, cfg, mm):
+        if len(losses) == n_steps:
+            break
+        batch, rest = (item[0], item[1:]) if isinstance(item, tuple) else (item, ())
+        batch.pop("_n_tokens")
+        params, state, loss = step(params, state, batch, *rest)
+        losses.append(float(loss))
+    return losses
+
+
+@pytest.mark.parametrize("name,n_steps", [("sft_tiny.yaml", 8), ("mm_sft_tiny.yaml", 4)])
+def test_trainer_loss_curve_matches_jax(tmp_path, name, n_steps):
+    """`Trainer` + step over the batches the port's own pipeline makes,
+    from JAX-initialised weights carried across: every step's loss within
+    1e-4 of the JAX step's (packed text rows; image and video batches)."""
+    ja = _args(jhparams, name, num_train_epochs=8.0, max_steps=n_steps)
+    ta = _args(thparams, name, tmp_path, num_train_epochs=8.0, max_steps=n_steps,
+               logging_steps=1)
+    jcfg = jtrainer.build_config(ja)
+    tcfg = ttrainer.build_config(ta)
+    jdata = jtrainer.build_dataset(ja, cfg=jcfg)
+    tdata = ttrainer.build_dataset(ta, cfg=tcfg)
+    mm = ttrainer.is_multimodal(tdata)
+    jp = init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    if not mm:
+        jp = {"text": jp["text"]}
+    want = _jax_losses(ja, jcfg, jdata, jp, mm, n_steps)
+    tp, _ = carry_train_state(jp)
+    tx = ttrainer._make_tx(ta, n_steps)
+    step = (tstep.make_mm_sft_train_step(tcfg, tx) if mm
+            else tstep.make_sft_train_step(tcfg.text, tx))
+    trainer = ttrainer.Trainer(step, tp, tx.init(tp), str(tmp_path), logging_steps=1,
+                               save_steps=1000)
+    trainer.train(ttrainer._batches(ta, tdata, tcfg, mm), max_steps=n_steps)
+    got = [r["loss"] for r in trainer.log.records if "loss" in r]
+    assert len(got) == len(want) == n_steps
+    assert max(abs(a - b) / b for a, b in zip(got, want)) < 1e-4, (got, want)
+    assert all(r["tokens_per_sec"] > 0 for r in trainer.log.records if "loss" in r)
+    assert latest_step(os.path.join(str(tmp_path), "checkpoints")) == n_steps
+
+
+@pytest.mark.parametrize("name,over", [
+    ("sft_tiny.yaml", dict(do_predict=True, predict_samples=2, max_new_tokens=4,
+                           val_size=0.25)),
+    ("sft_tiny.yaml", dict(finetuning_type="lora", learning_rate=1e-2, remat=True)),
+    ("sft_tiny.yaml", dict(finetuning_type="lora", quantization_bit=8, use_rslora=True,
+                           gradient_accumulation_steps=2)),
+    ("sft_tiny.yaml", dict(finetuning_type="freeze", freeze_trainable_layers=2)),
+    ("mm_sft_tiny.yaml", dict()),
+    ("mm_sft_tiny.yaml", dict(finetuning_type="lora", remat=True, remat_group=2)),
+], ids=["full+predict+val", "lora+remat", "qlora+rslora+accum", "freeze", "mm", "mm-lora"])
+def test_run_sft_end_to_end(tmp_path, name, over):
+    """run_sft on the tiny recipes as they are (plus one finetuning type
+    each): the loss falls, the log and a checkpoint are written, and
+    do_predict writes its scores."""
+    args = _args(thparams, name, tmp_path, logging_steps=1, num_train_epochs=8.0, **over)
+    final = ttrainer.run_sft(args, device="cpu")
+    recs = [json.loads(l) for l in open(os.path.join(str(tmp_path), "trainer_log.jsonl"))]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    steps = args.train.max_steps
+    assert len(losses) == steps and all(np.isfinite(losses))
+    if name == "sft_tiny.yaml":  # text: 8 steps over 4 packed rows repeat the data
+        assert min(losses[-2:]) < losses[0]
+    ckpt = os.path.join(str(tmp_path), "checkpoints")
+    assert latest_step(ckpt) == steps
+    _, state = restore_train_state(ckpt)
+    expect = steps // args.train.gradient_accumulation_steps
+    assert state["opt_state"]["count"] == expect
+    assert all(torch.isfinite(t).all() for _, t in tree_leaves_with_path(final)
+               if t.is_floating_point())
+    if over.get("finetuning_type") == "lora":
+        # the merged export carries kernels, never side paths or int8 targets
+        q = final["text"]["layers"][0]["q_proj"]
+        assert "kernel" in q and "lora_a" not in q and "kernel_q" not in q
+    if over.get("do_predict"):
+        scores = json.load(open(os.path.join(str(tmp_path), "predict_results.json")))
+        assert scores["samples"] == 2 and "bleu-4" in scores
+        assert any("eval_loss" in r for r in recs)
+        assert os.path.exists(os.path.join(str(tmp_path), "generated_predictions.jsonl"))
+
+
+@pytest.mark.parametrize("ft", ["full", "lora"])
+def test_resume_continues_bit_equal(tmp_path, ft):
+    """Four steps straight against two steps, a save, a fresh process
+    state, a resume and two more: parameters (or adapters) and the
+    optimizer state are bit-equal."""
+    def run(out, max_steps, resume):
+        args = _args(thparams, "sft_tiny.yaml", out, finetuning_type=ft, max_steps=max_steps,
+                     lr_scheduler_type="constant", num_train_epochs=8.0, save_steps=2,
+                     resume_from_checkpoint="auto" if resume else None)
+        ttrainer.run_sft(args, device="cpu")
+        return restore_train_state(os.path.join(str(out), "checkpoints"))
+
+    step_a, a = run(tmp_path / "straight", 4, False)
+    run(tmp_path / "resumed", 2, False)
+    step_b, b = run(tmp_path / "resumed", 4, True)
+    assert step_a == step_b == 4
+    la, lb = (dict(tree_leaves_with_path(s)) for s in (a, b))
+    assert set(la) == set(lb) and len(la) > 4
+    assert all(torch.equal(la[p], lb[p]) for p in la)
+    assert a["opt_state"]["count"] == b["opt_state"]["count"] == 4
+
+
+LATER = [
+    ("dpo_tiny.yaml", {}, "stage dpo"),
+    ("rm_tiny.yaml", {}, "stage rm"),
+    ("kto_tiny.yaml", {}, "stage kto"),
+    ("ppo_tiny.yaml", {}, "stage ppo"),
+    ("dt_stage1_tiny.yaml", {}, "stage dt"),
+    ("sft_pp_tiny.yaml", {}, "parallel/"),
+    ("sft_tiny.yaml", dict(data_parallel=2), "parallel/"),
+    ("sft_tiny.yaml", dict(streaming=True), "streaming"),
+    ("sft_tiny.yaml", dict(use_optimizer="galore"), "galore"),
+    ("sft_tiny.yaml", dict(finetuning_type="lora", use_dora=True), "DoRA"),
+    ("sft_tiny.yaml", dict(model_name_or_path="/nonexistent/ckpt"), "safetensors"),
+]
+
+
+@pytest.mark.parametrize("name,over,match", LATER, ids=[m for _, _, m in LATER][:5] + [
+    "pipeline", "data_parallel", "streaming", "use_optimizer", "use_dora", "hf_checkpoint"])
+def test_stages_and_options_of_later_slices_raise(tmp_path, name, over, match):
+    args = _args(thparams, name, tmp_path, **over)
+    with pytest.raises(NotImplementedError, match=match):
+        ttrainer.run_exp(args, device="cpu")
+
+
+def test_memory_knobs_are_accepted_and_int4_training_refused(tmp_path):
+    """scan_layers / remat_mode / scan_unroll / remat_barrier choose a
+    memory layout in the JAX package and change no number: accepted."""
+    args = _args(thparams, "sft_tiny.yaml", tmp_path, max_steps=1, remat=True,
+                 scan_layers=True, remat_mode="nested", scan_unroll=3, remat_barrier=True)
+    base = _args(thparams, "sft_tiny.yaml", tmp_path / "base", max_steps=1, remat=True)
+    a, b = ttrainer.run_sft(args, device="cpu"), ttrainer.run_sft(base, device="cpu")
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_leaves_with_path(a),
+                                                           tree_leaves_with_path(b)))
+    for over, match in ((dict(quantization_bit=4, finetuning_type="lora"), "quantization_bit: 8"),
+                        (dict(quantization_bit=8), "finetuning_type: lora"),
+                        (dict(finetuning_type="adapter"), "unknown finetuning_type")):
+        with pytest.raises(ValueError, match=match):
+            ttrainer.run_sft(_args(thparams, "sft_tiny.yaml", tmp_path, **over), device="cpu")
+
+
+def test_long_context_recipe_builds_its_config():
+    """sft_32k_lora_yarn.yaml: parsed, and its yarn rope scaling lands in
+    the port's config as in the JAX package's."""
+    ja = _args(jhparams, "sft_32k_lora_yarn.yaml")
+    ta = _args(thparams, "sft_32k_lora_yarn.yaml")
+    assert ttrainer.build_config(ta) == to_port_config(jtrainer.build_config(ja))
+    assert ta.finetune.finetuning_type == "lora" and ta.train.remat

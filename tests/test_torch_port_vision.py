@@ -34,7 +34,10 @@ from infinitevl_tpu_torch.models.infinitevl import forward, scatter_vision_embed
 from infinitevl_tpu_torch.models.params import from_jax_numpy
 from infinitevl_tpu_torch.models.params import init_vision_params as t_init_vision_params
 from infinitevl_tpu_torch.models.state import init_decoder_state
-from infinitevl_tpu_torch.ops.vit_kernels import segment_flash_attention
+from infinitevl_tpu_torch.ops.vit_kernels import (
+    segment_flash_attention,
+    window_flash_attention,
+)
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -159,12 +162,24 @@ def test_vision_forward_through_the_flash_gate(weights, monkeypatch):
 def test_window_flash_branch_names_kernel_f(weights, monkeypatch):
     _, tp = weights
     grid = GRIDS["one_image"]
+    # the window flash branch reaches kernel F's wrapper (on a CPU tensor
+    # its plain version, so no launch) and agrees with the batched-dense
+    # path to 1e-5
+    px = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (n_patches(grid), in_feat(VCFG))).astype(np.float32))
+    plan = tvision.get_vision_plan(grid, TCFG.vision)
+    dense = tvision.vision_forward(tp["visual"], TCFG.vision, px, plan)
     monkeypatch.setattr(tvision, "WINDOW_FLASH_MIN_SEQ", 0)
     monkeypatch.setattr(tvision, "WINDOW_FLASH_MIN_WIN_LEN", 16)
-    with pytest.raises(NotImplementedError, match="kernel F"):
-        tvision.vision_forward(tp["visual"], TCFG.vision,
-                               torch.zeros((64, in_feat(VCFG))),
-                               tvision.get_vision_plan(grid, TCFG.vision))
+    called = []
+    monkeypatch.setattr(tvision, "vit_window_attention",
+                        lambda *a: called.append(a[4]) or window_flash_attention(*a))
+    window_flash_attention.launches = 0
+    got = tvision.vision_forward(tp["visual"], TCFG.vision, px, plan)
+    n_window_blocks = len(tp["visual"]["blocks"]) - len(TCFG.vision.fullatt_block_indexes)
+    assert called == [plan.win_len] * n_window_blocks and n_window_blocks > 0
+    assert window_flash_attention.launches == 0
+    assert err_ratio(got, dense) < 1e-5
     with pytest.raises(NotImplementedError, match="kernel_q4b"):
         tvision.vision_block_forward(
             {**tp["visual"]["blocks"][0], "qkv": {"kernel_q4b": None}}, TCFG.vision,

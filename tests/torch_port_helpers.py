@@ -11,3 +11,71 @@ def to_port_config(jcfg):
     return tconfig.InfiniteVLConfig(
         text=tconfig.TextConfig(**d.pop("text")),
         vision=tconfig.VisionConfig(**d.pop("vision")), **d)
+
+
+def err_ratio(x, ref):
+    import numpy as np
+
+    as_np = lambda a: np.asarray(a.detach().numpy() if hasattr(a, "detach") else a,
+                                 dtype=np.float64)
+    x, ref = as_np(x), as_np(ref)
+    return np.abs(x - ref).mean() / (np.abs(ref).mean() + 1e-12)
+
+
+def jax_adam_state(opt_state):
+    """The ScaleByAdamState inside an optax state (chain, MultiSteps)."""
+    import jax
+    import optax
+
+    is_adam = lambda x: isinstance(x, optax.ScaleByAdamState)
+    found = [x for x in jax.tree_util.tree_leaves(opt_state, is_leaf=is_adam) if is_adam(x)]
+    assert len(found) == 1, found
+    return found[0]
+
+
+def carry_train_state(tree_jax, opt_state_jax=None, trainable=True):
+    """A JAX tree that is being optimised (model params or a LoRA adapter
+    tree) and, when given, its optax AdamW state, carried across as numpy:
+    returns (port tree with trainable leaves, port optimizer state or None),
+    so both sides take the same steps from the same numbers."""
+    import jax
+    import numpy as np
+
+    from infinitevl_tpu_torch.models.params import (
+        adamw_state_from_jax_numpy,
+        from_jax_numpy,
+    )
+
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    tree = from_jax_numpy(to_np(tree_jax), "cpu", trainable=trainable)
+    if opt_state_jax is None:
+        return tree, None
+    adam = jax_adam_state(opt_state_jax)
+    state = adamw_state_from_jax_numpy(tree, to_np(adam.mu), to_np(adam.nu),
+                                       int(adam.count), "cpu")
+    return tree, state
+
+
+def tree_err(port_tree, jax_tree):
+    """Largest err_ratio over the leaves of a port tree against the JAX
+    tree of the same structure (leaves matched by path)."""
+    import jax
+    import numpy as np
+
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    def jpaths(t, prefix=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from jpaths(v, f"{prefix}/{k}" if prefix else str(k))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                yield from jpaths(v, f"{prefix}/{i}" if prefix else str(i))
+        elif t is not None:
+            yield prefix, np.asarray(t)
+
+    want = dict(jpaths(jax_tree))
+    got = dict(tree_leaves_with_path(port_tree))
+    assert set(got) == set(want), set(got) ^ set(want)
+    return max(err_ratio(got[p], want[p]) if np.abs(want[p]).sum() > 0
+               else float(np.abs(got[p].detach().numpy()).max()) for p in want)
