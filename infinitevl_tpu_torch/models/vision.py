@@ -31,6 +31,7 @@ from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rotary_vision, vision_cos_sin, vision_rot_pos_ids
 from ..ops.swa import attention_dense
 from ..ops.vit_flash import vit_full_attention, vit_window_attention
+from ..ops.vit_kernels import HEAD_DIM as FLASH_HEAD_DIM
 from .text import _dense
 
 Params = Dict[str, Any]
@@ -45,7 +46,8 @@ GridTHW = Tuple[Tuple[int, int, int], ...]
 # smallest sizes at which the kernels were measured against the dense paths
 # on an H100 (chip_smoke.py, lines "[3 gates]" and "F timed"; both kernels
 # won at every size measured, down to one 448x448 frame: S 1024, windows of
-# 64). F takes any window length: there is no upper bound.
+# 64); they hold for the head dim the kernels are written for. F takes any
+# window length: there is no upper bound.
 FLASH_FULL_ATTN_MIN_SEQ = 4096
 WINDOW_FLASH_MIN_SEQ = 4096
 WINDOW_FLASH_MIN_WIN_LEN = 256
@@ -183,7 +185,8 @@ def _window_attention(
     S, H, D = q.shape
     nW, L = plan.num_windows, plan.win_len
     min_seq, min_len = (
-        (WINDOW_FLASH_MIN_SEQ_CUDA, WINDOW_FLASH_MIN_WIN_LEN_CUDA) if q.is_cuda
+        (WINDOW_FLASH_MIN_SEQ_CUDA, WINDOW_FLASH_MIN_WIN_LEN_CUDA)
+        if q.is_cuda and D == FLASH_HEAD_DIM
         else (WINDOW_FLASH_MIN_SEQ, WINDOW_FLASH_MIN_WIN_LEN)
     )
     if S >= min_seq and L >= min_len:
@@ -221,7 +224,8 @@ def _full_attention(
             mask,
         )
         return out.reshape(S, H, D)
-    if S >= (FLASH_FULL_ATTN_MIN_SEQ_CUDA if q.is_cuda else FLASH_FULL_ATTN_MIN_SEQ):
+    on_card = q.is_cuda and D == FLASH_HEAD_DIM
+    if S >= (FLASH_FULL_ATTN_MIN_SEQ_CUDA if on_card else FLASH_FULL_ATTN_MIN_SEQ):
         # long packed sequence (high-resolution image, multi-image prefill)
         return vit_full_attention(q, k, v, seg)
     mask = seg[:, None] == seg[None, :]
