@@ -317,7 +317,7 @@ def load_video(
     """Decode a video clip -> ([T, H, W, C] uint8 RGB, source fps or None).
 
     Real containers decode through OpenCV (the reference samples frames with
-    PyAV, mm_plugin.py:1129-1152; av is not in this image, cv2 is) with the
+    PyAV, mm_plugin.py:1129-1152; OpenCV is the decoder used here) with the
     container's fps read from the header so downstream fps-sampling
     (`sample_frames`) uses the true source rate. .npy / frame-directory
     fixtures return fps=None (caller falls back to its video_src_fps)."""
