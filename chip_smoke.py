@@ -9,6 +9,11 @@ NVIDIA H100.
     python3 chip_smoke.py --kernels-only --only=h,f  # a subset of phase 3
     python3 chip_smoke.py --train-only    # phases 1-3, then the training phases alone
 
+--kernels-only and --train-only are shortcuts for work on one part: they
+stop before the `kernels` line, the card's line and the final `{"ok": ...}`
+line, so only the run without them is the whole check. --only= is taken
+with one of the two and refused otherwise.
+
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
   1. environment: torch / CUDA / nvcc versions, the card's name and power limit
@@ -978,7 +983,9 @@ def _clone_tree(tree, device):
 def phase_train_cross_device(dev) -> None:
     """Three training steps on the CPU (plain versions) and on the card
     (kernels H, C, E, F with their gradients) from the same fp32 weights
-    and batches: full finetuning, LoRA with remat, and a multimodal batch."""
+    and batches: full finetuning, LoRA with remat, and a multimodal batch.
+    The rows have unequal lengths and are padded at their tail, as the
+    collators pad them (segment id 1 for tokens, 0 for pads)."""
     from infinitevl_tpu_torch.models.infinitevl import get_rope_index
     from infinitevl_tpu_torch.models.params import init_params
     from infinitevl_tpu_torch.train.lora import init_lora, make_lora_sft_step
@@ -986,7 +993,9 @@ def phase_train_cross_device(dev) -> None:
         make_mm_sft_train_step,
         make_optimizer,
         make_sft_train_step,
+        read_segment_layout,
         set_trainable,
+        sft_loss_fn,
         tree_leaves_with_path,
     )
 
@@ -996,22 +1005,36 @@ def phase_train_cross_device(dev) -> None:
     rng = np.random.RandomState(2)
     B, T = 2, 300
     text_batches = []
-    for _ in range(3):
-        ids = rng.randint(0, vocab - 8, (B, T))
+    for lengths in ((300, 211), (257, 300), (120, 70)):
+        seg = (np.arange(T)[None] < np.asarray(lengths)[:, None]).astype(np.int32)
+        ids = rng.randint(0, vocab - 8, (B, T)) * seg
         text_batches.append(dict(
-            input_ids=ids, labels=np.where(rng.uniform(size=(B, T)) < 0.7, ids, -100),
+            input_ids=ids,
+            labels=np.where((rng.uniform(size=(B, T)) < 0.7) & (seg > 0), ids, -100),
             position_ids=np.broadcast_to(np.arange(T)[None, None], (3, B, T)).copy(),
-            segment_ids=np.ones((B, T), np.int32)))
+            segment_ids=seg))
+        require(read_segment_layout(seg) == "tail_pad", "rows are not tail-padded")
+    # the DeltaNet rule runs without the ids of tail padding: the same loss as
+    # with them (the plain packed rule on the CPU)
+    tb = {k: torch.from_numpy(v) for k, v in text_batches[0].items()}
+    with torch.no_grad():
+        lp, lt = (float(sft_loss_fn(base["text"], cfg.text, tb["input_ids"], tb["labels"],
+                                    tb["position_ids"], tb["segment_ids"], segment_layout=lay))
+                  for lay in ("packed", "tail_pad"))
+    require(abs(lp - lt) <= 1e-5 * abs(lp),
+            f"tail padding: loss {lt} without the ids in the delta rule, {lp} with them")
     # one 448x448 image: 32x32 patches = 1,024 (E and F on the card), 256 tokens
     grid = ((1, 32, 32),)
     n_img = 32 * 32 // 4
     ids = np.concatenate([rng.randint(0, vocab - 8, 6), [cfg.vision_start_token_id],
                           [cfg.image_token_id] * n_img, [cfg.vision_end_token_id],
-                          rng.randint(0, vocab - 8, 30)])[None]
-    pos, _ = get_rope_index(cfg, ids, np.asarray(grid))
+                          rng.randint(0, vocab - 8, 30), np.zeros(20, np.int64)])[None]
+    am = (np.arange(ids.shape[1])[None] < ids.shape[1] - 20).astype(np.int64)  # 20 pads
+    pos, _ = get_rope_index(cfg, ids, image_grid_thw=np.asarray(grid), attention_mask=am)
     mm_batch = dict(
-        input_ids=ids, labels=np.where(np.arange(ids.shape[1])[None] > n_img + 8, ids, -100),
-        position_ids=np.asarray(pos), segment_ids=np.ones_like(ids, dtype=np.int32),
+        input_ids=ids,
+        labels=np.where((np.arange(ids.shape[1])[None] > n_img + 8) & (am > 0), ids, -100),
+        position_ids=np.asarray(pos), segment_ids=am.astype(np.int32),
         pixel_values=rng.standard_normal((32 * 32, 3 * 2 * 14 * 14)).astype(np.float32))
 
     def run(kind, device):
@@ -1069,7 +1092,8 @@ def phase_train_cross_device(dev) -> None:
                     "training mm: E or F not launched")
         parts.append(f"{kind}: losses {[round(x, 4) for x in l_dev]}, loss err {e_loss:.2g}, "
                      f"params err_ratio {e_par:.2g}")
-    print(f"[4 cross-device] three training steps, fp32 small model, CPU (plain) against "
+    print(f"[4 cross-device] three training steps on tail-padded rows (B 2, lengths 70-300 "
+          f"of 300; the multimodal row with 20 pads), fp32 small model, CPU (plain) against "
           f"card (H, C, E, F and their gradients), tol {MODEL_TOL}: " + "; ".join(parts),
           flush=True)
 
@@ -1896,7 +1920,9 @@ def _run_recipe(name: str, args, card: str, expect_launches=None) -> dict:
                     f"{per_step} x {steps} steps")
     print(f"[8 train] {name}: {steps} steps, losses {[round(x, 4) for x in losses]}, "
           f"{step_ms:.0f} ms per step (median of steps 2..), "
-          f"{ntok / step_ms * 1e3:.0f} tok/s at {ntok} tokens per step, peak memory "
+          f"{ntok / step_ms * 1e3:.0f} positions/s at {ntok} positions per step (pads "
+          f"included), {recs[-1]['tokens_per_sec']:.0f} real tok/s by the trainer's count "
+          f"over the whole run (first step included), peak memory "
           f"{peak:.2f} GB, whole call {wall:.1f} s (weights from seed and dataset included); "
           f"launches H fwd {launches['swa_train_flash_attention']} bwd {h.launches_bwd}, "
           f"C {launches['delta_rule_chunk_fused']}, E {launches['segment_flash_attention']}, "
@@ -1917,6 +1943,7 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     from infinitevl_tpu_torch.train.lora import init_lora, make_lora_sft_step
     from infinitevl_tpu_torch.train.step import (
         make_optimizer,
+        read_segment_layout,
         set_trainable,
         sft_loss_fn,
         tree_leaves_with_path,
@@ -1925,6 +1952,7 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     tc = infinitevl_3b().text
     n_swa, n_lin = tc.num_swa_layers, tc.num_linear_layers
     root = tempfile.mkdtemp(prefix="ivl_train_")
+    repo_data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
     data_dir = os.path.join(root, "data")
     _long_text_dataset(data_dir, 8192)
     text = dict(dataset="demo_long", dataset_dir=data_dir)
@@ -1947,6 +1975,15 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     la = res["lora_2048"]["losses"]
     require(la[-1] < la[0], f"(a): the loss did not fall on the repeated batch: {la}")
     add(res["lora_2048"])
+    # the repo's dataset as it is: rows of 20-30 tokens, two to a batch, each
+    # padded to cutoff_len (segment id 0), so H and the conv mask pads and C
+    # runs unmasked over them
+    res["lora_demo"] = _run_recipe(
+        "(a2) the same on data/demo.json as it is, B 2, rows padded to cutoff_len 2048",
+        _train_args(os.path.join(root, "a2"), cutoff_len=2048, max_steps=4, dataset="demo",
+                    dataset_dir=repo_data, per_device_train_batch_size=2, **lora),
+        card, remat_launches)
+    add(res["lora_demo"])
     res["lora_8192"] = _run_recipe(
         "(b) the same at cutoff_len 8192",
         _train_args(os.path.join(root, "b"), cutoff_len=8192, max_steps=3, **text, **lora),
@@ -1967,22 +2004,20 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     add(res["full_2048"])
 
     # (e) multimodal LoRA steps on data/mllm_demo.json's first image, resized by
-    # the processor to 448x448 and to 1344x1344; cutoff_len = the row's length
-    repo_data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-    for hw in (448, 1344):
+    # the processor to 448x448 and to 1344x1344; the row is padded to cutoff_len
+    for hw, cutoff in ((448, 512), (1344, 2560)):
         mm = dict(dataset="mllm_demo", dataset_dir=repo_data, max_samples=1,
                   image_min_pixels=hw * hw, image_max_pixels=hw * hw, **lora)
-        probe = _train_args(os.path.join(root, f"e{hw}"), cutoff_len=16384, max_steps=1, **mm)
-        cfg = T.build_config(probe)
-        row = T.build_dataset(probe, cfg=cfg)[0]
+        args = _train_args(os.path.join(root, f"e{hw}"), cutoff_len=cutoff, max_steps=2, **mm)
+        cfg = T.build_config(args)
+        row = T.build_dataset(args, cfg=cfg)[0]
         require(tuple(row["image_grid_thw"][0]) == (1, hw // 14, hw // 14),
                 f"(e) image grid {row['image_grid_thw']}")
         n_row = len(row["input_ids"])
+        require(n_row < cutoff, f"(e) the row of {n_row} tokens is cut at {cutoff}")
         r = _run_recipe(
             f"(e) multimodal LoRA, one {hw}x{hw} image ({(hw // 14) ** 2} patches, "
-            f"{n_row} tokens)",
-            _train_args(os.path.join(root, f"e{hw}"), cutoff_len=n_row, max_steps=2, **mm),
-            card, remat_launches)
+            f"{n_row} tokens padded to {cutoff})", args, card, remat_launches)
         # the ViT is frozen under LoRA: its kernels launch forward only, once per step
         require(r["launches"]["segment_flash_attention"] == 2 * 4
                 and r["launches"]["window_flash_attention"] == 2 * 28,
@@ -2002,8 +2037,10 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     batch = next(iter(T._batches(args, data, cfg, False)))
     tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if k != "_n_tokens"}
     with torch.no_grad():
-        base_loss = float(sft_loss_fn(params["text"], cfg.text, tb["input_ids"], tb["labels"],
-                                      tb["position_ids"], tb["segment_ids"], remat=True))
+        base_loss = float(sft_loss_fn(
+            params["text"], cfg.text, tb["input_ids"], tb["labels"], tb["position_ids"],
+            tb["segment_ids"], remat=True,
+            segment_layout=read_segment_layout(batch["segment_ids"])))
     require(abs(base_loss - la[0]) <= 1e-6 * abs(base_loss),
             f"(f) LoRA's first loss {la[0]} is not the base model's {base_loss} (b = 0)")
 
@@ -2108,7 +2145,7 @@ def phase_vit_window_path(dev, card: str) -> dict:
     px_s = pixels(448)
     with torch.no_grad():
         flash = V.vision_forward(params["visual"], cfg.vision, px_s, plan_s)
-        gates = ("FLASH_FULL_ATTN_MIN_SEQ_CUDA", "WINDOW_FLASH_MIN_SEQ_CUDA")
+        gates = ("FLASH_FULL_ATTN_MIN_SEQ", "WINDOW_FLASH_MIN_SEQ")
         saved = {g: getattr(V, g) for g in gates}
         try:
             for g in gates:
@@ -2237,6 +2274,10 @@ def _profile_frames(eng, frames, frame_ms: float, card: str) -> None:
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
+    if only and not (kernels_only or "--train-only" in argv):
+        print("chip_smoke: --only= needs --kernels-only or --train-only (the whole run "
+              "reports every kernel)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
               "False); the port's kernels run only on an NVIDIA GPU (H100)",

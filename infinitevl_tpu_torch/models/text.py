@@ -14,7 +14,8 @@ cannot take; a CPU tensor takes the kernel's plain version.
 Without a state the forward is stateless and differentiable (training):
 SWA layers go through kernel H (forward and backward), DeltaNet layers
 through kernel C with its autograd wrapper, `segment_ids` mask packed
-sequences, dense nodes may carry LoRA side paths (`lora_a` / `lora_b`,
+sequences (with `tail_pads_only`, ids that only mark padding after one
+sequence per row stay away from the DeltaNet rule), dense nodes may carry LoRA side paths (`lora_a` / `lora_b`,
 train/lora.attach_lora), and `remat` checkpoints each layer (or group of
 layers) so its internals are recomputed in the backward. Nothing is
 updated in place on that path."""
@@ -146,10 +147,18 @@ def delta_forward(
     h: Optional[torch.Tensor],  # stacked [L, B, H, K, V] fp32 or None
     layer_idx: int = 0,
     segment_ids: Optional[torch.Tensor] = None,  # [B, T]; stateless forward only
+    tail_pads_only: bool = False,
 ) -> torch.Tensor:
     """Gated DeltaNet layer. With a state, layer `layer_idx` of the stacked
     conv histories and recurrent state is updated IN PLACE. Returns
-    [B, T, D]."""
+    [B, T, D].
+
+    `tail_pads_only` says that `segment_ids` mark nothing but padding after
+    the one sequence of each row. The rule is causal, so the pads cannot
+    reach the real tokens before them: it then runs without the ids (on a
+    CUDA tensor through kernel C, which has no packed path), and only the
+    pads' own outputs, which no label supervises, differ from the packed
+    form's."""
     B, T, _ = x.shape
     H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
     if "fused_proj" in p:  # fused layout (models/fuse.py): one matmul
@@ -208,7 +217,7 @@ def delta_forward(
             initial_state=slab,
             chunk_size=chunk,
             recurrent_threshold=cfg.recurrent_threshold,
-            segment_ids=segment_ids,
+            segment_ids=None if tail_pads_only else segment_ids,
             out_state=slab,
         )
     o = rms_norm_gated(o, g_lin.reshape(B, T, H, V), p["o_norm"], eps=cfg.norm_eps)
@@ -225,6 +234,7 @@ def decoder_layer_forward(
     state: Optional[DecoderState],
     stack_idx: int,
     segment_ids: Optional[torch.Tensor] = None,
+    tail_pads_only: bool = False,
 ) -> torch.Tensor:
     """Pre-norm residual block. `stack_idx` is the layer's index within the
     SWA or DeltaNet stack of `state` (updated in place)."""
@@ -250,7 +260,7 @@ def decoder_layer_forward(
     elif role == LINEAR:
         if state is None:
             attn = delta_forward(p, cfg, h, None, None, None, None,
-                                 segment_ids=segment_ids)
+                                 segment_ids=segment_ids, tail_pads_only=tail_pads_only)
         else:
             attn = delta_forward(
                 p, cfg, h, state["conv_q"], state["conv_k"], state["conv_v"],
@@ -262,10 +272,11 @@ def decoder_layer_forward(
     return x + mlp_forward(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
 
 
-def _run_layers(layers, cfg, roles, x, cos, sin, segment_ids):
+def _run_layers(layers, cfg, roles, x, cos, sin, segment_ids, tail_pads_only):
     """A run of stateless layers (one checkpointed unit of `remat_group`)."""
     for layer_p, role in zip(layers, roles):
-        x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, None, 0, segment_ids)
+        x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, None, 0, segment_ids,
+                                  tail_pads_only)
     return x
 
 
@@ -278,6 +289,7 @@ def text_forward(
     segment_ids: Optional[torch.Tensor] = None,  # [B, T]; packed sequences
     remat: bool = False,
     remat_group: int = 1,
+    tail_pads_only: bool = False,  # the ids mark only pads after one sequence per row
 ) -> Tuple[torch.Tensor, Optional[DecoderState]]:
     """Run the decoder stack. With a state, the state is updated IN PLACE
     (rings, conv histories, delta_h, and cum_len += T) and returned.
@@ -308,7 +320,7 @@ def text_forward(
         for start in range(0, len(layers), group):
             x = checkpoint(
                 _run_layers, layers[start : start + group], cfg,
-                roles[start : start + group], x, cos, sin, segment_ids,
+                roles[start : start + group], x, cos, sin, segment_ids, tail_pads_only,
                 use_reentrant=False,
             )
     else:
@@ -316,7 +328,7 @@ def text_forward(
         for layer_p, role in zip(layers, roles):
             stack_idx = swa_i if role in (SLIDING, FULL) else lin_i
             x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, stack_idx,
-                                      segment_ids)
+                                      segment_ids, tail_pads_only)
             if role in (SLIDING, FULL):
                 swa_i += 1
             else:

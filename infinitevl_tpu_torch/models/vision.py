@@ -31,7 +31,6 @@ from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rotary_vision, vision_cos_sin, vision_rot_pos_ids
 from ..ops.swa import attention_dense
 from ..ops.vit_flash import vit_full_attention, vit_window_attention
-from ..ops.vit_kernels import HEAD_DIM as FLASH_HEAD_DIM
 from .text import _dense
 
 Params = Dict[str, Any]
@@ -40,20 +39,17 @@ GridTHW = Tuple[Tuple[int, int, int], ...]
 # Packed-sequence length at which full-attention blocks switch from the
 # dense-mask path to the segment flash kernel's wrapper (E), and the packed
 # length and window length from which window blocks take the window flash
-# kernel's wrapper (F) instead of the batched-dense path. On a CPU tensor
-# the wrappers run their plain versions and the thresholds only bound the
-# score memory. On a CUDA tensor the `_CUDA` values apply: they are the
+# kernel's wrapper (F) instead of the batched-dense path. They are the
 # smallest sizes at which the kernels were measured against the dense paths
 # on an H100 (chip_smoke.py, lines "[3 gates]" and "F timed"; both kernels
 # won at every size measured, down to one 448x448 frame: S 1024, windows of
-# 64); they hold for the head dim the kernels are written for. F takes any
+# 64). On a CPU tensor the wrappers run their plain versions and the
+# thresholds only bound the score memory; on a CUDA tensor of another head
+# dim than the kernels are written for, the wrappers raise. F takes any
 # window length: there is no upper bound.
-FLASH_FULL_ATTN_MIN_SEQ = 4096
-WINDOW_FLASH_MIN_SEQ = 4096
-WINDOW_FLASH_MIN_WIN_LEN = 256
-FLASH_FULL_ATTN_MIN_SEQ_CUDA = 1024
-WINDOW_FLASH_MIN_SEQ_CUDA = 1024
-WINDOW_FLASH_MIN_WIN_LEN_CUDA = 64
+FLASH_FULL_ATTN_MIN_SEQ = 1024
+WINDOW_FLASH_MIN_SEQ = 1024
+WINDOW_FLASH_MIN_WIN_LEN = 64
 
 
 class VisionPlan:
@@ -184,12 +180,7 @@ def _window_attention(
     batched dense attention."""
     S, H, D = q.shape
     nW, L = plan.num_windows, plan.win_len
-    min_seq, min_len = (
-        (WINDOW_FLASH_MIN_SEQ_CUDA, WINDOW_FLASH_MIN_WIN_LEN_CUDA)
-        if q.is_cuda and D == FLASH_HEAD_DIM
-        else (WINDOW_FLASH_MIN_SEQ, WINDOW_FLASH_MIN_WIN_LEN)
-    )
-    if S >= min_seq and L >= min_len:
+    if S >= WINDOW_FLASH_MIN_SEQ and L >= WINDOW_FLASH_MIN_WIN_LEN:
         return vit_window_attention(q, k, v, win_seg, L)
     vm = valid.reshape(nW, L)
     mask = vm[:, :, None] == vm[:, None, :]
@@ -224,8 +215,7 @@ def _full_attention(
             mask,
         )
         return out.reshape(S, H, D)
-    on_card = q.is_cuda and D == FLASH_HEAD_DIM
-    if S >= (FLASH_FULL_ATTN_MIN_SEQ_CUDA if on_card else FLASH_FULL_ATTN_MIN_SEQ):
+    if S >= FLASH_FULL_ATTN_MIN_SEQ:
         # long packed sequence (high-resolution image, multi-image prefill)
         return vit_full_attention(q, k, v, seg)
     mask = seg[:, None] == seg[None, :]

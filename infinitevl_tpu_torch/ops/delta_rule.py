@@ -304,7 +304,9 @@ def gated_delta_rule(
 
     `segment_ids` (packed sequences) exist in the chunk form only, as in
     the JAX package. Kernel C has no packed (varlen) path yet, so on a CUDA
-    tensor they raise; CPU tensors take the plain chunk form."""
+    tensor they raise; CPU tensors take the plain chunk form. Ids that only
+    mark padding after one sequence per row never come here (the training
+    losses keep them from this rule: train/step._layer_segments)."""
     if segment_ids is not None:
         if q.shape[1] <= recurrent_threshold:
             raise ValueError("segment_ids only supported in chunk mode")
@@ -312,7 +314,8 @@ def gated_delta_rule(
             raise NotImplementedError(
                 "gated_delta_rule: kernel C (delta_rule_chunk_fused) has no packed "
                 f"(varlen) path yet; segment_ids on {q.device} are not supported. "
-                "Train unpacked rows on the card"
+                "Rows that hold several sequences (packing: true) train on the CPU; "
+                "rows of one sequence and tail padding train on the card"
             )
         o, s = delta_rule_chunk(q, k, v, g, beta, initial_state, scale,
                                 use_qk_l2norm, chunk_size, segment_ids)

@@ -169,11 +169,12 @@ def _lora_loss(cfg, base, lora, batch, grid_thw, video_grid_thw, alpha, rank,
             pixel_values_videos=batch.get("pixel_values_videos"),
             video_grid_thw=video_grid_thw, segment_ids=batch.get("segment_ids"),
             remat=remat, remat_group=remat_group,
+            segment_layout=batch.get("segment_layout"),
         )
     return sft_loss_fn(
         merged["text"] if "text" in merged else merged, cfg, batch["input_ids"],
         batch["labels"], batch["position_ids"], batch.get("segment_ids"),
-        remat=remat, remat_group=remat_group,
+        remat=remat, remat_group=remat_group, segment_layout=batch.get("segment_layout"),
     )
 
 

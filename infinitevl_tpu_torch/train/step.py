@@ -21,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -270,13 +271,43 @@ def make_optimizer(
 # ---------------------------------------------------------------- SFT losses
 
 
-def _one_segment_is_none(segment_ids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """Segment ids in which every row holds a single id mask nothing: drop
-    them, so an unpacked, unpadded batch takes the paths without a mask
-    (on the card, kernel C has no packed path yet)."""
-    if segment_ids is None or bool((segment_ids == segment_ids[:, :1]).all()):
-        return None
-    return segment_ids
+def read_segment_layout(segment_ids) -> str:
+    """What a batch's segment ids [B, T] ask of the layers, read on the host
+    from a numpy array or a CPU tensor:
+    "single": every row holds one id, so nothing is masked;
+    "tail_pad": every row is one sequence followed by id-0 pads (what the
+    collators make of unpacked rows shorter than cutoff_len);
+    "packed": anything else (several sequences in a row)."""
+    seg = np.asarray(segment_ids)
+    first = seg[:, :1]
+    if (seg == first).all():
+        return "single"
+    pad = seg == 0
+    if (pad | (seg == first)).all() and (pad[:, 1:] >= pad[:, :-1]).all():
+        return "tail_pad"
+    return "packed"
+
+
+def _layer_segments(segment_ids, layout: Optional[str], labels):
+    """(segment_ids, tail_pads_only, labels) for the decoder. `layout` is
+    read_segment_layout's word (the steps read it from the collator's host
+    batch); without one, ids on the CPU are read here and ids on a card
+    count as packed, so nothing waits for the device. A single id per row
+    drops the ids; tail padding keeps them for the SWA mask and the short
+    conv and takes them from the DeltaNet rule, whose pads cannot reach the
+    tokens before them; the pads carry no label."""
+    if segment_ids is None:
+        return None, False, labels
+    if layout is None:
+        on_host = segment_ids.device.type == "cpu"
+        layout = read_segment_layout(segment_ids) if on_host else "packed"
+    if layout == "single":
+        return None, False, labels
+    if layout == "tail_pad":
+        return segment_ids, True, labels.masked_fill(segment_ids == 0, IGNORE_INDEX)
+    if layout != "packed":
+        raise ValueError(f"segment layout {layout!r} (single | tail_pad | packed)")
+    return segment_ids, False, labels
 
 
 def _head_loss(tp: Params, cfg: TextConfig, hidden, labels, remat: bool) -> torch.Tensor:
@@ -300,12 +331,13 @@ def sft_loss_fn(
     inputs_embeds: Optional[torch.Tensor] = None,
     remat: bool = False,
     remat_group: int = 1,
+    segment_layout: Optional[str] = None,  # see _layer_segments
 ) -> torch.Tensor:
     embeds = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids)
+    segment_ids, tail_pads_only, labels = _layer_segments(segment_ids, segment_layout, labels)
     hidden, _ = text_forward(
-        params, cfg, embeds, position_ids, state=None,
-        segment_ids=_one_segment_is_none(segment_ids), remat=remat,
-        remat_group=remat_group,
+        params, cfg, embeds, position_ids, state=None, segment_ids=segment_ids,
+        remat=remat, remat_group=remat_group, tail_pads_only=tail_pads_only,
     )
     return _head_loss(params, cfg, hidden, labels, remat)
 
@@ -323,6 +355,7 @@ def mm_sft_loss_fn(
     segment_ids: Optional[torch.Tensor] = None,
     remat: bool = False,
     remat_group: int = 1,
+    segment_layout: Optional[str] = None,  # see _layer_segments
 ) -> torch.Tensor:
     """Multimodal SFT loss: ViT features scattered into the token embeds."""
     from ..models.infinitevl import encode_vision, scatter_vision_embeds
@@ -335,10 +368,10 @@ def mm_sft_loss_fn(
     if pixel_values_videos is not None:
         vis = encode_vision(params, cfg, pixel_values_videos, video_grid_thw)
         embeds = scatter_vision_embeds(embeds, vis, input_ids == cfg.video_token_id)
+    segment_ids, tail_pads_only, labels = _layer_segments(segment_ids, segment_layout, labels)
     hidden, _ = text_forward(
-        tp, cfg.text, embeds, position_ids, state=None,
-        segment_ids=_one_segment_is_none(segment_ids), remat=remat,
-        remat_group=remat_group,
+        tp, cfg.text, embeds, position_ids, state=None, segment_ids=segment_ids,
+        remat=remat, remat_group=remat_group, tail_pads_only=tail_pads_only,
     )
     return _head_loss(tp, cfg.text, hidden, labels, remat)
 
@@ -348,10 +381,13 @@ def mm_sft_loss_fn(
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """The collators' numpy batch as tensors on `device` (`_n_tokens` and
-    other plain numbers pass through)."""
-    import numpy as np
-
+    other plain numbers pass through). Segment ids still on the host are
+    read here, once, into `segment_layout`."""
     out = {}
+    seg = batch.get("segment_ids")
+    if "segment_layout" not in batch and seg is not None and (
+            isinstance(seg, np.ndarray) or seg.device.type == "cpu"):
+        out["segment_layout"] = read_segment_layout(seg)
     for k, v in batch.items():
         if isinstance(v, np.ndarray) and v.ndim > 0:
             v = torch.from_numpy(np.ascontiguousarray(v))
@@ -384,6 +420,7 @@ def make_mm_sft_train_step(cfg: InfiniteVLConfig, tx: AdamW, remat: bool = False
             pixel_values_videos=batch.get("pixel_values_videos"),
             video_grid_thw=video_grid_thw, segment_ids=batch.get("segment_ids"),
             remat=remat, remat_group=remat_group,
+            segment_layout=batch.get("segment_layout"),
         )
         apply_gradients(loss, params, tx, opt_state)
         return params, opt_state, loss.detach()
@@ -401,7 +438,7 @@ def make_sft_eval_fn(cfg: TextConfig):
         return sft_loss_fn(
             params["text"] if "text" in params else params, cfg,
             batch["input_ids"], batch["labels"], batch["position_ids"],
-            batch.get("segment_ids"),
+            batch.get("segment_ids"), segment_layout=batch.get("segment_layout"),
         )
 
     return eval_loss
@@ -421,6 +458,7 @@ def make_sft_train_step(cfg: TextConfig, tx: AdamW, remat: bool = False,
             params["text"] if "text" in params else params, cfg,
             batch["input_ids"], batch["labels"], batch["position_ids"],
             batch.get("segment_ids"), remat=remat, remat_group=remat_group,
+            segment_layout=batch.get("segment_layout"),
         )
         apply_gradients(loss, params, tx, opt_state)
         return params, opt_state, loss.detach()

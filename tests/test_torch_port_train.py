@@ -48,7 +48,11 @@ def _text_batch(seed=0, B=2, packed=True):
     ids = rng.randint(0, CFG.text.vocab_size - 8, (B, T))
     labels = np.where(rng.uniform(size=(B, T)) < 0.6, ids, -100)
     seg = np.ones((B, T), np.int32)
-    if packed:
+    if packed == "tail":  # unpacked rows of unequal length, padded to T
+        seg[0, 20:] = 0
+        seg[1, 13:] = 0
+        labels[seg == 0] = -100
+    elif packed:
         seg[:, 9:17] = 2
         seg[:, 17:] = 3
         seg[1, 21:] = 0
@@ -135,18 +139,29 @@ def _torch_loss_and_grads(tp, batch, remat, remat_group=1):
     return float(loss), {p: g for (p, _), g in zip(named, grads)}
 
 
-@pytest.mark.parametrize("packed", [True, False])
-def test_sft_loss_and_gradients_match_jax(weights, packed):
+@pytest.mark.parametrize("packed", [True, False, "tail"])
+def test_sft_loss_and_gradients_match_jax(weights, packed, monkeypatch):
     """Every leaf's gradient against jax.grad, with packed segment ids
-    (short conv, chunk rule and SWA mask all masked) and without; remat
-    (per layer, and in groups of 3) changes nothing."""
+    (short conv, chunk rule and SWA mask all masked), without, and with
+    rows of unequal length padded at their tail (the DeltaNet rule then
+    runs without the ids, JAX's with them); remat (per layer, and in groups
+    of 3) changes nothing."""
+    import infinitevl_tpu_torch.models.text as ttext
+
     jp, tp = weights
     batch = _text_batch(packed=packed)
+    assert tstep.read_segment_layout(batch["segment_ids"]) == {
+        True: "packed", False: "single", "tail": "tail_pad"}[packed]
+    rule_saw_ids = []
+    rule = ttext.gated_delta_rule
+    monkeypatch.setattr(ttext, "gated_delta_rule", lambda *a, **kw: (
+        rule_saw_ids.append(kw["segment_ids"] is not None), rule(*a, **kw))[1])
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jloss = jax.jit(jax.value_and_grad(lambda p: jstep.sft_loss_fn(
         p, CFG.text, jb["input_ids"], jb["labels"], jb["position_ids"], jb["segment_ids"])))
     want, gwant = jloss(jp["text"])
     got, ggot = _torch_loss_and_grads(tp, batch, remat=False)
+    assert rule_saw_ids and all(saw == (packed is True) for saw in rule_saw_ids)
     assert abs(got - float(want)) / float(want) < 1e-4
     gw = {p: np.asarray(g) for p, g in _jax_paths(gwant)}
     assert set(gw) == set(ggot)
@@ -154,6 +169,9 @@ def test_sft_loss_and_gradients_match_jax(weights, packed):
         if path == "inv_freq":  # not a weight: no gradient on either side
             continue
         assert err_ratio(g, gw[path]) < 1e-4, path
+    if packed == "tail":  # id-0 positions are never supervised: a label there is ignored
+        noisy = dict(batch, labels=np.where(batch["segment_ids"] == 0, 7, batch["labels"]))
+        assert abs(_torch_loss_and_grads(tp, noisy, remat=False)[0] - got) < 1e-6
     for kw in (dict(remat=True), dict(remat=True, remat_group=3)):
         again, gagain = _torch_loss_and_grads(tp, batch, **kw)
         assert abs(again - got) < 1e-6, kw
@@ -164,6 +182,27 @@ def test_sft_loss_and_gradients_match_jax(weights, packed):
         p, CFG.text, jb["input_ids"], jb["labels"], jb["position_ids"], jb["segment_ids"],
         remat=True))(jp["text"])
     assert abs(again - float(want_remat)) / float(want_remat) < 1e-4
+
+
+@pytest.mark.parametrize("rows,want", [
+    ([[1, 1, 1, 1], [1, 1, 1, 1]], "single"),
+    ([[1, 1, 1, 1], [0, 0, 0, 0]], "single"),  # a batch short of rows: one id per row
+    ([[1, 1, 1, 0], [1, 1, 1, 1]], "tail_pad"),
+    ([[1, 0, 0, 0], [0, 0, 0, 0]], "tail_pad"),
+    ([[3, 3, 0, 0], [1, 1, 1, 0]], "tail_pad"),
+    ([[1, 1, 2, 2], [1, 1, 1, 1]], "packed"),
+    ([[1, 2, 0, 0], [1, 1, 0, 0]], "packed"),
+    ([[1, 0, 1, 1], [1, 1, 1, 1]], "packed"),  # a pad inside the row
+    ([[0, 0, 1, 1], [1, 1, 1, 1]], "packed"),  # pads in front
+])
+def test_read_segment_layout(rows, want):
+    seg = np.asarray(rows, np.int32)
+    assert tstep.read_segment_layout(seg) == want
+    assert tstep.read_segment_layout(torch.from_numpy(seg)) == want
+    # the steps read it from the host batch, before the ids go to the device
+    out = tstep.batch_to_device({"segment_ids": seg, "_n_tokens": np.int64(3)}, "cpu")
+    assert out["segment_layout"] == want and torch.equal(
+        out["segment_ids"], torch.from_numpy(seg))
 
 
 def _jax_paths(tree, prefix=""):
@@ -191,7 +230,8 @@ def test_mm_sft_loss_and_gradients_match_jax(weights):
     pos, _ = jrope_index(CFG, ids, np.asarray(grid))
     pos = np.asarray(pos)
     seg = np.ones((1, T), np.int32)
-    seg[:, T - 3:] = 0  # three pads, as the multimodal collator marks them
+    seg[:, T - 3:] = 0  # three pads, as the multimodal collator marks them:
+    labels[seg == 0] = -100  # id 0 and no label (the port never supervises a tail pad)
     want, gwant = jax.jit(jax.value_and_grad(lambda p: jstep.mm_sft_loss_fn(
         p, CFG, jnp.asarray(ids), jnp.asarray(labels), jnp.asarray(pos),
         pixel_values=jnp.asarray(px), grid_thw=grid, segment_ids=jnp.asarray(seg))))(jp)
@@ -299,3 +339,62 @@ def test_frozen_leaves_stay_bit_equal_and_stateless_forward_writes_nothing(weigh
     trainable = {p for p, _ in tstep.trainable_leaves(tp)}
     assert moved and moved <= trainable
     assert all(int(p.split("/")[2]) >= first for p in moved)
+
+
+@pytest.mark.parametrize("clip", [1e9, 0.05], ids=["clip-idle", "clip-active"])
+def test_freeze_steps_against_jax(weights, clip):
+    """Three `freeze` steps (last two layers trainable) against the JAX
+    package's (`apply_trainable_mask` over the same optimizer). Frozen
+    leaves get no gradient in the port, so its clip norm is taken over the
+    trainable leaves; JAX differentiates every leaf and clips by the norm of
+    all of them. With the clip idle the two agree (<= 2e-4 on the worst leaf
+    after three Adam steps, which turn gradients equal to 1e-4 into updates
+    of the learning rate's size). With the clip active the port equals JAX
+    with the frozen leaves' gradients zeroed BEFORE the clip (<= 2e-4): that
+    is the whole departure, and the unmodified JAX steps, which scale the
+    gradients by another norm, end measurably elsewhere (> 1e-3)."""
+    from infinitevl_tpu.train.distill import apply_trainable_mask
+
+    jp, tp0 = weights
+    jp = {"text": jp["text"]}
+    n = CFG.text.num_hidden_layers
+    first = n - 2
+    mask = jax.tree.map(lambda _: False, jp)
+    mask["text"]["layers"] = [jax.tree.map(lambda _, i=i: i >= first, lp)
+                              for i, lp in enumerate(jp["text"]["layers"])]
+    jtx = apply_trainable_mask(jstep.make_optimizer(1e-2, grad_clip=clip), mask)
+    batches = [_text_batch(seed=10 + i, packed=False) for i in range(3)]
+
+    # the gradients are the same in every variant: computed once, compiled once
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, jb: jstep.sft_loss_fn(
+        p["text"], CFG.text, jb["input_ids"], jb["labels"], jb["position_ids"],
+        jb["segment_ids"])))
+
+    def jax_steps(zero_frozen_first):
+        params, state, losses = jp, jtx.init(jp), []
+        for b in batches:
+            loss, grads = grad_fn(params, {k: jnp.asarray(v) for k, v in b.items()})
+            if zero_frozen_first:
+                grads = jax.tree.map(lambda g, m: g if m else jnp.zeros_like(g), grads, mask)
+            updates, state = jtx.update(grads, state, params)
+            params = optax.apply_updates(params, updates)
+            losses.append(float(loss))
+        return params, losses
+
+    tp = {"text": jax.tree.map(lambda t: t.detach().clone(), tp0["text"])}
+    tstep.set_trainable(tp, lambda path, leaf: path.startswith("text/layers/")
+                        and int(path.split("/")[2]) >= first)
+    ttx = tstep.make_optimizer(1e-2, grad_clip=clip)
+    tstate = ttx.init(tp)
+    tstep_fn = tstep.make_sft_train_step(TCFG.text, ttx)
+    got = [float(tstep_fn(tp, tstate, dict(b))[2]) for b in batches]
+
+    as_jax, jlosses = jax_steps(zero_frozen_first=False)
+    if clip > 1:
+        assert tree_err(tp, as_jax) < 2e-4
+        assert np.allclose(got, jlosses, rtol=1e-4)
+        return
+    zeroed, zlosses = jax_steps(zero_frozen_first=True)
+    assert tree_err(tp, zeroed) < 2e-4
+    assert np.allclose(got, zlosses, rtol=1e-4)
+    assert tree_err(tp, as_jax) > 1e-3  # the departure is real (3e-2 here), and it is this one
