@@ -125,12 +125,18 @@ ASK_NEW_TOKENS = 17  # the first token, then 16 decode steps
 # kernel G at the 3B widths: (d_in, d_out, group size). MLP up and down,
 # the k/v projection, the fused DeltaNet projection (12320 columns: a ragged
 # last strip), the ViT MLP (3420 columns are no multiple of 16; d_in 3420
-# has a half of 1710 rows, so the column is one group), per-column scales
+# has a half of 1710 rows, so the column is one group), per-column scales.
+# Ms: decode, beams, the verify window (9), the bf16 tile edges (64 rows:
+# one warpgroup; 65 and 128: two), a frame's 257 tokens, a ViT frame's 1024
+# patches, a prefill chunk (big_M, on the first shape). Timed: (d_in, d_out,
+# M) on the MLP shapes and, at M 1024, the ViT MLP's
 G_CASE = dict(shapes=((2048, 11008, 128), (11008, 2048, 128), (2048, 256, 128),
                       (2048, 12320, 128), (1280, 3420, 128), (3420, 1280, 128),
                       (2048, 2048, 1 << 20)),
-              Ms=(1, 3, 8, 9, 257), big_M=2048, timed_shapes=((2048, 11008), (11008, 2048)),
-              timed_Ms=(1, 257))
+              Ms=(1, 3, 8, 9, 64, 65, 128, 257, 1024), big_M=2048,
+              timed=tuple((d_in, d_out, M) for d_in, d_out in ((2048, 11008), (11008, 2048))
+                          for M in (1, 9, 257, 2048))
+              + ((1280, 3420, 1024), (3420, 1280, 1024)))
 HIRES_HW = 1344
 HIRES_NEW_TOKENS = 8
 # phase 7
@@ -536,7 +542,11 @@ def _e_cases(dev, gen):
 
 def _g_cases(dev, gen):
     from infinitevl_tpu_torch.models.quant import dequantize_kernel_int4, quantize_kernel_int4
-    from infinitevl_tpu_torch.ops.int4_kernels import int4_matmul_fused, int4_matmul_plain
+    from infinitevl_tpu_torch.ops.int4_kernels import (
+        int4_matmul_fused,
+        int4_matmul_plain,
+        launch_plan,
+    )
 
     c = G_CASE
     errs, mxs, timed = {torch.bfloat16: [], torch.float32: []}, [], {}
@@ -544,11 +554,11 @@ def _g_cases(dev, gen):
         w = torch.randn((d_in, d_out), generator=gen, device=dev) * 0.02
         node = quantize_kernel_int4(w, gs)
         G = node["scale4"].shape[0]
-        Ms = c["Ms"] + ((c["big_M"],) if (d_in, d_out) == c["timed_shapes"][0] else ())
+        Ms = c["Ms"] + ((c["big_M"],) if (d_in, d_out) == c["shapes"][0][:2] else ())
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             for M in Ms:
                 x = torch.randn((M, d_in), generator=gen, device=dev).to(dtype)
-                if M == 3:  # a strided view: rows of a wider projection, 2 leading dims
+                if M in (3, 65):  # a strided view: rows of a wider projection, 2 leading dims
                     wide = torch.randn((M, d_in + 64), generator=gen, device=dev).to(dtype)
                     x = wide[:, 32:32 + d_in].reshape(1, M, d_in)
                     require(not x.is_contiguous(), "G: the strided case is contiguous")
@@ -561,13 +571,14 @@ def _g_cases(dev, gen):
                 errs[dtype].append(e)
                 if dtype == torch.bfloat16:
                     mxs.append(max_abs(out, ref))
-        if (d_in, d_out) in c["timed_shapes"]:
+        timed_Ms = [M for i, o, M in c["timed"] if (i, o) == (d_in, d_out)]
+        if timed_Ms:
             # the caller finds the weights cold (a decode step walks 2 GB of
             # them): rotate over copies that together exceed the 50 MB L2
             n_copies = -(-120_000_000 // node["kernel_q4"].numel())
             nodes = [{k: v.clone() for k, v in node.items()} for _ in range(n_copies)]
             wdq = [dequantize_kernel_int4(n, torch.bfloat16) for n in nodes]
-            for M in c["timed_Ms"]:
+            for M in timed_Ms:
                 x = torch.randn((M, d_in), generator=gen, device=dev).to(torch.bfloat16)
                 turn = [0]
 
@@ -587,27 +598,30 @@ def _g_cases(dev, gen):
                     library_ms=time_ms(rot(torch.matmul, wdq)),
                     device_ms=time_graph_ms(rot(int4_matmul_fused, nodes)),
                     library_device_ms=time_graph_ms(rot(torch.matmul, wdq)),
+                    plan=launch_plan(M, d_in // 2, d_out, torch.bfloat16),
                     **bound(n_bytes, 2 * M * d_in * d_out, PEAK_BF16_FLOPS))
             del nodes, wdq
-    line = "; ".join(
-        f"{k[0]}->{k[1]} M={k[2]}: kernel {r['ms']:.4f} ms around the wrapper and "
-        f"{r['device_ms']:.4f} ms of device time in a CUDA graph, plain {r['plain_ms']:.3f} ms, "
-        f"library (bf16 matmul on the dequantised copy) {r['library_ms']:.4f} ms and "
-        f"{r['library_device_ms']:.4f} ms in a graph, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']})" for k, r in timed.items())
+    for k, r in timed.items():
+        print(f"[3 parity] G timed {k[0]}->{k[1]} M={k[2]} bf16, cold weights, plan (tile_m, "
+              f"rows per block, splits) {r['plan']}: kernel {r['ms']:.4f} ms around the wrapper "
+              f"and {r['device_ms']:.4f} ms of device time in a CUDA graph, plain "
+              f"{r['plain_ms']:.3f} ms, library (bf16 matmul on the dequantised copy) "
+              f"{r['library_ms']:.4f} ms and {r['library_device_ms']:.4f} ms in a graph, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device roofline share "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}%", flush=True)
     print(f"[3 parity] G int4_matmul_fused: max err_ratio bf16 "
           f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
           f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}) over {len(c['shapes'])} shapes "
           f"(grouped, G = 1, ragged 3420 and 12320 columns) x M {c['Ms']} (+{c['big_M']}), "
-          f"one strided x; bf16, cold weights: {line}", flush=True)
-    (s0, s1), (m_small, m_big) = c["timed_shapes"], c["timed_Ms"]
-    main = timed[(*s0, m_small)]
+          f"strided x at M 3 and 65", flush=True)
+    first = c["timed"][0]
     extra = {}
     for (d_in, d_out, M), r in timed.items():
-        if (d_in, d_out, M) != (*s0, m_small):
+        if (d_in, d_out, M) != first:
             tag = f"{d_in}x{d_out}_m{M}"
             extra.update({f"{key}_{tag}": r[key] for key in (
                 "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")})
+    main = {k: v for k, v in timed[first].items() if k != "plan"}
     return dict(max_abs_err=max(mxs), **main, **extra)
 
 
@@ -679,9 +693,11 @@ def _grads(fn, inputs, cot):
 
 def _h_cases(dev, gen):
     from infinitevl_tpu_torch.ops.swa import sliding_window_mask, swa_prefill_reference
+    from infinitevl_tpu_torch.ops import swa_kernels
     from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention
 
     c = H_CASE
+    target = swa_kernels.BWD_TARGET_BLOCKS
     Hq, Hkv, D = c["Hq"], c["Hkv"], 128
     G = Hq // Hkv
     errs = {"fwd": {}, "bwd": {}}
@@ -745,6 +761,20 @@ def _h_cases(dev, gen):
         fb_ms = time_ms(lambda: fwd_bwd(kern, (ql, kl, vl)))
         fb_plain = time_ms(lambda: fwd_bwd(plain, (ql, kl, vl)), reps=5)
         fb_lib = time_ms(lambda: fwd_bwd(lib, (ql, kr, vr)))
+        # the backward's kernels apart: device time by kernel name
+        _, _, _, rows = _device_profile(lambda: fwd_bwd(kern, (ql, kl, vl)))
+        parts = {key: sum(ms for ms, _, name in rows if pat in name)
+                 for key, pat in (("dq", "dq_wgmma"), ("dkv", "dkv_wgmma"),
+                                  ("reduce", "train_reduce"), ("delta", "train_delta"),
+                                  ("fwd", "fwd_mma"))}
+        # the GQA split of dK/dV, measured: each split of the 8 query heads
+        splits = {}
+        for n_split in (1, 2, 4, 8):
+            base = -(-T // swa_kernels.BWD_TILE) * Hkv * B
+            swa_kernels.BWD_TARGET_BLOCKS = base * n_split
+            splits[n_split] = time_ms(lambda: fwd_bwd(kern, (ql, kl, vl))) - f_ms
+        swa_kernels.BWD_TARGET_BLOCKS = target
+        plan = swa_kernels.bwd_split_plan(B, T, Hq, Hkv)
         pairs = B * Hq * _band_pairs(T, W)
         qo, kv = 2 * B * T * Hq * D, 2 * B * T * Hkv * D  # bytes of one q-shaped / kv-shaped
         lse = 4 * B * Hq * T
@@ -754,12 +784,21 @@ def _h_cases(dev, gen):
         timed[(T, W)] = dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **b_f,
                              bwd_ms=fb_ms - f_ms, fwd_bwd_ms=fb_ms,
                              plain_fwd_bwd_ms=fb_plain, library_fwd_bwd_ms=fb_lib,
-                             bwd_bound_ms=b_b["bound_ms"], bwd_bound_by=b_b["bound_by"])
+                             bwd_bound_ms=b_b["bound_ms"], bwd_bound_by=b_b["bound_by"],
+                             library_bwd_ms=fb_lib - f_lib, dq_device_ms=parts["dq"],
+                             dkv_device_ms=parts["dkv"], reduce_device_ms=parts["reduce"],
+                             split=plan.split, scratch_bytes=plan.scratch_bytes,
+                             bwd_ms_by_split={str(k): v for k, v in splits.items()})
         print(f"[3 parity] H timed B 1, T {T}, W {W}, bf16: forward kernel {f_ms:.3f} ms, "
               f"plain {f_plain:.3f}, library {f_lib:.3f}, bound {b_f['bound_ms']:.4f} "
               f"({b_f['bound_by']}); forward+backward kernel {fb_ms:.3f} ms (backward "
-              f"{fb_ms - f_ms:.3f}), plain {fb_plain:.3f}, library {fb_lib:.3f}, backward "
-              f"bound {b_b['bound_ms']:.4f} ({b_b['bound_by']})", flush=True)
+              f"{fb_ms - f_ms:.3f}), plain {fb_plain:.3f}, library {fb_lib:.3f} (backward "
+              f"{fb_lib - f_lib:.3f}), backward bound {b_b['bound_ms']:.4f} ({b_b['bound_by']}); "
+              f"device ms per forward+backward (torch.profiler): dQ {parts['dq']:.3f}, dK/dV "
+              f"{parts['dkv']:.3f}, reduce {parts['reduce']:.3f}, delta {parts['delta']:.3f}, "
+              f"forward {parts['fwd']:.3f}; split of the GQA sum {plan.split} (scratch "
+              f"{plan.scratch_bytes / 1e6:.1f} MB); backward ms by split "
+              + ", ".join(f"{k}: {v:.3f}" for k, v in splits.items()), flush=True)
         del q, k, v, cot, ql, kl, vl, kr, vr, mask
     print(f"[3 parity] H swa_train_flash_attention: max err_ratio forward bf16 "
           f"{max(errs['fwd'][torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
@@ -1603,7 +1642,7 @@ def _count_nodes(tree, key: str) -> int:
     return 0
 
 
-def phase_serve_path(dev, card: str, params, cfg) -> dict:
+def phase_serve_path(dev, card: str, params, cfg, profile: bool = False) -> dict:
     import base64
     import io
     import threading
@@ -1832,6 +1871,8 @@ def phase_serve_path(dev, card: str, params, cfg) -> dict:
         frame_ms = float(np.median(eng.frame_times_ms[1:]))
         n_g = int4_matmul_fused.launches - before
         require((n_g > 0) == name.startswith("int4"), f"{name}: {n_g} kernel G launches")
+        if profile and name == "int4":
+            _profile_int4_frame(eng, frames, frame_ms, card)
         print(f"[7 serve path] {name}: weights {quantized_bytes(g.params) / 1e9:.3f} GB, time "
               f"to first token {ttft * 1e3:.1f} ms (50-token prompt), decode "
               f"{(MODE_NEW_TOKENS - 1) / dec:.2f} tok/s ({MODE_NEW_TOKENS - 1} steps, B=1), "
@@ -2204,6 +2245,7 @@ def _device_profile(fn, reps: int = 3):
 
     kinds = {"C delta_chunk": ("delta_chunk",), "A1 swa_prefill": ("swa_prefill",),
              "H swa_train": ("swa_train",), "E/F vit_flash": ("vit_flash",),
+             "G int4_matmul": ("int4_",),
              "GEMM": ("gemm", "cutlass", "cublas", "xmma", "nvjet"),
              "copies and casts": ("copy_kernel",), "other": ()}
     fn()
@@ -2271,6 +2313,20 @@ def _profile_frames(eng, frames, frame_ms: float, card: str) -> None:
         print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name}", flush=True)
 
 
+def _profile_int4_frame(eng, frames, frame_ms: float, card: str) -> None:
+    """Where a steady 448x448 frame's device time goes with int4 weights
+    (kernel G in the ViT at M 1024 and in the decoder at M 257)."""
+    it = iter(np.tile(frames, (4, 1, 1, 1)))
+    total, count, sums, rows = _device_profile(lambda: eng.push_frame_raw(next(it)))
+    g_rows = [(ms, n, name) for ms, n, name in rows if "int4_" in name]
+    print(f"[profile] one steady int4 448x448 frame: {frame_ms:.2f} ms unprofiled, device "
+          f"busy {total:.2f} ms ({100 * total / frame_ms:.0f}%), {count} device kernels; by "
+          f"kind (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in sums.items())
+          + "; kernel G by name: " + ", ".join(f"{name[:40]} {ms:.3f} ms x{n}"
+                                               for ms, n, name in g_rows)
+          + f" on '{card}'", flush=True)
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
@@ -2313,7 +2369,7 @@ def main(argv) -> int:
     text_launches = phase_text_path(dev, card, params, cfg)
     stream_launches, image_launches = phase_stream_path(
         dev, card, params, cfg, "--profile" in argv)
-    serve_launches = phase_serve_path(dev, card, params, cfg)
+    serve_launches = phase_serve_path(dev, card, params, cfg, "--profile" in argv)
     del params  # phase 8 makes its own weights from the seed, recipe by recipe
     _free()
     train = phase_train_path(dev, card, "--profile" in argv)

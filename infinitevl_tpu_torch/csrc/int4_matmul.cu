@@ -27,14 +27,22 @@
 //     feeds 2 x M accumulators. The row range is split across blockIdx.y so
 //     that a 2048-wide output still fills 132 SMs; the split's fp32 partial
 //     sums are added by int4_reduce_kernel.
-//   - M > 8 (a frame's 257 tokens, a prefill chunk): bound by operations.
-//     bf16: int4_mma_kernel dequantises a 32 x 64 packed tile into two bf16
-//     tiles in shared memory (small integers are exact in bf16) and
-//     multiplies on mma.sync m16n8k16 tensor cores, 64 x 64 outputs per block
-//     of 4 warps, the two planes in separate fp32 fragments until the group's
-//     scale joins them. fp32: int4_fma_kernel, the same tiling on plain FMA
-//     (tensor cores would round fp32 operands).
+//   - M > 8 (a verify window, a frame's 257 tokens, a prefill chunk): bound
+//     by the packed bytes up to M ~ 64, by operations above.
+//     bf16: int4_wgmma_kernel, warp-specialised for Hopper: a producer warp
+//     keeps a ring of 64-packed-row stages in flight (TMA with mbarriers:
+//     the x columns of both planes in the 128-byte swizzle, and the packed
+//     bytes), the consumer warpgroups dequantise each stage in registers
+//     (16-byte vectors, exact for -8..7) into bf16 tiles kept [k][n] as they
+//     lie (an MN-major wgmma operand: nothing is transposed) and multiply on
+//     wgmma m64n128k16, 64 output rows per warpgroup: one warpgroup for M
+//     <= 64, two above. Packed rows are split over blockIdx.z (with the
+//     reduce pass) only where the column tiles leave the 132 SMs short.
+//     fp32: int4_fma_kernel, 64 x 64 tiles on plain FMA (tensor cores
+//     would round fp32 operands).
 #include "common.cuh"
+
+#include <string.h>
 
 namespace {
 
@@ -179,125 +187,239 @@ __global__ void int4_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------- large M, bf16
-constexpr int MM_BM = 64;  // output rows per block: 16 per warp
-constexpr int MM_BN = 64;  // output columns per block
-constexpr int MM_KT = 32;  // packed rows per tile
-constexpr int MM_STR = MM_KT + 8;  // bf16 per tile row (conflict-free fragment loads)
-constexpr int MM_THREADS = 128;
+// int4_wgmma_kernel<NWG>: NWG consumer warpgroups (64 output rows each)
+// and one producer warpgroup. A ring of STAGES stages of 64 packed rows
+// each holds the x columns of both planes ([BM][64] twice, by TMA in the
+// 128-byte swizzle), both planes dequantised to bf16 tiles [64 k][128 n]
+// kept as they lie (an MN-major wgmma operand, written in the same
+// swizzle) and the stage's two fp32 scale rows. The producer warpgroup
+// starts the TMA loads (the packed bytes and scale rows PS - 1 stages
+// ahead, into a ring of PS slots: M <= 64 is bound by these bytes),
+// dequantises in registers (16-byte vectors) and signals full[s];
+// the consumers run each plane's four k-steps of wgmma m64n128k16 into one
+// fp32 partial P and add P x the plane's group scale into the total (two
+// accumulator sets). A stage never straddles a scale group (groups are
+// whole stages: the wrapper checks), so the k-loop has no branch. x's rows
+// past M and packed rows past `half` are TMA's zeros (a zero byte unpacks
+// to 0 in both planes).
+constexpr int WG_BN = 128;  // output columns per block
+constexpr int WG_KT = 64;   // packed rows per stage
+constexpr int WG_BT = WG_KT * WG_BN * 2;  // bytes of one dequantised plane tile
+constexpr int WG_PT = WG_KT * WG_BN;      // bytes of one packed tile
 
-__global__ void __launch_bounds__(MM_THREADS)
-int4_mma_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
-                const uint8_t* __restrict__ packed,
-                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-                float* __restrict__ partial, int M, int half, int d_out, int G,
-                int rpb) {
-  __shared__ __align__(16) __nv_bfloat16 Xs[2][MM_BM * MM_STR];  // [plane][m][k]
-  __shared__ __align__(16) __nv_bfloat16 Ws[2][MM_BN * MM_STR];  // [plane][n][k]
+constexpr int WG_SC = 2 * WG_BN * 4;     // bytes of a stage's two scale rows
+constexpr int WG_SLOT = WG_PT + WG_SC;    // a slot of the packed ring
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * MM_BN, m0 = blockIdx.y * MM_BM;
+template <int NWG>
+struct WgCfg {
+  static constexpr int BM = 64 * NWG;
+  static constexpr int STAGES = 3;
+  static constexpr int PS = NWG == 1 ? 6 : 3;        // slots of the packed ring
+  static constexpr int XT = BM * WG_KT * 2;          // bytes of one plane's x tile
+  static constexpr int STAGE = 2 * XT + 2 * WG_BT + WG_SC;
+  static constexpr int PK = STAGES * STAGE;          // offset of the packed ring
+  static constexpr int BAR = PK + PS * WG_SLOT;      // offset of the barriers
+  static constexpr int SMEM = BAR + (2 * STAGES + PS) * 8 + ivl::SMEM_ALIGN;
+  static constexpr int NC = 128 * NWG;               // consumer threads
+  static constexpr int THREADS = NC + 128;
+};
+
+// 8 packed bytes -> 8 bf16 of each plane: the nibble u gives (u ^ 8) - 8,
+// built exactly as bf16(128 + (u ^ 8)) - 136
+__device__ __forceinline__ void unpack8(uint2 w, uint4& lo, uint4& hi) {
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+  uint32_t l[4], h[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t x = (i ? w.y : w.x) ^ 0x88888888u;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t t = __byte_perm(x, 0u, j ? 0x4342 : 0x4140);  // bytes 2j, 2j + 1
+      uint32_t a = (t & 0x000F000Fu) | 0x43004300u;
+      uint32_t b = ((t >> 4) & 0x000F000Fu) | 0x43004300u;
+      __nv_bfloat162 fa = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a), off);
+      __nv_bfloat162 fb = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&b), off);
+      l[2 * i + j] = *reinterpret_cast<uint32_t*>(&fa);
+      h[2 * i + j] = *reinterpret_cast<uint32_t*>(&fb);
+    }
+  }
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+}
+
+// 8 packed bytes of row r, columns c .. c + 7, read where they lie (zeros
+// past the row's end or past `half`): the path for rows that TMA cannot
+// address (d_out not a multiple of 16)
+__device__ __forceinline__ uint2 load8(const uint8_t* packed, int r, int c, int half,
+                                       int d_out) {
+  uint32_t w[2] = {0u, 0u};
+  if (r < half) {
+    const uint8_t* src = packed + (size_t)r * d_out + c;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ci = c + 4 * i;
+      if ((d_out & 3) == 0 && ci + 4 <= d_out) {
+        w[i] = *reinterpret_cast<const uint32_t*>(src + 4 * i);
+      } else {
+        for (int e = 0; e < 4 && ci + e < d_out; ++e) w[i] |= (uint32_t)src[4 * i + e] << (8 * e);
+      }
+    }
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+template <int NWG>
+__global__ void __launch_bounds__(WgCfg<NWG>::THREADS, 1)
+int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap pmap,
+                  const __grid_constant__ CUtensorMap smap, int packed_tma, int x_hi,
+                  const uint8_t* __restrict__ packed, const float* __restrict__ scale,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int M,
+                  int half, int d_out, int G, int rpb) {
+  typedef WgCfg<NWG> C;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = ivl::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* pfull = empty + C::STAGES;  // [PS]: the packed ring
+
+  const int n0 = blockIdx.x * WG_BN, m0 = blockIdx.y * C::BM;
   const int r0 = blockIdx.z * rpb;
   const int r1 = min(r0 + rpb, half);
+  const int n_it = (r1 - r0 + WG_KT - 1) / WG_KT;
   const int gs = G == 1 ? half : half / (G / 2);
   const int hi_base = G == 1 ? 0 : G / 2;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-  float acc[MM_BN / 8][4], plo[MM_BN / 8][4], phi[MM_BN / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < MM_BN / 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nt][c] = plo[nt][c] = phi[nt][c] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      ivl::mbar_init(&full[s], 129);  // the TMA's announcement + 128 producer threads
+      ivl::mbar_init(&empty[s], C::NC);
+    }
+    for (int j = 0; j < C::PS; ++j) ivl::mbar_init(&pfull[j], 1);
+    ivl::mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int k0 = r0; k0 < r1;) {
-    const int g1 = min(r1, group_end(k0, gs));
-    const int k1 = min(k0 + MM_KT, g1);  // a tile never straddles a group
-    const int kn = k1 - k0;
-    __syncthreads();  // the previous tile's readers are done
-
-    // x tiles of both planes: 2 x 64 rows x 32 k, as vectors of 8
-    for (int i = tid; i < 2 * MM_BM * (MM_KT / 8); i += MM_THREADS) {
-      const int p = i / (MM_BM * (MM_KT / 8));
-      const int rem = i % (MM_BM * (MM_KT / 8));
-      const int row = rem / (MM_KT / 8), kv = (rem % (MM_KT / 8)) * 8;
-      __nv_bfloat16* dst = &Xs[p][row * MM_STR + kv];
-      const int grow = m0 + row;
-      const __nv_bfloat16* src = x + (size_t)grow * ldx + (size_t)p * half + k0 + kv;
-      if (grow < M && kv + 8 <= kn && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-      } else {
+  if (threadIdx.x >= C::NC) {  // ----------------------- producer warpgroup
+    const int t = threadIdx.x - C::NC;
+    // the packed bytes and both scale rows of stage j into slot j % PS
+    auto fetch = [&](int j) {
+      unsigned char* slot = sm + C::PK + (j % C::PS) * WG_SLOT;
+      uint64_t* bar = &pfull[j % C::PS];
+      const int k = r0 + j * WG_KT, srow = G == 1 ? 0 : k / gs;
+      ivl::mbar_arrive_tx(bar, WG_SLOT);
+      ivl::tma_load_2d(slot, &pmap, bar, n0, k);
+      ivl::tma_load_2d(slot + WG_PT, &smap, bar, n0, srow);
+      ivl::tma_load_2d(slot + WG_PT + WG_BN * 4, &smap, bar, n0, hi_base + srow);
+    };
+    if (t == 0 && packed_tma)
+      for (int j = 0; j < C::PS - 1 && j < n_it; ++j) fetch(j);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % C::STAGES;
+      const int k = r0 + it * WG_KT;
+      unsigned char* st = sm + s * C::STAGE;
+      if (it >= C::STAGES) ivl::mbar_wait(&empty[s], (it / C::STAGES - 1) & 1);
+      if (t == 0) {
+        ivl::mbar_arrive_tx(&full[s], 2 * C::XT);
+        ivl::tma_load_2d(st, &xmap, &full[s], k, m0);
+        ivl::tma_load_2d(st + C::XT, &xmap, &full[s], x_hi + k, m0);
+        if (packed_tma && it + C::PS - 1 < n_it) fetch(it + C::PS - 1);
+      }
+      float* sc = reinterpret_cast<float*>(st + 2 * C::XT + 2 * WG_BT);
+      const unsigned char* slot = sm + C::PK + (it % C::PS) * WG_SLOT;
+      if (packed_tma) {
+        ivl::mbar_wait(&pfull[it % C::PS], (it / C::PS) & 1);
+        const float* ss = reinterpret_cast<const float*>(slot + WG_PT);
+        sc[t] = ss[t];
+        sc[WG_BN + t] = ss[WG_BN + t];
+      } else {  // the stage's scale rows (one group per plane) where they lie
+        const int srow = G == 1 ? 0 : k / gs;
+        const int col = n0 + t;
+        sc[t] = col < d_out ? scale[(size_t)srow * d_out + col] : 0.f;
+        sc[WG_BN + t] = col < d_out ? scale[(size_t)(hi_base + srow) * d_out + col] : 0.f;
+      }
+      // dequantise: 64 rows x 16 chunks of 8 columns, 8 chunks per thread
+      unsigned char* bt = st + 2 * C::XT;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = (grow < M && kv + e < kn) ? src[e] : zero;
+      for (int i = 0; i < WG_KT * (WG_BN / 8) / 128; ++i) {
+        const int c = t + 128 * i;
+        const int row = c >> 4, ch = c & 15;
+        const uint2 w = packed_tma
+                            ? *reinterpret_cast<const uint2*>(slot + row * WG_BN + ch * 8)
+                            : load8(packed, k + row, n0 + ch * 8, half, d_out);
+        uint4 lo, hi;
+        unpack8(w, lo, hi);
+        const int off = (ch >> 3) * (WG_KT * 128) + row * 128 + (((ch & 7) ^ (row & 7)) << 4);
+        *reinterpret_cast<uint4*>(bt + off) = lo;
+        *reinterpret_cast<uint4*>(bt + WG_BT + off) = hi;
+      }
+      ivl::fence_async_smem();
+      ivl::mbar_arrive(&full[s]);
+      ivl::named_sync(2, 128);  // the slot is read: the next TMA may refill it
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool svec = (d_out & 1) == 0;
+
+  float acc[64], P[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = P[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % C::STAGES;
+    ivl::mbar_wait(&full[s], (it / C::STAGES) & 1);
+    const unsigned char* st = sm + s * C::STAGE;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * C::XT + 2 * WG_BT);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const unsigned char* xa = st + p * C::XT + wg * 64 * 128;
+      const unsigned char* bp = st + 2 * C::XT + p * WG_BT;
+      ivl::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ivl::wgmma_ss_n128<1>(P, ivl::gmma_desc(xa + kk * 32, 16, 1024),
+                              ivl::gmma_desc(bp + kk * 2048, WG_KT * 128, 1024), kk > 0);
+      ivl::wgmma_commit();
+      ivl::wgmma_wait0();
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(sc + p * WG_BN + 8 * j + 2 * tig);
+        acc[4 * j] += P[4 * j] * v.x;
+        acc[4 * j + 1] += P[4 * j + 1] * v.y;
+        acc[4 * j + 2] += P[4 * j + 2] * v.x;
+        acc[4 * j + 3] += P[4 * j + 3] * v.y;
       }
     }
-    // packed tile 32 k x 64 n -> both planes in bf16, transposed to [n][k]
-    {
-      const int k = tid >> 2, nn = (tid & 3) * 16;
-      __align__(16) uint8_t b[16];
-      const uint8_t* src = packed + (size_t)(k0 + k) * d_out + n0 + nn;
-      if (k < kn && n0 + nn + 16 <= d_out && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        *reinterpret_cast<uint4*>(b) = *reinterpret_cast<const uint4*>(src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          b[e] = (k < kn && n0 + nn + e < d_out) ? src[e] : (uint8_t)0;  // 0 unpacks to 0
-      }
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        Ws[0][(nn + e) * MM_STR + k] = __float2bfloat16(nib(b[e] & 15u));
-        Ws[1][(nn + e) * MM_STR + k] = __float2bfloat16(nib(b[e] >> 4));
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < MM_KT / 16; ++ks) {
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const __nv_bfloat16* xr = Xs[p] + (warp * 16 + gid) * MM_STR + ks * 16 + 2 * tig;
-        const uint32_t a[4] = {ld32(xr), ld32(xr + 8 * MM_STR), ld32(xr + 8),
-                               ld32(xr + 8 * MM_STR + 8)};
-#pragma unroll
-        for (int nt = 0; nt < MM_BN / 8; ++nt) {
-          const __nv_bfloat16* wr = Ws[p] + (nt * 8 + gid) * MM_STR + ks * 16 + 2 * tig;
-          mma_bf16(p == 0 ? plo[nt] : phi[nt], a, ld32(wr), ld32(wr + 8));
-        }
-      }
-    }
-
-    k0 = k1;
-    if (k0 == g1) {  // the group (or this block's range) ends: its scale joins
-      const int srow = G == 1 ? 0 : (g1 - 1) / gs;
-#pragma unroll
-      for (int nt = 0; nt < MM_BN / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + nt * 8 + 2 * tig + e;
-          const float sl = col < d_out ? scale[(size_t)srow * d_out + col] : 0.f;
-          const float sh = col < d_out ? scale[(size_t)(hi_base + srow) * d_out + col] : 0.f;
-          acc[nt][e] += plo[nt][e] * sl + phi[nt][e] * sh;
-          acc[nt][2 + e] += plo[nt][2 + e] * sl + phi[nt][2 + e] * sh;
-          plo[nt][e] = plo[nt][2 + e] = phi[nt][e] = phi[nt][2 + e] = 0.f;
-        }
-    }
+    ivl::mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = m0 + warp * 16 + gid + 8 * i;
+    const int row = m0 + wg * 64 + warp * 16 + gid + 8 * i;
     if (row >= M) continue;
 #pragma unroll
-    for (int nt = 0; nt < MM_BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + nt * 8 + 2 * tig + e;
-        if (col >= d_out) continue;
-        const float v = acc[nt][2 * i + e];
-        if (partial != nullptr)
-          partial[((size_t)blockIdx.z * M + row) * d_out + col] = v;
-        else
-          out[(size_t)row * d_out + col] = __float2bfloat16(v);
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * tig;
+      const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+      if (partial != nullptr) {
+        float* dst = partial + ((size_t)blockIdx.z * M + row) * d_out + col;
+        if (col < d_out) dst[0] = v0;
+        if (col + 1 < d_out) dst[1] = v1;
+      } else {
+        __nv_bfloat16* dst = out + (size_t)row * d_out + col;
+        if (svec && col + 1 < d_out) {
+          *reinterpret_cast<uint32_t*>(dst) = ivl::pack_bf16(v0, v1);
+        } else {
+          if (col < d_out) dst[0] = __float2bfloat16(v0);
+          if (col + 1 < d_out) dst[1] = __float2bfloat16(v1);
+        }
       }
+    }
   }
 }
 
@@ -436,29 +558,78 @@ cudaError_t launch_gemv(const void* x, long long ldx, const void* packed,
 }
 
 template <typename T>
-cudaError_t launch_tiles(const void* x, long long ldx, const void* packed,
+cudaError_t launch_tiles(const void* x, long long ldx, int x_hi, const void* packed,
                          const void* scale, void* out, void* partial, int M,
-                         int half, int d_out, int G, int rpb, int ks,
+                         int half, int d_out, int G, int rpb, int ks, int tile_m,
                          cudaStream_t st);
 
-template <>
-cudaError_t launch_tiles<__nv_bfloat16>(const void* x, long long ldx, const void* packed,
-                                        const void* scale, void* out, void* partial,
-                                        int M, int half, int d_out, int G, int rpb,
-                                        int ks, cudaStream_t st) {
-  dim3 grid((d_out + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM, ks);
+template <int NWG>
+cudaError_t launch_wgmma(const void* x, long long ldx, int x_hi, const void* packed,
+                         const void* scale, void* out, void* partial, int M, int half,
+                         int d_out, int G, int rpb, int ks, cudaStream_t st) {
+  typedef WgCfg<NWG> C;
+  CUtensorMap xmap, pmap;
+  const cuuint64_t xd[2] = {(cuuint64_t)(x_hi + half), (cuuint64_t)M};
+  const cuuint64_t xs[1] = {(cuuint64_t)ldx * 2};
+  const cuuint32_t xb[2] = {WG_KT, (cuuint32_t)C::BM};
+  if (!ivl::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs, xb,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const cuuint64_t pd[2] = {(cuuint64_t)d_out, (cuuint64_t)half};
+  const cuuint64_t ps[1] = {(cuuint64_t)d_out};
+  const cuuint32_t pb[2] = {WG_BN, WG_KT};
+  const cuuint64_t sd[2] = {(cuuint64_t)d_out, (cuuint64_t)G};
+  const cuuint64_t ss[1] = {(cuuint64_t)d_out * 4};
+  const cuuint32_t sb[2] = {WG_BN, 1};
+  CUtensorMap smap;
+  const int packed_tma = d_out % 16 == 0 &&
+                         ivl::make_map(&pmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, pd, ps,
+                                       pb, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+                         ivl::make_map(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, scale, sd, ss,
+                                       sb, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!packed_tma) {
+    memset(&pmap, 0, sizeof(pmap));
+    memset(&smap, 0, sizeof(smap));
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      int4_wgmma_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((d_out + WG_BN - 1) / WG_BN, (M + C::BM - 1) / C::BM, ks);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  int4_mma_kernel<<<grid, MM_THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, ldx, (const uint8_t*)packed, (const float*)scale,
+  int4_wgmma_kernel<NWG><<<grid, C::THREADS, C::SMEM, st>>>(
+      xmap, pmap, smap, packed_tma, x_hi, (const uint8_t*)packed, (const float*)scale,
       (__nv_bfloat16*)out, (float*)partial, M, half, d_out, G, rpb);
   return cudaGetLastError();
 }
 
+// bf16 at M > 8: the wgmma kernel with 64-row tiles (tile_m 64) or 128-row
+// tiles (tile_m 128). TMA reads x at 16-byte boundaries: its base, its row
+// stride and the column x_hi where its high plane starts are multiples of 8
+// elements; the scale groups whole stages (a multiple of 64 rows).
 template <>
-cudaError_t launch_tiles<float>(const void* x, long long ldx, const void* packed,
+cudaError_t launch_tiles<__nv_bfloat16>(const void* x, long long ldx, int x_hi,
+                                        const void* packed, const void* scale, void* out,
+                                        void* partial, int M, int half, int d_out, int G,
+                                        int rpb, int ks, int tile_m, cudaStream_t st) {
+  if (ldx % 8 != 0 || x_hi % 8 != 0 || x_hi < half || ldx < x_hi + half ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || rpb % WG_KT != 0 ||
+      (G > 1 && (half / (G / 2)) % WG_KT != 0))
+    return cudaErrorInvalidValue;
+  if (tile_m == 64)
+    return launch_wgmma<1>(x, ldx, x_hi, packed, scale, out, partial, M, half, d_out, G, rpb,
+                           ks, st);
+  if (tile_m == 128)
+    return launch_wgmma<2>(x, ldx, x_hi, packed, scale, out, partial, M, half, d_out, G, rpb,
+                           ks, st);
+  return cudaErrorInvalidValue;
+}
+
+template <>
+cudaError_t launch_tiles<float>(const void* x, long long ldx, int x_hi, const void* packed,
                                 const void* scale, void* out, void* partial, int M,
-                                int half, int d_out, int G, int rpb, int ks,
+                                int half, int d_out, int G, int rpb, int ks, int tile_m,
                                 cudaStream_t st) {
+  if (tile_m != FM_BM || x_hi != half) return cudaErrorInvalidValue;
   dim3 grid((d_out + FM_BN - 1) / FM_BN, (M + FM_BM - 1) / FM_BM, ks);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   int4_fma_kernel<float><<<grid, FM_THREADS, 0, st>>>(
@@ -468,14 +639,16 @@ cudaError_t launch_tiles<float>(const void* x, long long ldx, const void* packed
 }
 
 template <typename T>
-cudaError_t launch_int4(const void* x, long long ldx, const void* packed,
+cudaError_t launch_int4(const void* x, long long ldx, int x_hi, const void* packed,
                         const void* scale, void* out, void* partial, int M,
-                        int half, int d_out, int G, int rpb, int ks, int small,
+                        int half, int d_out, int G, int rpb, int ks, int tile_m,
                         cudaStream_t st) {
   void* part = ks > 1 ? partial : nullptr;
   cudaError_t err =
-      small ? launch_gemv<T>(x, ldx, packed, scale, out, part, M, half, d_out, G, rpb, ks, st)
-            : launch_tiles<T>(x, ldx, packed, scale, out, part, M, half, d_out, G, rpb, ks, st);
+      tile_m == 0
+          ? launch_gemv<T>(x, ldx, packed, scale, out, part, M, half, d_out, G, rpb, ks, st)
+          : launch_tiles<T>(x, ldx, x_hi, packed, scale, out, part, M, half, d_out, G, rpb,
+                            ks, tile_m, st);
   if (err != cudaSuccess || ks == 1) return err;
   const size_t n = (size_t)M * d_out;
   int4_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -487,14 +660,18 @@ cudaError_t launch_int4(const void* x, long long ldx, const void* packed,
 
 extern "C" {
 
-// Kernel G. x [M, d_in] with row stride ldx (elements), packed uint8
+// Kernel G. x [M, d_in] with row stride ldx (elements) and its high plane
+// (columns d_in / 2 ..) from column x_hi on (d_in / 2 unless the wrapper
+// padded the planes apart for TMA; only the bf16 tile kernel takes another
+// value), packed uint8
 // [d_in/2, d_out], scale fp32 [G, d_out], out [M, d_out] in x's dtype, all
 // but x dense. The packed rows are split into ks ranges of rpb rows; with
-// ks > 1 `partial` is fp32 scratch [ks, M, d_out]. `small` selects the
-// M <= 8 kernel. Returns a cudaError_t code (0 = success).
-int ivl_int4_matmul(int dtype, const void* x, long long ldx, const void* packed,
+// ks > 1 `partial` is fp32 scratch [ks, M, d_out]. `tile_m` 0 selects the
+// M <= 8 kernel, else the rows of an output tile (fp32: 64; bf16: 64 or
+// 128). Returns a cudaError_t code (0 = success).
+int ivl_int4_matmul(int dtype, const void* x, long long ldx, int x_hi, const void* packed,
                     const void* scale, void* out, void* partial, int M, int d_in,
-                    int d_out, int G, int rpb, int ks, int small, void* stream) {
+                    int d_out, int G, int rpb, int ks, int tile_m, void* stream) {
   if (M <= 0 || d_in <= 0 || d_out <= 0 || d_in % 2 != 0 || G <= 0 || rpb <= 0 ||
       ks <= 0)
     return (int)cudaErrorInvalidValue;
@@ -502,14 +679,15 @@ int ivl_int4_matmul(int dtype, const void* x, long long ldx, const void* packed,
   if (G != 1 && (G % 2 != 0 || half % (G / 2) != 0)) return (int)cudaErrorInvalidValue;
   if ((long long)ks * rpb < half || (ks > 1 && partial == nullptr) || ks > 65535)
     return (int)cudaErrorInvalidValue;
-  if (small && M > 8 * 65535) return (int)cudaErrorInvalidValue;
+  if (tile_m == 0 && M > 8 * 65535) return (int)cudaErrorInvalidValue;
+  if (tile_m == 0 && x_hi != half) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ivl::DTYPE_F32)
-    return (int)launch_int4<float>(x, ldx, packed, scale, out, partial, M, half,
-                                   d_out, G, rpb, ks, small, st);
+    return (int)launch_int4<float>(x, ldx, x_hi, packed, scale, out, partial, M, half,
+                                   d_out, G, rpb, ks, tile_m, st);
   if (dtype == ivl::DTYPE_BF16)
-    return (int)launch_int4<__nv_bfloat16>(x, ldx, packed, scale, out, partial, M,
-                                           half, d_out, G, rpb, ks, small, st);
+    return (int)launch_int4<__nv_bfloat16>(x, ldx, x_hi, packed, scale, out, partial, M,
+                                           half, d_out, G, rpb, ks, tile_m, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,14 +20,20 @@
 //   as in kernel A1. bf16 runs on tensor cores (mma.sync m16n8k16, Q
 //   fragments in registers, P fed back as the A operand of O += P V); fp32
 //   is plain FMA from shared memory.
-//   Backward, two kernels and no atomics, so gradients are reproducible:
+//   Backward, no atomics, so gradients are reproducible:
 //   - dQ: one block per (query tile, q head, batch row) loops over its key
 //     tiles: S = Q K^T, P = exp(scale S - lse), dP = dO V^T,
 //     dS = P (dP - delta) scale, dQ += dS K.
-//   - dK/dV: one block per (key tile, KV head, batch row) loops over the
-//     query heads of its group and the query tiles of its band with the
-//     transposed products (S^T = K Q^T, dP^T = V dO^T), so the GQA sum
-//     lands in one set of accumulators: dV += P^T dO, dK += dS^T Q.
+//   - dK/dV: one block per key tile and KV head loops over query tiles of
+//     its band with the transposed products (S^T = K Q^T, dP^T = V dO^T):
+//     dV += P^T dO, dK += dS^T Q, summed over the query heads of the group.
+//   bf16 (Hopper): both are warp-specialised, one producer warp filling a
+//   ring of TMA tiles with mbarriers and one consumer warpgroup on wgmma
+//   (S and dP from shared memory, the dS / P products with A in
+//   registers); dK/dV splits the GQA sum over the query heads into fp32
+//   partials added in a fixed order by a reduce pass, so that the
+//   causal band's T / 64 x Hkv key tiles become enough blocks for the card.
+//   fp32 runs the same loops on plain FMA.
 //   P and dS are rounded to bf16 for the bf16 products exactly where the
 //   forward rounds P. A row with no visible key (none exists: a token sees
 //   itself) would give zeros, never NaN.
@@ -395,18 +401,13 @@ swa_train_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ============================================================== bf16
+// ====================================================== bf16 forward
 // Tensor cores through mma.sync m16n8k16; fragment layout: ivl::mma_bf16.
 constexpr int M_WARPS = 4;
 constexpr int M_BR = 16 * M_WARPS;  // rows owned by a block (16 per warp)
-constexpr int M_BK = 64;            // keys per tile (forward, dQ)
-constexpr int M_BQ = 32;            // queries per tile (dK/dV)
+constexpr int M_BK = 64;            // keys per tile
 constexpr int RSTR = HD + 8;        // bf16 per row of a [row][d] tile
 constexpr int TSTR = M_BK + 8;      // bf16 per row of a [d][key] tile
-constexpr int QSTR = M_BQ + 8;      // bf16 per row of a [d][query] tile
-constexpr int M_DQ_SMEM = (3 * M_BK * RSTR + HD * TSTR) * 2;
-constexpr int M_DKV_SMEM =
-    (2 * M_BR * RSTR + 2 * M_BQ * RSTR + 2 * HD * QSTR) * 2 + 2 * M_BQ * 4;
 
 // Stage rows [r0, r0 + nrows) of head h of a [B, Tn, H, HD] bf16 tensor:
 // as [row][d] (row stride RSTR) into `rows`, and/or transposed as [d][row]
@@ -428,16 +429,6 @@ __device__ __forceinline__ void stage_bf16(bf16* rows, bf16* trans, int tstr,
       for (int i = 0; i < 8; ++i) trans[(d0 + i) * tstr + rr] = e[i];
     }
   }
-}
-
-// A fragment (16 rows x 16 d) of a [row][d] tile at rows r16.., k-step ks
-__device__ __forceinline__ void lda(uint32_t a[4], const bf16* tile, int r16, int ks,
-                                    int gid, int tig) {
-  const bf16* p = tile + (r16 + gid) * RSTR + ks * 16 + 2 * tig;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * RSTR);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * RSTR + 8);
 }
 
 __global__ void __launch_bounds__(32 * M_WARPS)
@@ -588,275 +579,413 @@ swa_train_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-__global__ void __launch_bounds__(32 * M_WARPS)
-swa_train_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ seg,
-                        const bf16* __restrict__ d_o, const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int Tn, int Hq, int Hkv, int window, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][RSTR]
-  bf16* Vs = Ks + M_BK * RSTR;                   // [BK][RSTR]
-  bf16* Os = Vs + M_BK * RSTR;                   // [BR][RSTR]  dO
-  bf16* Kt = Os + M_BR * RSTR;                   // [HD][TSTR]
+// ------------------------------------------------ bf16 backward (wgmma)
+// One consumer warpgroup (64 rows of keys or queries, 16 per warp) and one
+// producer warp per block. Tiles are 64 rows x 128 columns, loaded by TMA
+// (4-D maps over [B, T, H, 128], so a head is read where it lies: GQA
+// never repeats K or V) in the 128-byte swizzle as two column halves of
+// [64 rows][128 bytes]. The same tile is a K-major operand (its rows are
+// the M or N of S = Q K^T) and an MN-major one (its rows are the K of
+// dQ += dS K): nothing is transposed by hand. P and dS go from the fp32
+// accumulators to bf16 A fragments in registers.
+constexpr int W_T = 64;                // rows of a tile
+constexpr int W_HALF = W_T * 128;      // bytes of one column half
+constexpr int W_TILE = 2 * W_HALF;     // bytes of a 64 x 128 bf16 tile
+constexpr int W_THREADS = 160;         // one consumer warpgroup + the producer warp
+constexpr int W_STAGE = 2 * W_TILE + 1024;  // two tiles and their row data
+constexpr int DKV_STAGES = 3, DQ_STAGES = 2;
+constexpr int DKV_SMEM = 2 * W_TILE + DKV_STAGES * W_STAGE + 64 + ivl::SMEM_ALIGN;
+constexpr int DQ_SMEM = 2 * W_TILE + DQ_STAGES * W_STAGE + 64 + ivl::SMEM_ALIGN;
 
-  const int b = blockIdx.z, hq = blockIdx.y, hk = hq / (Hq / Hkv);
-  const int q0 = blockIdx.x * M_BR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int* segb = seg ? seg + (size_t)b * Tn : nullptr;
-
-  bool rok[2];
-  int qp[2], my_seg[2];
-  size_t qoff[2];
-  float my_lse[2], my_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qp[i] = q0 + warp * 16 + gid + 8 * i;
-    rok[i] = qp[i] < Tn;
-    my_seg[i] = (segb && rok[i]) ? segb[qp[i]] : 0;
-    qoff[i] = (((size_t)b * Tn + (rok[i] ? qp[i] : 0)) * Hq + hq) * HD;
-    const size_t r = ((size_t)b * Hq + hq) * Tn + (rok[i] ? qp[i] : 0);
-    my_lse[i] = rok[i] ? lse[r] : 0.f;
-    my_delta[i] = rok[i] ? delta[r] : 0.f;
-  }
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int d = ks * 16 + 2 * tig;
-    qf[ks][0] = rok[0] ? ld32(q + qoff[0] + d) : 0u;
-    qf[ks][1] = rok[1] ? ld32(q + qoff[1] + d) : 0u;
-    qf[ks][2] = rok[0] ? ld32(q + qoff[0] + d + 8) : 0u;
-    qf[ks][3] = rok[1] ? ld32(q + qoff[1] + d + 8) : 0u;
-  }
-  stage_bf16(Os, nullptr, 0, d_o, b, Tn, Hq, hq, q0, M_BR);
-
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
-
-  const int k_end = min(Tn, q0 + M_BR);
-  for (int k0 = first_key(q0, window, M_BK); k0 < k_end; k0 += M_BK) {
-    uint32_t vis = 0;
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = k0 + nt * 8 + 2 * tig + e;
-        if (kp < Tn) {
-          const int ks_ = segb ? segb[kp] : 0;
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (rok[i] && visible(qp[i], kp, window) && ks_ == my_seg[i])
-              vis |= 1u << (i * 16 + nt * 2 + e);
-        }
-      }
-    // also the barrier that retires the previous tile's readers (and, the
-    // first time, publishes the staged dO tile)
-    if (!__syncthreads_or(vis != 0u)) continue;
-
-    stage_bf16(Ks, Kt, TSTR, k, b, Tn, Hkv, hk, k0, M_BK);
-    stage_bf16(Vs, nullptr, 0, v, b, Tn, Hkv, hk, k0, M_BK);
-    __syncthreads();
-
-    float s[M_BK / 8][4], dp[M_BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t of[4];
-      lda(of, Os, warp * 16, ks, gid, tig);
-#pragma unroll
-      for (int nt = 0; nt < M_BK / 8; ++nt) {
-        const bf16* krow = Ks + (nt * 8 + gid) * RSTR + ks * 16 + 2 * tig;
-        const bf16* vrow = Vs + (nt * 8 + gid) * RSTR + ks * 16 + 2 * tig;
-        mma_bf16(s[nt], qf[ks], ld32(krow), ld32(krow + 8));
-        mma_bf16(dp[nt], of, ld32(vrow), ld32(vrow + 8));
-      }
-    }
-    // dS = P (dP - delta) scale, in place of s
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool vb = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-          const float p = vb ? expf(s[nt][2 * i + e] * scale - my_lse[i]) : 0.f;
-          s[nt][2 * i + e] = p * (dp[nt][2 * i + e] - my_delta[i]) * scale;
-        }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < M_BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const bf16* krow = Kt + (dt * 8 + gid) * TSTR + kk * 16 + 2 * tig;
-        mma_bf16(acc[dt], a, ld32(krow), ld32(krow + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!rok[i]) continue;
-    bf16* orow = dq + qoff[i] + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(acc[dt][2 * i], acc[dt][2 * i + 1]);
-  }
+// rows [t0, t0 + 64) of head h, batch row b (TMA's zeros past T)
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int h, int t0, int b) {
+  ivl::tma_load_4d(dst, map, bar, 0, h, t0, b);
+  ivl::tma_load_4d(dst + W_HALF, map, bar, 64, h, t0, b);
 }
 
-__global__ void __launch_bounds__(32 * M_WARPS)
-swa_train_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const int* __restrict__ seg,
-                         const bf16* __restrict__ d_o, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int Tn, int Hq, int Hkv, int window,
-                         float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BR][RSTR]
-  bf16* Vs = Ks + M_BR * RSTR;                   // [BR][RSTR]
-  bf16* Qs = Vs + M_BR * RSTR;                   // [BQ][RSTR]
-  bf16* Os = Qs + M_BQ * RSTR;                   // [BQ][RSTR]  dO
-  bf16* Qt = Os + M_BQ * RSTR;                   // [HD][QSTR]
-  bf16* Ot = Qt + HD * QSTR;                     // [HD][QSTR]  dO transposed
-  float* lse_s = reinterpret_cast<float*>(Ot + HD * QSTR);  // [BQ]
-  float* delta_s = lse_s + M_BQ;                            // [BQ]
+// k-step kk (columns 16 kk ..) of a tile as a K-major operand
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
+  return ivl::gmma_desc(tile + (kk >> 2) * W_HALF + (kk & 3) * 32, 16, 1024);
+}
 
-  const int G = Hq / Hkv;
-  const int b = blockIdx.z, hk = blockIdx.y;
-  const int k0 = blockIdx.x * M_BR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+// rows 16 kk .. of a tile as the MN-major B of a product with N = 128
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
+  return ivl::gmma_desc(tile + kk * 2048, W_HALF, 1024);
+}
+
+// registers read by an in-flight wgmma stay where they are until the wait
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// accumulator [64 x 64] -> four A fragments (16 columns each), in bf16
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// the producer warp's share of a stage: the 64 rows' row data (lse, delta
+// and segment ids, or the keys' segment ids), then the tiles by TMA; full
+// completes when all 32 lanes arrived and the tiles landed
+__device__ __forceinline__ void fill_rows(float* dst, const float* src, int t0, int Tn, int lane) {
+#pragma unroll
+  for (int r = lane; r < W_T; r += 32) dst[r] = t0 + r < Tn ? src[t0 + r] : 0.f;
+}
+__device__ __forceinline__ void fill_seg(int* dst, const int* segb, int t0, int Tn, int lane) {
+#pragma unroll
+  for (int r = lane; r < W_T; r += 32) dst[r] = (segb && t0 + r < Tn) ? segb[t0 + r] : 0;
+}
+
+// dK/dV: one block per (key tile, KV head, batch row, split of the query
+// heads); key tiles in order, so the longest bands (the first keys see the
+// most queries) start first. The block loops over its query heads and the
+// query tiles of its band: S^T = K Q^T and dP^T = V dO^T (wgmma m64n64,
+// K and V from shared memory, loaded once), then dV += P^T dO and dK +=
+// dS^T Q (m64n128, A from registers). With split > 1 the sums go to fp32
+// partials [2][split][B, T, Hkv, 128] added in a fixed order by
+// swa_train_reduce_kernel: no atomics, the same bits every run.
+__global__ void __launch_bounds__(W_THREADS, 1)
+swa_train_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap omap,
+                           const int* __restrict__ seg, const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, float* __restrict__ partial, int B, int Tn,
+                           int Hq, int Hkv, int window, int split, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = ivl::aligned_smem(smem_raw);
+  unsigned char* Ks = sm;
+  unsigned char* Vs = sm + W_TILE;
+  unsigned char* stages = sm + 2 * W_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + DKV_STAGES * W_STAGE);
+  uint64_t* empty = full + DKV_STAGES;
+  uint64_t* kvbar = empty + DKV_STAGES;
+
+  const int G = Hq / Hkv, per = G / split;
+  int rest = blockIdx.x;
+  const int tile = rest / (B * Hkv * split);
+  rest %= B * Hkv * split;
+  const int sp = rest % split;
+  rest /= split;
+  const int hk = rest % Hkv, b = rest / Hkv;
+  const int k0 = tile * W_T;
+  const int q_end = query_end(k0, W_T, window, Tn);
+  const int n_qt = (q_end - k0 + W_T - 1) / W_T;  // query tiles of the band, from q0 = k0
+  const int n_it = per * n_qt;
   const int* segb = seg ? seg + (size_t)b * Tn : nullptr;
 
-  bool rok[2];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      ivl::mbar_init(&full[s], 32);
+      ivl::mbar_init(&empty[s], 128);
+    }
+    ivl::mbar_init(kvbar, 1);
+    ivl::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ------------------------------ producer warp
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      ivl::mbar_arrive_tx(kvbar, 2 * W_TILE);
+      tma_tile(Ks, &kmap, kvbar, hk, k0, b);
+      tma_tile(Vs, &vmap, kvbar, hk, k0, b);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % DKV_STAGES;
+      if (it >= DKV_STAGES) ivl::mbar_wait(&empty[s], (it / DKV_STAGES - 1) & 1);
+      const int hq = hk * G + sp * per + it / n_qt;
+      const int q0 = k0 + (it % n_qt) * W_T;
+      unsigned char* st = stages + s * W_STAGE;
+      float* rows = reinterpret_cast<float*>(st + 2 * W_TILE);
+      const size_t ro = ((size_t)b * Hq + hq) * Tn;
+      fill_rows(rows, lse + ro, q0, Tn, lane);
+      fill_rows(rows + W_T, delta + ro, q0, Tn, lane);
+      fill_seg(reinterpret_cast<int*>(rows + 2 * W_T), segb, q0, Tn, lane);
+      if (lane == 0) {
+        ivl::mbar_arrive_tx(&full[s], 2 * W_TILE);
+        tma_tile(st, &qmap, &full[s], hq, q0, b);
+        tma_tile(st + W_TILE, &omap, &full[s], hq, q0, b);
+      } else {
+        ivl::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   int kp[2], my_seg[2];
+  bool rok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     kp[i] = k0 + warp * 16 + gid + 8 * i;
     rok[i] = kp[i] < Tn;
     my_seg[i] = (segb && rok[i]) ? segb[kp[i]] : 0;
   }
-  stage_bf16(Ks, nullptr, 0, k, b, Tn, Hkv, hk, k0, M_BR);
-  stage_bf16(Vs, nullptr, 0, v, b, Tn, Hkv, hk, k0, M_BR);
+  float acc_k[64], acc_v[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+  ivl::mbar_wait(kvbar, 0);
 
-  float acc_k[HD / 8][4], acc_v[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[dt][c] = acc_v[dt][c] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % DKV_STAGES;
+    ivl::mbar_wait(&full[s], (it / DKV_STAGES) & 1);
+    const unsigned char* qs = stages + s * W_STAGE;
+    const unsigned char* os = qs + W_TILE;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * W_TILE);
+    const float* delta_s = lse_s + W_T;
+    const int* seg_s = reinterpret_cast<const int*>(delta_s + W_T);
+    const int q0 = k0 + (it % n_qt) * W_T;
 
-  const int q_begin = k0 / M_BQ * M_BQ;
-  const int q_end = query_end(k0, M_BR, window, Tn);
-  for (int g = 0; g < G; ++g) {
-    const int hq = hk * G + g;
-    const float* lse_h = lse + ((size_t)b * Hq + hq) * Tn;
-    const float* delta_h = delta + ((size_t)b * Hq + hq) * Tn;
-    for (int q0 = q_begin; q0 < q_end; q0 += M_BQ) {
-      uint32_t vis = 0;  // bit i*8 + nt*2 + e: key row i, query q0 + nt*8 + 2*tig + e
+    float st_[32], dp[32];
+    ivl::wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < M_BQ / 8; ++nt)
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ivl::wgmma_ss_n64<0>(st_, desc_k(Ks, kk), desc_k(qs, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ivl::wgmma_ss_n64<0>(dp, desc_k(Vs, kk), desc_k(os, kk), kk > 0);
+    ivl::wgmma_commit();
+    ivl::wgmma_wait0();
+    keep(st_);
+    keep(dp);
+
+    // P^T in st_, dS^T in dp: rows are keys, columns queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int qp = q0 + nt * 8 + 2 * tig + e;
-          if (qp < Tn) {
-            const int qs_ = segb ? segb[qp] : 0;
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              if (rok[i] && visible(qp, kp[i], window) && qs_ == my_seg[i])
-                vis |= 1u << (i * 8 + nt * 2 + e);
-          }
+          const int idx = 4 * j + 2 * i + e, ql = 8 * j + 2 * tig + e, qp = q0 + ql;
+          const bool vis =
+              rok[i] && qp < Tn && visible(qp, kp[i], window) && seg_s[ql] == my_seg[i];
+          const float p = vis ? expf(st_[idx] * scale - lse_s[ql]) : 0.f;
+          st_[idx] = p;
+          dp[idx] = p * (dp[idx] - delta_s[ql]) * scale;
         }
-      // also the barrier that retires the previous tile's readers (and, the
-      // first time, publishes the staged K and V tiles)
-      if (!__syncthreads_or(vis != 0u)) continue;
-
-      stage_bf16(Qs, Qt, QSTR, q, b, Tn, Hq, hq, q0, M_BQ);
-      stage_bf16(Os, Ot, QSTR, d_o, b, Tn, Hq, hq, q0, M_BQ);
-      if (threadIdx.x < M_BQ) {
-        const int qp = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qp < Tn ? lse_h[qp] : 0.f;
-        delta_s[threadIdx.x] = qp < Tn ? delta_h[qp] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys
-      float s[M_BQ / 8][4], dp[M_BQ / 8][4];
+    uint32_t ap[4][4], ad[4][4];
+    to_a(ap, st_);
+    to_a(ad, dp);
+    ivl::wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < M_BQ / 8; ++nt)
+    for (int kk = 0; kk < 4; ++kk) ivl::wgmma_rs_n128(acc_v, ap[kk], desc_mn(os, kk), 1);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        uint32_t kf[4], vf[4];
-        lda(kf, Ks, warp * 16, ks, gid, tig);
-        lda(vf, Vs, warp * 16, ks, gid, tig);
-#pragma unroll
-        for (int nt = 0; nt < M_BQ / 8; ++nt) {
-          const bf16* qrow = Qs + (nt * 8 + gid) * RSTR + ks * 16 + 2 * tig;
-          const bf16* orow = Os + (nt * 8 + gid) * RSTR + ks * 16 + 2 * tig;
-          mma_bf16(s[nt], kf, ld32(qrow), ld32(qrow + 8));
-          mma_bf16(dp[nt], vf, ld32(orow), ld32(orow + 8));
-        }
-      }
-      // P^T in s, dS^T in dp
-#pragma unroll
-      for (int nt = 0; nt < M_BQ / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool vb = (vis >> (i * 8 + nt * 2 + e)) & 1u;
-            const int ql = nt * 8 + 2 * tig + e;
-            const float p =
-                vb ? expf(s[nt][2 * i + e] * scale - lse_s[ql]) : 0.f;
-            s[nt][2 * i + e] = p;
-            dp[nt][2 * i + e] = p * (dp[nt][2 * i + e] - delta_s[ql]) * scale;
-          }
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < M_BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t ad[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                                pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          const bf16* orow = Ot + (dt * 8 + gid) * QSTR + kk * 16 + 2 * tig;
-          const bf16* qrow = Qt + (dt * 8 + gid) * QSTR + kk * 16 + 2 * tig;
-          mma_bf16(acc_v[dt], ap, ld32(orow), ld32(orow + 8));
-          mma_bf16(acc_k[dt], ad, ld32(qrow), ld32(qrow + 8));
-        }
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) ivl::wgmma_rs_n128(acc_k, ad[kk], desc_mn(qs, kk), 1);
+    ivl::wgmma_commit();
+    ivl::wgmma_wait0();
+    keep(ap);
+    keep(ad);
+    keep(acc_k);
+    keep(acc_v);
+    ivl::mbar_arrive(&empty[s]);
   }
 
+  const size_t n = (size_t)B * Tn * Hkv * HD;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!rok[i]) continue;
     const size_t off = (((size_t)b * Tn + kp[i]) * Hkv + hk) * HD + 2 * tig;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8) =
-          pack_bf16(acc_k[dt][2 * i], acc_k[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8) =
-          pack_bf16(acc_v[dt][2 * i], acc_v[dt][2 * i + 1]);
+    for (int j = 0; j < 16; ++j) {
+      const float k_0 = acc_k[4 * j + 2 * i], k_1 = acc_k[4 * j + 2 * i + 1];
+      const float v_0 = acc_v[4 * j + 2 * i], v_1 = acc_v[4 * j + 2 * i + 1];
+      if (split == 1) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack_bf16(k_0, k_1);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) = pack_bf16(v_0, v_1);
+      } else {
+        *reinterpret_cast<float2*>(partial + sp * n + off + 8 * j) = make_float2(k_0, k_1);
+        *reinterpret_cast<float2*>(partial + (split + sp) * n + off + 8 * j) =
+            make_float2(v_0, v_1);
+      }
     }
   }
+}
+
+// dk, dv (each n values) = the sum over s = 0 .. split - 1, in that order,
+// of partial[0][s] and partial[1][s]; four values per thread
+__global__ void swa_train_reduce_kernel(const float* __restrict__ partial, bf16* __restrict__ dk,
+                                        bf16* __restrict__ dv, int split, size_t n) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const int which = i >= n;
+  const size_t at = i - which * n;
+  const float* src = partial + (size_t)which * split * n + at;
+  float4 a = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < split; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(src + s * n);
+    a.x += v.x;
+    a.y += v.y;
+    a.z += v.z;
+    a.w += v.w;
+  }
+  bf16* dst = (which ? dv : dk) + at;
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+}
+
+// dQ: one block per (query tile, q head, batch row), the last query tiles
+// (the longest bands) first. K and V tiles of the band come through the
+// ring: S = Q K^T and dP = dO V^T (wgmma m64n64 from shared memory, Q and
+// dO loaded once), dQ += dS K (m64n128, dS from registers, K MN-major).
+__global__ void __launch_bounds__(W_THREADS, 2)
+swa_train_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          const int* __restrict__ seg, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dq, int B,
+                          int Tn, int Hq, int Hkv, int window, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = ivl::aligned_smem(smem_raw);
+  unsigned char* Qs = sm;
+  unsigned char* Os = sm + W_TILE;
+  unsigned char* stages = sm + 2 * W_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + DQ_STAGES * W_STAGE);
+  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* qobar = empty + DQ_STAGES;
+
+  const int n_tiles = (Tn + W_T - 1) / W_T;
+  const int tile = n_tiles - 1 - (int)(blockIdx.x / (B * Hq));
+  const int rest = blockIdx.x % (B * Hq);
+  const int hq = rest % Hq, b = rest / Hq, hk = hq / (Hq / Hkv);
+  const int q0 = tile * W_T;
+  const int kb = first_key(q0, window, W_T);
+  const int n_it = (min(Tn, q0 + W_T) - kb + W_T - 1) / W_T;
+  const int* segb = seg ? seg + (size_t)b * Tn : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      ivl::mbar_init(&full[s], 32);
+      ivl::mbar_init(&empty[s], 128);
+    }
+    ivl::mbar_init(qobar, 1);
+    ivl::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ------------------------------ producer warp
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      ivl::mbar_arrive_tx(qobar, 2 * W_TILE);
+      tma_tile(Qs, &qmap, qobar, hq, q0, b);
+      tma_tile(Os, &omap, qobar, hq, q0, b);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % DQ_STAGES;
+      if (it >= DQ_STAGES) ivl::mbar_wait(&empty[s], (it / DQ_STAGES - 1) & 1);
+      const int k0 = kb + it * W_T;
+      unsigned char* st = stages + s * W_STAGE;
+      fill_seg(reinterpret_cast<int*>(st + 2 * W_TILE), segb, k0, Tn, lane);
+      if (lane == 0) {
+        ivl::mbar_arrive_tx(&full[s], 2 * W_TILE);
+        tma_tile(st, &kmap, &full[s], hk, k0, b);
+        tma_tile(st + W_TILE, &vmap, &full[s], hk, k0, b);
+      } else {
+        ivl::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  int qp[2], my_seg[2];
+  bool rok[2];
+  float my_lse[2], my_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qp[i] = q0 + warp * 16 + gid + 8 * i;
+    rok[i] = qp[i] < Tn;
+    my_seg[i] = (segb && rok[i]) ? segb[qp[i]] : 0;
+    const size_t r = ((size_t)b * Hq + hq) * Tn + (rok[i] ? qp[i] : 0);
+    my_lse[i] = rok[i] ? lse[r] : 0.f;
+    my_delta[i] = rok[i] ? delta[r] : 0.f;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  ivl::mbar_wait(qobar, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % DQ_STAGES;
+    ivl::mbar_wait(&full[s], (it / DQ_STAGES) & 1);
+    const unsigned char* ks = stages + s * W_STAGE;
+    const unsigned char* vs = ks + W_TILE;
+    const int* kseg = reinterpret_cast<const int*>(ks + 2 * W_TILE);
+    const int k0 = kb + it * W_T;
+
+    float sc[32], dp[32];
+    ivl::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ivl::wgmma_ss_n64<0>(sc, desc_k(Qs, kk), desc_k(ks, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ivl::wgmma_ss_n64<0>(dp, desc_k(Os, kk), desc_k(vs, kk), kk > 0);
+    ivl::wgmma_commit();
+    ivl::wgmma_wait0();
+    keep(sc);
+    keep(dp);
+
+    // dS = P (dP - delta) scale in dp: rows are queries, columns keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * i + e, kl = 8 * j + 2 * tig + e, kp = k0 + kl;
+          const bool vis =
+              rok[i] && kp < Tn && visible(qp[i], kp, window) && kseg[kl] == my_seg[i];
+          const float p = vis ? expf(sc[idx] * scale - my_lse[i]) : 0.f;
+          dp[idx] = p * (dp[idx] - my_delta[i]) * scale;
+        }
+    uint32_t ad[4][4];
+    to_a(ad, dp);
+    ivl::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ivl::wgmma_rs_n128(acc, ad[kk], desc_mn(ks, kk), 1);
+    ivl::wgmma_commit();
+    ivl::wgmma_wait0();
+    keep(ad);
+    keep(acc);
+    ivl::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!rok[i]) continue;
+    bf16* orow = dq + (((size_t)b * Tn + qp[i]) * Hq + hq) * HD + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
+// a 4-D map over a [B, Tn, H, 128] bf16 tensor, 64 x 64 boxes (one head)
+bool head_map(CUtensorMap* map, const void* base, int B, int Tn, int H) {
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)Tn, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)H * HD * 2, (cuuint64_t)Tn * H * HD * 2};
+  const cuuint32_t box[4] = {64, 1, W_T, 1};
+  return ivl::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename K>
@@ -903,12 +1032,15 @@ int ivl_swa_train_fwd(int dtype, const void* q, const void* k, const void* v,
 
 // Kernel H backward: delta = rowsum(dO * O) into `delta` [B, Hq, T] fp32
 // (scratch), then dq [B, T, Hq, D] and dk, dv [B, T, Hkv, D] from q, k, v,
-// the forward's `out` and `lse`, and d_out. Three launches on `stream`.
+// the forward's `out` and `lse`, and d_out, on `stream`. bf16: the query
+// heads of a KV head are split `split` ways (a divisor of Hq / Hkv) over the
+// dK/dV blocks; with split > 1, `partial` is fp32 scratch [2, split, B, T,
+// Hkv, D] and a fourth launch adds it up.
 int ivl_swa_train_bwd(int dtype, const void* q, const void* k, const void* v,
                       const void* seg, const void* out, const void* d_out,
                       const void* lse, void* delta, void* dq, void* dk, void* dv,
-                      int B, int T, int Hq, int Hkv, int D, int window, float scale,
-                      void* stream) {
+                      void* partial, int B, int T, int Hq, int Hkv, int D, int window,
+                      int split, float scale, void* stream) {
   if (bad_shape(B, T, Hq, Hkv, D, window)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = (long long)B * T * Hq;
@@ -940,21 +1072,29 @@ int ivl_swa_train_bwd(int dtype, const void* q, const void* k, const void* v,
     swa_train_delta_kernel<bf16><<<delta_blocks, 128, 0, st>>>(
         (const bf16*)out, (const bf16*)d_out, (float*)delta, B, T, Hq);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = allow_smem(swa_train_dq_mma_kernel, M_DQ_SMEM)) != cudaSuccess)
-      return (int)err;
-    swa_train_dq_mma_kernel<<<dim3((T + M_BR - 1) / M_BR, Hq, B), 32 * M_WARPS,
-                              M_DQ_SMEM, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-        (const bf16*)d_out, (const float*)lse, (const float*)delta, (bf16*)dq, T, Hq,
-        Hkv, window, scale);
+    const int G = Hq / Hkv;
+    if (split <= 0 || G % split || (split > 1 && partial == nullptr))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm, om;
+    if (!head_map(&qm, q, B, T, Hq) || !head_map(&km, k, B, T, Hkv) ||
+        !head_map(&vm, v, B, T, Hkv) || !head_map(&om, d_out, B, T, Hq))
+      return (int)cudaErrorInvalidValue;
+    const long long tiles = (T + W_T - 1) / W_T;
+    if ((err = allow_smem(swa_train_dq_wgmma_kernel, DQ_SMEM)) != cudaSuccess) return (int)err;
+    swa_train_dq_wgmma_kernel<<<(unsigned)(tiles * B * Hq), W_THREADS, DQ_SMEM, st>>>(
+        qm, km, vm, om, (const int*)seg, (const float*)lse, (const float*)delta, (bf16*)dq,
+        B, T, Hq, Hkv, window, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = allow_smem(swa_train_dkv_mma_kernel, M_DKV_SMEM)) != cudaSuccess)
+    if ((err = allow_smem(swa_train_dkv_wgmma_kernel, DKV_SMEM)) != cudaSuccess)
       return (int)err;
-    swa_train_dkv_mma_kernel<<<dim3((T + M_BR - 1) / M_BR, Hkv, B), 32 * M_WARPS,
-                               M_DKV_SMEM, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-        (const bf16*)d_out, (const float*)lse, (const float*)delta, (bf16*)dk,
-        (bf16*)dv, T, Hq, Hkv, window, scale);
+    swa_train_dkv_wgmma_kernel<<<(unsigned)(tiles * B * Hkv * split), W_THREADS, DKV_SMEM,
+                                 st>>>(qm, km, vm, om, (const int*)seg, (const float*)lse,
+                                       (const float*)delta, (bf16*)dk, (bf16*)dv,
+                                       (float*)partial, B, T, Hq, Hkv, window, split, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess || split == 1) return (int)err;
+    const size_t n = (size_t)B * T * Hkv * HD;
+    swa_train_reduce_kernel<<<(unsigned)((2 * n / 4 + 255) / 256), 256, 0, st>>>(
+        (const float*)partial, (bf16*)dk, (bf16*)dv, split, n);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

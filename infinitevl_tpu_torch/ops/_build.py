@@ -111,11 +111,11 @@ def load_library() -> ctypes.CDLL:
     lib.ivl_delta_chunk.restype = I
     lib.ivl_vit_flash.argtypes = [I, P, P, P, P, P, I, I, I, L, L, L, F, I, P]
     lib.ivl_vit_flash.restype = I
-    lib.ivl_int4_matmul.argtypes = [I, P, L, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.ivl_int4_matmul.argtypes = [I, P, L, I, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.ivl_int4_matmul.restype = I
     lib.ivl_swa_train_fwd.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
     lib.ivl_swa_train_fwd.restype = I
-    lib.ivl_swa_train_bwd.argtypes = [I] + [P] * 11 + [I, I, I, I, I, I, F, P]
+    lib.ivl_swa_train_bwd.argtypes = [I] + [P] * 12 + [I] * 7 + [F, P]
     lib.ivl_swa_train_bwd.restype = I
     lib.ivl_error_string.argtypes = [I]
     lib.ivl_error_string.restype = ctypes.c_char_p

@@ -17,8 +17,12 @@ from . import _build
 
 SMALL_M = 8  # rows up to which the bytes-bound kernel is taken
 TARGET_BLOCKS = 264  # two blocks for each of the card's 132 SMs
+SMS = 132  # streaming multiprocessors of an H100
 GEMV_COLS, GEMV_MIN_ROWS, GEMV_MAX_ROWS = 128, 64, 512  # columns / packed rows per block
-TILE_M, TILE_N, TILE_MIN_ROWS = 64, 64, 128
+FMA_TILE, FMA_MIN_ROWS = 64, 128  # fp32 tiles: 64 x 64 outputs
+WGMMA_COLS, WGMMA_STAGE, WGMMA_MIN_ROWS = 128, 64, 128  # bf16: columns, packed rows per stage
+WGMMA_ONE_GROUP_M = 64  # rows up to which one consumer warpgroup (64-row tiles) is taken
+TMA_ALIGN = 16  # bytes: x's base and row stride for the tensor map
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 
@@ -75,20 +79,29 @@ def int4_matmul_plain(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(M: int, half: int, d_out: int) -> Tuple[bool, int, int]:
-    """(small, rows per block, row splits): the packed rows are split over
-    blocks until about TARGET_BLOCKS are in flight."""
-    small = M <= SMALL_M
-    if small:
-        blocks = -(-d_out // GEMV_COLS)
-        lo, hi = GEMV_MIN_ROWS, GEMV_MAX_ROWS
+def launch_plan(M: int, half: int, d_out: int,
+                dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int]:
+    """(tile_m, rows per block, row splits) of kernel G. tile_m is 0 for
+    the M <= 8 kernel, else the output rows of a block: 64 for fp32 (64 x
+    64 FMA tiles); for bf16 the wgmma kernel's 64 (one warpgroup, M <= 64)
+    or 128. The small kernel and fp32 split the packed rows until about
+    TARGET_BLOCKS blocks are in flight; bf16 splits them only where its
+    128-column tiles leave the card's SMs short, in whole 64-row stages."""
+    if M <= SMALL_M:
+        tile_m, blocks, lo, hi, step = 0, -(-d_out // GEMV_COLS), GEMV_MIN_ROWS, GEMV_MAX_ROWS, 32
+        ks = max(1, min(-(-TARGET_BLOCKS // blocks), -(-half // lo)))
+    elif dtype == torch.float32:
+        tile_m, lo, hi, step = FMA_TILE, FMA_MIN_ROWS, half, 32
+        blocks = -(-d_out // FMA_TILE) * -(-M // FMA_TILE)
+        ks = max(1, min(-(-TARGET_BLOCKS // blocks), -(-half // lo)))
     else:
-        blocks = -(-d_out // TILE_N) * -(-M // TILE_M)
-        lo, hi = TILE_MIN_ROWS, half
-    ks = max(1, min(-(-TARGET_BLOCKS // blocks), -(-half // lo)))
+        tile_m = 64 if M <= WGMMA_ONE_GROUP_M else 128
+        lo, hi, step = WGMMA_MIN_ROWS, half, WGMMA_STAGE
+        blocks = -(-d_out // WGMMA_COLS) * -(-M // tile_m)
+        ks = 1 if blocks >= SMS else max(1, min(-(-SMS // blocks), -(-half // lo)))
     rpb = min(max(-(-half // ks), lo), max(hi, lo))
-    rpb = -(-rpb // 32) * 32
-    return small, rpb, -(-half // rpb)
+    rpb = -(-rpb // step) * step
+    return tile_m, rpb, -(-half // rpb)
 
 
 def _stream_ptr(device: torch.device) -> int:
@@ -123,6 +136,10 @@ def int4_matmul_fused(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
     d_in = 2 * half
     out = torch.empty(x.shape[:-1] + (d_out,), dtype=x.dtype, device=x.device)
+    M = out.numel() // d_out
+    if M == 0:
+        return out
+    tile_m, rpb, ks = launch_plan(M, half, d_out, x.dtype)
     if x.is_contiguous():  # rows as they lie: no view is made
         x2, ldx = x, d_in
     else:
@@ -130,10 +147,22 @@ def int4_matmul_fused(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
         if x2.stride(1) != 1:
             x2 = x2.contiguous()
         ldx = x2.stride(0)
-    M = out.numel() // d_out
-    if M == 0:
-        return out
-    small, rpb, ks = launch_plan(M, half, d_out)
+    x_hi = half  # the column where x's high plane starts
+    if tile_m and x.dtype == torch.bfloat16:
+        if G != 1 and (half // (G // 2)) % WGMMA_STAGE:
+            raise ValueError(f"{name}: the bf16 tile kernel takes scale groups of whole "
+                             f"{WGMMA_STAGE}-row stages per plane, got {half // (G // 2)} "
+                             f"rows (quantize with a group size of a multiple of "
+                             f"{2 * WGMMA_STAGE}, or G = 1)")
+        if (ldx * 2) % TMA_ALIGN or x2.data_ptr() % TMA_ALIGN or (half * 2) % TMA_ALIGN:
+            # TMA reads x at 16-byte boundaries: copy it with each plane
+            # starting on one (d_in 3420: planes of 1710 columns = 3420 bytes)
+            x_hi = -(-half // 8) * 8
+            rows = x2.reshape(M, d_in)
+            pad = torch.zeros((M, 2 * x_hi), dtype=x.dtype, device=x.device)
+            pad[:, :half].copy_(rows[:, :half])
+            pad[:, x_hi:x_hi + half].copy_(rows[:, half:])
+            x2, ldx = pad, pad.stride(0)
     partial = (torch.empty((ks, M, d_out), dtype=torch.float32, device=x.device)
                if ks > 1 else None)
     lib = _build.load_library()
@@ -141,10 +170,10 @@ def int4_matmul_fused(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
     def launch():
         _build.check(
             lib.ivl_int4_matmul(
-                _DTYPES[x.dtype], x2.data_ptr(), ldx, packed.data_ptr(),
+                _DTYPES[x.dtype], x2.data_ptr(), ldx, x_hi, packed.data_ptr(),
                 scale.data_ptr(), out.data_ptr(),
                 partial.data_ptr() if partial is not None else None,
-                M, d_in, d_out, G, rpb, ks, int(small), _stream_ptr(x.device),
+                M, d_in, d_out, G, rpb, ks, tile_m, _stream_ptr(x.device),
             ),
             name,
         )

@@ -11,7 +11,7 @@ its `launches` attribute."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,6 +26,10 @@ from .swa import (
 HEAD_DIM = 128  # the head dim the kernels are written for
 DECODE_SPLIT = 128  # ring keys per block of the split-KV decode pass
 MAX_GROUPS = 16  # query heads per KV head the decode kernel takes
+BWD_TILE = 64  # keys per block of H's bf16 dK/dV kernel
+BWD_TARGET_BLOCKS = 2 * 132  # dK/dV blocks wanted in flight: two per SM (measured on
+# an H100 at 3B: one split of the GQA sum at T 2,048 took 2.2x the best, and beyond
+# two blocks per SM the splits were level within the noise at T 2,048 to 8,192)
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 
@@ -270,9 +274,35 @@ def _check_train(name, q, k, v, segment_ids, window):
                          f"on {q.device}")
 
 
+class BwdSplit(NamedTuple):
+    """How H's bf16 dK/dV kernel splits the GQA sum over the query heads."""
+    split: int  # query-head groups, each summed by its own blocks
+    partial_shape: tuple  # fp32 scratch [2 (dK, dV), split, B, T, Hkv, D]; () if split == 1
+    scratch_bytes: int
+
+
+def bwd_split_plan(B: int, T: int, Hq: int, Hkv: int, D: int = HEAD_DIM,
+                   target: Optional[int] = None) -> BwdSplit:
+    """The smallest divisor of Hq / Hkv that gives the dK/dV kernel at least
+    `target` (BWD_TARGET_BLOCKS unless given) blocks of (64 keys, KV head,
+    batch row, head group), or the full split (one query head per block). The partial sums are added by a
+    reduce pass in the order s = 0, 1, ..., split - 1, so the result does
+    not depend on the order the blocks ran in."""
+    if target is None:
+        target = BWD_TARGET_BLOCKS
+    G = Hq // Hkv
+    base = -(-T // BWD_TILE) * Hkv * B
+    split = next((s for s in range(1, G + 1) if G % s == 0 and base * s >= target), G)
+    if split == 1:
+        return BwdSplit(1, (), 0)
+    shape = (2, split, B, T, Hkv, D)
+    return BwdSplit(split, shape, 4 * 2 * split * B * T * Hkv * D)
+
+
 class _SwaTrainFlashFn(torch.autograd.Function):
     """Kernel H: the forward keeps q, k, v, the output and the row
-    log-sum-exp; the backward launches the delta, dQ and dK/dV kernels."""
+    log-sum-exp; the backward launches the delta, dQ and dK/dV kernels (and,
+    in bf16 with the GQA sum split, the reduce of dK/dV's partials)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, window, scale):
@@ -309,6 +339,10 @@ class _SwaTrainFlashFn(torch.autograd.Function):
             raise TypeError(f"{name}: cotangent dtype {d_out.dtype}, q has {q.dtype}")
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty_like(lse)
+        plan = (bwd_split_plan(B, T, Hq, Hkv, D) if q.dtype == torch.bfloat16
+                else BwdSplit(1, (), 0))
+        partial = (torch.empty(plan.partial_shape, dtype=torch.float32, device=q.device)
+                   if plan.split > 1 else None)
         lib = _build.load_library()
         with torch.cuda.device(q.device):
             _build.check(
@@ -317,7 +351,8 @@ class _SwaTrainFlashFn(torch.autograd.Function):
                     None if segment_ids is None else segment_ids.data_ptr(),
                     out.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    B, T, Hq, Hkv, D, ctx.window, ctx.scale,
+                    None if partial is None else partial.data_ptr(),
+                    B, T, Hq, Hkv, D, ctx.window, plan.split, ctx.scale,
                     torch.cuda.current_stream(q.device).cuda_stream,
                 ),
                 name,

@@ -202,12 +202,53 @@ def test_int4_matmul_ragged_widths_bf16_and_checks():
                               "scale4": node["scale4"]})
     with pytest.raises(ValueError, match="neither cpu nor cuda"):
         int4_matmul_fused(torch.empty((4, 60), device="meta"), node)
-    # the launch plan: (small, rows per block, row splits) covers all rows
+    # the launch plan: (tile_m, rows per block, row splits) covers all rows
     for M, half, cols in ((1, 1024, 2048), (8, 5504, 2048), (257, 1024, 11008),
                           (32, 1024, 2048), (1, 1710, 1280), (1, 16, 8)):
-        small, rpb, ks = launch_plan(M, half, cols)
-        assert small == (M <= 8) and rpb % 32 == 0 and ks * rpb >= half > (ks - 1) * rpb
-        assert not small or rpb <= 512
+        for dtype in (torch.bfloat16, torch.float32):
+            tile_m, rpb, ks = launch_plan(M, half, cols, dtype)
+            assert (tile_m == 0) == (M <= 8) and rpb % 32 == 0
+            assert ks * rpb >= half > (ks - 1) * rpb
+            assert tile_m or rpb <= 512
+
+
+def _plan_before_wgmma(M, half, d_out):
+    """The fp32 / small-M plan as it was before the bf16 wgmma path: the
+    fp32 path keeps it."""
+    small = M <= 8
+    if small:
+        blocks, lo, hi = -(-d_out // 128), 64, 512
+    else:
+        blocks, lo, hi = -(-d_out // 64) * -(-M // 64), 128, half
+    ks = max(1, min(-(-264 // blocks), -(-half // lo)))
+    rpb = min(max(-(-half // ks), lo), max(hi, lo))
+    rpb = -(-rpb // 32) * 32
+    return (0 if small else 64), rpb, -(-half // rpb)
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 64, 65, 128, 257, 1024, 2048])
+def test_int4_launch_plan_per_dtype(M):
+    """Kernel G's plan at the 3B widths: bf16 takes 64-row wgmma tiles up
+    to M 64 and 128-row tiles above, in whole 64-row stages, and splits the
+    packed rows only where its 128-column tiles leave the 132 SMs short;
+    fp32 and M <= 8 keep the earlier plan; every packed row is covered once."""
+    for d_in, d_out in ((2048, 11008), (11008, 2048), (2048, 256), (2048, 12320),
+                        (1280, 3420), (3420, 1280)):
+        half = d_in // 2
+        f32 = launch_plan(M, half, d_out, torch.float32)
+        assert f32 == _plan_before_wgmma(M, half, d_out)
+        tile_m, rpb, ks = launch_plan(M, half, d_out, torch.bfloat16)
+        assert ks * rpb >= half > (ks - 1) * rpb
+        if M <= 8:
+            assert (tile_m, rpb, ks) == f32
+            continue
+        assert tile_m == (64 if M <= 64 else 128) and rpb % 64 == 0
+        blocks = -(-d_out // 128) * -(-M // tile_m)
+        if blocks >= 132:
+            assert ks == 1
+        else:  # split, in ranges of at least two stages
+            assert ks > 1 or half < 2 * 128
+            assert rpb >= 128
 
 
 def test_delta_step_plain_matches_pallas_per_layer():

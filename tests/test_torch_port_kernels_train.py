@@ -21,7 +21,8 @@ import infinitevl_tpu.ops.vit_flash as jvit
 import infinitevl_tpu_torch.ops.delta_kernels as tdk
 import infinitevl_tpu_torch.ops.vit_kernels as tvk
 from infinitevl_tpu_torch.ops.delta_rule import delta_rule_chunk
-from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention
+from infinitevl_tpu_torch.ops.swa import swa_prefill_reference
+from infinitevl_tpu_torch.ops.swa_kernels import bwd_split_plan, swa_train_flash_attention
 from infinitevl_tpu_torch.ops.vit_flash import (
     attention_segment_chunked,
     vit_window_attention,
@@ -73,6 +74,52 @@ def test_swa_train_plain_matches_jax_values_and_gradients(window, packed):
     assert err_ratio(got, want) < 1e-5
     for name, a, b in zip("qkv", ggot, gwant):
         assert err_ratio(a, b) < 1e-4, f"d{name}"
+
+
+@pytest.mark.parametrize("T, split", [(257, 8), (2048, 8), (4096, 4), (8192, 2)])
+def test_swa_bwd_split_plan_at_3b(T, split):
+    """H's bf16 dK/dV split at the 3B shape (GQA 16/2, D 128, B 1): the
+    smallest split of the 8 query heads that gives two blocks per SM, and
+    the fp32 partials [2 (dK, dV), split, B, T, Hkv, D]: 33.5 MB at T 2,048
+    (8 splits) and at T 8,192 (2 splits)."""
+    plan = bwd_split_plan(1, T, 16, 2)
+    assert plan.split == split
+    assert plan.partial_shape == (2, split, 1, T, 2, 128)
+    assert plan.scratch_bytes == 4 * int(np.prod(plan.partial_shape))
+    assert plan.scratch_bytes == (33554432 if T >= 2048 else 4210688)
+    assert -(-T // 64) * 2 * split >= 2 * 132 or split == 8
+    assert bwd_split_plan(4, 8192, 16, 2) == (1, (), 0)  # enough blocks without a split
+    assert bwd_split_plan(1, 2048, 16, 2, target=0) == (1, (), 0)
+    assert bwd_split_plan(1, 2048, 16, 2, target=10 ** 6).split == 8  # at most one head each
+
+
+def test_swa_bwd_head_split_partials_add_up():
+    """What the split dK/dV blocks compute: the gradient of K and V from
+    the query heads of one group at a time. Added in the reduce pass's
+    order (group 0, 1, ...), the partials give the full gradients."""
+    rng = np.random.RandomState(3)
+    B, T, Hq, Hkv, D, W = 1, 37, 8, 2, 16, 20
+    q, k, v, cot = (torch.from_numpy(rnd(rng, B, T, h, D)) for h in (Hq, Hkv, Hkv, Hq))
+    seg = torch.from_numpy(np.repeat(np.array([[1] * 20 + [2] * 15 + [0] * 2]), B, 0))
+
+    def grads(c):
+        kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        out = swa_prefill_reference(q, kl, vl, W, 0, None, seg)
+        return torch.autograd.grad(out, (kl, vl), c)
+
+    full = grads(cot)
+    G = Hq // Hkv
+    for split in (2, 4):
+        per = G // split
+        acc = [torch.zeros_like(k), torch.zeros_like(v)]
+        for s in range(split):
+            keep = torch.zeros(Hq, dtype=torch.bool)
+            for hk in range(Hkv):
+                keep[hk * G + s * per: hk * G + (s + 1) * per] = True
+            part = grads(cot * keep[None, None, :, None])
+            acc = [a + p for a, p in zip(acc, part)]
+        for a, f in zip(acc, full):
+            assert err_ratio(a, f) < 1e-6
 
 
 def _window_case(seed, S, L, H=2, D=80):
