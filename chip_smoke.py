@@ -33,7 +33,8 @@ non-zero):
      on the card (kernels), through Generator (text; then int4 + fused
      projections, and speculative against greedy decoding on the card) and
      through StreamingEngine (prime, 3 frames, ask); then three training
-     steps (full, LoRA with remat, one multimodal batch) on both devices
+     steps (full, LoRA with remat, one multimodal batch) on both devices,
+     and one step on packed rows
   5. text path: the InfiniteVL-3B decoder (bf16, random weights from seed 0)
      answering three requests through Generator (full depth; prompts of
      50, 1,000 and 9,000 tokens, 32 new tokens each: nothing was cut to
@@ -52,11 +53,14 @@ non-zero):
      burst of 8 requests; then per weight format (int4, bf16, int8, fused)
      one text request and 13 streamed frames
   8. training path, at full 3B width and depth, through run_sft / Trainer:
-     LoRA at 2,048 and 8,192 tokens, QLoRA (int8 base), full finetuning,
+     LoRA at 2,048 and 8,192 tokens, LoRA on packed rows (packing: true),
+     QLoRA (int8 base), full finetuning,
      multimodal LoRA steps at 448x448 and 1344x1344, save / resume
   9. the ViT at window_size 224 (windows of 256 patches: kernel F), one
      1344x1344 image forward and one training step with gradients through
-     F and E
+     F and E; then the step's peak memory at windows of 256 and 1,024
+     patches, F's backward through its chunked twin and through the
+     batched-dense plain version
 Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
 recipe, the ViT path) and read just after it. Then a JSON line of per-kernel results, the card's line, and
@@ -79,6 +83,7 @@ F32_TOL = 1e-5  # err_ratio of fp32 outputs: summation order only
 C_F32_TOL = 1e-4  # kernel C in fp32: forward substitution against the plain
 #                   version's Newton-Schulz inverse, over up to 32 chained chunks
 MODEL_TOL = 1e-3  # logits / state err_ratio of the fp32 model, CPU vs card
+PACKED_TOL = 1e-4  # one fp32 training step on packed rows, CPU vs card: loss, grads, params
 TIMING_REPS = 20
 
 # published peaks of one H100 SXM (dense, no sparsity), for the bounds
@@ -89,8 +94,12 @@ PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 # main-path shapes of the InfiniteVL-3B text decoder (GQA 16/2, head_dim
 # 128, window = ring capacity 8192; 9 SWA + 27 DeltaNet layers, DeltaNet
 # heads 16 x (K 128, V 256)); T = 2048 is the chunked-prefill chunk
+# A1: T 257 is one 448x448 frame (the streaming path), T 2048 a prefill chunk;
+# the frame's shape is split over the key tiles (split-KV) and is checked
+# under every split of its plan. Timed: the frame, then the chunk (main)
 A1_CASE = dict(Bs=(1, 2), Hq=16, Hkv=2, cap=8192, Ts=(257, 2048),
-               cums=(0, 5000, 20000), timed=(1, 2048, 20000))
+               cums=(0, 5000, 20000), split_T=257,
+               timed=((1, 257, 20000), (1, 2048, 20000)))
 A2_CASE = dict(S=9, Hq=16, Hkv=2, cap=8192, Bs=(1, 4),
                cums=(0, 8191, 8192, 20000), timed=(1, 20000))
 B_CASE = dict(L=27, H=16, K=128, V=256, Bs=(1, 4), layers=(0, 13, 26), timed=(1, 13))
@@ -134,6 +143,15 @@ G_CASE = dict(shapes=((2048, 11008, 128), (11008, 2048, 128), (2048, 256, 128),
                       (2048, 12320, 128), (1280, 3420, 128), (3420, 1280, 128),
                       (2048, 2048, 1 << 20)),
               Ms=(1, 3, 8, 9, 64, 65, 128, 257, 1024), big_M=2048,
+              # scale groups of 32 input rows (32 rows per plane: below a 64-row
+              # stage, a fold per 16-row k-step), 48 (k-step folds whose groups
+              # straddle stages), 64 (one stage) and 8 (splits a k-step: the FMA
+              # tiles), at decode, the verify window, the two-warpgroup edge and
+              # a frame; 32 and 64 timed at M 257
+              group_shapes=((2048, 11008, 32), (2048, 11008, 64), (11008, 2048, 32),
+                            (11008, 2048, 64), (1280, 3420, 64), (3072, 256, 48),
+                            (2048, 256, 8)),
+              group_Ms=(1, 9, 65, 257), group_timed=257,
               timed=tuple((d_in, d_out, M) for d_in, d_out in ((2048, 11008), (11008, 2048))
                           for M in (1, 9, 257, 2048))
               + ((1280, 3420, 1024), (3420, 1280, 1024)))
@@ -268,20 +286,31 @@ def phase_build() -> None:
 
 
 def _a1_cases(dev, gen):
+    from infinitevl_tpu_torch.ops import swa_kernels as sk
     from infinitevl_tpu_torch.ops.swa import (
         ring_slot_positions,
         sliding_window_mask,
         swa_cached_attention,
+        swa_cached_attention_split,
     )
     from infinitevl_tpu_torch.ops.swa_kernels import swa_ring_flash_attention
 
     c = A1_CASE
     Hq, Hkv, D, cap = c["Hq"], c["Hkv"], 128, c["cap"]
-    errs, mxs = [], []
+    G = Hq // Hkv
+    target = sk.PREFILL_TARGET_BLOCKS
+
+    def force(B, T, split):
+        """A1's plan with `split` splits of the key tiles."""
+        sk.PREFILL_TARGET_BLOCKS = -(-T * G // sk.PREFILL_ROWS) * B * Hkv * split
+        got = sk.prefill_split_plan(B, T, Hq, Hkv, cap).split
+        require(got == split, f"A1: forced split {split}, the plan gives {got}")
+
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+    errs, mxs, e_split = [], [], []
     for B in c["Bs"]:
         for T in c["Ts"]:
             for cum in c["cums"]:
-                mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
                 q, nk, nv = mk(B, T, Hq, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D)
                 rk, rv = mk(B, Hkv, cap, D), mk(B, Hkv, cap, D)
                 rk0 = rk.clone()
@@ -293,29 +322,65 @@ def _a1_cases(dev, gen):
                 require(torch.equal(rk, rk0), "A1 must not write the ring")
                 errs.append(e)
                 mxs.append(max_abs(out, ref))
-                if (B, T, cum) == c["timed"]:
-                    ms = time_ms(lambda: swa_ring_flash_attention(q, nk, nv, rk, rv, cum, cap))
-                    plain = time_ms(lambda: swa_cached_attention(
-                        q, nk, nv, rk, rv, cum, cap, write_ring=False))
-                    # the library call on the same keys and mask
-                    G = Hq // Hkv
-                    q_pos = cum + torch.arange(T, device=dev)
-                    k_pos = torch.cat([ring_slot_positions(cum, cap, dev), q_pos])
-                    mask = sliding_window_mask(q_pos, k_pos, cap)
-                    k_all = torch.cat([rk.transpose(1, 2), nk], 1).repeat_interleave(G, 2)
-                    v_all = torch.cat([rv.transpose(1, 2), nv], 1).repeat_interleave(G, 2)
-                    e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
-                    require(e_lib <= BF16_TOL, f"A1 library call err_ratio {e_lib:.3g}")
-                    lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
-                    seen = sum(min(cap, cum + t + 1) for t in range(T))  # keys per query
-                    bnd = bound(2 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D
-                                     + 2 * B * Hkv * cap * D),
-                                4 * B * Hq * D * seen, PEAK_BF16_FLOPS)
+                if B == 1 and T == c["split_T"]:
+                    # every split of the frame's plan against the plain split-and-
+                    # combine (split-KV is exact up to rounding) and the plain attention
+                    plan = sk.prefill_split_plan(B, T, Hq, Hkv, cap).split
+                    for split in range(1, plan + 1):
+                        force(B, T, split)
+                        o_s = swa_ring_flash_attention(q, nk, nv, rk, rv, cum, cap)
+                        r_s = swa_cached_attention_split(q, nk, nv, rk, rv, cum, cap, split)
+                        torch.cuda.synchronize()
+                        e = max(err_ratio(o_s, ref), err_ratio(o_s, r_s))
+                        require(e <= BF16_TOL, f"A1 T={T} cum={cum} split={split} "
+                                               f"err_ratio {e:.3g}")
+                        e_split.append(e)
+                    sk.PREFILL_TARGET_BLOCKS = target
+
+    timed = {}
+    for B, T, cum in c["timed"]:
+        q, nk, nv = mk(B, T, Hq, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D)
+        rk, rv = mk(B, Hkv, cap, D), mk(B, Hkv, cap, D)
+        kern = lambda: swa_ring_flash_attention(q, nk, nv, rk, rv, cum, cap)
+        ms = time_ms(kern)
+        plain = time_ms(lambda: swa_cached_attention(q, nk, nv, rk, rv, cum, cap,
+                                                     write_ring=False))
+        ref = swa_cached_attention(q, nk, nv, rk, rv, cum, cap, write_ring=False)
+        # the library call on the same keys and mask
+        q_pos = cum + torch.arange(T, device=dev)
+        k_pos = torch.cat([ring_slot_positions(cum, cap, dev), q_pos])
+        mask = sliding_window_mask(q_pos, k_pos, cap)
+        k_all = torch.cat([rk.transpose(1, 2), nk], 1).repeat_interleave(G, 2)
+        v_all = torch.cat([rv.transpose(1, 2), nv], 1).repeat_interleave(G, 2)
+        e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
+        require(e_lib <= BF16_TOL, f"A1 library call err_ratio {e_lib:.3g}")
+        lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
+        seen = sum(min(cap, cum + t + 1) for t in range(T))  # keys per query
+        bnd = bound(2 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D + 2 * B * Hkv * cap * D),
+                    4 * B * Hq * D * seen, PEAK_BF16_FLOPS)
+        plan = sk.prefill_split_plan(B, T, Hq, Hkv, cap)
+        # every split up to the plan's and one beyond
+        by_split = {}
+        for split in range(1, plan.split + 2):
+            force(B, T, split)
+            by_split[str(split)] = time_ms(kern)
+        sk.PREFILL_TARGET_BLOCKS = target
+        timed[T] = dict(ms=ms, plain_ms=plain, library_ms=lib, split=plan.split,
+                        scratch_bytes=plan.scratch_bytes, ms_by_split=by_split, **bnd)
+        print(f"[3 parity] A1 timed (B, T, cum_len) ({B}, {T}, {cum}), bf16: kernel {ms:.3f} ms "
+              f"(plan: split {plan.split}, scratch "
+              f"{plan.scratch_bytes / 1e6:.1f} MB), plain {plain:.3f} ms, library {lib:.3f} ms, "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); ms by split: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in by_split.items()), flush=True)
     print(f"[3 parity] A1 swa_ring_flash_attention: max err_ratio {max(errs):.3g} "
-          f"(tol {BF16_TOL}), max|diff| {max(mxs):.3g}; (B, T, cum_len)={c['timed']}: "
-          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
-    return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+          f"(tol {BF16_TOL}), max|diff| {max(mxs):.3g} over B {c['Bs']} x T {c['Ts']} x "
+          f"cum_len {c['cums']}; T {c['split_T']} under every split of its plan against the "
+          f"plain attention and the plain split-and-combine: "
+          f"{max(e_split):.3g}", flush=True)
+    frame = timed[c["split_T"]]
+    main = timed[c["timed"][-1][1]]
+    return dict(max_abs_err=max(mxs), **main,
+                **{f"{k}_t{c['split_T']}": v for k, v in frame.items()})
 
 
 def _a2_cases(dev, gen):
@@ -483,10 +548,80 @@ def _c_cases(dev, gen):
           f"{max(errs[torch.float32]):.3g} (tol {C_F32_TOL}), o and final state, "
           f"B {c['Bs']} x T {c['Ts']} x with/without state, the state written in "
           f"place bit-equal; {line}", flush=True)
+    seg_res = _c_segment_cases(dev, gen)
     frame, chunk = timed[c["timed"][0]], timed[c["timed"][1]]
-    return dict(max_abs_err=max(mxs), library_ms=None, **frame,
+    return dict(max_abs_err=max(mxs + [seg_res.pop("max_abs_err")]), library_ms=None, **frame,
                 ms_t2048=chunk["ms"], plain_ms_t2048=chunk["plain_ms"],
-                bound_ms_t2048=chunk["bound_ms"])
+                bound_ms_t2048=chunk["bound_ms"], **seg_res)
+
+
+def _c_segments(B: int, T: int, dev) -> torch.Tensor:
+    """Packed rows for kernel C: row 0 has boundaries inside chunks (100,
+    1500), one exactly at a chunk edge (640) and three inside one chunk (710,
+    720, 740); row 1 a boundary at an edge (1024) and right after it (1030);
+    both end in a tail of pads (id 0) whose start is no chunk edge."""
+    seg = torch.ones((B, T), dtype=torch.int32, device=dev)
+    for r, cuts in enumerate(((100, 640, 710, 720, 740, 1500), (1024, 1030, 1700))[:B]):
+        for i, t in enumerate(cuts):
+            if t < T:
+                seg[r, t:] = i + 2
+    seg[:, T - T // 40:] = 0
+    return seg
+
+
+def _c_segment_cases(dev, gen) -> dict:
+    """Kernel C's packed path against the plain chunk form with the same
+    segment ids (fp32 arithmetic), at B 2 and the DeltaNet layer's shape:
+    T 2048 and a ragged T 2000, with and without an initial state; then
+    gated_delta_rule with segment ids on the card launches C."""
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused
+    from infinitevl_tpu_torch.ops.delta_rule import delta_rule_chunk, gated_delta_rule
+
+    c = C_CASE
+    H, K, V = c["H"], c["K"], c["V"]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    errs, mxs = {torch.bfloat16: [], torch.float32: []}, []
+    B = 2
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, C_F32_TOL)):
+        for T in (2048, 2000):
+            seg = _c_segments(B, T, dev)
+            for init in (False, True):
+                q, k, v = rnd(B, T, H, K).to(dtype), rnd(B, T, H, K).to(dtype), \
+                    rnd(B, T, H, V).to(dtype)
+                g = -torch.rand((B, T, H), generator=gen, device=dev) * 0.2
+                beta = torch.sigmoid(rnd(B, T, H))
+                h0 = rnd(B, H, K, V) * 0.1 if init else None
+                o, hT = delta_rule_chunk_fused(q, k, v, g, beta, h0, segment_ids=seg)
+                o_ref, h_ref = delta_rule_chunk(q, k, v, g, beta, h0, segment_ids=seg,
+                                                compute_dtype=torch.float32)
+                torch.cuda.synchronize()
+                e = max(err_ratio(o, o_ref), err_ratio(hT, h_ref))
+                require(e <= tol, f"C packed {dtype} T={T} init={init} err_ratio {e:.3g}")
+                errs[dtype].append(e)
+                if dtype == torch.bfloat16:
+                    mxs.append(max(max_abs(o, o_ref), max_abs(hT, h_ref)))
+    # the dispatch: segment ids on a CUDA tensor go to kernel C
+    n0 = delta_rule_chunk_fused.launches
+    gated_delta_rule(q, k, v, g, beta, segment_ids=seg)
+    require(delta_rule_chunk_fused.launches == n0 + 1, "gated_delta_rule did not launch C")
+    T = 2048
+    seg = _c_segments(1, T, dev)
+    q, k, v = (rnd(1, T, H, d).to(torch.bfloat16) for d in (K, K, V))
+    g = -torch.rand((1, T, H), generator=gen, device=dev) * 0.2
+    beta = torch.sigmoid(rnd(1, T, H))
+    h0 = rnd(1, H, K, V) * 0.1
+    ms = time_ms(lambda: delta_rule_chunk_fused(q, k, v, g, beta, h0, segment_ids=seg))
+    plain = time_ms(lambda: delta_rule_chunk(q, k, v, g, beta, h0, segment_ids=seg,
+                                             compute_dtype=torch.float32))
+    bnd = _c_bound(1, T, H, K, V, 2)
+    print(f"[3 parity] C packed rows (segment ids: boundaries inside chunks, at a chunk edge, "
+          f"three in one chunk, a pad tail): max err_ratio bf16 "
+          f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs[torch.float32]):.3g} (tol {C_F32_TOL}), B 2 x T (2048, 2000) x "
+          f"with/without state; gated_delta_rule with ids launches C; timed (B 1, T {T}, bf16, "
+          f"with state, 4 sequences): kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+    return dict(max_abs_err=max(mxs), ms_t2048_packed=ms, plain_ms_t2048_packed=plain)
 
 
 def _e_cases(dev, gen):
@@ -548,13 +683,21 @@ def _g_cases(dev, gen):
         launch_plan,
     )
 
+    from infinitevl_tpu_torch.ops.int4_kernels import tile_kernel
+
     c = G_CASE
     errs, mxs, timed = {torch.bfloat16: [], torch.float32: []}, [], {}
-    for d_in, d_out, gs in c["shapes"]:
+    routes, group_timed = set(), {}
+    for d_in, d_out, gs in c["shapes"] + c["group_shapes"]:
         w = torch.randn((d_in, d_out), generator=gen, device=dev) * 0.02
         node = quantize_kernel_int4(w, gs)
         G = node["scale4"].shape[0]
-        Ms = c["Ms"] + ((c["big_M"],) if (d_in, d_out) == c["shapes"][0][:2] else ())
+        grouped = (d_in, d_out, gs) in c["group_shapes"]
+        if grouped:
+            require(G == d_in // gs, f"G: group {gs} at d_in {d_in} gave {G} groups")
+            routes.add((gs, tile_kernel(d_in // 2, G, torch.bfloat16)))
+        Ms = (c["group_Ms"] if grouped else
+              c["Ms"] + ((c["big_M"],) if (d_in, d_out) == c["shapes"][0][:2] else ()))
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             for M in Ms:
                 x = torch.randn((M, d_in), generator=gen, device=dev).to(dtype)
@@ -571,6 +714,19 @@ def _g_cases(dev, gen):
                 errs[dtype].append(e)
                 if dtype == torch.bfloat16:
                     mxs.append(max_abs(out, ref))
+        if grouped and gs in (32, 64) and d_out != 3420:
+            M = c["group_timed"]
+            x = torch.randn((M, d_in), generator=gen, device=dev).to(torch.bfloat16)
+            wdq = dequantize_kernel_int4(node, torch.bfloat16)
+            group_timed[f"{d_in}x{d_out}_g{gs}_m{M}"] = dict(
+                device_ms=time_graph_ms(lambda: int4_matmul_fused(x, node)),
+                library_device_ms=time_graph_ms(lambda: x @ wdq),
+                **bound(node["kernel_q4"].numel() + 4 * node["scale4"].numel()
+                        + 2 * M * d_in + 2 * M * d_out, 2 * M * d_in * d_out, PEAK_BF16_FLOPS))
+            del wdq
+            continue
+        if grouped:
+            continue
         timed_Ms = [M for i, o, M in c["timed"] if (i, o) == (d_in, d_out)]
         if timed_Ms:
             # the caller finds the weights cold (a decode step walks 2 GB of
@@ -613,7 +769,12 @@ def _g_cases(dev, gen):
           f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
           f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}) over {len(c['shapes'])} shapes "
           f"(grouped, G = 1, ragged 3420 and 12320 columns) x M {c['Ms']} (+{c['big_M']}), "
-          f"strided x at M 3 and 65", flush=True)
+          f"strided x at M 3 and 65; scale groups {sorted(routes)} (group, bf16 tile kernel) "
+          f"on {len(c['group_shapes'])} shapes x M {c['group_Ms']}", flush=True)
+    for k, r in group_timed.items():
+        print(f"[3 parity] G timed {k} bf16 (warm weights): device {r['device_ms']:.4f} ms in a "
+              f"CUDA graph, library {r['library_device_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     first = c["timed"][0]
     extra = {}
     for (d_in, d_out, M), r in timed.items():
@@ -622,7 +783,7 @@ def _g_cases(dev, gen):
             extra.update({f"{key}_{tag}": r[key] for key in (
                 "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")})
     main = {k: v for k, v in timed[first].items() if k != "plan"}
-    return dict(max_abs_err=max(mxs), **main, **extra)
+    return dict(max_abs_err=max(mxs), **main, **extra, groups=group_timed)
 
 
 def _d_cases(dev, gen):
@@ -766,7 +927,8 @@ def _h_cases(dev, gen):
         parts = {key: sum(ms for ms, _, name in rows if pat in name)
                  for key, pat in (("dq", "dq_wgmma"), ("dkv", "dkv_wgmma"),
                                   ("reduce", "train_reduce"), ("delta", "train_delta"),
-                                  ("fwd", "fwd_mma"))}
+                                  ("fwd", "fwd_wgmma"))}
+
         # the GQA split of dK/dV, measured: each split of the 8 query heads
         splits = {}
         for n_split in (1, 2, 4, 8):
@@ -782,10 +944,12 @@ def _h_cases(dev, gen):
         # backward: reads q, k, v, out, d_out, lse; writes dq, dk, dv; five products
         b_b = bound(4 * qo + 4 * kv + lse, 10 * D * pairs, PEAK_BF16_FLOPS)
         timed[(T, W)] = dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **b_f,
+                             fwd_device_ms=parts["fwd"],
                              bwd_ms=fb_ms - f_ms, fwd_bwd_ms=fb_ms,
                              plain_fwd_bwd_ms=fb_plain, library_fwd_bwd_ms=fb_lib,
                              bwd_bound_ms=b_b["bound_ms"], bwd_bound_by=b_b["bound_by"],
                              library_bwd_ms=fb_lib - f_lib, dq_device_ms=parts["dq"],
+                             bwd_device_ms=sum(parts[k] for k in ("delta", "dq", "dkv", "reduce")),
                              dkv_device_ms=parts["dkv"], reduce_device_ms=parts["reduce"],
                              split=plan.split, scratch_bytes=plan.scratch_bytes,
                              bwd_ms_by_split={str(k): v for k, v in splits.items()})
@@ -795,8 +959,9 @@ def _h_cases(dev, gen):
               f"{fb_ms - f_ms:.3f}), plain {fb_plain:.3f}, library {fb_lib:.3f} (backward "
               f"{fb_lib - f_lib:.3f}), backward bound {b_b['bound_ms']:.4f} ({b_b['bound_by']}); "
               f"device ms per forward+backward (torch.profiler): dQ {parts['dq']:.3f}, dK/dV "
-              f"{parts['dkv']:.3f}, reduce {parts['reduce']:.3f}, delta {parts['delta']:.3f}, "
-              f"forward {parts['fwd']:.3f}; split of the GQA sum {plan.split} (scratch "
+              f"{parts['dkv']:.3f}, reduce {parts['reduce']:.3f}, delta {parts['delta']:.3f} "
+              f"(backward {timed[(T, W)]['bwd_device_ms']:.3f}; the wall time above holds the "
+              f"host's autograd and launches), forward {parts['fwd']:.3f}; split of the GQA sum {plan.split} (scratch "
               f"{plan.scratch_bytes / 1e6:.1f} MB); backward ms by split "
               + ", ".join(f"{k}: {v:.3f}" for k, v in splits.items()), flush=True)
         del q, k, v, cot, ql, kl, vl, kr, vr, mask
@@ -954,6 +1119,35 @@ def _grad_cases(dev, gen) -> dict:
     wseg = torch.arange(S, device=dev, dtype=torch.int32) // 256
     res["f_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         window_flash_attention(*leaves, wseg, 256), leaves, cot), reps=5)
+    # F's backward alone: peak memory and time of forward + backward at one
+    # 1344x1344 image (S 9216) with windows of 1,024 and of the whole image,
+    # recomputing through the chunked twin and through the batched-dense
+    # plain version it replaced ([nW, H, L, L] fp32 scores held at once)
+    from infinitevl_tpu_torch.ops import vit_kernels
+
+    chunked = vit_kernels.window_attention_chunked
+    res["f_bwd_peak_gb"] = {}
+    for L in (1024, 9216):
+        wseg = torch.arange(S, device=dev, dtype=torch.int32) // L
+        for twin in ("chunked", "dense"):
+            if twin == "dense":
+                vit_kernels.window_attention_chunked = window_attention_reference
+            try:
+                run = lambda: torch.autograd.grad(window_flash_attention(*leaves, wseg, L),
+                                                  leaves, cot)
+                run()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ms = _host_ms(run, reps=3)
+                peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            finally:
+                vit_kernels.window_attention_chunked = chunked
+            res["f_bwd_peak_gb"][f"L{L}_{twin}"] = dict(peak_gb=peak, fwd_bwd_ms=ms)
+    print(f"[3 parity] F forward + backward at S {S}, bf16, memory above the inputs and time: "
+          + "; ".join(f"{k} {v['peak_gb']:.2f} GB {v['fwd_bwd_ms']:.1f} ms"
+                      for k, v in res["f_bwd_peak_gb"].items()), flush=True)
     print(f"[3 parity] gradients of C, E, F (kernel forward, plain-torch backward) equal "
           f"autograd through the plain versions (bf16, tol {BF16_TOL}); forward + backward: "
           f"C T 2048 {res['c_fwd_bwd_ms']:.3f} ms, E S {S} {res['e_fwd_bwd_ms']:.3f} ms, "
@@ -976,6 +1170,8 @@ def phase_kernels(dev, only=None) -> dict:
         for k in ("c", "e", "f"):
             if k in res:
                 res[k]["fwd_bwd_ms"] = res["grad"][f"{k}_fwd_bwd_ms"]
+        if "f" in res:
+            res["f"]["bwd_peak_gb"] = res["grad"]["f_bwd_peak_gb"]
     return res
 
 
@@ -1135,6 +1331,79 @@ def phase_train_cross_device(dev) -> None:
           f"of 300; the multimodal row with 20 pads), fp32 small model, CPU (plain) against "
           f"card (H, C, E, F and their gradients), tol {MODEL_TOL}: " + "; ".join(parts),
           flush=True)
+
+    # one step on packed rows (several sequences in a row, positions restarting
+    # at each, a pad tail): H, the conv and kernel C's packed path mask across
+    # the boundaries, which fall inside chunks and on a chunk edge (64)
+    seg = np.zeros((B, T), np.int32)
+    for r, starts in enumerate(((0, 70, 128, 131, 250), (0, 64, 200))):
+        for i, t0 in enumerate(starts):
+            seg[r, t0:] = i + 1
+    seg[:, 280:] = 0
+    pos = np.zeros((B, T), np.int64)
+    for r in range(B):
+        for t in range(1, T):
+            pos[r, t] = pos[r, t - 1] + 1 if seg[r, t] == seg[r, t - 1] else 0
+    ids = rng.randint(0, vocab - 8, (B, T)) * (seg > 0)
+    packed = dict(input_ids=ids,
+                  labels=np.where((rng.uniform(size=(B, T)) < 0.7) & (seg > 0), ids, -100),
+                  position_ids=np.broadcast_to(pos[None], (3, B, T)).copy(), segment_ids=seg)
+    require(read_segment_layout(seg) == "packed", "the packed rows read as another layout")
+
+    def packed_step(device):
+        """The gradients of the packed loss, then one step of the trainer's
+        step function (no warm-up: its first step moves every weight)."""
+        params = _clone_tree(base, device)
+        set_trainable(params, lambda path, leaf: True)
+        b = {k: torch.from_numpy(v).to(device) for k, v in packed.items()}
+        named = list(tree_leaves_with_path(params["text"], "text"))
+        loss = sft_loss_fn(params["text"], cfg.text, b["input_ids"], b["labels"],
+                           b["position_ids"], b["segment_ids"])
+        grads = torch.autograd.grad(loss, [v for _, v in named], allow_unused=True)
+        grads = {k: g.detach() for (k, _), g in zip(named, grads) if g is not None}
+        tx = make_optimizer(1e-3, warmup_steps=0, total_steps=3)
+        make_sft_train_step(cfg.text, tx)(params, tx.init(params), dict(packed))
+        moved = min(float((v.detach().cpu() - base_leaves[k]).abs().max())
+                    for k, v in tree_leaves_with_path(params) if k in grads)
+        return float(loss.detach()), grads, params, moved
+
+    base_leaves = dict(tree_leaves_with_path(base))
+
+    delta_rule_chunk_fused.launches = 0
+    l_cpu, g_cpu, p_cpu, moved_cpu = packed_step("cpu")
+    require(delta_rule_chunk_fused.launches == 0, "C launched for CPU tensors")
+    l_dev, g_dev, p_dev, moved_dev = packed_step(dev)
+    torch.cuda.synchronize()
+    e_loss = abs(l_cpu - l_dev) / abs(l_cpu)
+    require(g_cpu.keys() == g_dev.keys(), "packed step: gradients of other leaves CPU vs card")
+    e_grad = max(err_ratio(g_dev[k], g) for k, g in g_cpu.items() if g.abs().sum() > 0)
+    # weights held to PACKED_TOL are those that were not zero before the step. A
+    # leaf that starts at zero (the biases) holds the AdamW update alone after
+    # one step, g / (|g| + eps) per element, which maps rounding noise in a
+    # vanishing gradient (the k-projection bias along the slow rotary
+    # dimensions shifts a row's scores alike, which the softmax ignores) to
+    # +-lr on either device; its gradient is held to PACKED_TOL above.
+    cpu_leaves = dict(tree_leaves_with_path(p_cpu))
+    par = {k: err_ratio(v.detach(), cpu_leaves[k].detach())
+           for k, v in tree_leaves_with_path(p_dev) if cpu_leaves[k].abs().sum() > 0}
+    e_par = max(e for k, e in par.items() if base_leaves[k].abs().sum() > 0)
+    e_new, k_new = max((e, k) for k, e in par.items() if base_leaves[k].abs().sum() == 0)
+    require(delta_rule_chunk_fused.launches > 0, "packed step: C not launched on the card")
+    require(moved_cpu > 0 and moved_dev > 0,
+            f"packed step: a weight with a gradient did not move (largest change of the least "
+            f"moved: CPU {moved_cpu:.3g}, card {moved_dev:.3g})")
+    require(e_loss <= PACKED_TOL and e_grad <= PACKED_TOL and e_par <= PACKED_TOL,
+            f"packed step: loss err {e_loss:.3g}, grads err_ratio {e_grad:.3g}, params "
+            f"err_ratio {e_par:.3g} CPU vs card")
+    print(f"[4 cross-device] gradients and one full-finetuning step (lr 1e-3, no warm-up) on "
+          f"packed rows (B 2, 5 and 3 sequences in a row, boundaries inside chunks and at the "
+          f"chunk edge 64, pad tails), fp32 small model, CPU against card (C's packed path, H "
+          f"and the conv masked by segment), tol {PACKED_TOL}: loss {l_dev:.6f}, loss err "
+          f"{e_loss:.2g}, grads err_ratio {e_grad:.2g} (worst of {len(g_cpu)} leaves), params "
+          f"err_ratio {e_par:.2g} (leaves not zero before the step; those that were, the "
+          f"update alone: {e_new:.2g} in {k_new}, not held to a tolerance), least moved weight "
+          f"changed by {moved_dev:.2g} on the card, C launches "
+          f"{delta_rule_chunk_fused.launches}", flush=True)
 
 
 def phase_cross_device(dev) -> None:
@@ -1912,6 +2181,28 @@ def _long_text_dataset(root: str, min_words: int) -> None:
         json.dump({"demo_long": {"file_name": "demo_long.json", "formatting": "alpaca"}}, f)
 
 
+def _packed_text_dataset(root: str, n: int = 14, seed: int = 0) -> None:
+    """A dataset directory of `n` alpaca examples whose answers are 80 to 700
+    words of data/demo.json's outputs, for `packing: true`: the packer puts
+    several of them into each cutoff_len row (segment ids 1, 2, ...)."""
+    import os
+
+    demo = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "data", "demo.json")))
+    words = " ".join(ex["output"] for ex in demo).split()
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        m = int(rng.randint(80, 700))
+        rows.append({"instruction": demo[i % len(demo)]["instruction"], "input": "",
+                     "output": " ".join(words[(i * 37 + j) % len(words)] for j in range(m))})
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "demo_packed.json"), "w") as f:
+        json.dump(rows, f)
+    with open(os.path.join(root, "dataset_info.json"), "w") as f:
+        json.dump({"demo_packed": {"file_name": "demo_packed.json", "formatting": "alpaca"}}, f)
+
+
 def _train_args(out_dir: str, **over):
     from infinitevl_tpu_torch.hparams import parse_args
 
@@ -2025,6 +2316,20 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
                     dataset_dir=repo_data, per_device_train_batch_size=2, **lora),
         card, remat_launches)
     add(res["lora_demo"])
+    # (a3) packed rows: several sequences of unequal length in each row, so C
+    # runs its packed path (segment ids) and H and the conv mask by segment
+    packed_dir = os.path.join(root, "packed_data")
+    _packed_text_dataset(packed_dir)
+    args = _train_args(os.path.join(root, "a3"), cutoff_len=2048, max_steps=4,
+                       dataset="demo_packed", dataset_dir=packed_dir, packing=True, **lora)
+    rows = T.build_dataset(args)
+    layouts = [read_segment_layout(np.asarray(r["segment_ids"])[None]) for r in rows]
+    n_seq = [int(np.asarray(r["segment_ids"]).max()) for r in rows]
+    require(layouts.count("packed") >= 1, f"(a3) packing made no packed row: {layouts}")
+    res["lora_packed"] = _run_recipe(
+        f"(a3) the same with packing: true, {len(rows)} rows of 2048 holding {n_seq} sequences",
+        args, card, remat_launches)
+    add(res["lora_packed"])
     res["lora_8192"] = _run_recipe(
         "(b) the same at cutoff_len 8192",
         _train_args(os.path.join(root, "b"), cutoff_len=8192, max_steps=3, **text, **lora),
@@ -2233,9 +2538,47 @@ def phase_vit_window_path(dev, card: str) -> dict:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on '{card}'", flush=True)
     for k, v in train_launches.items():
         launches[k] = launches.get(k, 0) + v
+
+    # the training step's peak memory at windows of 256 (window_size 224) and
+    # 1,024 patches (448), with F's backward recomputing through the chunked
+    # twin (window_attention_chunked: one group of windows' scores at a
+    # time) and, for comparison, through the batched-dense plain version
+    # that it replaced (all [nW, H, L, L] scores and their gradients at once)
+    from infinitevl_tpu_torch.ops import vit_kernels
+    from infinitevl_tpu_torch.ops.vit_flash import window_attention_reference
+
+    chunked = vit_kernels.window_attention_chunked
+    peaks = {}
+    for ws in (224, 448):
+        cfg_w = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, window_size=ws))
+        L = V.get_vision_plan(((1, 96, 96),), cfg_w.vision).win_len
+        step_w = make_mm_sft_train_step(cfg_w, tx, remat=True)
+        for twin in ("chunked", "dense"):
+            if twin == "dense":
+                vit_kernels.window_attention_chunked = window_attention_reference
+            try:
+                _free()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, loss_w = step_w(params, state, batch, ((1, 96, 96),), None)
+                loss_w = float(loss_w)
+                step_w_s = time.perf_counter() - t0
+            finally:
+                vit_kernels.window_attention_chunked = chunked
+            require(np.isfinite(loss_w), f"ViT step at win_len {L} ({twin}): loss {loss_w}")
+            peaks[f"L{L}_{twin}"] = dict(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                         step_s=step_w_s)
+        print(f"[9 vit window] one full-finetuning step at window_size {ws} (win_len {L}, "
+              f"{9216 // L} windows of the 1344x1344 image): peak "
+              f"{peaks[f'L{L}_chunked']['peak_gb']:.2f} GB and "
+              f"{peaks[f'L{L}_chunked']['step_s']:.2f} s with F's backward through the chunked "
+              f"twin, {peaks[f'L{L}_dense']['peak_gb']:.2f} GB and "
+              f"{peaks[f'L{L}_dense']['step_s']:.2f} s through the batched-dense plain version "
+              f"on '{card}'", flush=True)
     del params, state
     _free()
-    return launches
+    return launches, peaks
 
 
 def _device_profile(fn, reps: int = 3):
@@ -2374,7 +2717,8 @@ def main(argv) -> int:
     _free()
     train = phase_train_path(dev, card, "--profile" in argv)
     train_launches = train["total_launches"]
-    vit_launches = phase_vit_window_path(dev, card)
+    vit_launches, vit_peaks = phase_vit_window_path(dev, card)
+    res["f"]["vit_train_step_peaks"] = vit_peaks
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),

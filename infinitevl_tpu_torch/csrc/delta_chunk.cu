@@ -12,6 +12,19 @@
 // All arithmetic in fp32 whatever the input dtype; o in v's dtype, the
 // final state fp32.
 //
+// Packed rows (segment ids [B, T], optional), as the reference's chunk
+// form (infinitevl_tpu/ops/delta_rule.py, _wyut_precompute and the chunk
+// scan): everything is local to a chunk except one flag per chunk.
+//   pass 1: g is 0 on a segment's first token; the decay ratio (so A and
+//     q k^T) is masked to pairs of one segment; k beta e^gcs and q e^gcs
+//     are 0 on rows outside the chunk's first segment (the incoming state
+//     reaches that segment only), k e^{gcs_C - gcs} on rows outside its
+//     last (only the last carries state out); e^{gcs_C} is 0 when the
+//     chunk's first and last segments differ; `keep` is 0 when the chunk's
+//     first token starts a segment (a boundary at the chunk edge).
+//   pass 2: the state is multiplied by `keep` before the chunk.
+// Rows past T continue the last segment. Without ids every mask is 1.
+//
 // The Pallas grid (B, H, N) runs its chunks in order on one core. Here
 // the work is split where the math allows it:
 //   pass 1, one block per (b, h, chunk): everything that needs no state.
@@ -59,13 +72,13 @@ constexpr int KC = CK * CC;  // floats of one [CK][CC] or [CC][CK] tile
 
 constexpr int P1_THREADS = 384;
 constexpr int SB = 16;  // rows per block of the forward substitution
-constexpr int P1_SMEM_FLOATS = 2 * CK * TSTR + CC * CC + 3 * CC + CC * P1_THREADS;
+constexpr int P1_SMEM_FLOATS = 2 * CK * TSTR + CC * CC + 6 * CC + CC * P1_THREADS;
 constexpr int P2_THREADS = 256;
 constexpr int P2_SMEM_FLOATS = 3 * KC + CC * CC + 2 * CC * BV + CK * BV;
 
-// floats of scratch per (b, h, chunk): wT, qbT, kout, attnT, u, bend
+// floats of scratch per (b, h, chunk): wT, qbT, kout, attnT, u, bend, keep
 __host__ __device__ constexpr long long scratch_per_chunk(int V) {
-  return 3LL * KC + CC * CC + (long long)CC * V + 1;
+  return 3LL * KC + CC * CC + (long long)CC * V + 2;
 }
 
 struct Scratch {
@@ -75,6 +88,7 @@ struct Scratch {
   float* attnT;  // [NCH][CC][CC]  attnT[j][i] = tril(q k^T ratio)[i][j]
   float* u;      // [NCH][CC][V]
   float* bend;   // [NCH]          e^{gcs_C}
+  float* keep;   // [NCH]          0 where the chunk's first token starts a segment
 };
 
 __host__ Scratch carve(float* base, long long nch, int V) {
@@ -85,6 +99,7 @@ __host__ Scratch carve(float* base, long long nch, int V) {
   s.attnT = s.kout + nch * KC;
   s.u = s.attnT + nch * CC * CC;
   s.bend = s.u + nch * CC * V;
+  s.keep = s.bend + nch;
   return s;
 }
 
@@ -96,6 +111,7 @@ delta_chunk_prep_kernel(const T* __restrict__ q,         // [B, Tn, H, CK]
                         const T* __restrict__ v,         // [B, Tn, H, V]
                         const float* __restrict__ g,     // [B, Tn, H]
                         const float* __restrict__ beta,  // [B, Tn, H]
+                        const int* __restrict__ seg,     // [B, Tn] or null
                         Scratch sc, int Tn, int H, int V, int N, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* KT = smem;               // [CK][TSTR]  normalized k, transposed
@@ -104,7 +120,10 @@ delta_chunk_prep_kernel(const T* __restrict__ q,         // [B, Tn, H, CK]
   float* gcs = AsT + CC * CC;     // [CC]
   float* bet = gcs + CC;          // [CC]
   float* eg = bet + CC;           // [CC]        e^gcs
-  float* Wsm = eg + CC;           // [CC][P1_THREADS]  solved rows, a column a thread
+  float* fs = eg + CC;            // [CC]        1 in the chunk's first segment, else 0
+  float* ls = fs + CC;            // [CC]        1 in the chunk's last segment, else 0
+  int* sid = reinterpret_cast<int*>(ls + CC);  // [CC]  segment ids
+  float* Wsm = ls + 2 * CC;       // [CC][P1_THREADS]  solved rows, a column a thread
 
   const long long ch = blockIdx.x;  // (b*H + h)*N + n
   const int n = (int)(ch % N);
@@ -114,17 +133,39 @@ delta_chunk_prep_kernel(const T* __restrict__ q,         // [B, Tn, H, CK]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (warp == 0) {
+    // segment ids of the chunk's rows (rows past Tn continue the last
+    // segment) and of the token before it
+    const int* segb = seg ? seg + (size_t)b * Tn : nullptr;
+    const int ta = t0 + 2 * lane;
+    int s0 = 0, s1 = 0, sp = 0;
+    if (segb) {
+      s0 = segb[min(ta, Tn - 1)];
+      s1 = segb[min(ta + 1, Tn - 1)];
+      sp = __shfl_up_sync(0xffffffffu, s1, 1);
+      if (lane == 0) sp = t0 > 0 ? segb[t0 - 1] : s0;
+    }
+    // a token starts a segment iff its id differs from the token before
+    const bool start0 = ta > 0 && ta < Tn && s0 != sp;
+    const bool start1 = ta + 1 < Tn && s1 != s0;
     // inclusive scan of the chunk's 64 log-decays, two per lane
     float g0 = 0.f, g1 = 0.f, b0 = 0.f, b1 = 0.f;
-    const int ta = t0 + 2 * lane;
     if (ta < Tn) {
-      g0 = g[((size_t)b * Tn + ta) * H + h];
+      g0 = start0 ? 0.f : g[((size_t)b * Tn + ta) * H + h];
       b0 = beta[((size_t)b * Tn + ta) * H + h];
     }
     if (ta + 1 < Tn) {
-      g1 = g[((size_t)b * Tn + ta + 1) * H + h];
+      g1 = start1 ? 0.f : g[((size_t)b * Tn + ta + 1) * H + h];
       b1 = beta[((size_t)b * Tn + ta + 1) * H + h];
     }
+    const int first = __shfl_sync(0xffffffffu, s0, 0);
+    const int last = __shfl_sync(0xffffffffu, s1, 31);
+    sid[2 * lane] = s0;
+    sid[2 * lane + 1] = s1;
+    fs[2 * lane] = s0 == first ? 1.f : 0.f;
+    fs[2 * lane + 1] = s1 == first ? 1.f : 0.f;
+    ls[2 * lane] = s0 == last ? 1.f : 0.f;
+    ls[2 * lane + 1] = s1 == last ? 1.f : 0.f;
+    if (lane == 0) sc.keep[ch] = start0 ? 0.f : 1.f;
     const float pair = g0 + g1;
     float run = pair;
 #pragma unroll
@@ -204,8 +245,10 @@ delta_chunk_prep_kernel(const T* __restrict__ q,         // [B, Tn, H, CK]
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int i = 4 * ty + a;
-        // the clamp keeps the masked upper triangle from overflowing
-        const float ratio = j <= i ? expf(fminf(gcs[i] - gcs[j], 0.f)) : 0.f;
+        // the clamp keeps the masked upper triangle from overflowing; pairs
+        // of two segments do not interact
+        const float ratio =
+            j <= i && sid[i] == sid[j] ? expf(fminf(gcs[i] - gcs[j], 0.f)) : 0.f;
         acol[a] = j < i ? akk[a][c] * ratio * bet[i] : 0.f;
         col[a] = aqk[a][c] * ratio;
       }
@@ -226,7 +269,7 @@ delta_chunk_prep_kernel(const T* __restrict__ q,         // [B, Tn, H, CK]
       if (c < CK) {
 #pragma unroll
         for (int r = 0; r < SB; ++r)
-          acc[r] = KT[c * TSTR + r0 + r] * bet[r0 + r] * eg[r0 + r];
+          acc[r] = KT[c * TSTR + r0 + r] * eg[r0 + r] * fs[r0 + r] * bet[r0 + r];
       } else {
 #pragma unroll
         for (int r = 0; r < SB; ++r) {
@@ -281,15 +324,15 @@ delta_chunk_prep_kernel(const T* __restrict__ q,         // [B, Tn, H, CK]
   float* qb = sc.qbT + ch * KC;
   for (int idx = tid; idx < KC; idx += P1_THREADS) {
     const int d = idx / CC, r = idx % CC;
-    qb[idx] = QT[d * TSTR + r] * eg[r];
+    qb[idx] = QT[d * TSTR + r] * eg[r] * fs[r];
   }
   const float glast = gcs[CC - 1];
   float* ko = sc.kout + ch * KC;
   for (int idx = tid; idx < KC; idx += P1_THREADS) {
     const int r = idx / CK, d = idx % CK;
-    ko[idx] = KT[d * TSTR + r] * expf(glast - gcs[r]);
+    ko[idx] = KT[d * TSTR + r] * expf(glast - gcs[r]) * ls[r];
   }
-  if (tid == 0) sc.bend[ch] = expf(glast);
+  if (tid == 0) sc.bend[ch] = sid[0] == sid[CC - 1] ? expf(glast) : 0.f;
 }
 
 // ------------------------------------------------------------------ pass 2
@@ -375,6 +418,14 @@ delta_chunk_scan_kernel(Scratch sc,
     copy_async(At, sc.attnT + ch * (CC * CC), CC * CC, tid);
     cp_async_commit();
     const float be = sc.bend[ch];
+    if (sc.keep[ch] == 0.f) {  // a segment starts at the chunk's edge: no state enters
+      // (block-uniform; this thread's own elements of S, behind the barrier
+      // that ended the last chunk)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        *reinterpret_cast<float4*>(&Ss[(8 * ty + e) * BV + 4 * tx]) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
     cp_async_wait<1>();  // group A of this chunk has landed
     __syncthreads();     // ... for every thread; S is whole
 
@@ -468,7 +519,7 @@ delta_chunk_scan_kernel(Scratch sc,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   const void* beta, const void* h0, void* o, void* hT,
+                   const void* beta, const void* seg, const void* h0, void* o, void* hT,
                    Scratch sc, int B, int Tn, int H, int V, int N, float scale,
                    cudaStream_t stream) {
   const int smem1 = P1_SMEM_FLOATS * (int)sizeof(float);
@@ -481,7 +532,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   if (err != cudaSuccess) return err;
   delta_chunk_prep_kernel<T><<<(unsigned)(B * H * N), P1_THREADS, smem1, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)g, (const float*)beta,
-      sc, Tn, H, V, N, scale);
+      (const int*)seg, sc, Tn, H, V, N, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   delta_chunk_scan_kernel<T><<<dim3(B * H, V / BV), P2_THREADS, smem2, stream>>>(
@@ -493,11 +544,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
 
 extern "C" {
 
-// Kernel C. `scratch` holds at least B*H*ceil(Tn/64)*(3*8192 + 4096 + 64*V + 1)
-// floats; h0 may be null (zero initial state) and may alias hT. Returns a
-// cudaError_t code (0 = success).
+// Kernel C. `scratch` holds at least B*H*ceil(Tn/64)*(3*8192 + 4096 + 64*V + 2)
+// floats; seg [B, Tn] int32 may be null (one sequence per row); h0 may be
+// null (zero initial state) and may alias hT. Returns a cudaError_t code
+// (0 = success).
 int ivl_delta_chunk(int dtype, const void* q, const void* k, const void* v,
-                    const void* g, const void* beta, const void* h0, void* o,
+                    const void* g, const void* beta, const void* seg, const void* h0, void* o,
                     void* hT, void* scratch, long long scratch_floats, int B,
                     int Tn, int H, int K, int V, float scale, void* stream) {
   if (K != CK || V <= 0 || V % BV != 0 || B <= 0 || H <= 0 || Tn <= 0 ||
@@ -510,9 +562,9 @@ int ivl_delta_chunk(int dtype, const void* q, const void* k, const void* v,
   const Scratch sc = carve((float*)scratch, nch, V);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ivl::DTYPE_F32)
-    return (int)launch<float>(q, k, v, g, beta, h0, o, hT, sc, B, Tn, H, V, N, scale, st);
+    return (int)launch<float>(q, k, v, g, beta, seg, h0, o, hT, sc, B, Tn, H, V, N, scale, st);
   if (dtype == ivl::DTYPE_BF16)
-    return (int)launch<__nv_bfloat16>(q, k, v, g, beta, h0, o, hT, sc, B, Tn, H, V, N,
+    return (int)launch<__nv_bfloat16>(q, k, v, g, beta, seg, h0, o, hT, sc, B, Tn, H, V, N,
                                       scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,6 +38,12 @@
 //     wgmma m64n128k16, 64 output rows per warpgroup: one warpgroup for M
 //     <= 64, two above. Packed rows are split over blockIdx.z (with the
 //     reduce pass) only where the column tiles leave the 132 SMs short.
+//     A scale group of whole 64-row stages folds once per stage; a group
+//     of a multiple of 16 rows below that folds at every 16-row k-step
+//     (its own template instance, so neither k-loop branches). Groups that
+//     split a k-step (a multiple of 8 rows or less) take the FMA tiles.
+//     The wrapper picks the tile kernel (ops/int4_kernels.tile_kernel)
+//     and passes it in as `route`.
 //     fp32: int4_fma_kernel, 64 x 64 tiles on plain FMA (tensor cores
 //     would round fp32 operands).
 #include "common.cuh"
@@ -59,6 +65,12 @@ __device__ __forceinline__ float nib(uint32_t v) {
 // end of the scale group that packed row r lies in (gs rows per group and
 // plane; gs = half when G == 1)
 __device__ __forceinline__ int group_end(int r, int gs) { return (r / gs + 1) * gs; }
+
+// the low plane's scale row of packed row r (rows past `half` keep the
+// last one: their bytes are TMA's zeros)
+__device__ __forceinline__ int scale_row(int r, int gs, int G) {
+  return G == 1 ? 0 : min(r / gs, G / 2 - 1);
+}
 
 // ------------------------------------------------------------ small M
 constexpr int GV_THREADS = 256;
@@ -187,41 +199,46 @@ __global__ void int4_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------- large M, bf16
-// int4_wgmma_kernel<NWG>: NWG consumer warpgroups (64 output rows each)
-// and one producer warpgroup. A ring of STAGES stages of 64 packed rows
-// each holds the x columns of both planes ([BM][64] twice, by TMA in the
-// 128-byte swizzle), both planes dequantised to bf16 tiles [64 k][128 n]
-// kept as they lie (an MN-major wgmma operand, written in the same
-// swizzle) and the stage's two fp32 scale rows. The producer warpgroup
+// int4_wgmma_kernel<NWG, KG>: NWG consumer warpgroups (64 output rows
+// each) and one producer warpgroup. A ring of STAGES stages of 64 packed
+// rows each holds the x columns of both planes ([BM][64] twice, by TMA in
+// the 128-byte swizzle), both planes dequantised to bf16 tiles [64 k][128
+// n] kept as they lie (an MN-major wgmma operand, written in the same
+// swizzle) and the stage's fp32 scale rows: per plane one row for each
+// fold of KG k-steps (KG 4: the stage; KG 1: every k-step). The producer warpgroup
 // starts the TMA loads (the packed bytes and scale rows PS - 1 stages
 // ahead, into a ring of PS slots: M <= 64 is bound by these bytes),
 // dequantises in registers (16-byte vectors) and signals full[s];
-// the consumers run each plane's four k-steps of wgmma m64n128k16 into one
-// fp32 partial P and add P x the plane's group scale into the total (two
-// accumulator sets). A stage never straddles a scale group (groups are
-// whole stages: the wrapper checks), so the k-loop has no branch. x's rows
-// past M and packed rows past `half` are TMA's zeros (a zero byte unpacks
-// to 0 in both planes).
+// the consumers run each plane's k-steps of wgmma m64n128k16 into one fp32
+// partial P, KG at a time, and add P x the fold's group scale into the
+// total (two accumulator sets). A fold never straddles a scale group
+// (KG 4: groups are whole stages; KG 1: groups are whole k-steps), and KG
+// is a template argument, so the k-loop has no branch. x's rows past M and
+// packed rows past `half` are TMA's zeros (a zero byte unpacks to 0 in
+// both planes).
 constexpr int WG_BN = 128;  // output columns per block
 constexpr int WG_KT = 64;   // packed rows per stage
 constexpr int WG_BT = WG_KT * WG_BN * 2;  // bytes of one dequantised plane tile
 constexpr int WG_PT = WG_KT * WG_BN;      // bytes of one packed tile
 
-constexpr int WG_SC = 2 * WG_BN * 4;     // bytes of a stage's two scale rows
-constexpr int WG_SLOT = WG_PT + WG_SC;    // a slot of the packed ring
-
-template <int NWG>
+template <int NWG, int KG>
 struct WgCfg {
+  static constexpr int NF = 4 / KG;                  // folds per plane and stage
   static constexpr int BM = 64 * NWG;
-  static constexpr int STAGES = 3;
-  static constexpr int PS = NWG == 1 ? 6 : 3;        // slots of the packed ring
+  // the per-k-step scale rows take room: one stage fewer with two warpgroups
+  static constexpr int STAGES = NWG == 2 && NF > 1 ? 2 : 3;
+  static constexpr int PS = NWG == 1 ? (NF > 1 ? 4 : 6) : 3;  // slots of the packed ring
   static constexpr int XT = BM * WG_KT * 2;          // bytes of one plane's x tile
-  static constexpr int STAGE = 2 * XT + 2 * WG_BT + WG_SC;
+  static constexpr int SC = 2 * NF * WG_BN * 4;      // bytes of a stage's scale rows
+  static constexpr int SLOT = WG_PT + SC;            // a slot of the packed ring
+  static constexpr int STAGE = 2 * XT + 2 * WG_BT + SC;
   static constexpr int PK = STAGES * STAGE;          // offset of the packed ring
-  static constexpr int BAR = PK + PS * WG_SLOT;      // offset of the barriers
+  static constexpr int BAR = PK + PS * SLOT;         // offset of the barriers
   static constexpr int SMEM = BAR + (2 * STAGES + PS) * 8 + ivl::SMEM_ALIGN;
   static constexpr int NC = 128 * NWG;               // consumer threads
   static constexpr int THREADS = NC + 128;
+  static_assert(KG == 1 || KG == 4, "a fold is one k-step or the whole stage");
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
 // 8 packed bytes -> 8 bf16 of each plane: the nibble u gives (u ^ 8) - 8,
@@ -268,15 +285,15 @@ __device__ __forceinline__ uint2 load8(const uint8_t* packed, int r, int c, int 
   return make_uint2(w[0], w[1]);
 }
 
-template <int NWG>
-__global__ void __launch_bounds__(WgCfg<NWG>::THREADS, 1)
+template <int NWG, int KG>
+__global__ void __launch_bounds__(WgCfg<NWG, KG>::THREADS, 1)
 int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap pmap,
                   const __grid_constant__ CUtensorMap smap, int packed_tma, int x_hi,
                   const uint8_t* __restrict__ packed, const float* __restrict__ scale,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int M,
                   int half, int d_out, int G, int rpb) {
-  typedef WgCfg<NWG> C;
+  typedef WgCfg<NWG, KG> C;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = ivl::aligned_smem(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);
@@ -302,15 +319,21 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
   if (threadIdx.x >= C::NC) {  // ----------------------- producer warpgroup
     const int t = threadIdx.x - C::NC;
-    // the packed bytes and both scale rows of stage j into slot j % PS
+    // the packed bytes and the scale rows of stage j into slot j % PS:
+    // [plane][fold][WG_BN], fold f covering k-steps f KG .. f KG + KG - 1
     auto fetch = [&](int j) {
-      unsigned char* slot = sm + C::PK + (j % C::PS) * WG_SLOT;
+      unsigned char* slot = sm + C::PK + (j % C::PS) * C::SLOT;
       uint64_t* bar = &pfull[j % C::PS];
-      const int k = r0 + j * WG_KT, srow = G == 1 ? 0 : k / gs;
-      ivl::mbar_arrive_tx(bar, WG_SLOT);
+      const int k = r0 + j * WG_KT;
+      ivl::mbar_arrive_tx(bar, C::SLOT);
       ivl::tma_load_2d(slot, &pmap, bar, n0, k);
-      ivl::tma_load_2d(slot + WG_PT, &smap, bar, n0, srow);
-      ivl::tma_load_2d(slot + WG_PT + WG_BN * 4, &smap, bar, n0, hi_base + srow);
+#pragma unroll
+      for (int f = 0; f < C::NF; ++f) {
+        const int srow = scale_row(k + 16 * KG * f, gs, G);
+        ivl::tma_load_2d(slot + WG_PT + f * WG_BN * 4, &smap, bar, n0, srow);
+        ivl::tma_load_2d(slot + WG_PT + (C::NF + f) * WG_BN * 4, &smap, bar, n0,
+                         hi_base + srow);
+      }
     };
     if (t == 0 && packed_tma)
       for (int j = 0; j < C::PS - 1 && j < n_it; ++j) fetch(j);
@@ -326,17 +349,21 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         if (packed_tma && it + C::PS - 1 < n_it) fetch(it + C::PS - 1);
       }
       float* sc = reinterpret_cast<float*>(st + 2 * C::XT + 2 * WG_BT);
-      const unsigned char* slot = sm + C::PK + (it % C::PS) * WG_SLOT;
+      const unsigned char* slot = sm + C::PK + (it % C::PS) * C::SLOT;
       if (packed_tma) {
         ivl::mbar_wait(&pfull[it % C::PS], (it / C::PS) & 1);
         const float* ss = reinterpret_cast<const float*>(slot + WG_PT);
-        sc[t] = ss[t];
-        sc[WG_BN + t] = ss[WG_BN + t];
-      } else {  // the stage's scale rows (one group per plane) where they lie
-        const int srow = G == 1 ? 0 : k / gs;
+#pragma unroll
+        for (int i = 0; i < 2 * C::NF; ++i) sc[i * WG_BN + t] = ss[i * WG_BN + t];
+      } else {  // the stage's scale rows (one group per plane and fold) where they lie
         const int col = n0 + t;
-        sc[t] = col < d_out ? scale[(size_t)srow * d_out + col] : 0.f;
-        sc[WG_BN + t] = col < d_out ? scale[(size_t)(hi_base + srow) * d_out + col] : 0.f;
+#pragma unroll
+        for (int f = 0; f < C::NF; ++f) {
+          const int srow = scale_row(k + 16 * KG * f, gs, G);
+          sc[f * WG_BN + t] = col < d_out ? scale[(size_t)srow * d_out + col] : 0.f;
+          sc[(C::NF + f) * WG_BN + t] =
+              col < d_out ? scale[(size_t)(hi_base + srow) * d_out + col] : 0.f;
+        }
       }
       // dequantise: 64 rows x 16 chunks of 8 columns, 8 chunks per thread
       unsigned char* bt = st + 2 * C::XT;
@@ -379,20 +406,26 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int p = 0; p < 2; ++p) {
       const unsigned char* xa = st + p * C::XT + wg * 64 * 128;
       const unsigned char* bp = st + 2 * C::XT + p * WG_BT;
-      ivl::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ivl::wgmma_ss_n128<1>(P, ivl::gmma_desc(xa + kk * 32, 16, 1024),
-                              ivl::gmma_desc(bp + kk * 2048, WG_KT * 128, 1024), kk > 0);
-      ivl::wgmma_commit();
-      ivl::wgmma_wait0();
+      for (int f = 0; f < C::NF; ++f) {  // KG k-steps into P, then P x the fold's scale
+        ivl::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 v = *reinterpret_cast<const float2*>(sc + p * WG_BN + 8 * j + 2 * tig);
-        acc[4 * j] += P[4 * j] * v.x;
-        acc[4 * j + 1] += P[4 * j + 1] * v.y;
-        acc[4 * j + 2] += P[4 * j + 2] * v.x;
-        acc[4 * j + 3] += P[4 * j + 3] * v.y;
+        for (int i = 0; i < KG; ++i) {
+          const int kk = f * KG + i;
+          ivl::wgmma_ss_n128<1>(P, ivl::gmma_desc(xa + kk * 32, 16, 1024),
+                                ivl::gmma_desc(bp + kk * 2048, WG_KT * 128, 1024), i > 0);
+        }
+        ivl::wgmma_commit();
+        ivl::wgmma_wait0();
+        const float* sf = sc + (p * C::NF + f) * WG_BN;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 v = *reinterpret_cast<const float2*>(sf + 8 * j + 2 * tig);
+          acc[4 * j] += P[4 * j] * v.x;
+          acc[4 * j + 1] += P[4 * j + 1] * v.y;
+          acc[4 * j + 2] += P[4 * j + 2] * v.x;
+          acc[4 * j + 3] += P[4 * j + 3] * v.y;
+        }
       }
     }
     ivl::mbar_arrive(&empty[s]);
@@ -557,17 +590,21 @@ cudaError_t launch_gemv(const void* x, long long ldx, const void* packed,
   return launch_gemv_mt<T, 8>(x, ldx, packed, scale, out, partial, M, half, d_out, G, rpb, ks, st);
 }
 
+// The tile kernel that serves M > 8, chosen by the wrapper
+// (ops/int4_kernels.tile_kernel) and passed in as `route`.
+enum { ROUTE_FMA = 0, ROUTE_WGMMA_STAGE = 1, ROUTE_WGMMA_KSTEP = 2 };
+
 template <typename T>
 cudaError_t launch_tiles(const void* x, long long ldx, int x_hi, const void* packed,
                          const void* scale, void* out, void* partial, int M,
                          int half, int d_out, int G, int rpb, int ks, int tile_m,
-                         cudaStream_t st);
+                         int route, cudaStream_t st);
 
-template <int NWG>
+template <int NWG, int KG>
 cudaError_t launch_wgmma(const void* x, long long ldx, int x_hi, const void* packed,
                          const void* scale, void* out, void* partial, int M, int half,
                          int d_out, int G, int rpb, int ks, cudaStream_t st) {
-  typedef WgCfg<NWG> C;
+  typedef WgCfg<NWG, KG> C;
   CUtensorMap xmap, pmap;
   const cuuint64_t xd[2] = {(cuuint64_t)(x_hi + half), (cuuint64_t)M};
   const cuuint64_t xs[1] = {(cuuint64_t)ldx * 2};
@@ -592,35 +629,57 @@ cudaError_t launch_wgmma(const void* x, long long ldx, int x_hi, const void* pac
     memset(&smap, 0, sizeof(smap));
   }
   cudaError_t err = cudaFuncSetAttribute(
-      int4_wgmma_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      int4_wgmma_kernel<NWG, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((d_out + WG_BN - 1) / WG_BN, (M + C::BM - 1) / C::BM, ks);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  int4_wgmma_kernel<NWG><<<grid, C::THREADS, C::SMEM, st>>>(
+  int4_wgmma_kernel<NWG, KG><<<grid, C::THREADS, C::SMEM, st>>>(
       xmap, pmap, smap, packed_tma, x_hi, (const uint8_t*)packed, (const float*)scale,
       (__nv_bfloat16*)out, (float*)partial, M, half, d_out, G, rpb);
   return cudaGetLastError();
 }
 
-// bf16 at M > 8: the wgmma kernel with 64-row tiles (tile_m 64) or 128-row
-// tiles (tile_m 128). TMA reads x at 16-byte boundaries: its base, its row
-// stride and the column x_hi where its high plane starts are multiples of 8
-// elements; the scale groups whole stages (a multiple of 64 rows).
+// bf16 at M > 8, by route: the wgmma kernel with 64-row tiles (tile_m 64)
+// or 128-row tiles (tile_m 128), folding the group scales once per stage
+// (ROUTE_WGMMA_STAGE: G = 1 or groups of whole 64-row stages) or once per
+// 16-row k-step (ROUTE_WGMMA_KSTEP: groups of a multiple of 16 rows), or the
+// FMA tiles (ROUTE_FMA: tile_m 64, x as it lies), which fold at any group
+// end. A route whose fold would straddle a group is refused. TMA reads x at
+// 16-byte boundaries: its base, its row stride and the column x_hi where its
+// high plane starts are multiples of 8 elements.
 template <>
 cudaError_t launch_tiles<__nv_bfloat16>(const void* x, long long ldx, int x_hi,
                                         const void* packed, const void* scale, void* out,
                                         void* partial, int M, int half, int d_out, int G,
-                                        int rpb, int ks, int tile_m, cudaStream_t st) {
-  if (ldx % 8 != 0 || x_hi % 8 != 0 || x_hi < half || ldx < x_hi + half ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || rpb % WG_KT != 0 ||
-      (G > 1 && (half / (G / 2)) % WG_KT != 0))
+                                        int rpb, int ks, int tile_m, int route,
+                                        cudaStream_t st) {
+  if (route == ROUTE_FMA) {
+    if (tile_m != FM_BM || x_hi != half) return cudaErrorInvalidValue;
+    dim3 grid((d_out + FM_BN - 1) / FM_BN, (M + FM_BM - 1) / FM_BM, ks);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    int4_fma_kernel<__nv_bfloat16><<<grid, FM_THREADS, 0, st>>>(
+        (const __nv_bfloat16*)x, ldx, (const uint8_t*)packed, (const float*)scale,
+        (__nv_bfloat16*)out, (float*)partial, M, half, d_out, G, rpb);
+    return cudaGetLastError();
+  }
+  if (route != ROUTE_WGMMA_STAGE && route != ROUTE_WGMMA_KSTEP) return cudaErrorInvalidValue;
+  const int gs = G == 1 ? half : half / (G / 2);
+  if (G > 1 && gs % (route == ROUTE_WGMMA_STAGE ? WG_KT : 16) != 0)
     return cudaErrorInvalidValue;
+  if (ldx % 8 != 0 || x_hi % 8 != 0 || x_hi < half || ldx < x_hi + half ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || rpb % WG_KT != 0)
+    return cudaErrorInvalidValue;
+  const bool stage = route == ROUTE_WGMMA_STAGE;
   if (tile_m == 64)
-    return launch_wgmma<1>(x, ldx, x_hi, packed, scale, out, partial, M, half, d_out, G, rpb,
-                           ks, st);
+    return stage ? launch_wgmma<1, 4>(x, ldx, x_hi, packed, scale, out, partial, M, half,
+                                      d_out, G, rpb, ks, st)
+                 : launch_wgmma<1, 1>(x, ldx, x_hi, packed, scale, out, partial, M, half,
+                                      d_out, G, rpb, ks, st);
   if (tile_m == 128)
-    return launch_wgmma<2>(x, ldx, x_hi, packed, scale, out, partial, M, half, d_out, G, rpb,
-                           ks, st);
+    return stage ? launch_wgmma<2, 4>(x, ldx, x_hi, packed, scale, out, partial, M, half,
+                                      d_out, G, rpb, ks, st)
+                 : launch_wgmma<2, 1>(x, ldx, x_hi, packed, scale, out, partial, M, half,
+                                      d_out, G, rpb, ks, st);
   return cudaErrorInvalidValue;
 }
 
@@ -628,8 +687,8 @@ template <>
 cudaError_t launch_tiles<float>(const void* x, long long ldx, int x_hi, const void* packed,
                                 const void* scale, void* out, void* partial, int M,
                                 int half, int d_out, int G, int rpb, int ks, int tile_m,
-                                cudaStream_t st) {
-  if (tile_m != FM_BM || x_hi != half) return cudaErrorInvalidValue;
+                                int route, cudaStream_t st) {
+  if (route != ROUTE_FMA || tile_m != FM_BM || x_hi != half) return cudaErrorInvalidValue;
   dim3 grid((d_out + FM_BN - 1) / FM_BN, (M + FM_BM - 1) / FM_BM, ks);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   int4_fma_kernel<float><<<grid, FM_THREADS, 0, st>>>(
@@ -642,13 +701,13 @@ template <typename T>
 cudaError_t launch_int4(const void* x, long long ldx, int x_hi, const void* packed,
                         const void* scale, void* out, void* partial, int M,
                         int half, int d_out, int G, int rpb, int ks, int tile_m,
-                        cudaStream_t st) {
+                        int route, cudaStream_t st) {
   void* part = ks > 1 ? partial : nullptr;
   cudaError_t err =
       tile_m == 0
           ? launch_gemv<T>(x, ldx, packed, scale, out, part, M, half, d_out, G, rpb, ks, st)
           : launch_tiles<T>(x, ldx, x_hi, packed, scale, out, part, M, half, d_out, G, rpb,
-                            ks, tile_m, st);
+                            ks, tile_m, route, st);
   if (err != cudaSuccess || ks == 1) return err;
   const size_t n = (size_t)M * d_out;
   int4_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -668,10 +727,12 @@ extern "C" {
 // but x dense. The packed rows are split into ks ranges of rpb rows; with
 // ks > 1 `partial` is fp32 scratch [ks, M, d_out]. `tile_m` 0 selects the
 // M <= 8 kernel, else the rows of an output tile (fp32: 64; bf16: 64 or
-// 128). Returns a cudaError_t code (0 = success).
+// 128), and `route` the tile kernel (ROUTE_*; not read when tile_m is 0).
+// Returns a cudaError_t code (0 = success).
 int ivl_int4_matmul(int dtype, const void* x, long long ldx, int x_hi, const void* packed,
                     const void* scale, void* out, void* partial, int M, int d_in,
-                    int d_out, int G, int rpb, int ks, int tile_m, void* stream) {
+                    int d_out, int G, int rpb, int ks, int tile_m, int route,
+                    void* stream) {
   if (M <= 0 || d_in <= 0 || d_out <= 0 || d_in % 2 != 0 || G <= 0 || rpb <= 0 ||
       ks <= 0)
     return (int)cudaErrorInvalidValue;
@@ -684,10 +745,10 @@ int ivl_int4_matmul(int dtype, const void* x, long long ldx, int x_hi, const voi
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ivl::DTYPE_F32)
     return (int)launch_int4<float>(x, ldx, x_hi, packed, scale, out, partial, M, half,
-                                   d_out, G, rpb, ks, tile_m, st);
+                                   d_out, G, rpb, ks, tile_m, route, st);
   if (dtype == ivl::DTYPE_BF16)
     return (int)launch_int4<__nv_bfloat16>(x, ldx, x_hi, packed, scale, out, partial, M,
-                                           half, d_out, G, rpb, ks, tile_m, st);
+                                           half, d_out, G, rpb, ks, tile_m, route, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,19 +10,26 @@
 // concatenated copy of the TPU wrapper is a BlockSpec artefact.
 //   Bound on the H100: at T = 2048, cap = 8192 a KV head's 16,384 query
 //   rows each meet up to 10,240 keys: ~86 GFLOP per head, so the kernel is
-//   compute-bound. Two variants share the tiling and the masking:
-//   - bf16 (the model's dtype): tensor cores through mma.sync m16n8k16
-//     (bf16 operands, fp32 accumulation, as the Pallas kernel's MXU dots).
-//     A block of 4 warps owns 64 query rows; each warp keeps its 16 rows'
-//     Q fragments in registers, computes S = Q K^T for a 64-key tile staged
-//     in shared memory, runs the online softmax on the accumulator
-//     fragments, and feeds P back as the A operand of O += P V with no
-//     trip through shared memory (V is staged transposed so its B
-//     fragments are 32-bit loads).
+//   compute-bound; a 448x448 frame (T = 257) is ~17.5 GFLOP against 8.4 MB
+//   of ring, still compute-bound but only 66 query tiles of 64 rows.
+//   - bf16 (the model's dtype): the wgmma + TMA mainloop it shares with
+//     kernel H's forward (swa_fwd_wgmma.cuh). A block's 64 query rows are
+//     8 tokens x the 8 query heads of one KV head (a GQA-packed TMA box),
+//     so every K/V stage serves them all. Where the query tiles leave the
+//     card short (T = 257: 66 blocks on 132 SMs) the key tiles are split
+//     over blocks (split-KV, plan in ops/swa_kernels.prefill_split_plan);
+//     each writes a partial (m, l, acc) in fp32 and a combine pass adds
+//     them in a fixed order. A ring tile that does not straddle the write
+//     point holds 64 consecutive positions: one interval test decides that
+//     every (row, key) pair sees it, and only tiles at the window's lower
+//     edge, at the write point or on the new keys' diagonal are masked
+//     element by element. P is rounded to bf16 before P V, as the Pallas
+//     kernel's p.astype(v.dtype).
 //   - fp32: plain FMA from shared memory (K/V tiles of 64 keys reused by
 //     32 query rows); tensor cores would round fp32 operands.
 //   Both skip a tile whose whole mask is empty before loading it (the
-//   unwritten ring at cum_len = 0, future keys of early rows).
+//   unwritten ring at cum_len = 0, future keys of early rows, ring slots
+//   below every row's window).
 //
 // A2 replaces infinitevl_tpu/ops/swa_pallas.py::swa_ring_flash_decode_stacked
 // (_swa_decode_kernel_stacked). The wrapper writes the token's K/V into
@@ -34,14 +41,12 @@
 //   would fill 2 of 132 SMs at B = 1, so the ring is split into chunks of
 //   `split_len` keys, one block each (split-KV), and a second kernel
 //   combines the partial softmax states.
-#include "common.cuh"
+#include "swa_fwd_wgmma.cuh"
 
 namespace {
 
 using ivl::NEG_INF;
 using ivl::from_f;
-using ivl::ld32;
-using ivl::mma_bf16;
 using ivl::pack_bf16;
 using ivl::to_f;
 
@@ -205,202 +210,242 @@ cudaError_t launch_prefill(const void* q, const void* nk, const void* nv,
   return cudaGetLastError();
 }
 
-// A1, bf16 variant on tensor cores
-constexpr int M_WARPS = 4;
-constexpr int M_BR = 16 * M_WARPS;  // query rows per block
-constexpr int M_BK = 64;            // keys per tile
-constexpr int KSTR = HD + 8;        // bf16 per row of Ks[key][d] (conflict-free B loads)
-constexpr int VSTR = M_BK + 8;      // bf16 per row of Vt[d][key]
+// A1, bf16: the shared wgmma + TMA mainloop (swa_fwd_wgmma.cuh) with the
+// ring as its key source. A block owns 64 query rows of one KV head (rows
+// r = t G + g: 64 / G tokens x the G query heads, so one K/V stage serves
+// them all) and one split of the key tiles: of the
+// ring's ceil(cap / 64) tiles, then the new keys' ceil(T / 64), split s
+// takes tiles s, s + split, s + 2 split, ... (interleaved, so that the
+// skipped tiles of an unfilled ring and the masked diagonal spread over
+// the splits). With split > 1 the block writes its partial softmax state
+// (m, l, acc) in fp32 and swa_prefill_combine_kernel adds the splits in
+// order.
+constexpr int A1_PART = HD + 4;  // floats per row of a partial: m, l, 2 unused, acc
 
-// Fragment layout of m16n8k16: see ivl::mma_bf16. Here S accumulators
-// s[nt] cover keys nt*8 .. nt*8+7 of the tile.
-__global__ void __launch_bounds__(32 * M_WARPS)
-swa_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Tn, Hq, HD]
-                       const __nv_bfloat16* __restrict__ new_k,  // [B, Tn, Hkv, HD]
-                       const __nv_bfloat16* __restrict__ new_v,
-                       const __nv_bfloat16* __restrict__ ring_k, // [B, Hkv, cap, HD]
-                       const __nv_bfloat16* __restrict__ ring_v,
-                       __nv_bfloat16* __restrict__ out,          // [B, Tn, Hq, HD]
-                       int Tn, int Hq, int Hkv, int cap, int cum_len, int window,
-                       float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[M_BK * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD * VSTR];
+struct RingSrc {
+  static constexpr bool VOTE = false;  // invisible tiles are skipped before their TMA
+  struct Row {
+    int qp;
+    bool ok;
+  };
+  const CUtensorMap *qmap, *rkmap, *rvmap, *nkmap, *nvmap;
+  __nv_bfloat16* out;
+  float* part;
+  size_t n_rows;  // B Hkv T G: the rows of one split's partials
+  int b, h, G, Tn, Hq, Hkv, cap, cum, window, m0, r0, qlo, qhi, nR, n, sp, split;
 
-  const int G = Hq / Hkv;
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
-  const int R = Tn * G;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = ivl::pos_mod(cum_len - 1, cap);
+  __device__ int pos(int slot) const { return ivl::ring_pos(cum, m0, slot, cap); }
+  __device__ int count() const { return n; }
 
-  // this thread's two query rows: gid and gid + 8 of the warp's 16
-  bool rok[2];
-  int qp[2];
-  size_t qoff[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = blockIdx.y * M_BR + warp * 16 + gid + 8 * i;
-    rok[i] = row < R;
-    const int t = rok[i] ? row / G : 0;
-    const int gq = rok[i] ? row % G : 0;
-    qp[i] = cum_len + t;
-    qoff[i] = (((size_t)b * Tn + t) * Hq + h * G + gq) * HD;
+  // a tile none of the block's rows can see: the unwritten ring, slots
+  // below every row's window, new keys after every row
+  __device__ bool skip(int i) const {
+    const int gt = sp + i * split;  // the split takes every split-th tile
+    if (gt < nR) {
+      const int j0 = gt * ivl::FW_T, j1 = min(j0 + ivl::FW_T, cap);
+      const int top = pos(j0 <= m0 ? min(j1 - 1, m0) : j1 - 1);  // the tile's newest position
+      return top < 0 || top <= qlo - window;
+    }
+    const int k0 = (gt - nR) * ivl::FW_T;
+    return cum + k0 > qhi || cum + min(k0 + ivl::FW_T, Tn) - 1 <= qlo - window;
   }
-  uint32_t qf[HD / 16][4];  // A fragments of the warp's 16 x HD query tile
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int d = ks * 16 + 2 * tig;
-    qf[ks][0] = rok[0] ? ld32(q + qoff[0] + d) : 0u;
-    qf[ks][1] = rok[1] ? ld32(q + qoff[1] + d) : 0u;
-    qf[ks][2] = rok[0] ? ld32(q + qoff[0] + d + 8) : 0u;
-    qf[ks][3] = rok[1] ? ld32(q + qoff[1] + d + 8) : 0u;
+  __device__ void load_q(unsigned char* Qs, uint64_t* bar) const {
+    ivl::mbar_arrive_tx(bar, ivl::FW_TILE);
+    ivl::tile_load(Qs, qmap, bar, h * G, r0 / G, b);  // a GQA-packed box: 64 / G tokens x G heads
   }
-
-  float o[HD / 8][4];
+  __device__ void load(int i, unsigned char* st, uint64_t* bar, int lane) const {
+    if (lane != 0) {
+      ivl::mbar_arrive(bar);
+      return;
+    }
+    ivl::mbar_arrive_tx(bar, 2 * ivl::FW_TILE);
+    const int gt = sp + i * split;  // the split takes every split-th tile
+    if (gt < nR) {  // ring slots j0 ..: TMA's zeros past cap
+      ivl::tile_load(st, rkmap, bar, gt * ivl::FW_T, h, b);
+      ivl::tile_load(st + ivl::FW_TILE, rvmap, bar, gt * ivl::FW_T, h, b);
+    } else {  // new keys k0 ..: zeros past T
+      ivl::tile_load(st, nkmap, bar, h, (gt - nR) * ivl::FW_T, b);
+      ivl::tile_load(st + ivl::FW_TILE, nvmap, bar, h, (gt - nR) * ivl::FW_T, b);
+    }
+  }
+  __device__ Row row(int r) const {
+    const int t = (r0 + r) / G;
+    return Row{cum + t, t < Tn};
+  }
+  // the interval test: a ring tile that does not straddle the write point
+  // m0 holds 64 consecutive positions, new keys are consecutive anyway
+  __device__ bool whole(int i) const {
+    if (qhi - qlo != 64 / G - 1) return false;  // ragged rows past T
+    const int qa = qlo, qb = qhi;
+    const int gt = sp + i * split;  // the split takes every split-th tile
+    int lo, hi;
+    if (gt < nR) {
+      const int j0 = gt * ivl::FW_T;
+      if (j0 + ivl::FW_T > cap || (j0 <= m0 && m0 < j0 + ivl::FW_T - 1)) return false;
+      lo = pos(j0);
+      hi = pos(j0 + ivl::FW_T - 1);
+    } else {
+      const int k0 = (gt - nR) * ivl::FW_T;
+      if (k0 + ivl::FW_T > Tn) return false;
+      lo = cum + k0;
+      hi = lo + ivl::FW_T - 1;
+    }
+    return lo >= 0 && hi <= qa && lo > qb - window;
+  }
+  __device__ bool sees(int i, const unsigned char*, const Row& w, int kl) const {
+    const int gt = sp + i * split;  // the split takes every split-th tile
+    int kp;
+    if (gt < nR) {
+      const int slot = gt * ivl::FW_T + kl;
+      kp = slot < cap ? pos(slot) : -1;
+    } else {
+      const int j = (gt - nR) * ivl::FW_T + kl;
+      kp = j < Tn ? cum + j : -1;
+    }
+    return w.ok && kp >= 0 && kp <= w.qp && kp > w.qp - window;
+  }
+  __device__ void store(int r, int tig, const float (&acc)[64], const float (&m)[2],
+                        const float (&l)[2]) const {
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+    for (int ii = 0; ii < 2; ++ii) {
+      const int rr = r0 + r + 8 * ii, t = rr / G;
+      if (t >= Tn) continue;
+      if (split == 1) {
+        const float inv = 1.f / fmaxf(l[ii], 1e-30f);
+        __nv_bfloat16* o = out + (((size_t)b * Tn + t) * Hq + h * G + rr % G) * HD + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-
-  for (int seg = 0; seg < 2; ++seg) {
-    // seg 0: ring slots [0, cap); seg 1: the Tn new keys
-    const int nkeys = seg == 0 ? cap : Tn;
-    const __nv_bfloat16* kbase = seg == 0 ? ring_k + ((size_t)b * Hkv + h) * cap * HD
-                                          : new_k + ((size_t)b * Tn * Hkv + h) * HD;
-    const __nv_bfloat16* vbase = seg == 0 ? ring_v + ((size_t)b * Hkv + h) * cap * HD
-                                          : new_v + ((size_t)b * Tn * Hkv + h) * HD;
-    const size_t kstride = seg == 0 ? (size_t)HD : (size_t)Hkv * HD;
-
-    for (int k0 = 0; k0 < nkeys; k0 += M_BK) {
-      uint32_t vis = 0;  // bit i*16 + nt*2 + e: row i, key k0 + nt*8 + 2*tig + e
-#pragma unroll
-      for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = k0 + nt * 8 + 2 * tig + e;
-          if (j < nkeys) {
-            const int kp = seg == 0 ? ivl::ring_pos(cum_len, m0, j, cap) : cum_len + j;
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              if (rok[i] && kp >= 0 && kp <= qp[i] && kp > qp[i] - window)
-                vis |= 1u << (i * 16 + nt * 2 + e);
-          }
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<uint32_t*>(o + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * ii] * inv, acc[4 * j + 2 * ii + 1] * inv);
+      } else {
+        float* pp = part + ((size_t)sp * n_rows + ((size_t)b * Hkv + h) * Tn * G + rr) * A1_PART;
+        if (tig == 0) {
+          pp[0] = m[ii];
+          pp[1] = l[ii];
         }
-      // also the barrier that retires the previous tile's readers
-      if (!__syncthreads_or(vis != 0u)) continue;
-
-      for (int c = threadIdx.x; c < M_BK * HD / 8; c += 32 * M_WARPS) {
-        const int key = c / (HD / 8), d0 = (c % (HD / 8)) * 8;
-        const int j = k0 + key;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-        if (j < nkeys) {
-          kv = *reinterpret_cast<const uint4*>(kbase + (size_t)j * kstride + d0);
-          vv = *reinterpret_cast<const uint4*>(vbase + (size_t)j * kstride + d0);
-        }
-        *reinterpret_cast<uint4*>(&Ks[key * KSTR + d0]) = kv;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) Vt[(d0 + e) * VSTR + key] = ve[e];
-      }
-      __syncthreads();
-
-      float s[M_BK / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < M_BK / 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const __nv_bfloat16* krow = Ks + (nt * 8 + gid) * KSTR + 2 * tig;
-#pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks)
-          mma_bf16(s[nt], qf[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-      }
-
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool v = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-            s[nt][2 * i + e] = v ? s[nt][2 * i + e] * scale : NEG_INF;
-            mx[i] = fmaxf(mx[i], s[nt][2 * i + e]);
-          }
-      float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // the 4 lanes of a row group share the row
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m_r[i], mx[i]);
-        alpha[i] = expf(m_r[i] - m_new);
-        m_r[i] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool v = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-            const float p = v ? expf(s[nt][2 * i + e] - m_r[i]) : 0.f;
-            s[nt][2 * i + e] = p;
-            psum[i] += p;
-          }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-        psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-        l_r[i] = l_r[i] * alpha[i] + psum[i];
-      }
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        o[dt][0] *= alpha[0];
-        o[dt][1] *= alpha[0];
-        o[dt][2] *= alpha[1];
-        o[dt][3] *= alpha[1];
-      }
-
-      // O += P V: P (bf16, as the Pallas kernel's p.astype(v.dtype)) is the
-      // A operand straight from the S accumulators, 16 keys per k-step
-#pragma unroll
-      for (int kk = 0; kk < M_BK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          const __nv_bfloat16* vrow = Vt + (dt * 8 + gid) * VSTR + kk * 16 + 2 * tig;
-          mma_bf16(o[dt], a, ld32(vrow), ld32(vrow + 8));
-        }
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(pp + 4 + 8 * j + 2 * tig) =
+              make_float2(acc[4 * j + 2 * ii], acc[4 * j + 2 * ii + 1]);
       }
     }
   }
+};
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!rok[i]) continue;
-    const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
-    __nv_bfloat16* orow = out + qoff[i] + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-  }
+// grid: (query tile, batch row, KV head, split) with the split innermost
+__global__ void __launch_bounds__(ivl::FW_THREADS, 2)
+swa_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap rkmap,
+                         const __grid_constant__ CUtensorMap rvmap,
+                         const __grid_constant__ CUtensorMap nkmap,
+                         const __grid_constant__ CUtensorMap nvmap,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ part, int B,
+                         int Tn, int Hq, int Hkv, int cap, int cum_len, int window, int split,
+                         float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  RingSrc src;
+  src.qmap = &qmap;
+  src.rkmap = &rkmap;
+  src.rvmap = &rvmap;
+  src.nkmap = &nkmap;
+  src.nvmap = &nvmap;
+  src.out = out;
+  src.part = part;
+  src.G = Hq / Hkv;
+  src.Tn = Tn;
+  src.Hq = Hq;
+  src.Hkv = Hkv;
+  src.cap = cap;
+  src.cum = cum_len;
+  src.window = window;
+  src.split = split;
+  src.m0 = ivl::pos_mod(cum_len - 1, cap);
+  src.n_rows = (size_t)B * Hkv * Tn * src.G;
+  int rest = blockIdx.x;
+  src.sp = rest % split;
+  rest /= split;
+  src.h = rest % Hkv;
+  rest /= Hkv;
+  src.b = rest % B;
+  src.r0 = (rest / B) * 64;
+  const int t_first = src.r0 / src.G;
+  const int t_last = min((src.r0 + 63) / src.G, Tn - 1);
+  src.qlo = cum_len + t_first;
+  src.qhi = cum_len + t_last;
+  src.nR = (cap + ivl::FW_T - 1) / ivl::FW_T;
+  const int n_tiles = src.nR + (Tn + ivl::FW_T - 1) / ivl::FW_T;
+  src.n = max(0, (n_tiles - src.sp + split - 1) / split);
+  ivl::fwd_mainloop(src, ivl::aligned_smem(smem_raw), scale);
 }
 
-cudaError_t launch_prefill_mma(const void* q, const void* nk, const void* nv,
-                               const void* rk, const void* rv, void* out, int B,
-                               int Tn, int Hq, int Hkv, int cap, int cum_len,
-                               int window, float scale, cudaStream_t stream) {
-  const int R = Tn * (Hq / Hkv);
-  dim3 grid(B * Hkv, (R + M_BR - 1) / M_BR);
-  using bf = __nv_bfloat16;
-  swa_prefill_mma_kernel<<<grid, 32 * M_WARPS, 0, stream>>>(
-      (const bf*)q, (const bf*)nk, (const bf*)nv, (const bf*)rk, (const bf*)rv,
-      (bf*)out, Tn, Hq, Hkv, cap, cum_len, window, scale);
+// out = the splits' partials of each row added in the order s = 0, 1, ...:
+// one warp per row (b, h, r = t G + g), four dims a lane (A2's combine
+// generalised to many rows)
+__global__ void __launch_bounds__(128)
+swa_prefill_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+                           int B, int Tn, int Hq, int Hkv, int split) {
+  const int G = Hq / Hkv, R = Tn * G;
+  const size_t n_rows = (size_t)B * Hkv * R;
+  const size_t row = (size_t)blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  float M = NEG_INF;
+  for (int s = 0; s < split; ++s) M = fmaxf(M, part[(s * n_rows + row) * A1_PART]);
+  float L = 0.f;
+  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < split; ++s) {
+    const float* pp = part + (s * n_rows + row) * A1_PART;
+    const float w = exp2f(pp[0] - M);  // m in units of log2 (swa_fwd_wgmma.cuh)
+    const float4 a = *reinterpret_cast<const float4*>(pp + 4 + 4 * lane);
+    L += w * pp[1];
+    A.x += w * a.x;
+    A.y += w * a.y;
+    A.z += w * a.z;
+    A.w += w * a.w;
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  const int bh = (int)(row / R), r = (int)(row % R);
+  const int b = bh / Hkv, h = bh % Hkv, t = r / G, g = r % G;
+  __nv_bfloat16* o = out + (((size_t)b * Tn + t) * Hq + h * G + g) * HD + 4 * lane;
+  *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16(A.x * inv, A.y * inv),
+                                            pack_bf16(A.z * inv, A.w * inv));
+}
+
+// a 4-D map over a [B, d2, d1, 128] bf16 tensor (dims innermost first: 128,
+// d1, d2, B) with boxes of 64 columns x box1 x box2 x 1
+bool map4(CUtensorMap* map, const void* base, int d1, int d2, int B, int box1, int box2) {
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)d1 * HD * 2, (cuuint64_t)d2 * d1 * HD * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box1, (cuuint32_t)box2, 1};
+  return ivl::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A1 in bf16; with split > 1, `part` is fp32 scratch [split, B Hkv T G,
+// HD + 4] and a second launch combines it into `out`.
+cudaError_t launch_prefill_bf16(const void* q, const void* nk, const void* nv, const void* rk,
+                                const void* rv, void* out, void* part, int B, int Tn, int Hq,
+                                int Hkv, int cap, int cum_len, int window, int split,
+                                float scale, cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  if (64 % G != 0 || split <= 0 || (split > 1 && part == nullptr)) return cudaErrorInvalidValue;
+  CUtensorMap maps[5];
+  if (!map4(&maps[0], q, Hq, Tn, B, G, 64 / G) || !map4(&maps[1], rk, cap, Hkv, B, 64, 1) ||
+      !map4(&maps[2], rv, cap, Hkv, B, 64, 1) || !map4(&maps[3], nk, Hkv, Tn, B, 1, 64) ||
+      !map4(&maps[4], nv, Hkv, Tn, B, 1, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(swa_prefill_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ivl::FW_SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks = ((long long)Tn * G + 63) / 64 * B * Hkv * split;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  swa_prefill_wgmma_kernel<<<(unsigned)blocks, ivl::FW_THREADS, ivl::FW_SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], (__nv_bfloat16*)out, (float*)part, B, Tn, Hq,
+      Hkv, cap, cum_len, window, split, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess || split == 1) return err;
+  const size_t n_rows = (size_t)B * Hkv * Tn * G;
+  swa_prefill_combine_kernel<<<(unsigned)((n_rows + 3) / 4), 128, 0, stream>>>(
+      (const float*)part, (__nv_bfloat16*)out, B, Tn, Hq, Hkv, split);
   return cudaGetLastError();
 }
 
@@ -550,19 +595,21 @@ cudaError_t launch_decode(const void* q, const void* rk, const void* rv,
 extern "C" {
 
 // A1. Returns a cudaError_t code (0 = success).
+// bf16 takes `split` (the key tiles split over that many blocks; scratch
+// `part` when above 1); fp32 ignores it.
 int ivl_swa_prefill(int dtype, const void* q, const void* new_k,
                     const void* new_v, const void* ring_k, const void* ring_v,
-                    void* out, int B, int Tn, int Hq, int Hkv, int D, int cap,
-                    int cum_len, int window, float scale, void* stream) {
-  if (D != HD || Hq % Hkv != 0 || cap <= 0 || Tn <= 0)
+                    void* out, void* part, int B, int Tn, int Hq, int Hkv, int D, int cap,
+                    int cum_len, int window, int split, float scale, void* stream) {
+  if (D != HD || Hq % Hkv != 0 || cap <= 0 || Tn <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ivl::DTYPE_F32)
     return (int)launch_prefill<float>(q, new_k, new_v, ring_k, ring_v, out, B,
                                       Tn, Hq, Hkv, cap, cum_len, window, scale, st);
   if (dtype == ivl::DTYPE_BF16)
-    return (int)launch_prefill_mma(q, new_k, new_v, ring_k, ring_v, out, B, Tn,
-                                   Hq, Hkv, cap, cum_len, window, scale, st);
+    return (int)launch_prefill_bf16(q, new_k, new_v, ring_k, ring_v, out, part, B, Tn, Hq, Hkv,
+                                    cap, cum_len, window, split, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,9 +17,10 @@
 //   k, v and out: compute-bound; the backward recomputes S and adds three
 //   products (2.5 x the forward).
 //   Forward: one block per (query tile, q head, batch row), online softmax
-//   as in kernel A1. bf16 runs on tensor cores (mma.sync m16n8k16, Q
-//   fragments in registers, P fed back as the A operand of O += P V); fp32
-//   is plain FMA from shared memory.
+//   as in kernel A1. bf16 runs the wgmma + TMA mainloop that it shares with
+//   A1 (swa_fwd_wgmma.cuh): a producer warp streams the band's K/V tiles
+//   and the keys' segment ids through a ring of stages to a consumer
+//   warpgroup of 64 query rows; fp32 is plain FMA from shared memory.
 //   Backward, no atomics, so gradients are reproducible:
 //   - dQ: one block per (query tile, q head, batch row) loops over its key
 //     tiles: S = Q K^T, P = exp(scale S - lse), dP = dO V^T,
@@ -37,15 +38,17 @@
 //   P and dS are rounded to bf16 for the bf16 products exactly where the
 //   forward rounds P. A row with no visible key (none exists: a token sees
 //   itself) would give zeros, never NaN.
-#include "common.cuh"
+#include "swa_fwd_wgmma.cuh"
 
 namespace {
 
 using ivl::NEG_INF;
+using ivl::desc_k;
+using ivl::desc_mn;
 using ivl::from_f;
-using ivl::ld32;
-using ivl::mma_bf16;
+using ivl::keep;
 using ivl::pack_bf16;
+using ivl::to_a;
 using ivl::to_f;
 
 typedef __nv_bfloat16 bf16;
@@ -401,240 +404,15 @@ swa_train_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ====================================================== bf16 forward
-// Tensor cores through mma.sync m16n8k16; fragment layout: ivl::mma_bf16.
-constexpr int M_WARPS = 4;
-constexpr int M_BR = 16 * M_WARPS;  // rows owned by a block (16 per warp)
-constexpr int M_BK = 64;            // keys per tile
-constexpr int RSTR = HD + 8;        // bf16 per row of a [row][d] tile
-constexpr int TSTR = M_BK + 8;      // bf16 per row of a [d][key] tile
-
-// Stage rows [r0, r0 + nrows) of head h of a [B, Tn, H, HD] bf16 tensor:
-// as [row][d] (row stride RSTR) into `rows`, and/or transposed as [d][row]
-// (row stride tstr) into `trans`. Rows past Tn are zeros.
-__device__ __forceinline__ void stage_bf16(bf16* rows, bf16* trans, int tstr,
-                                           const bf16* src, int b, int Tn, int H,
-                                           int h, int r0, int nrows) {
-  for (int c = threadIdx.x; c < nrows * HD / 8; c += blockDim.x) {
-    const int rr = c / (HD / 8), d0 = (c % (HD / 8)) * 8;
-    const int t = r0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < Tn)
-      val = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * Tn + t) * H + h) * HD + d0);
-    if (rows) *reinterpret_cast<uint4*>(&rows[rr * RSTR + d0]) = val;
-    if (trans) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) trans[(d0 + i) * tstr + rr] = e[i];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(32 * M_WARPS)
-swa_train_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const int* __restrict__ seg,
-                         bf16* __restrict__ out, float* __restrict__ lse, int Tn,
-                         int Hq, int Hkv, int window, float scale) {
-  __shared__ __align__(16) bf16 Ks[M_BK * RSTR];
-  __shared__ __align__(16) bf16 Vt[HD * TSTR];
-
-  const int b = blockIdx.z, hq = blockIdx.y, hk = hq / (Hq / Hkv);
-  const int q0 = blockIdx.x * M_BR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int* segb = seg ? seg + (size_t)b * Tn : nullptr;
-
-  bool rok[2];
-  int qp[2], my_seg[2];
-  size_t qoff[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qp[i] = q0 + warp * 16 + gid + 8 * i;
-    rok[i] = qp[i] < Tn;
-    my_seg[i] = (segb && rok[i]) ? segb[qp[i]] : 0;
-    qoff[i] = (((size_t)b * Tn + (rok[i] ? qp[i] : 0)) * Hq + hq) * HD;
-  }
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int d = ks * 16 + 2 * tig;
-    qf[ks][0] = rok[0] ? ld32(q + qoff[0] + d) : 0u;
-    qf[ks][1] = rok[1] ? ld32(q + qoff[1] + d) : 0u;
-    qf[ks][2] = rok[0] ? ld32(q + qoff[0] + d + 8) : 0u;
-    qf[ks][3] = rok[1] ? ld32(q + qoff[1] + d + 8) : 0u;
-  }
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-
-  const int k_end = min(Tn, q0 + M_BR);
-  for (int k0 = first_key(q0, window, M_BK); k0 < k_end; k0 += M_BK) {
-    uint32_t vis = 0;  // bit i*16 + nt*2 + e: row i, key k0 + nt*8 + 2*tig + e
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = k0 + nt * 8 + 2 * tig + e;
-        if (kp < Tn) {
-          const int ks_ = segb ? segb[kp] : 0;
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (rok[i] && visible(qp[i], kp, window) && ks_ == my_seg[i])
-              vis |= 1u << (i * 16 + nt * 2 + e);
-        }
-      }
-    // also the barrier that retires the previous tile's readers
-    if (!__syncthreads_or(vis != 0u)) continue;
-
-    stage_bf16(Ks, nullptr, 0, k, b, Tn, Hkv, hk, k0, M_BK);
-    stage_bf16(nullptr, Vt, TSTR, v, b, Tn, Hkv, hk, k0, M_BK);
-    __syncthreads();
-
-    float s[M_BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* krow = Ks + (nt * 8 + gid) * RSTR + 2 * tig;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks)
-        mma_bf16(s[nt], qf[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-    }
-
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool vb = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-          s[nt][2 * i + e] = vb ? s[nt][2 * i + e] * scale : NEG_INF;
-          mx[i] = fmaxf(mx[i], s[nt][2 * i + e]);
-        }
-    float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      alpha[i] = expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool vb = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-          const float p = vb ? expf(s[nt][2 * i + e] - m_r[i]) : 0.f;
-          s[nt][2 * i + e] = p;
-          psum[i] += p;
-        }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-      l_r[i] = l_r[i] * alpha[i] + psum[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-    // O += P V with P (bf16) as the A operand straight from the accumulators
-#pragma unroll
-    for (int kk = 0; kk < M_BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        const bf16* vrow = Vt + (dt * 8 + gid) * TSTR + kk * 16 + 2 * tig;
-        mma_bf16(o[dt], a, ld32(vrow), ld32(vrow + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!rok[i]) continue;
-    const float inv = l_r[i] > 0.f ? 1.f / l_r[i] : 0.f;
-    bf16* orow = out + qoff[i] + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-    if (tig == 0)
-      lse[((size_t)b * Hq + hq) * Tn + qp[i]] =
-          l_r[i] > 0.f ? m_r[i] + logf(l_r[i]) : 0.f;
-  }
-}
-
-// ------------------------------------------------ bf16 backward (wgmma)
-// One consumer warpgroup (64 rows of keys or queries, 16 per warp) and one
-// producer warp per block. Tiles are 64 rows x 128 columns, loaded by TMA
-// (4-D maps over [B, T, H, 128], so a head is read where it lies: GQA
-// never repeats K or V) in the 128-byte swizzle as two column halves of
-// [64 rows][128 bytes]. The same tile is a K-major operand (its rows are
-// the M or N of S = Q K^T) and an MN-major one (its rows are the K of
-// dQ += dS K): nothing is transposed by hand. P and dS go from the fp32
-// accumulators to bf16 A fragments in registers.
-constexpr int W_T = 64;                // rows of a tile
-constexpr int W_HALF = W_T * 128;      // bytes of one column half
-constexpr int W_TILE = 2 * W_HALF;     // bytes of a 64 x 128 bf16 tile
+// ------------------------------------------------ bf16 (Hopper) tiles
+constexpr int W_T = ivl::FW_T;         // rows of a tile
+constexpr int W_HALF = ivl::FW_HALF;   // bytes of one column half
+constexpr int W_TILE = ivl::FW_TILE;   // bytes of a 64 x 128 bf16 tile
 constexpr int W_THREADS = 160;         // one consumer warpgroup + the producer warp
 constexpr int W_STAGE = 2 * W_TILE + 1024;  // two tiles and their row data
 constexpr int DKV_STAGES = 3, DQ_STAGES = 2;
 constexpr int DKV_SMEM = 2 * W_TILE + DKV_STAGES * W_STAGE + 64 + ivl::SMEM_ALIGN;
 constexpr int DQ_SMEM = 2 * W_TILE + DQ_STAGES * W_STAGE + 64 + ivl::SMEM_ALIGN;
-
-// rows [t0, t0 + 64) of head h, batch row b (TMA's zeros past T)
-__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int h, int t0, int b) {
-  ivl::tma_load_4d(dst, map, bar, 0, h, t0, b);
-  ivl::tma_load_4d(dst + W_HALF, map, bar, 64, h, t0, b);
-}
-
-// k-step kk (columns 16 kk ..) of a tile as a K-major operand
-__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
-  return ivl::gmma_desc(tile + (kk >> 2) * W_HALF + (kk & 3) * 32, 16, 1024);
-}
-
-// rows 16 kk .. of a tile as the MN-major B of a product with N = 128
-__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
-  return ivl::gmma_desc(tile + kk * 2048, W_HALF, 1024);
-}
-
-// registers read by an in-flight wgmma stay where they are until the wait
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// accumulator [64 x 64] -> four A fragments (16 columns each), in bf16
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-}
 
 // the producer warp's share of a stage: the 64 rows' row data (lse, delta
 // and segment ids, or the keys' segment ids), then the tiles by TMA; full
@@ -648,6 +426,117 @@ __device__ __forceinline__ void fill_seg(int* dst, const int* segb, int t0, int 
   for (int r = lane; r < W_T; r += 32) dst[r] = (segb && t0 + r < Tn) ? segb[t0 + r] : 0;
 }
 
+// ====================================================== bf16 forward
+// The shared wgmma + TMA mainloop (swa_fwd_wgmma.cuh) with one sequence as
+// its key source: a block owns 64 query rows (tokens q0 ..) of one query
+// head and walks the key tiles of their band, first_key(q0) to the
+// diagonal; each stage brings the 64 keys' segment ids beside K and V.
+// Without segment ids a tile that lies inside every row's band is taken
+// without a per-element mask; with them a tile whose mask is empty for
+// every row skips its products after a vote.
+struct TrainSrc {
+  static constexpr bool VOTE = true;
+  struct Row {
+    int qp, seg;
+    bool ok;
+  };
+  const CUtensorMap *qmap, *kmap, *vmap;
+  const int* segb;
+  bf16* out;
+  float* lse;
+  int b, hq, hk, Tn, Hq, window, q0, kb, n;
+
+  __device__ int count() const { return n; }
+  __device__ bool skip(int) const { return false; }  // the band's tiles only are walked
+  __device__ void load_q(unsigned char* Qs, uint64_t* bar) const {
+    ivl::mbar_arrive_tx(bar, ivl::FW_TILE);
+    ivl::tile_load(Qs, qmap, bar, hq, q0, b);
+  }
+  __device__ void load(int i, unsigned char* st, uint64_t* bar, int lane) const {
+    const int k0 = kb + i * ivl::FW_T;
+    fill_seg(reinterpret_cast<int*>(st + 2 * ivl::FW_TILE), segb, k0, Tn, lane);
+    if (lane == 0) {
+      ivl::mbar_arrive_tx(bar, 2 * ivl::FW_TILE);
+      ivl::tile_load(st, kmap, bar, hk, k0, b);
+      ivl::tile_load(st + ivl::FW_TILE, vmap, bar, hk, k0, b);
+    } else {
+      ivl::mbar_arrive(bar);
+    }
+  }
+  __device__ Row row(int r) const {
+    const int qp = q0 + r;
+    const bool ok = qp < Tn;
+    return Row{qp, (segb && ok) ? segb[qp] : 0, ok};
+  }
+  __device__ bool whole(int i) const {
+    const int k0 = kb + i * ivl::FW_T, lo = q0, hi = q0 + 63;
+    return segb == nullptr && hi < Tn && k0 + ivl::FW_T - 1 <= lo && k0 > hi - window;
+  }
+  __device__ bool sees(int i, const unsigned char* st, const Row& w, int kl) const {
+    const int kp = kb + i * ivl::FW_T + kl;
+    return w.ok && kp < Tn && visible(w.qp, kp, window) &&
+           reinterpret_cast<const int*>(st + 2 * ivl::FW_TILE)[kl] == w.seg;
+  }
+  __device__ void store(int r, int tig, const float (&acc)[64], const float (&m)[2],
+                        const float (&l)[2]) const {
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int t = q0 + r + 8 * ii;
+      if (t >= Tn) continue;
+      const float inv = l[ii] > 0.f ? 1.f / l[ii] : 0.f;
+      bf16* o = out + (((size_t)b * Tn + t) * Hq + hq) * HD + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * ii] * inv, acc[4 * j + 2 * ii + 1] * inv);
+      if (tig == 0)
+        lse[((size_t)b * Hq + hq) * Tn + t] =
+            l[ii] > 0.f ? m[ii] * 0.6931471805599453f + logf(l[ii]) : 0.f;  // m in log2 units
+    }
+  }
+};
+
+// one block per (query tile, q head, batch row), the last query tiles (the
+// longest bands) first
+__global__ void __launch_bounds__(ivl::FW_THREADS, 2)
+swa_train_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const int* __restrict__ seg, bf16* __restrict__ out,
+                           float* __restrict__ lse, int B, int Tn, int Hq, int Hkv, int window,
+                           float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_tiles = (Tn + ivl::FW_T - 1) / ivl::FW_T;
+  const int tile = n_tiles - 1 - (int)(blockIdx.x / (B * Hq));
+  const int rest = blockIdx.x % (B * Hq);
+  TrainSrc src;
+  src.qmap = &qmap;
+  src.kmap = &kmap;
+  src.vmap = &vmap;
+  src.hq = rest % Hq;
+  src.b = rest / Hq;
+  src.hk = src.hq / (Hq / Hkv);
+  src.segb = seg ? seg + (size_t)src.b * Tn : nullptr;
+  src.out = out;
+  src.lse = lse;
+  src.Tn = Tn;
+  src.Hq = Hq;
+  src.window = window;
+  src.q0 = tile * ivl::FW_T;
+  src.kb = first_key(src.q0, window, ivl::FW_T);
+  src.n = (min(Tn, src.q0 + ivl::FW_T) - src.kb + ivl::FW_T - 1) / ivl::FW_T;
+  ivl::fwd_mainloop(src, ivl::aligned_smem(smem_raw), scale);
+}
+
+// ------------------------------------------------ bf16 backward (wgmma)
+// One consumer warpgroup (64 rows of keys or queries, 16 per warp) and one
+// producer warp per block. Tiles are 64 rows x 128 columns, loaded by TMA
+// (4-D maps over [B, T, H, 128], so a head is read where it lies: GQA
+// never repeats K or V) in the 128-byte swizzle as two column halves of
+// [64 rows][128 bytes]. The same tile is a K-major operand (its rows are
+// the M or N of S = Q K^T) and an MN-major one (its rows are the K of
+// dQ += dS K): nothing is transposed by hand. P and dS go from the fp32
+// accumulators to bf16 A fragments in registers.
 // dK/dV: one block per (key tile, KV head, batch row, split of the query
 // heads); key tiles in order, so the longest bands (the first keys see the
 // most queries) start first. The block loops over its query heads and the
@@ -701,8 +590,8 @@ swa_train_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int lane = threadIdx.x - 128;
     if (lane == 0) {
       ivl::mbar_arrive_tx(kvbar, 2 * W_TILE);
-      tma_tile(Ks, &kmap, kvbar, hk, k0, b);
-      tma_tile(Vs, &vmap, kvbar, hk, k0, b);
+      ivl::tile_load(Ks, &kmap, kvbar, hk, k0, b);
+      ivl::tile_load(Vs, &vmap, kvbar, hk, k0, b);
     }
     for (int it = 0; it < n_it; ++it) {
       const int s = it % DKV_STAGES;
@@ -717,8 +606,8 @@ swa_train_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fill_seg(reinterpret_cast<int*>(rows + 2 * W_T), segb, q0, Tn, lane);
       if (lane == 0) {
         ivl::mbar_arrive_tx(&full[s], 2 * W_TILE);
-        tma_tile(st, &qmap, &full[s], hq, q0, b);
-        tma_tile(st + W_TILE, &omap, &full[s], hq, q0, b);
+        ivl::tile_load(st, &qmap, &full[s], hq, q0, b);
+        ivl::tile_load(st + W_TILE, &omap, &full[s], hq, q0, b);
       } else {
         ivl::mbar_arrive(&full[s]);
       }
@@ -882,8 +771,8 @@ swa_train_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int lane = threadIdx.x - 128;
     if (lane == 0) {
       ivl::mbar_arrive_tx(qobar, 2 * W_TILE);
-      tma_tile(Qs, &qmap, qobar, hq, q0, b);
-      tma_tile(Os, &omap, qobar, hq, q0, b);
+      ivl::tile_load(Qs, &qmap, qobar, hq, q0, b);
+      ivl::tile_load(Os, &omap, qobar, hq, q0, b);
     }
     for (int it = 0; it < n_it; ++it) {
       const int s = it % DQ_STAGES;
@@ -893,8 +782,8 @@ swa_train_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fill_seg(reinterpret_cast<int*>(st + 2 * W_TILE), segb, k0, Tn, lane);
       if (lane == 0) {
         ivl::mbar_arrive_tx(&full[s], 2 * W_TILE);
-        tma_tile(st, &kmap, &full[s], hk, k0, b);
-        tma_tile(st + W_TILE, &vmap, &full[s], hk, k0, b);
+        ivl::tile_load(st, &kmap, &full[s], hk, k0, b);
+        ivl::tile_load(st + W_TILE, &vmap, &full[s], hk, k0, b);
       } else {
         ivl::mbar_arrive(&full[s]);
       }
@@ -1021,10 +910,15 @@ int ivl_swa_train_fwd(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
   }
   if (dtype == ivl::DTYPE_BF16) {
-    swa_train_fwd_mma_kernel<<<dim3((T + M_BR - 1) / M_BR, Hq, B), 32 * M_WARPS, 0,
-                               st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                     (const int*)seg, (bf16*)out, (float*)lse, T, Hq,
-                                     Hkv, window, scale);
+    CUtensorMap qm, km, vm;
+    if (!head_map(&qm, q, B, T, Hq) || !head_map(&km, k, B, T, Hkv) ||
+        !head_map(&vm, v, B, T, Hkv))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(swa_train_fwd_wgmma_kernel, ivl::FW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)((T + ivl::FW_T - 1) / ivl::FW_T) * B * Hq;
+    swa_train_fwd_wgmma_kernel<<<(unsigned)blocks, ivl::FW_THREADS, ivl::FW_SMEM, st>>>(
+        qm, km, vm, (const int*)seg, (bf16*)out, (float*)lse, B, T, Hq, Hkv, window, scale);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

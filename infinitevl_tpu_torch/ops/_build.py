@@ -101,17 +101,17 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     lib = ctypes.CDLL(str(build()))
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.ivl_swa_prefill.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]
+    lib.ivl_swa_prefill.argtypes = [I, P, P, P, P, P, P, P] + [I] * 9 + [F, P]
     lib.ivl_swa_prefill.restype = I
     lib.ivl_swa_decode.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, P]
     lib.ivl_swa_decode.restype = I
     lib.ivl_delta_step.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
     lib.ivl_delta_step.restype = I
-    lib.ivl_delta_chunk.argtypes = [I, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F, P]
+    lib.ivl_delta_chunk.argtypes = [I, P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F, P]
     lib.ivl_delta_chunk.restype = I
     lib.ivl_vit_flash.argtypes = [I, P, P, P, P, P, I, I, I, L, L, L, F, I, P]
     lib.ivl_vit_flash.restype = I
-    lib.ivl_int4_matmul.argtypes = [I, P, L, I, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.ivl_int4_matmul.argtypes = [I, P, L, I, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.ivl_int4_matmul.restype = I
     lib.ivl_swa_train_fwd.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
     lib.ivl_swa_train_fwd.restype = I

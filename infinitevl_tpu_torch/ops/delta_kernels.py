@@ -91,9 +91,10 @@ delta_step_fused_stacked.launches = 0
 
 def chunk_scratch_floats(B: int, T: int, H: int, V: int) -> int:
     """fp32 scratch of kernel C: per (b, h, chunk) the transposed w and
-    q e^g, k e^{g_C - g}, the masked q k^T, u and e^{g_C} (csrc/delta_chunk.cu)."""
+    q e^g, k e^{g_C - g}, the masked q k^T, u, e^{g_C} and the flag of a
+    segment starting at the chunk's edge (csrc/delta_chunk.cu)."""
     n_chunks = -(-T // CHUNK)
-    return B * H * n_chunks * (3 * KERNEL_K * CHUNK + CHUNK * CHUNK + CHUNK * V + 1)
+    return B * H * n_chunks * (3 * KERNEL_K * CHUNK + CHUNK * CHUNK + CHUNK * V + 2)
 
 
 def delta_rule_chunk_fused(
@@ -106,19 +107,22 @@ def delta_rule_chunk_fused(
     scale: Optional[float] = None,
     chunk_size: int = CHUNK,
     out_state: Optional[torch.Tensor] = None,  # [B, H, K, V] fp32, written in place
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T] integer ids of packed sequences
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel C: chunkwise gated delta rule forward, q and k l2-normalized
     inside, all arithmetic in fp32. Returns (o [B, T, H, V] in v.dtype,
     final_state [B, H, K, V] fp32). The final state is written into
     `out_state` where one is given (it may be `initial_state` itself: a
     layer's slab of the stacked state is then updated where it lies), else
-    into a new tensor. Semantics of
-    delta_rule_chunk(..., compute_dtype=torch.float32)."""
+    into a new tensor. `segment_ids` mark sequences packed along T: the
+    state restarts at each segment's first token and `initial_state` seeds
+    the first segment only. Semantics of
+    delta_rule_chunk(..., segment_ids=..., compute_dtype=torch.float32)."""
     name = "delta_rule_chunk_fused"
     if q.device.type == "cpu":
         o, final = delta_rule_chunk(
             q, k, v, g, beta, initial_state, scale, True, chunk_size,
-            compute_dtype=torch.float32,
+            segment_ids=segment_ids, compute_dtype=torch.float32,
         )
         if out_state is not None:
             final = out_state.copy_(final)
@@ -131,11 +135,14 @@ def delta_rule_chunk_fused(
         if out_state is not None:
             raise ValueError(f"{name}: out_state is written in place and carries "
                              "no gradient; training forwards are stateless")
-        return _DeltaChunkFn.apply(q, k, v, g, beta, initial_state, scale, chunk_size)
-    return _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state)
+        return _DeltaChunkFn.apply(q, k, v, g, beta, initial_state, scale, chunk_size,
+                                   segment_ids)
+    return _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state,
+                         segment_ids)
 
 
-def _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state):
+def _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state,
+                  segment_ids=None):
     """Check the operands and launch kernel C (CUDA tensors only)."""
     name = "delta_rule_chunk_fused"
     B, T, H, K = q.shape
@@ -176,6 +183,13 @@ def _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state)
             raise ValueError(f"{name}: out_state shape {tuple(out_state.shape)} "
                              f"is not {(B, H, K, V)}")
         final = out_state
+    if segment_ids is not None:
+        if segment_ids.device != q.device or tuple(segment_ids.shape) != (B, T) \
+                or segment_ids.is_floating_point():
+            raise ValueError(f"{name}: segment_ids must be integer [{B}, {T}] on {q.device}, "
+                             f"got {segment_ids.dtype} {tuple(segment_ids.shape)} on "
+                             f"{segment_ids.device}")
+        segment_ids = segment_ids.to(torch.int32).contiguous()
     if scale is None:
         scale = K**-0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -189,6 +203,7 @@ def _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, out_state)
             lib.ivl_delta_chunk(
                 _DTYPES[v.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 gf.data_ptr(), bf.data_ptr(),
+                None if segment_ids is None else segment_ids.data_ptr(),
                 None if initial_state is None else initial_state.data_ptr(),
                 o.data_ptr(), final.data_ptr(), scratch.data_ptr(), n_scratch,
                 B, T, H, K, V, float(scale),
@@ -205,27 +220,29 @@ delta_rule_chunk_fused.launches = 0
 
 class _DeltaChunkFn(torch.autograd.Function):
     """Kernel C with a gradient. The forward launches the kernel; the
-    backward recomputes the plain fp32 chunk form under autograd and returns
-    its gradients (the JAX package differentiates its plain chunk form too:
-    there is no backward kernel on either side yet)."""
+    backward recomputes the plain fp32 chunk form (with the same segment
+    ids) under autograd and returns its gradients (the JAX package
+    differentiates its plain chunk form too: there is no backward kernel on
+    either side yet)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, g, beta, initial_state, scale, chunk_size):
-        ctx.save_for_backward(q, k, v, g, beta, initial_state)
+    def forward(ctx, q, k, v, g, beta, initial_state, scale, chunk_size, segment_ids=None):
+        ctx.save_for_backward(q, k, v, g, beta, initial_state, segment_ids)
         ctx.scale, ctx.chunk_size = scale, chunk_size
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
-        o, final = _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, None)
+        o, final = _launch_chunk(q, k, v, g, beta, initial_state, scale, chunk_size, None,
+                                 segment_ids)
         return o, final
 
     @staticmethod
     def backward(ctx, d_o, d_final):
-        saved = ctx.saved_tensors
+        *saved, segment_ids = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_(t.is_floating_point())
                       for t in saved]
             o, final = delta_rule_chunk(
                 *leaves[:5], leaves[5], ctx.scale, True, ctx.chunk_size,
-                compute_dtype=torch.float32,
+                segment_ids=segment_ids, compute_dtype=torch.float32,
             )
             wanted = [i for i, t in enumerate(saved)
                       if t is not None and ctx.needs_input_grad[i]]
@@ -233,7 +250,7 @@ class _DeltaChunkFn(torch.autograd.Function):
             outs, cots = [y for y, _ in pairs], [ct for _, ct in pairs]
             grads = torch.autograd.grad(outs, [leaves[i] for i in wanted], cots,
                                         allow_unused=True)
-        result = [None] * 8
+        result = [None] * 9
         for i, gr in zip(wanted, grads):
             result[i] = gr
         return tuple(result)

@@ -303,23 +303,13 @@ def gated_delta_rule(
     where one is given (it may be `initial_state` itself).
 
     `segment_ids` (packed sequences) exist in the chunk form only, as in
-    the JAX package. Kernel C has no packed (varlen) path yet, so on a CUDA
-    tensor they raise; CPU tensors take the plain chunk form. Ids that only
-    mark padding after one sequence per row never come here (the training
+    the JAX package; they go through kernel C's packed path on a CUDA
+    tensor and its plain version on a CPU tensor. Ids that only mark
+    padding after one sequence per row never come here (the training
     losses keep them from this rule: train/step._layer_segments)."""
-    if segment_ids is not None:
-        if q.shape[1] <= recurrent_threshold:
-            raise ValueError("segment_ids only supported in chunk mode")
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "gated_delta_rule: kernel C (delta_rule_chunk_fused) has no packed "
-                f"(varlen) path yet; segment_ids on {q.device} are not supported. "
-                "Rows that hold several sequences (packing: true) train on the CPU; "
-                "rows of one sequence and tail padding train on the card"
-            )
-        o, s = delta_rule_chunk(q, k, v, g, beta, initial_state, scale,
-                                use_qk_l2norm, chunk_size, segment_ids)
-    elif q.shape[1] <= recurrent_threshold:
+    if segment_ids is not None and q.shape[1] <= recurrent_threshold:
+        raise ValueError("segment_ids only supported in chunk mode")
+    if q.shape[1] <= recurrent_threshold:
         o, s = delta_rule_recurrent(
             q, k, v, g, beta, initial_state, scale, use_qk_l2norm
         )
@@ -327,11 +317,11 @@ def gated_delta_rule(
         from .delta_kernels import delta_rule_chunk_fused  # imports this module
 
         return delta_rule_chunk_fused(
-            q, k, v, g, beta, initial_state, scale, chunk_size, out_state
+            q, k, v, g, beta, initial_state, scale, chunk_size, out_state, segment_ids
         )
     elif q.device.type == "cpu":
         o, s = delta_rule_chunk(
-            q, k, v, g, beta, initial_state, scale, False, chunk_size
+            q, k, v, g, beta, initial_state, scale, False, chunk_size, segment_ids
         )
     else:
         raise NotImplementedError(

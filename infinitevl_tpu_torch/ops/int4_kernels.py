@@ -21,6 +21,7 @@ SMS = 132  # streaming multiprocessors of an H100
 GEMV_COLS, GEMV_MIN_ROWS, GEMV_MAX_ROWS = 128, 64, 512  # columns / packed rows per block
 FMA_TILE, FMA_MIN_ROWS = 64, 128  # fp32 tiles: 64 x 64 outputs
 WGMMA_COLS, WGMMA_STAGE, WGMMA_MIN_ROWS = 128, 64, 128  # bf16: columns, packed rows per stage
+WGMMA_KSTEP = 16  # packed rows of one wgmma k-step
 WGMMA_ONE_GROUP_M = 64  # rows up to which one consumer warpgroup (64-row tiles) is taken
 TMA_ALIGN = 16  # bytes: x's base and row stride for the tensor map
 
@@ -104,6 +105,23 @@ def launch_plan(M: int, half: int, d_out: int,
     return tile_m, rpb, -(-half // rpb)
 
 
+ROUTES = {"fma": 0, "wgmma": 1, "wgmma_kstep": 2}  # the C entry's `route` codes
+
+
+def tile_kernel(half: int, G: int, dtype: torch.dtype) -> str:
+    """Which of kernel G's tile kernels serves M > 8 (the C entry launches
+    the one named by its `route`): "wgmma" (bf16; G = 1 or scale groups of whole
+    64-row stages: one scale fold per stage), "wgmma_kstep" (bf16; groups
+    of a multiple of 16 rows below a stage: a fold per 16-row k-step),
+    "fma" (fp32, and bf16 groups that split a k-step: 64 x 64 FMA tiles,
+    which fold at any group end). Every group that models/quant.py makes is
+    served."""
+    gs = half if G == 1 else half // (G // 2)
+    if dtype == torch.float32 or (G > 1 and gs % WGMMA_KSTEP):
+        return "fma"
+    return "wgmma" if G == 1 or gs % WGMMA_STAGE == 0 else "wgmma_kstep"
+
+
 def _stream_ptr(device: torch.device) -> int:
     """The current stream of `device` as the integer the C entry takes. The
     raw getter skips building a Stream object (microseconds, on a wrapper
@@ -139,7 +157,9 @@ def int4_matmul_fused(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
     M = out.numel() // d_out
     if M == 0:
         return out
-    tile_m, rpb, ks = launch_plan(M, half, d_out, x.dtype)
+    route = tile_kernel(half, G, x.dtype)
+    fma = route == "fma"
+    tile_m, rpb, ks = launch_plan(M, half, d_out, torch.float32 if fma else x.dtype)
     if x.is_contiguous():  # rows as they lie: no view is made
         x2, ldx = x, d_in
     else:
@@ -148,12 +168,7 @@ def int4_matmul_fused(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
             x2 = x2.contiguous()
         ldx = x2.stride(0)
     x_hi = half  # the column where x's high plane starts
-    if tile_m and x.dtype == torch.bfloat16:
-        if G != 1 and (half // (G // 2)) % WGMMA_STAGE:
-            raise ValueError(f"{name}: the bf16 tile kernel takes scale groups of whole "
-                             f"{WGMMA_STAGE}-row stages per plane, got {half // (G // 2)} "
-                             f"rows (quantize with a group size of a multiple of "
-                             f"{2 * WGMMA_STAGE}, or G = 1)")
+    if tile_m and not fma:
         if (ldx * 2) % TMA_ALIGN or x2.data_ptr() % TMA_ALIGN or (half * 2) % TMA_ALIGN:
             # TMA reads x at 16-byte boundaries: copy it with each plane
             # starting on one (d_in 3420: planes of 1710 columns = 3420 bytes)
@@ -173,7 +188,7 @@ def int4_matmul_fused(x: torch.Tensor, node: Dict[str, torch.Tensor]) -> torch.T
                 _DTYPES[x.dtype], x2.data_ptr(), ldx, x_hi, packed.data_ptr(),
                 scale.data_ptr(), out.data_ptr(),
                 partial.data_ptr() if partial is not None else None,
-                M, d_in, d_out, G, rpb, ks, tile_m, _stream_ptr(x.device),
+                M, d_in, d_out, G, rpb, ks, tile_m, ROUTES[route], _stream_ptr(x.device),
             ),
             name,
         )

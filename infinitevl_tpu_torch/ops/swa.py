@@ -158,3 +158,55 @@ def swa_cached_attention(
     if write_ring:
         ring_write(ring_k, ring_v, new_k, new_v, cum_len)
     return out
+
+
+def swa_cached_attention_split(
+    q: torch.Tensor,  # [B, T, Hq, D]
+    new_k: torch.Tensor,  # [B, T, Hkv, D]
+    new_v: torch.Tensor,
+    ring_k: torch.Tensor,  # [B, Hkv, cap, D] head-major
+    ring_v: torch.Tensor,
+    cum_len: int,
+    window: int,
+    split: int,
+    scale: Optional[float] = None,
+    tile: int = 64,
+) -> torch.Tensor:
+    """`swa_cached_attention` (without the ring write) as kernel A1's bf16
+    path computes it under split-KV: key tiles of `tile` keys, the ring's
+    then the new keys', split s taking tiles s, s + split, ...; each split's
+    partial softmax state (m, l, acc) in fp32 over its own keys (P rounded
+    to v's dtype before P V), then the splits combined in order s = 0, 1,
+    ...: M = max m_s, L = sum e^(m_s - M) l_s, out = sum e^(m_s - M) acc_s
+    / max(L, 1e-30). A split that sees no key adds nothing."""
+    B, T, Hq, D = q.shape
+    Hkv, cap = ring_k.shape[1], ring_k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D**-0.5
+    dev = q.device
+    q_pos = cum_len + torch.arange(T, device=dev)
+    k_pos = torch.cat([ring_slot_positions(cum_len, cap, dev), q_pos])
+    k_all = torch.cat([ring_k.transpose(1, 2), new_k.to(ring_k.dtype)], dim=1).to(q.dtype)
+    v_all = torch.cat([ring_v.transpose(1, 2), new_v.to(ring_v.dtype)], dim=1).to(q.dtype)
+    mask = sliding_window_mask(q_pos, k_pos, window)  # [T, cap + T]
+    n_ring = -(-cap // tile)
+    key = torch.arange(cap + T, device=dev)
+    tile_of = torch.where(key < cap, key // tile, n_ring + (key - cap) // tile)
+    qg = q.reshape(B, T, Hkv, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_all.float()) * scale
+    neg = -1e30  # the kernels' finite minus infinity
+    ms, ls, accs = [], [], []
+    for s in range(split):
+        vis = mask & (tile_of % split == s)[None]
+        m = torch.where(vis, logits, neg).amax(-1, keepdim=True)
+        p = torch.where(vis, torch.exp(logits - m), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_all.dtype), v_all).float())
+    big = torch.stack(ms).amax(0)
+    w = [torch.exp(m - big) for m in ms]
+    den = sum(wi * li for wi, li in zip(w, ls))
+    num = sum(wi * ai for wi, ai in zip(w, accs))
+    out = num / den.clamp(min=1e-30)  # [B, Hkv, G, T, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, D).to(q.dtype)

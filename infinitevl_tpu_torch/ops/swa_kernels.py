@@ -30,6 +30,10 @@ BWD_TILE = 64  # keys per block of H's bf16 dK/dV kernel
 BWD_TARGET_BLOCKS = 2 * 132  # dK/dV blocks wanted in flight: two per SM (measured on
 # an H100 at 3B: one split of the GQA sum at T 2,048 took 2.2x the best, and beyond
 # two blocks per SM the splits were level within the noise at T 2,048 to 8,192)
+KEY_TILE = 64  # keys per stage of the bf16 forward mainloop (A1, H)
+PREFILL_ROWS = 64  # query rows per block of A1's bf16 kernel
+PREFILL_TARGET_BLOCKS = 2 * 132  # A1 blocks wanted in flight: two per SM (measured on
+# an H100 at 3B: T 257 took 0.278 / 0.175 / 0.150 / 0.124 / 0.140 ms under splits 1-5)
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 
@@ -54,6 +58,33 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: device {t.device} is neither cpu nor cuda")
 
 
+class PrefillSplit(NamedTuple):
+    """How A1's bf16 kernel splits the key tiles (the ring's, then the new
+    keys') over blocks: split s takes tiles s, s + split, s + 2 split, ..."""
+    split: int
+    tiles_per_split: int  # at most; whole 64-key tiles
+    partial_shape: tuple  # fp32 scratch [split, B Hkv T G, D + 4]; () if split == 1
+    scratch_bytes: int
+
+
+def prefill_split_plan(B: int, T: int, Hq: int, Hkv: int, cap: int) -> PrefillSplit:
+    """The smallest split of A1's key tiles that gives at least
+    PREFILL_TARGET_BLOCKS blocks of (64 query rows, batch row, KV head,
+    split), and no more splits than key tiles. Each split writes
+    (m, l, acc) per query row in fp32; a combine pass adds the splits in
+    the order s = 0, 1, ..., so the result does not depend on the order the
+    blocks ran in."""
+    n_rows = T * (Hq // Hkv)
+    base = -(-n_rows // PREFILL_ROWS) * B * Hkv
+    n_tiles = -(-cap // KEY_TILE) + -(-T // KEY_TILE)
+    split = min(max(1, -(-PREFILL_TARGET_BLOCKS // base)), n_tiles)
+    if split == 1:
+        return PrefillSplit(1, n_tiles, (), 0)
+    shape = (split, B * Hkv * n_rows, HEAD_DIM + 4)
+    return PrefillSplit(split, -(-n_tiles // split), shape,
+                        4 * split * B * Hkv * n_rows * (HEAD_DIM + 4))
+
+
 def swa_ring_flash_attention(
     q: torch.Tensor,  # [B, T, Hq, D]
     new_k: torch.Tensor,  # [B, T, Hkv, D]
@@ -65,8 +96,10 @@ def swa_ring_flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Kernel A1: attention of T new queries over (ring ++ new keys) with
-    the sliding-window mask. Reads the ring; does not write it. Returns
-    [B, T, Hq, D] in q's dtype."""
+    the sliding-window mask. Reads the ring; does not write it. In bf16 the
+    key tiles are split over blocks where the query tiles alone leave the
+    card short (prefill_split_plan), with fp32 partials added in a fixed
+    order. Returns [B, T, Hq, D] in q's dtype."""
     name = "swa_ring_flash_attention"
     if _on_cpu(name, q):
         return swa_cached_attention(
@@ -88,16 +121,24 @@ def swa_ring_flash_attention(
                          f"[B, Hkv, cap, D]")
     if -(-T * (Hq // Hkv) // 32) > 65535:
         raise ValueError(f"{name}: T={T} too long for one launch; prefill in chunks")
+    if q.dtype == torch.bfloat16 and 64 % (Hq // Hkv):
+        raise ValueError(f"{name}: the bf16 kernel packs 64 / G tokens of the G = Hq / Hkv "
+                         f"query heads into a tile; G={Hq // Hkv} does not divide 64")
     if scale is None:
         scale = D**-0.5
     out = torch.empty_like(q)
+    plan = (prefill_split_plan(B, T, Hq, Hkv, cap) if q.dtype == torch.bfloat16
+            else PrefillSplit(1, 0, (), 0))
+    part = (torch.empty(plan.partial_shape, dtype=torch.float32, device=q.device)
+            if plan.split > 1 else None)
     lib = _build.load_library()
     with torch.cuda.device(q.device):  # launch on the tensors' card
         _build.check(
             lib.ivl_swa_prefill(
                 _DTYPES[q.dtype], q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
                 ring_k.data_ptr(), ring_v.data_ptr(), out.data_ptr(),
-                B, T, Hq, Hkv, D, cap, int(cum_len), int(window), float(scale),
+                None if part is None else part.data_ptr(),
+                B, T, Hq, Hkv, D, cap, int(cum_len), int(window), plan.split, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream,
             ),
             name,

@@ -24,6 +24,9 @@ from torch.utils.checkpoint import checkpoint
 from .swa import attention_dense
 
 NEG_INF = -1e30
+# fp32 score values that one group of `window_attention_chunked` may hold
+# (256 MB): the backward recomputes one group at a time
+WINDOW_SCORE_BUDGET = 1 << 26
 
 
 def _segment_chunk(qi, k, v, seg_q, seg, scale):
@@ -74,7 +77,8 @@ def window_attention_reference(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Batched dense attention over [nW, win_len] with the segment mask:
-    the plain version of kernel F. Scores live as [nW, H, L, L] fp32."""
+    the plain version of kernel F. Scores live as [nW, H, L, L] fp32;
+    `window_attention_chunked` is its twin for gradients."""
     S, H, D = q.shape
     if S % win_len:
         raise ValueError(f"sequence length {S} is not a multiple of win_len {win_len}")
@@ -86,6 +90,57 @@ def window_attention_reference(
         v.reshape(nW, win_len, H, D), mask, scale=scale,
     )
     return out.reshape(S, H, D)
+
+
+def _window_group(q, k, v, seg, win_len, scale):
+    """Whole windows of `window_attention_chunked`: [n * win_len, H, D]."""
+    S, H, D = q.shape
+    sw = seg.reshape(-1, win_len)
+    out = attention_dense(
+        q.reshape(-1, win_len, H, D), k.reshape(-1, win_len, H, D),
+        v.reshape(-1, win_len, H, D), sw[:, :, None] == sw[:, None, :], scale=scale)
+    return out.reshape(S, H, D)
+
+
+def window_attention_chunked(
+    q: torch.Tensor,  # [S, H, D] window order, S = nW * win_len
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg: torch.Tensor,  # [S] integer window ids (pads -2-w)
+    win_len: int,
+    scale: Optional[float] = None,
+    budget: int = WINDOW_SCORE_BUDGET,
+) -> torch.Tensor:
+    """`window_attention_reference` in groups of whole windows whose
+    [n, H, L, L] fp32 scores stay under `budget` values; a window whose own
+    scores exceed it is taken alone with its queries chunked
+    (`attention_segment_chunked` over the window). Under autograd every
+    group and query chunk is checkpointed, so the backward holds one
+    group's scores at a time: the differentiable twin of kernel F. When one
+    group holds every window it is the plain version itself (nothing to
+    recompute)."""
+    S, H, D = q.shape
+    if S % win_len:
+        raise ValueError(f"sequence length {S} is not a multiple of win_len {win_len}")
+    track = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    per_window = H * win_len * win_len
+    outs = []
+    if per_window > budget:
+        block_q = max(1, budget // (H * win_len))
+        for s0 in range(0, S, win_len):
+            w = slice(s0, s0 + win_len)
+            outs.append(attention_segment_chunked(q[w], k[w], v[w], seg[w], scale, block_q))
+        return torch.cat(outs, dim=0)
+    step = win_len * (budget // per_window)
+    if step >= S:
+        return _window_group(q, k, v, seg, win_len, scale)
+    for s0 in range(0, S, step):
+        g = slice(s0, s0 + step)
+        args = (q[g], k[g], v[g], seg[g], win_len, scale)
+        outs.append(checkpoint(_window_group, *args, use_reentrant=False) if track
+                    else _window_group(*args))
+    return torch.cat(outs, dim=0)
 
 
 def vit_full_attention(

@@ -17,7 +17,11 @@ from typing import Optional
 import torch
 
 from . import _build
-from .vit_flash import attention_segment_chunked, window_attention_reference
+from .vit_flash import (
+    attention_segment_chunked,
+    window_attention_chunked,
+    window_attention_reference,
+)
 
 HEAD_DIM = 80  # the head dim the kernel is written for
 
@@ -71,7 +75,9 @@ def _launch(name, q, k, v, seg, scale, win_len) -> torch.Tensor:
 
 class _VitFlashFn(torch.autograd.Function):
     """Kernel E or F with a gradient: the forward launches the kernel, the
-    backward recomputes the plain version under autograd."""
+    backward recomputes the checkpointed twin of the plain version under
+    autograd (E: query chunks; F: groups of windows), so no [nW, H, L, L]
+    or [H, S, S] score tensor exists."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, scale, win_len, wrapper):
@@ -87,7 +93,7 @@ class _VitFlashFn(torch.autograd.Function):
         with torch.enable_grad():
             ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
             if ctx.win_len:
-                out = window_attention_reference(ql, kl, vl, seg, ctx.win_len, ctx.scale)
+                out = window_attention_chunked(ql, kl, vl, seg, ctx.win_len, ctx.scale)
             else:
                 out = attention_segment_chunked(ql, kl, vl, seg, ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, (ql, kl, vl), d_out)

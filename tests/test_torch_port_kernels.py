@@ -309,8 +309,9 @@ def test_delta_chunk_wrapper_bf16_and_scratch_size():
     o32, s32 = delta_rule_chunk_fused(q.float(), k.float(), v.float(), g, beta)
     assert o.dtype == torch.bfloat16 and torch.equal(o, o32.bfloat16())
     assert torch.equal(s, s32)
-    # per (b, h, chunk): three [128, 64] tiles, one [64, 64], u [64, V], one scalar
-    assert chunk_scratch_floats(1, 257, 16, 256) == 16 * 5 * (3 * 8192 + 4096 + 64 * 256 + 1)
+    # per (b, h, chunk): three [128, 64] tiles, one [64, 64], u [64, V], two
+    # scalars (the carry e^{g_C} and the flag of a segment starting at the edge)
+    assert chunk_scratch_floats(1, 257, 16, 256) == 16 * 5 * (3 * 8192 + 4096 + 64 * 256 + 2)
 
 
 @pytest.mark.parametrize("S", [300, 512])

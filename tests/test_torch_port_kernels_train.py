@@ -222,8 +222,8 @@ def test_delta_chunk_autograd_matches_jax_grad(monkeypatch):
     s0 = rnd(rng, B, H, K, V, scale=0.3)
     cot = rnd(rng, B, T, H, V)
 
-    def fake_launch(q_, k_, v_, g_, b_, s_, scale, chunk, out_state):
-        assert out_state is None
+    def fake_launch(q_, k_, v_, g_, b_, s_, scale, chunk, out_state, segment_ids=None):
+        assert out_state is None and segment_ids is None
         return delta_rule_chunk(q_, k_, v_, g_, b_, s_, scale, True, chunk,
                                 compute_dtype=torch.float32)
 
