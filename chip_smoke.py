@@ -25,10 +25,15 @@ non-zero):
      wrappers of C, E and F against the plain versions', the ViT's gates
      measured, with its time beside the plain version's, its bound (the least
      time the card could take for the same bytes and operations) and,
-     where one PyTorch call computes the same function (A1, A2, D, E:
-     scaled_dot_product_attention with the explicit mask; G: one bf16
-     matmul on the dequantised weight), that call's time. The library call
-     is a yardstick only; the port never calls it
+     where one PyTorch call computes the same function (A1, A2, D, E, F:
+     scaled_dot_product_attention with the explicit mask, and for E and F
+     at their one-segment shapes also without it, on the flash backend;
+     G: one bf16 matmul on the dequantised weight), that call's time; E's
+     and F's device times in a CUDA graph, the consumer warpgroups a block
+     that the wrapper launched them with, and their key tiles by kind as the
+     walk's twin predicts them (ops/vit_kernels.vit_tile_walk; a prediction,
+     printed, not measured). The library call is a yardstick only;
+     the port never calls it
   4. cross-device check: a small fp32 model on the CPU (plain versions) and
      on the card (kernels), through Generator (text; then int4 + fused
      projections, and speculative against greedy decoding on the card) and
@@ -108,7 +113,9 @@ B_CASE = dict(L=27, H=16, K=128, V=256, Bs=(1, 4), layers=(0, 13, 26), timed=(1,
 C_CASE = dict(H=16, K=128, V=256, Bs=(1, 2), Ts=(257, 2048, 100), timed=(257, 2048))
 # kernel E at the ViT's shape (16 heads, head dim 80): S = 9216 is one
 # 1344x1344 image, S = 4100 a ragged length just above the model's gate
-E_CASE = dict(H=16, D=80, Ss=(9216, 4100), timed=9216)
+# (both three consumer warpgroups a block), S = 1024 one 448x448 frame and
+# 1000 a ragged length below it (two); timed at the image and the frame
+E_CASE = dict(H=16, D=80, Ss=(9216, 4100, 1024, 1000), timed=(9216, 1024))
 # kernel H at the SWA layer's shape (GQA 16/2, head dim 128): (T, window,
 # batch sizes); 8192 is the deployed window, T 4096 under a window of 1024
 # exercises the band's lower edge, 257 a ragged length. The plain version's
@@ -650,29 +657,60 @@ def _e_cases(dev, gen):
             errs[dtype].append(e)
             if dtype == torch.bfloat16:
                 mxs.append(max_abs(out, ref))
-    # timed at the main path's case: one 1344x1344 image is a single segment;
-    # q and k are dense after the rotation, v is a slice of the projection
-    S = c["timed"]
-    q, k = (torch.randn((S, H, D), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    v = torch.randn((S, 3, H, D), generator=gen, device=dev).to(torch.bfloat16)[:, 2]
-    seg = torch.zeros(S, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: segment_flash_attention(q, k, v, seg))
-    plain = time_ms(lambda: attention_segment_chunked(q, k, v, seg), reps=5)
-    mask = seg[:, None] == seg[None, :]
-    ref = attention_segment_chunked(q, k, v, seg)
-    e_lib = err_ratio(sdpa(q[None], k[None], v[None], mask)[0], ref)
-    require(e_lib <= BF16_TOL, f"E library call err_ratio {e_lib:.3g}")
-    lib = time_ms(lambda: sdpa(q[None], k[None], v[None], mask))
-    pairs = int((torch.bincount(seg - seg.min()).double() ** 2).sum())  # visible (q, k) pairs
-    bnd = bound(2 * 4 * S * H * D + 4 * S, 4 * H * D * pairs, PEAK_BF16_FLOPS)
     print(f"[3 parity] E segment_flash_attention: max err_ratio bf16 "
           f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
           f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}), S {c['Ss']}, 3 segments + "
-          f"pads; S {S}, one segment, bf16: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-          f"library {lib:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})",
-          flush=True)
-    return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+          f"pads", flush=True)
+    # timed at the main paths' cases: one 1344x1344 image and one 448x448
+    # frame are a single segment; q and k are dense after the rotation, v is
+    # a slice of the projection
+    timed = {}
+    for S in c["timed"]:
+        q, k = (torch.randn((S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        v = torch.randn((S, 3, H, D), generator=gen, device=dev).to(torch.bfloat16)[:, 2]
+        seg = torch.zeros(S, dtype=torch.int32, device=dev)
+        ms = time_ms(lambda: segment_flash_attention(q, k, v, seg))
+        dev_ms = time_graph_ms(lambda: segment_flash_attention(q, k, v, seg))
+        plain = time_ms(lambda: attention_segment_chunked(q, k, v, seg), reps=5)
+        mask = seg[:, None] == seg[None, :]
+        ref = attention_segment_chunked(q, k, v, seg)
+        for m in (mask, None):  # one segment: the unmasked call is the same function
+            e_lib = err_ratio(sdpa(q[None], k[None], v[None], m)[0], ref)
+            require(e_lib <= BF16_TOL, f"E library call (mask {m is not None}) err_ratio "
+                    f"{e_lib:.3g}")
+        lib = time_ms(lambda: sdpa(q[None], k[None], v[None], mask))
+        lib_flash = time_ms(lambda: sdpa(q[None], k[None], v[None], None))
+        pairs = int((torch.bincount(seg - seg.min()).double() ** 2).sum())  # visible pairs
+        bnd = bound(2 * 4 * S * H * D + 4 * S, 4 * H * D * pairs, PEAK_BF16_FLOPS)
+        timed[S] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                        library_unmasked_ms=lib_flash, **bnd)
+        print(f"[3 parity] E timed S {S}, one segment, bf16: kernel {ms:.3f} ms (device "
+              f"{dev_ms:.4f} ms), plain {plain:.3f} ms, library: SDPA with the mask "
+              f"{lib:.3f} ms, unmasked {lib_flash:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}); {_walk_line(seg, 0, H)}", flush=True)
+    main = c["timed"][0]
+    return dict(max_abs_err=max(mxs), **timed[main],
+                other_shapes={f"S{S}": r for S, r in timed.items() if S != main})
+
+
+def _walk_line(seg: torch.Tensor, win_len: int, H: int) -> str:
+    """The consumer warpgroups a block that the wrapper chooses for this
+    shape on this card (ops/vit_kernels.vit_warpgroups, passed to the
+    kernel), and the key tiles of one head's blocks by kind as the walk's
+    plain twin predicts them (ops/vit_kernels.vit_tile_walk): whole (no
+    per-element mask), skip (never loaded), mask."""
+    from infinitevl_tpu_torch.ops.vit_kernels import (
+        TILE, sm_count, vit_tile_walk, vit_warpgroups)
+
+    cwg = vit_warpgroups(seg.numel(), H, win_len, sm_count(seg.device.index))
+    counts = dict(whole=0, skip=0, mask=0)
+    for tiles in vit_tile_walk(seg, win_len, cwg * TILE):
+        for _, kind in tiles:
+            counts[kind] += 1
+    return (f"launched with {cwg} consumer warpgroup(s) a block; key tiles a head whole / "
+            f"skipped / masked as the walk's twin predicts them {counts['whole']} / "
+            f"{counts['skip']} / {counts['mask']}")
 
 
 def _g_cases(dev, gen):
@@ -1013,19 +1051,26 @@ def _f_cases(dev, gen):
         v = torch.randn((S, 3, H, D), generator=gen, device=dev).to(torch.bfloat16)[:, 2]
         seg = torch.arange(S, device=dev, dtype=torch.int32) // L
         ms = time_ms(lambda: window_flash_attention(q, k, v, seg, L))
+        dev_ms = time_graph_ms(lambda: window_flash_attention(q, k, v, seg, L))
         plain = time_ms(lambda: window_attention_reference(q, k, v, seg, L))
         nW = S // L
         qb, kb, vb = (x.reshape(nW, L, H, D) for x in (q, k, v))
         mask = (seg.reshape(nW, L)[:, :, None] == seg.reshape(nW, L)[:, None, :])[:, None]
-        e_lib = err_ratio(sdpa(qb, kb, vb, mask).reshape(S, H, D),
-                          window_attention_reference(q, k, v, seg, L))
-        require(e_lib <= BF16_TOL, f"F library call err_ratio {e_lib:.3g}")
+        ref = window_attention_reference(q, k, v, seg, L)
+        for m in (mask, None):  # one segment a window: the unmasked call is the same function
+            e_lib = err_ratio(sdpa(qb, kb, vb, m).reshape(S, H, D), ref)
+            require(e_lib <= BF16_TOL, f"F library call (mask {m is not None}) err_ratio "
+                    f"{e_lib:.3g}")
         lib = time_ms(lambda: sdpa(qb, kb, vb, mask))
+        lib_flash = time_ms(lambda: sdpa(qb, kb, vb, None))
         bnd = bound(2 * 4 * S * H * D + 4 * S, 4 * H * D * S * L, PEAK_BF16_FLOPS)
-        timed[(S, L)] = dict(ms=ms, plain_ms=plain, library_ms=lib, **bnd)
-        print(f"[3 parity] F timed S {S}, win_len {L}, bf16: kernel {ms:.3f} ms, plain "
-              f"(batched dense) {plain:.3f} ms, library {lib:.3f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
+        timed[(S, L)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                             library_unmasked_ms=lib_flash, **bnd)
+        print(f"[3 parity] F timed S {S}, win_len {L}, bf16: kernel {ms:.3f} ms (device "
+              f"{dev_ms:.4f} ms), plain (batched dense) {plain:.3f} ms, library: SDPA with "
+              f"the mask {lib:.3f} ms, unmasked {lib_flash:.3f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); {_walk_line(seg, L, H)}",
+              flush=True)
     print(f"[3 parity] F window_flash_attention: max err_ratio bf16 "
           f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
           f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}); (S, win_len) {c['cases']} "
@@ -1110,7 +1155,7 @@ def _grad_cases(dev, gen) -> dict:
         for gname, a, b_ in zip(("dq", "dk", "dv"), gk, gr):
             e = err_ratio(a, b_)
             require(e <= BF16_TOL, f"{name.upper()} autograd {gname} err_ratio {e:.3g}")
-    S = E_CASE["timed"]
+    S = E_CASE["timed"][0]
     q, k, v, cot = (mk(S, H, D) for _ in range(4))
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     seg = torch.zeros(S, dtype=torch.int32, device=dev)
@@ -1726,6 +1771,12 @@ def phase_stream_path(dev, card: str, params, cfg, profile: bool) -> tuple:
     require(stream_launches["delta_rule_chunk_fused"] == n_frames * tc.num_linear_layers,
             f"C launches {stream_launches['delta_rule_chunk_fused']}, expected "
             f"{n_frames} frames x {tc.num_linear_layers} layers")
+    n_full = len(vc.fullatt_block_indexes)
+    for name, per_frame in (("segment_flash_attention", n_full),
+                            ("window_flash_attention", vc.depth - n_full)):
+        require(stream_launches[name] == n_frames * per_frame,
+                f"{name} launches {stream_launches[name]}, expected {n_frames} frames x "
+                f"{per_frame} blocks")
     times = np.asarray(eng.frame_times_ms[1:])
     st = eng.stats()
 
@@ -1779,6 +1830,7 @@ def phase_stream_path(dev, card: str, params, cfg, profile: bool) -> tuple:
           f"peak memory over phases 5-6 {peak_gb:.2f} GB on '{card}'", flush=True)
     if profile:
         _profile_frames(eng, frames[:5], float(np.median(times)), card)
+        _profile_image_vit(params, cfg, pixels, grid, card)
     return stream_launches, image_launches
 
 
@@ -2654,6 +2706,29 @@ def _profile_frames(eng, frames, frame_ms: float, card: str) -> None:
           f"{count - vit_count} kernels on '{card}'", flush=True)
     for ms, n, name in rows[:12]:
         print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name}", flush=True)
+
+
+def _profile_image_vit(params, cfg, pixels, grid, card: str) -> None:
+    """Where the ViT's device time goes for one 1344x1344 image (S 9,216:
+    4 E launches, 28 window blocks): the high-resolution prefill's vision
+    part."""
+    from infinitevl_tpu_torch.models.vision import get_vision_plan, vision_forward
+
+    plan = get_vision_plan((tuple(int(x) for x in grid),), cfg.vision)
+    px = torch.as_tensor(pixels, device=params["visual"]["patch_embed"].device)
+
+    def vit():
+        return vision_forward(params["visual"], cfg.vision, px, plan)
+
+    wall = _host_ms(vit)
+    total, count, sums, rows = _device_profile(vit)
+    e_rows = [(ms, n, name) for ms, n, name in rows if "vit_flash" in name]
+    print(f"[profile] the ViT of one {HIRES_HW}x{HIRES_HW} image ({pixels.shape[0]} patches): "
+          f"{wall:.2f} ms unprofiled wall, device busy {total:.2f} ms, {count} device kernels; "
+          f"by kind (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in sums.items())
+          + "; E/F by name: " + ", ".join(f"{name[:60]} {ms:.3f} ms x{n}"
+                                          for ms, n, name in e_rows)
+          + f" on '{card}'", flush=True)
 
 
 def _profile_int4_frame(eng, frames, frame_ms: float, card: str) -> None:

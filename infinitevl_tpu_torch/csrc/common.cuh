@@ -89,7 +89,9 @@ __host__ __device__ __forceinline__ int pos_mod(int a, int m) {
 // wgmma reads are rows of 128 bytes in the 128-byte swizzle (the 16-byte
 // chunk c of row r lies at chunk c ^ (r % 8)), in blocks of 8 rows (1,024
 // bytes) whose base is 1,024-byte aligned; TMA writes that layout itself
-// (CU_TENSOR_MAP_SWIZZLE_128B).
+// (CU_TENSOR_MAP_SWIZZLE_128B). The ViT's head dim of 80 takes rows of 32
+// bytes in the 32-byte swizzle instead (chunk c of row r at c ^ (r / 4 %
+// 2), blocks of 8 rows = 256 bytes; CU_TENSOR_MAP_SWIZZLE_32B).
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -135,6 +137,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -155,12 +166,19 @@ __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// wgmma descriptor of a 128-byte-swizzled tile at `p`: `lbo` and `sbo` in
-// bytes. K-major: sbo = 1,024 (the next 8 rows), lbo unused. MN-major: sbo
-// = 1,024 (the next 8 rows of K), lbo = the step to the next 64 columns.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+// layout types of a wgmma descriptor (bits 62-63): the swizzle TMA wrote
+constexpr int GMMA_SW128 = 1;  // rows of 128 bytes, CU_TENSOR_MAP_SWIZZLE_128B
+constexpr int GMMA_SW32 = 3;   // rows of 32 bytes, CU_TENSOR_MAP_SWIZZLE_32B
+
+// wgmma descriptor of a swizzled tile at `p`: `lbo` and `sbo` in bytes.
+// 128-byte swizzle: K-major: sbo = 1,024 (the next 8 rows), lbo unused;
+// MN-major: sbo = 1,024 (the next 8 rows of K), lbo = the step to the next
+// 64 columns. 32-byte swizzle (16 bf16 a row): the same with sbo = 256 and,
+// MN-major, lbo = the step to the next 16 columns.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              int layout = GMMA_SW128) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)layout << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -241,6 +259,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 80] (+)= A B as wgmma_rs_n128, for a head dim of 80: B MN-major
+// in the 32-byte swizzle (five 16-column blocks)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

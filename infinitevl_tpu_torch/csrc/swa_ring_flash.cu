@@ -223,6 +223,8 @@ cudaError_t launch_prefill(const void* q, const void* nk, const void* nv,
 constexpr int A1_PART = HD + 4;  // floats per row of a partial: m, l, 2 unused, acc
 
 struct RingSrc {
+  static constexpr int D = HD, CWG = 1;
+  static constexpr bool FAST = false;
   static constexpr bool VOTE = false;  // invisible tiles are skipped before their TMA
   struct Row {
     int qp;

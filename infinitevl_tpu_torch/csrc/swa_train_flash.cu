@@ -435,6 +435,8 @@ __device__ __forceinline__ void fill_seg(int* dst, const int* segb, int t0, int 
 // without a per-element mask; with them a tile whose mask is empty for
 // every row skips its products after a vote.
 struct TrainSrc {
+  static constexpr int D = HD, CWG = 1;
+  static constexpr bool FAST = false;
   static constexpr bool VOTE = true;
   struct Row {
     int qp, seg;

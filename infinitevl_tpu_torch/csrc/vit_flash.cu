@@ -11,21 +11,19 @@
 // [S, 3, H, D] projection is read where it lies. The TPU wrapper's pad of
 // D to 128, its [H, S, Dp] transposes and its two replicated segment
 // arrays are layout artefacts and have no counterpart here. Keys past S
-// (the ragged last tile) get a segment id no query has.
+// (the ragged last tile) are never visible.
 //
 //   Bound on the H100: at S = 9216 (one 1344x1344 image), H = 16 the two
 //   products are 4 S^2 D H = 435 GFLOP against 94 MB of q, k, v and out,
-//   so the kernel is compute-bound. Two variants share tiling and mask:
-//   - bf16 (the model's dtype): tensor cores through mma.sync m16n8k16,
-//     D = 80 as five k-steps of 16. A block of 4 warps owns 64 query rows
-//     of one head; each warp keeps its 16 rows' Q fragments in registers,
-//     computes S = Q K^T for a 64-key tile staged in shared memory, runs
-//     the online softmax on the accumulator fragments and feeds P back as
-//     the A operand of O += P V (V staged transposed).
+//   so the kernel is compute-bound. Two variants:
+//   - bf16 (the model's dtype): the wgmma + TMA mainloop shared with A1
+//     and H's forward (swa_fwd_wgmma.cuh) at D = 80, with this file's
+//     VitSrc as its key source and mask (below). The tiles are five slabs
+//     of 16 columns in the 32-byte swizzle, so S = Q K^T is five k-steps
+//     and O += P V one m64n80 product per 16 keys: no column is padded.
 //   - fp32: plain FMA from shared memory (tiles of 64 keys reused by 32
-//     query rows); tensor cores would round fp32 operands.
-//   Both skip a key tile that no query row of the block may see (another
-//   image's or frame's segment) before loading it.
+//     query rows); tensor cores would round fp32 operands. It skips a key
+//     tile that no query row of the block may see before loading it.
 //
 // F replaces infinitevl_tpu/ops/vit_flash.py::window_flash_attention: the
 // same kernels entered with win_len > 0. The sequence is in window order,
@@ -39,15 +37,12 @@
 // upper bound (the TPU kernel's was a scoped-stack limit).
 #include <limits.h>
 
-#include "common.cuh"
+#include "swa_fwd_wgmma.cuh"
 
 namespace {
 
 using ivl::NEG_INF;
 using ivl::from_f;
-using ivl::ld32;
-using ivl::mma_bf16;
-using ivl::pack_bf16;
 using ivl::to_f;
 
 constexpr int VD = 80;            // head dim the kernels are written for
@@ -191,181 +186,208 @@ vit_flash_kernel(const T* __restrict__ q,  // [S, H, VD], rows sq elements apart
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int M_WARPS = 4;
-constexpr int M_BR = 16 * M_WARPS;  // query rows per block
-constexpr int M_BK = 64;            // keys per tile
-constexpr int KSTR = VD + 8;        // bf16 per row of Ks[key][d] (conflict-free B loads)
-constexpr int VSTR = M_BK + 8;      // bf16 per row of Vt[d][key]
+// The shared mainloop at D = 80 with the packed sequence as its key
+// source: a block owns 64 CWG query rows (tokens q0 ..) of one head, one
+// consumer warpgroup per 64, and walks the key tiles of key_range (every
+// tile for E; for F the windows its rows lie in). Where the walk's tiles
+// line up with the windows (E, and F when win_len is a multiple of 64) the
+// block first takes each walked tile's interval [min, max] of segment ids
+// over its real keys into shared memory; the rows' interval is that of the
+// block's own tiles, which the walk holds. A tile is then
+//   skipped  when its interval and the rows' are disjoint: no key shares a
+//            segment with any row (producer and consumers read the same
+//            table, so they agree);
+//   whole    when both are full tiles of one and the same id and, for F,
+//            the block's rows lie in one window (win_len a multiple of
+//            64 CWG; the walk is then that window): every pair is
+//            visible, so the softmax takes no per-element mask;
+//   masked   otherwise: per element, from the keys' ids that the producer
+//            stages beside K and V; a key outside the row's window or past
+//            S is never seen (TMA's zero fill of K and V is no mask).
+// Other win_len (windows that straddle a tile) take the element mask on
+// every tile. A masked tile whose mask is empty for every row of a
+// warpgroup skips its products there (VOTE). ops/vit_kernels.vit_tile_walk
+// is the walk's twin.
+//   The kernel streams K and V from L2 once per block (S / 64 tiles of
+// 20 KB at E's S 9,216); on an H100 that stream alone took as long as the
+// whole kernel with one consumer warpgroup, so E (and F at long windows)
+// take CWG 2 or 3 and one load serves 128 or 192 rows. The caller chooses
+// CWG (ops/vit_kernels.vit_warpgroups).
+using bf16 = __nv_bfloat16;
+using VTile = ivl::FwTile<VD>;
 
-// Fragment layout of m16n8k16: see ivl::mma_bf16. The S accumulators s[nt]
-// cover keys nt*8 .. nt*8+7 of the tile.
-__global__ void __launch_bounds__(32 * M_WARPS)
-vit_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,  // [S, H, VD], rows sq apart
-                     const __nv_bfloat16* __restrict__ k,  // rows sk apart
-                     const __nv_bfloat16* __restrict__ v,  // rows sv apart
-                     const int* __restrict__ seg,          // [S]
-                     __nv_bfloat16* __restrict__ out,      // [S, H, VD] contiguous
-                     int S, int H, size_t sq, size_t sk, size_t sv, float scale,
-                     int win_len) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[M_BK * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vt[VD * VSTR];
-  __shared__ int segs[M_BK];
-  __shared__ int wins[M_BK];
-
-  const int h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-
-  // this thread's two query rows: gid and gid + 8 of the warp's 16
-  bool rok[2];
-  int my_seg[2], my_win[2];
-  size_t qoff[2], ooff[2];
+// the 64 x 80 tile of head h at tokens t0 ..: five copies of a 64 x 16 slab
+// (TMA's zeros past S)
+__device__ __forceinline__ void slab_load(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int h, int t0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = blockIdx.x * M_BR + warp * 16 + gid + 8 * i;
-    rok[i] = row < S;
-    my_seg[i] = rok[i] ? seg[row] : 0;
-    my_win[i] = win_len > 0 ? row / win_len : 0;
-    qoff[i] = (size_t)(rok[i] ? row : 0) * sq + h * VD;
-    ooff[i] = ((size_t)(rok[i] ? row : 0) * H + h) * VD;
+  for (int g = 0; g < VD / 16; ++g)
+    ivl::tma_load_3d(dst + g * VTile::SLAB, map, bar, 16 * g, h, t0);
+}
+
+template <int CWG_>
+struct VitSrc {
+  static constexpr int D = VD, CWG = CWG_, ROWS = ivl::FW_T * CWG_;
+  static constexpr bool VOTE = true, FAST = true;
+  struct Row {
+    int seg, lo, hi;  // the row's segment id; its window's keys [lo, hi)
+    bool ok;
+  };
+  const CUtensorMap *qmap, *kmap, *vmap;
+  const int* seg;
+  const int2* range;  // shared memory: [min, max] id of each walked tile (ranged walks)
+  bf16* out;
+  int2 rows;  // [min, max] id of the block's real rows (ranged walks)
+  int S, H, h, q0, kb, n, win_len;
+  bool ranged;
+
+  __device__ int count() const { return n; }
+  __device__ bool skip(int i) const {
+    if (!ranged) return false;
+    const int2 t = range[i];
+    return t.y < rows.x || t.x > rows.y;
   }
-  uint32_t qf[VD / 16][4];  // A fragments of the warp's 16 x VD query tile
-#pragma unroll
-  for (int ks = 0; ks < VD / 16; ++ks) {
-    const int d = ks * 16 + 2 * tig;
-    qf[ks][0] = rok[0] ? ld32(q + qoff[0] + d) : 0u;
-    qf[ks][1] = rok[1] ? ld32(q + qoff[1] + d) : 0u;
-    qf[ks][2] = rok[0] ? ld32(q + qoff[0] + d + 8) : 0u;
-    qf[ks][3] = rok[1] ? ld32(q + qoff[1] + d + 8) : 0u;
+  // (for F only where the block's rows lie in one window, which the walk
+  // then is: win_len a multiple of ROWS)
+  __device__ bool whole(int i) const {
+    if (!ranged || win_len % ROWS) return false;
+    const int2 t = range[i];
+    return q0 + ROWS <= S && kb + (i + 1) * ivl::FW_T <= S && rows.x == rows.y &&
+           t.x == t.y && t.x == rows.x;
   }
-
-  float o[VD / 8][4];
+  __device__ void load_q(unsigned char* Qs, uint64_t* bar) const {
+    ivl::mbar_arrive_tx(bar, CWG * VTile::BYTES);
 #pragma unroll
-  for (int dt = 0; dt < VD / 8; ++dt)
+    for (int w = 0; w < CWG; ++w)
+      slab_load(Qs + w * VTile::BYTES, qmap, bar, h, q0 + w * ivl::FW_T);
+  }
+  __device__ void load(int i, unsigned char* st, uint64_t* bar, int lane) const {
+    const int k0 = kb + i * ivl::FW_T;
+    if (!whole(i)) {  // the keys' ids for the element mask
+      int* ids = reinterpret_cast<int*>(st + 2 * VTile::BYTES);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+      for (int r = lane; r < ivl::FW_T; r += 32) ids[r] = k0 + r < S ? seg[k0 + r] : SEG_NONE;
+    }
+    if (lane == 0) {
+      ivl::mbar_arrive_tx(bar, 2 * VTile::BYTES);
+      slab_load(st, kmap, bar, h, k0);
+      slab_load(st + VTile::BYTES, vmap, bar, h, k0);
+    } else {
+      ivl::mbar_arrive(bar);
+    }
+  }
+  __device__ Row row(int r) const {
+    const int qp = q0 + r;
+    const bool ok = qp < S;
+    const int lo = win_len > 0 ? qp / win_len * win_len : 0;
+    return Row{ok ? seg[qp] : 0, lo, win_len > 0 ? min(lo + win_len, S) : S, ok};
+  }
+  __device__ bool sees(int i, const unsigned char* st, const Row& w, int kl) const {
+    const int kp = kb + i * ivl::FW_T + kl;
+    return w.ok && kp >= w.lo && kp < w.hi &&
+           reinterpret_cast<const int*>(st + 2 * VTile::BYTES)[kl] == w.seg;
+  }
+  __device__ void store(int r, int tig, const float (&acc)[VTile::ACC], const float (&)[2],
+                        const float (&l)[2]) const {
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int qp = q0 + r + 8 * ii;
+      if (qp >= S) continue;
+      const float inv = 1.f / fmaxf(l[ii], 1e-30f);
+      bf16* o = out + ((size_t)qp * H + h) * VD + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < VD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(o + 8 * j) =
+            ivl::pack_bf16(acc[4 * j + 2 * ii] * inv, acc[4 * j + 2 * ii + 1] * inv);
+    }
+  }
+};
 
-  const KeyRange kr = key_range(blockIdx.x * M_BR, M_BR, S, win_len);
-  for (int k0 = kr.begin; k0 < kr.end; k0 += M_BK) {
-    __syncthreads();  // the previous tile's readers are done
-    if (threadIdx.x < M_BK) {
-      const int j = k0 + threadIdx.x;
-      segs[threadIdx.x] = j < kr.end ? seg[j] : SEG_NONE;
-      wins[threadIdx.x] = win_len > 0 ? j / win_len : 0;
+// intervals a block keeps where the walk's tiles line up with the windows
+// (E; F at win_len a multiple of 64): the most tiles a walk of `rows` query
+// rows holds (every tile for E; for F the windows the rows may touch), 0
+// when the windows straddle tiles
+int range_tiles(int S, int win_len, int rows) {
+  if (win_len % ivl::FW_T) return 0;
+  const int all = (S + ivl::FW_T - 1) / ivl::FW_T;
+  if (win_len == 0) return all;
+  const long long walk = (long long)((rows - 1) / win_len + 2) * (win_len / ivl::FW_T);
+  return walk < all ? (int)walk : all;
+}
+
+// grid: (block of 64 CWG query rows, head); one block an SM with two or
+// three consumer warpgroups, two with one
+template <int CWG>
+__global__ void __launch_bounds__(ivl::fw_threads(CWG), CWG == 1 ? 2 : 1)
+vit_flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                       bf16* __restrict__ out, int S, int H, int win_len, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = ivl::aligned_smem(smem_raw);
+  int2* range = reinterpret_cast<int2*>(sm + ivl::fw_smem_used<VD, CWG>());
+  VitSrc<CWG> src;
+  src.qmap = &qmap;
+  src.kmap = &kmap;
+  src.vmap = &vmap;
+  src.seg = seg;
+  src.range = range;
+  src.out = out;
+  src.S = S;
+  src.H = H;
+  src.h = blockIdx.y;
+  src.win_len = win_len;
+  src.q0 = blockIdx.x * src.ROWS;
+  const KeyRange kr = key_range(src.q0, src.ROWS, S, win_len);
+  src.kb = kr.begin;
+  src.n = (kr.end - kr.begin + ivl::FW_T - 1) / ivl::FW_T;
+  src.ranged = win_len % ivl::FW_T == 0;
+  if (src.ranged) {  // block-uniform: each warp takes every (4 CWG + 1)-th tile
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll 4
+    for (int i = warp; i < src.n; i += ivl::fw_threads(CWG) / 32) {
+      const int k0 = src.kb + i * ivl::FW_T;
+      const bool va = k0 + lane < S, vb = k0 + 32 + lane < S;  // key k0 < S is real
+      const int a = va ? __ldg(seg + k0 + lane) : 0;
+      const int b = vb ? __ldg(seg + k0 + 32 + lane) : 0;
+      const int lo = __reduce_min_sync(0xffffffffu, min(va ? a : INT_MAX, vb ? b : INT_MAX));
+      const int hi = __reduce_max_sync(0xffffffffu, max(va ? a : INT_MIN, vb ? b : INT_MIN));
+      if (lane == 0) range[i] = make_int2(lo, hi);
     }
     __syncthreads();
-    uint32_t vis = 0;  // bit i*16 + nt*2 + e: row i, key k0 + nt*8 + 2*tig + e
+    // the rows' interval: their tiles in the walk (none past S)
+    const int rt = (src.q0 - src.kb) / ivl::FW_T;
+    src.rows = range[rt];
 #pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key_seg = segs[nt * 8 + 2 * tig + e];
-        const int key_win = wins[nt * 8 + 2 * tig + e];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (rok[i] && key_seg == my_seg[i] && key_win == my_win[i])
-            vis |= 1u << (i * 16 + nt * 2 + e);
-      }
-    if (!__syncthreads_or(vis != 0u)) continue;
-
-    for (int c = threadIdx.x; c < M_BK * VD / 8; c += 32 * M_WARPS) {
-      const int key = c / (VD / 8), d0 = (c % (VD / 8)) * 8;
-      const int j = k0 + key;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (j < S) {
-        kv = *reinterpret_cast<const uint4*>(k + (size_t)j * sk + h * VD + d0);
-        vv = *reinterpret_cast<const uint4*>(v + (size_t)j * sv + h * VD + d0);
-      }
-      *reinterpret_cast<uint4*>(&Ks[key * KSTR + d0]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(d0 + e) * VSTR + key] = ve[e];
-    }
-    __syncthreads();
-
-    float s[M_BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = Ks + (nt * 8 + gid) * KSTR + 2 * tig;
-#pragma unroll
-      for (int ks = 0; ks < VD / 16; ++ks)
-        mma_bf16(s[nt], qf[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-    }
-
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool vb = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-          s[nt][2 * i + e] = vb ? s[nt][2 * i + e] * scale : NEG_INF;
-          mx[i] = fmaxf(mx[i], s[nt][2 * i + e]);
-        }
-    float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // the 4 lanes of a row group share the row
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      alpha[i] = expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < M_BK / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool vb = (vis >> (i * 16 + nt * 2 + e)) & 1u;
-          const float p = vb ? expf(s[nt][2 * i + e] - m_r[i]) : 0.f;
-          s[nt][2 * i + e] = p;
-          psum[i] += p;
-        }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-      l_r[i] = l_r[i] * alpha[i] + psum[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < VD / 8; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P V: P (bf16, as the Pallas kernel's p.astype(v.dtype)) is the
-    // A operand straight from the S accumulators, 16 keys per k-step
-#pragma unroll
-    for (int kk = 0; kk < M_BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < VD / 8; ++dt) {
-        const __nv_bfloat16* vrow = Vt + (dt * 8 + gid) * VSTR + kk * 16 + 2 * tig;
-        mma_bf16(o[dt], a, ld32(vrow), ld32(vrow + 8));
-      }
-    }
+    for (int w = 1; w < CWG; ++w)
+      if (rt + w < src.n)
+        src.rows = make_int2(min(src.rows.x, range[rt + w].x), max(src.rows.y, range[rt + w].y));
   }
+  ivl::fwd_mainloop(src, sm, scale);
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!rok[i]) continue;
-    const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
-    __nv_bfloat16* orow = out + ooff[i] + 2 * tig;
-#pragma unroll
-    for (int dt = 0; dt < VD / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
-  }
+template <int CWG>
+cudaError_t launch_wgmma(const CUtensorMap* maps, const void* seg, void* out, int S, int H,
+                         int win_len, float scale, cudaStream_t st) {
+  const int smem = ivl::fw_smem<VD, CWG>() + 8 * range_tiles(S, win_len, ivl::FW_T * CWG);
+  cudaError_t err = cudaFuncSetAttribute(vit_flash_wgmma_kernel<CWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int rows = ivl::FW_T * CWG;
+  vit_flash_wgmma_kernel<CWG><<<dim3((S + rows - 1) / rows, H), ivl::fw_threads(CWG), smem, st>>>(
+      maps[0], maps[1], maps[2], (const int*)seg, (bf16*)out, S, H, win_len, scale);
+  return cudaGetLastError();
+}
+
+// a 3-D map over [S, H, 80] bf16 (tokens `stride` elements apart, a token's
+// [H, 80] dense) with boxes of 16 columns x 1 head x 64 tokens in the
+// 32-byte swizzle
+bool vit_map(CUtensorMap* map, const void* base, int S, int H, long long stride) {
+  const cuuint64_t dims[3] = {VD, (cuuint64_t)H, (cuuint64_t)S};
+  const cuuint64_t strides[2] = {VD * 2, (cuuint64_t)stride * 2};
+  const cuuint32_t box[3] = {16, 1, ivl::FW_T};
+  return ivl::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 }  // namespace
@@ -376,12 +398,13 @@ extern "C" {
 // of win_len consecutive tokens). sq, sk, sv: elements between consecutive
 // tokens of q, k, v
 // (H * D when contiguous); within a token the layout is [H, D]. For bf16
-// they must be multiples of 8, and the pointers 16-byte aligned. Returns a
-// cudaError_t code (0 = success).
+// (TMA) they must be multiples of 8, and the pointers 16-byte aligned, and
+// cwg (1, 2 or 3) is the consumer warpgroups of a block, 64 query rows
+// each; fp32 ignores it. Returns a cudaError_t code (0 = success).
 int ivl_vit_flash(int dtype, const void* q, const void* k, const void* v,
                   const void* seg, void* out, int S, int H, int D,
                   long long sq, long long sk, long long sv, float scale,
-                  int win_len, void* stream) {
+                  int win_len, int cwg, void* stream) {
   if (D != VD || S <= 0 || H <= 0 || H > 65535 || sq < H * D || sk < H * D ||
       sv < H * D || win_len < 0)
     return (int)cudaErrorInvalidValue;
@@ -397,14 +420,19 @@ int ivl_vit_flash(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
   }
   if (dtype == ivl::DTYPE_BF16) {
-    using bf = __nv_bfloat16;
+    // TMA: row strides and base pointers on 16 bytes
     if (sq % 8 || sk % 8 || sv % 8 || (uintptr_t)q % 16 || (uintptr_t)k % 16 ||
-        (uintptr_t)v % 16)
-      return (int)cudaErrorInvalidValue;  // the 16-byte tile loads
-    vit_flash_mma_kernel<<<dim3((S + M_BR - 1) / M_BR, H), 32 * M_WARPS, 0, st>>>(
-        (const bf*)q, (const bf*)k, (const bf*)v, (const int*)seg, (bf*)out, S, H,
-        (size_t)sq, (size_t)sk, (size_t)sv, scale, win_len);
-    return (int)cudaGetLastError();
+        (uintptr_t)v % 16 || cwg < 1 || cwg > 3)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap maps[3];
+    if (!vit_map(&maps[0], q, S, H, sq) || !vit_map(&maps[1], k, S, H, sk) ||
+        !vit_map(&maps[2], v, S, H, sv))
+      return (int)cudaErrorInvalidValue;
+    switch (cwg) {
+      case 1: return (int)launch_wgmma<1>(maps, seg, out, S, H, win_len, scale, st);
+      case 2: return (int)launch_wgmma<2>(maps, seg, out, S, H, win_len, scale, st);
+      default: return (int)launch_wgmma<3>(maps, seg, out, S, H, win_len, scale, st);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

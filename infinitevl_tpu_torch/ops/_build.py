@@ -109,7 +109,7 @@ def load_library() -> ctypes.CDLL:
     lib.ivl_delta_step.restype = I
     lib.ivl_delta_chunk.argtypes = [I, P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F, P]
     lib.ivl_delta_chunk.restype = I
-    lib.ivl_vit_flash.argtypes = [I, P, P, P, P, P, I, I, I, L, L, L, F, I, P]
+    lib.ivl_vit_flash.argtypes = [I, P, P, P, P, P, I, I, I, L, L, L, F, I, I, P]
     lib.ivl_vit_flash.restype = I
     lib.ivl_int4_matmul.argtypes = [I, P, L, I, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.ivl_int4_matmul.restype = I
