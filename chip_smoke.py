@@ -5,14 +5,16 @@ NVIDIA H100.
     python3 chip_smoke.py                 # all phases; needs one CUDA card and nvcc
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and kernel parity
     python3 chip_smoke.py --profile       # all phases, plus torch.profiler breakdowns
-                                          # of three steady frames and one LoRA step
+                                          # of one decode step, three steady frames
+                                          # and one LoRA step
     python3 chip_smoke.py --kernels-only --only=h,f  # a subset of phase 3
     python3 chip_smoke.py --train-only    # phases 1-3, then the training phases alone
+    python3 chip_smoke.py --text-only --profile --only=a2,d,b  # phases 1-3, then 5
 
---kernels-only and --train-only are shortcuts for work on one part: they
-stop before the `kernels` line, the card's line and the final `{"ok": ...}`
-line, so only the run without them is the whole check. --only= is taken
-with one of the two and refused otherwise.
+--kernels-only, --text-only and --train-only are shortcuts for work on one
+part: they stop before the `kernels` line, the card's line and the final
+`{"ok": ...}` line, so only the run without them is the whole check. --only=
+is taken with one of the three and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -32,8 +34,12 @@ non-zero):
      and F's device times in a CUDA graph, the consumer warpgroups a block
      that the wrapper launched them with, and their key tiles by kind as the
      walk's twin predicts them (ops/vit_kernels.vit_tile_walk; a prediction,
-     printed, not measured). The library call is a yardstick only;
-     the port never calls it
+     printed, not measured); A2's and D's device times in a CUDA graph
+     with the rings L2-cold (rotated over 9) at B 1 and 4, beside masked
+     and unmasked SDPA timed the same way with the token's write on both
+     sides, A2 in bf16 and fp32 under two windows and two calls held bit
+     for bit; B's device time with the state L2-cold. The library call is
+     a yardstick only; the port never calls it
   4. cross-device check: a small fp32 model on the CPU (plain versions) and
      on the card (kernels), through Generator (text; then int4 + fused
      projections, and speculative against greedy decoding on the card) and
@@ -43,7 +49,8 @@ non-zero):
   5. text path: the InfiniteVL-3B decoder (bf16, random weights from seed 0)
      answering three requests through Generator (full depth; prompts of
      50, 1,000 and 9,000 tokens, 32 new tokens each: nothing was cut to
-     make room for phase 6)
+     make room for phase 6); under --profile one decode step after the
+     9,000-token request (the ring full) by kernel
   6. streaming path, at full 3B width and depth (ViT 32 blocks, decoder 36
      layers): StreamingEngine at 448x448, prime, 48 raw frames (the ring
      wraps after 32), an `ask` in the middle and one at the end, the
@@ -105,8 +112,21 @@ PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 A1_CASE = dict(Bs=(1, 2), Hq=16, Hkv=2, cap=8192, Ts=(257, 2048),
                cums=(0, 5000, 20000), split_T=257,
                timed=((1, 257, 20000), (1, 2048, 20000)))
+# A2 and D: parity in bf16 and fp32 under the deployed window (= cap) and a
+# window of half the ring (its lower edge inside the ring); the wrapper timed
+# at (B, cum_len); device times L2-cold at (B, cum_len, window), the first
+# the main one
 A2_CASE = dict(S=9, Hq=16, Hkv=2, cap=8192, Bs=(1, 4),
-               cums=(0, 8191, 8192, 20000), timed=(1, 20000))
+               cums=(0, 8191, 8192, 20000), windows=(8192, 4096), timed=(1, 20000),
+               cold=((1, 20000, 8192), (4, 20000, 8192), (1, 20000, 4096)),
+               # shapes the wrapper takes beyond 3B's: (B, Hq, Hkv, cap, window,
+               # cum_len) with 4 and 16 query heads a KV head (a padded n-tile, two
+               # n-tiles) and rings of no multiple of the 64-slot tile
+               extra=((1, 8, 2, 8192, 8192, 20000), (2, 32, 2, 8192, 8192, 20000),
+                      (2, 16, 2, 8000, 8000, 20000), (1, 16, 2, 8000, 3000, 7999)))
+# decode split plans timed beside the wrapper's own (A2, cold): (SMs a
+# block, least tiles a split)
+DECODE_PLANS = ((1, 2), (2, 1), (2, 2), (2, 4), (4, 2))
 B_CASE = dict(L=27, H=16, K=128, V=256, Bs=(1, 4), layers=(0, 13, 26), timed=(1, 13))
 # kernel C at the DeltaNet layer's shape (16 heads, K 128, V 256): a 448x448
 # frame is T = 257, a chunked-prefill chunk T = 2048, T = 100 a ragged tail
@@ -401,52 +421,203 @@ def _a2_cases(dev, gen):
 
     c = A2_CASE
     S, Hq, Hkv, D, cap = c["S"], c["Hq"], c["Hkv"], 128, c["cap"]
-    errs, mxs = [], []
-    for B in c["Bs"]:
-        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
-        rks, rvs = mk(S, B, Hkv, cap, D), mk(S, B, Hkv, cap, D)
-        for i, cum in enumerate(c["cums"]):
-            layer = (3 * i + B) % S
-            q, nk, nv = mk(B, 1, Hq, D), mk(B, 1, Hkv, D), mk(B, 1, Hkv, D)
-            k_krn, v_krn = rks.clone(), rvs.clone()
-            k_ref, v_ref = rks.clone(), rvs.clone()
-            out = swa_ring_flash_decode_stacked(q, nk, nv, k_krn, v_krn, layer, cum, cap)
-            ref = swa_cached_attention(q, nk, nv, k_ref[layer], v_ref[layer], cum, cap,
+    errs, mxs = {torch.bfloat16: [], torch.float32: []}, []
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for B in c["Bs"]:
+            mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+            rks, rvs = mk(S, B, Hkv, cap, D), mk(S, B, Hkv, cap, D)
+            for window in c["windows"]:
+                for i, cum in enumerate(c["cums"]):
+                    layer = (3 * i + B) % S
+                    q, nk, nv = mk(B, 1, Hq, D), mk(B, 1, Hkv, D), mk(B, 1, Hkv, D)
+                    k_krn, v_krn = rks.clone(), rvs.clone()
+                    k_ref, v_ref = rks.clone(), rvs.clone()
+                    out = swa_ring_flash_decode_stacked(q, nk, nv, k_krn, v_krn, layer, cum,
+                                                        window)
+                    ref = swa_cached_attention(q, nk, nv, k_ref[layer], v_ref[layer], cum,
+                                               window, write_ring=False)
+                    ring_write_stacked(k_ref, v_ref, layer, nk, nv, cum)
+                    torch.cuda.synchronize()
+                    e = err_ratio(out, ref)
+                    what = f"A2 {dtype} B={B} window={window} cum={cum} layer={layer}"
+                    require(e <= tol, f"{what} err_ratio {e:.3g}")
+                    require(torch.equal(k_krn, k_ref) and torch.equal(v_krn, v_ref),
+                            f"{what}: stacked rings differ from the plain write")
+                    # bit-reproducible: the same call on equal inputs
+                    k_two, v_two = rks.clone(), rvs.clone()
+                    out_two = swa_ring_flash_decode_stacked(q, nk, nv, k_two, v_two, layer,
+                                                            cum, window)
+                    require(torch.equal(out_two, out) and torch.equal(k_two, k_krn)
+                            and torch.equal(v_two, v_krn), f"{what}: two calls differ")
+                    errs[dtype].append(e)
+                    if dtype == torch.bfloat16:
+                        mxs.append(max_abs(out, ref))
+                    if (dtype, B, cum, window) == (torch.bfloat16, *c["timed"], cap):
+                        ms = time_ms(lambda: swa_ring_flash_decode_stacked(
+                            q, nk, nv, k_krn, v_krn, layer, cum, cap))
+
+                        def plain_fn():
+                            swa_cached_attention(q, nk, nv, k_ref[layer], v_ref[layer], cum,
+                                                 cap, write_ring=False)
+                            ring_write_stacked(k_ref, v_ref, layer, nk, nv, cum)
+
+                        plain = time_ms(plain_fn)
+                        # the library call over the ring after the write
+                        G = Hq // Hkv
+                        k_pos = ring_slot_positions(cum + 1, cap, dev)
+                        mask = sliding_window_mask(torch.tensor([cum], device=dev), k_pos, cap)
+                        k_all = k_ref[layer].transpose(1, 2).repeat_interleave(G, 2)
+                        v_all = v_ref[layer].transpose(1, 2).repeat_interleave(G, 2)
+                        e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
+                        require(e_lib <= BF16_TOL, f"A2 library call err_ratio {e_lib:.3g}")
+                        lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
+                        del k_all, v_all
+            del rks, rvs, k_krn, v_krn, k_ref, v_ref, k_two, v_two
+        for B, hq, hkv, cp, window, cum in c["extra"]:
+            mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+            rks, rvs = mk(2, B, hkv, cp, D), mk(2, B, hkv, cp, D)
+            q, nk, nv = mk(B, 1, hq, D), mk(B, 1, hkv, D), mk(B, 1, hkv, D)
+            ref = swa_cached_attention(q, nk, nv, rks[1], rvs[1], cum, window,
                                        write_ring=False)
-            ring_write_stacked(k_ref, v_ref, layer, nk, nv, cum)
+            k_ref, v_ref = rks.clone(), rvs.clone()
+            ring_write_stacked(k_ref, v_ref, 1, nk, nv, cum)
+            out = swa_ring_flash_decode_stacked(q, nk, nv, rks, rvs, 1, cum, window)
             torch.cuda.synchronize()
             e = err_ratio(out, ref)
-            require(e <= BF16_TOL, f"A2 B={B} cum={cum} layer={layer} err_ratio {e:.3g}")
-            require(torch.equal(k_krn, k_ref) and torch.equal(v_krn, v_ref),
-                    f"A2 B={B} cum={cum}: stacked rings differ from the plain write")
-            errs.append(e)
-            mxs.append(max_abs(out, ref))
-            if (B, cum) == c["timed"]:
-                ms = time_ms(lambda: swa_ring_flash_decode_stacked(
-                    q, nk, nv, k_krn, v_krn, layer, cum, cap))
+            what = f"A2 {dtype} (B, Hq, Hkv, cap, window, cum_len) {(B, hq, hkv, cp, window, cum)}"
+            require(e <= tol, f"{what} err_ratio {e:.3g}")
+            require(torch.equal(rks, k_ref) and torch.equal(rvs, v_ref),
+                    f"{what}: stacked rings differ from the plain write")
+            errs[dtype].append(e)
+    print(f"[3 parity] A2 swa_ring_flash_decode_stacked: max err_ratio bf16 "
+          f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}) over B {c['Bs']} x window "
+          f"{c['windows']} x cum_len {c['cums']} and (B, Hq, Hkv, cap, window, cum_len) "
+          f"{c['extra']}; rings bit-equal to the plain write, two calls bit-equal at "
+          f"3B's shapes; (B, cum_len)={c['timed']}: kernel {ms:.3f} ms around the "
+          f"wrapper, plain {plain:.3f} ms, library {lib:.3f} ms", flush=True)
+    res = dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib)
+    for B, cum, window in c["cold"]:
+        r = _decode_cold(dev, gen, B, cum, window, stacked=True)
+        tag = "" if (B, cum, window) == c["cold"][0] else f"_b{B}_w{window}"
+        res.update({f"{k}{tag}": v for k, v in r.items() if not (tag and k == "bound_by")})
+    return res
 
-                def plain_fn():
-                    swa_cached_attention(q, nk, nv, k_ref[layer], v_ref[layer], cum,
-                                         cap, write_ring=False)
-                    ring_write_stacked(k_ref, v_ref, layer, nk, nv, cum)
 
-                plain = time_ms(plain_fn)
-                # the library call over the ring after the write
-                G = Hq // Hkv
-                k_pos = ring_slot_positions(cum + 1, cap, dev)
-                mask = sliding_window_mask(torch.tensor([cum], device=dev), k_pos, cap)
-                k_all = k_ref[layer].transpose(1, 2).repeat_interleave(G, 2)
-                v_all = v_ref[layer].transpose(1, 2).repeat_interleave(G, 2)
-                e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
-                require(e_lib <= BF16_TOL, f"A2 library call err_ratio {e_lib:.3g}")
-                lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
-                bnd = bound(2 * (2 * B * Hkv * cap * D + 2 * B * Hq * D + 2 * B * Hkv * D),
-                            4 * B * Hq * D * min(cap, cum + 1), PEAK_BF16_FLOPS)
-    print(f"[3 parity] A2 swa_ring_flash_decode_stacked: max err_ratio "
-          f"{max(errs):.3g} (tol {BF16_TOL}), rings bit-equal; (B, cum_len)="
-          f"{c['timed']}: kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
-          f"{lib:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
-    return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+def _decode_cold(dev, gen, B: int, cum: int, window: int, stacked: bool) -> dict:
+    """A2 (stacked) or D's device time in a CUDA graph with the rings cold
+    in L2, beside scaled_dot_product_attention's on the same work: the calls
+    rotate over 9 rings (the layers of one stack for A2, 9 separate rings
+    for D; 75 MB at B 1 against the 50 MB L2), as in a decode step, where
+    the other layers' rings, the DeltaNet state and the weights pass between
+    two reads of one ring. The token's write is on both sides: the kernel
+    writes it itself, the library side by two index copies before the
+    attention call (masked: the window's mask over the ring with the heads
+    repeated, [B, cap, Hq, D]; unmasked, where the window covers the full
+    ring: the same heads-repeated copy, and the flash backend with
+    enable_gqa over the ring as it lies, [B, Hkv, cap, D], where torch
+    takes it). Also the kernel's L2-warm time (one ring) and, for A2, its
+    cold time under other split plans."""
+    from infinitevl_tpu_torch.ops import swa_kernels as sk
+    from infinitevl_tpu_torch.ops.swa import (
+        ring_slot_positions,
+        sliding_window_mask,
+        swa_cached_attention,
+    )
+
+    c = A2_CASE
+    S, Hq, Hkv, D, cap = c["S"], c["Hq"], c["Hkv"], 128, c["cap"]
+    G = Hq // Hkv
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+    q, nk, nv = mk(B, 1, Hq, D), mk(B, 1, Hkv, D), mk(B, 1, Hkv, D)
+    if stacked:
+        stack_k, stack_v = mk(S, B, Hkv, cap, D), mk(S, B, Hkv, cap, D)
+        rings = [(stack_k[i], stack_v[i]) for i in range(S)]
+    else:
+        rings = [(mk(B, Hkv, cap, D), mk(B, Hkv, cap, D)) for _ in range(S)]
+    turn = [0]
+
+    def call(i):
+        if stacked:
+            return sk.swa_ring_flash_decode_stacked(q, nk, nv, stack_k, stack_v, i, cum, window)
+        return sk.swa_ring_flash_decode(q, nk, nv, rings[i][0], rings[i][1], cum, window)
+
+    def rot(fn):
+        def run():
+            turn[0] += 1
+            return fn(turn[0] % S)
+        return run
+
+    device_ms = time_graph_ms(rot(call))
+    warm_ms = time_graph_ms(lambda: call(0))
+    by_plan = {}
+    if stacked and hasattr(sk, "DECODE_SMS_PER_BLOCK"):
+        kept = sk.DECODE_SMS_PER_BLOCK, sk.DECODE_MIN_TILES
+        for per_block, least in DECODE_PLANS:
+            sk.DECODE_SMS_PER_BLOCK, sk.DECODE_MIN_TILES = per_block, least
+            plan = sk.decode_split_plan(B, Hq, Hkv, cap, cum, window, sk.sm_count(dev.index))
+            by_plan[f"{per_block}x{least}:{plan.split}x{plan.tiles_per_split}"] = \
+                time_graph_ms(rot(call))
+        sk.DECODE_SMS_PER_BLOCK, sk.DECODE_MIN_TILES = kept
+    # the library: every ring's heads repeated, the write as two index copies
+    slot = cum % cap
+    reps = [(rk.transpose(1, 2).repeat_interleave(G, 2), rv.transpose(1, 2).repeat_interleave(G, 2))
+            for rk, rv in rings]
+    nk_rep, nv_rep = nk[:, 0].repeat_interleave(G, 1), nv[:, 0].repeat_interleave(G, 1)
+    mask = sliding_window_mask(torch.tensor([cum], device=dev),
+                               ring_slot_positions(cum + 1, cap, dev), window)
+    full = window == cap and cum + 1 >= cap  # every slot visible: no mask needed
+
+    def lib(m):
+        def one(i):
+            k_all, v_all = reps[i]
+            k_all[:, slot] = nk_rep
+            v_all[:, slot] = nv_rep
+            return sdpa(q, k_all, v_all, m)
+        return one
+
+    def gqa(i):  # the flash backend over the ring as it lies, heads not repeated
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        rk, rv = rings[i]
+        rk[:, :, slot] = nk[:, 0]
+        rv[:, :, slot] = nv[:, 0]
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), rk, rv, enable_gqa=True).transpose(1, 2)
+
+    ref = swa_cached_attention(q, nk, nv, *rings[0], cum, window, write_ring=False)
+    checks = [("masked", lib(mask))] + ([("unmasked", lib(None)), ("gqa", gqa)] if full else [])
+    lib_ms = {}
+    for name, fn in checks:
+        try:
+            e = err_ratio(fn(0), ref)
+        except RuntimeError as err:  # the flash backend refused enable_gqa
+            lib_ms[name] = None
+            print(f"[3 parity]   library {name}: not available ({str(err)[:80]})", flush=True)
+            continue
+        require(e <= BF16_TOL, f"decode library call ({name}) err_ratio {e:.3g}")
+        lib_ms[name] = time_graph_ms(rot(fn))
+    n_vis = min(cum + 1, window)
+    bnd = bound(2 * (2 * B * Hkv * n_vis * D + 2 * B * Hq * D + 4 * B * Hkv * D),
+                4 * B * Hq * D * n_vis, PEAK_BF16_FLOPS)
+    kind = "A2" if stacked else "D"
+    fmt = lambda v: "not available" if v is None else f"{v:.4f} ms"
+    print(f"[3 parity] {kind} device time (CUDA graph), B {B}, cum_len {cum}, window {window}, "
+          f"bf16, rings L2-cold (rotated over {S}): kernel {device_ms:.4f} ms (L2-warm, one "
+          f"ring: {warm_ms:.4f}), library with the write: masked {fmt(lib_ms['masked'])}"
+          + (f", unmasked {fmt(lib_ms['unmasked'])}, unmasked flash with enable_gqa "
+             f"{fmt(lib_ms['gqa'])}" if full else "")
+          + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), device roofline share "
+          f"{100 * bnd['bound_ms'] / device_ms:.1f}%"
+          + ("; cold ms by plan (SMs a block x least tiles: splits x tiles a split) "
+             + ", ".join(f"{k} {v:.4f}" for k, v in by_plan.items()) if by_plan else "")
+          + f" on '{card_line()}'", flush=True)
+    del reps, rings
+    return dict(device_ms=device_ms, device_warm_ms=warm_ms,
+                library_device_ms=lib_ms["masked"],
+                library_unmasked_device_ms=lib_ms.get("unmasked"),
+                library_gqa_device_ms=lib_ms.get("gqa"), **bnd)
 
 
 def _b_cases(dev, gen):
@@ -482,14 +653,28 @@ def _b_cases(dev, gen):
                     stack[layer].copy_(h)
 
                 plain = time_ms(plain_fn)
+                # device time with the state cold in L2, as in a decode step (the
+                # rings and the weights pass between two reads of one layer's
+                # slab): the calls rotate over the layers of two stacks (113 MB at B 1)
+                stacks, turn = (krn, stack.clone()), [0]
+
+                def cold():
+                    turn[0] += 1
+                    i = turn[0] % (2 * L)
+                    return delta_step_fused_stacked(q, k, v, g, beta, stacks[i % 2], i // 2)
+
+                dev_ms = time_graph_ms(cold)
+                del stacks
                 # the slab read and written once; two reductions, decay, rank-1 update
                 bnd = bound(4 * (2 * B * H * K * V + 2 * B * H * K + 2 * B * H * V + 2 * B * H),
                             7 * B * H * K * V, PEAK_F32_FLOPS)
     print(f"[3 parity] B delta_step_fused_stacked: max err_ratio {max(errs):.3g} "
           f"(tol {F32_TOL}), other layers bit-equal; (B, layer)={c['timed']}: "
-          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"kernel {ms:.3f} ms around the wrapper, device {dev_ms:.4f} ms in a CUDA graph "
+          f"with the state L2-cold, plain {plain:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
           f"({bnd['bound_by']})", flush=True)
-    return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=None, **bnd)
+    return dict(max_abs_err=max(mxs), ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=None,
+                **bnd)
 
 
 def _c_bound(B, T, H, K, V, elt) -> dict:
@@ -833,40 +1018,56 @@ def _d_cases(dev, gen):
 
     c = A2_CASE  # kernel D is A2 on one unstacked ring: the same shapes
     Hq, Hkv, D, cap = c["Hq"], c["Hkv"], 128, c["cap"]
-    errs, mxs = [], []
-    for B in c["Bs"]:
-        mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
-        rk, rv = mk(B, Hkv, cap, D), mk(B, Hkv, cap, D)
-        for cum in c["cums"]:
-            q, nk, nv = mk(B, 1, Hq, D), mk(B, 1, Hkv, D), mk(B, 1, Hkv, D)
-            k_krn, v_krn, k_ref, v_ref = rk.clone(), rv.clone(), rk.clone(), rv.clone()
-            out = swa_ring_flash_decode(q, nk, nv, k_krn, v_krn, cum, cap)
-            ref = swa_ring_decode_plain(q, nk, nv, k_ref, v_ref, cum, cap)
-            torch.cuda.synchronize()
-            e = err_ratio(out, ref)
-            require(e <= BF16_TOL, f"D B={B} cum={cum} err_ratio {e:.3g}")
-            require(torch.equal(k_krn, k_ref) and torch.equal(v_krn, v_ref),
-                    f"D B={B} cum={cum}: the ring differs from the plain write")
-            errs.append(e)
-            mxs.append(max_abs(out, ref))
-            if (B, cum) == c["timed"]:
-                ms = time_ms(lambda: swa_ring_flash_decode(q, nk, nv, k_krn, v_krn, cum, cap))
-                plain = time_ms(lambda: swa_ring_decode_plain(q, nk, nv, k_ref, v_ref, cum, cap))
-                G = Hq // Hkv
-                k_pos = ring_slot_positions(cum + 1, cap, dev)
-                mask = sliding_window_mask(torch.tensor([cum], device=dev), k_pos, cap)
-                k_all = k_ref.transpose(1, 2).repeat_interleave(G, 2)
-                v_all = v_ref.transpose(1, 2).repeat_interleave(G, 2)
-                e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
-                require(e_lib <= BF16_TOL, f"D library call err_ratio {e_lib:.3g}")
-                lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
-                bnd = bound(2 * (2 * B * Hkv * cap * D + 2 * B * Hq * D + 2 * B * Hkv * D),
-                            4 * B * Hq * D * min(cap, cum + 1), PEAK_BF16_FLOPS)
-    print(f"[3 parity] D swa_ring_flash_decode (one unstacked ring): max err_ratio "
-          f"{max(errs):.3g} (tol {BF16_TOL}), ring bit-equal; (B, cum_len)={c['timed']}: "
-          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})", flush=True)
-    return dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib, **bnd)
+    errs, mxs = {torch.bfloat16: [], torch.float32: []}, []
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for B in c["Bs"]:
+            mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+            rk, rv = mk(B, Hkv, cap, D), mk(B, Hkv, cap, D)
+            for window in c["windows"]:
+                for cum in c["cums"]:
+                    q, nk, nv = mk(B, 1, Hq, D), mk(B, 1, Hkv, D), mk(B, 1, Hkv, D)
+                    k_krn, v_krn, k_ref, v_ref = rk.clone(), rv.clone(), rk.clone(), rv.clone()
+                    out = swa_ring_flash_decode(q, nk, nv, k_krn, v_krn, cum, window)
+                    ref = swa_ring_decode_plain(q, nk, nv, k_ref, v_ref, cum, window)
+                    torch.cuda.synchronize()
+                    e = err_ratio(out, ref)
+                    what = f"D {dtype} B={B} window={window} cum={cum}"
+                    require(e <= tol, f"{what} err_ratio {e:.3g}")
+                    require(torch.equal(k_krn, k_ref) and torch.equal(v_krn, v_ref),
+                            f"{what}: the ring differs from the plain write")
+                    k_two, v_two = rk.clone(), rv.clone()
+                    out_two = swa_ring_flash_decode(q, nk, nv, k_two, v_two, cum, window)
+                    require(torch.equal(out_two, out) and torch.equal(k_two, k_krn)
+                            and torch.equal(v_two, v_krn), f"{what}: two calls differ")
+                    errs[dtype].append(e)
+                    if dtype == torch.bfloat16:
+                        mxs.append(max_abs(out, ref))
+                    if (dtype, B, cum, window) == (torch.bfloat16, *c["timed"], cap):
+                        ms = time_ms(lambda: swa_ring_flash_decode(q, nk, nv, k_krn, v_krn,
+                                                                   cum, cap))
+                        plain = time_ms(lambda: swa_ring_decode_plain(q, nk, nv, k_ref, v_ref,
+                                                                      cum, cap))
+                        G = Hq // Hkv
+                        k_pos = ring_slot_positions(cum + 1, cap, dev)
+                        mask = sliding_window_mask(torch.tensor([cum], device=dev), k_pos, cap)
+                        k_all = k_ref.transpose(1, 2).repeat_interleave(G, 2)
+                        v_all = v_ref.transpose(1, 2).repeat_interleave(G, 2)
+                        e_lib = err_ratio(sdpa(q, k_all, v_all, mask), ref)
+                        require(e_lib <= BF16_TOL, f"D library call err_ratio {e_lib:.3g}")
+                        lib = time_ms(lambda: sdpa(q, k_all, v_all, mask))
+                        del k_all, v_all
+    print(f"[3 parity] D swa_ring_flash_decode (one unstacked ring): max err_ratio bf16 "
+          f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
+          f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}) over B {c['Bs']} x window "
+          f"{c['windows']} x cum_len {c['cums']}; ring bit-equal, two calls bit-equal; "
+          f"(B, cum_len)={c['timed']}: kernel {ms:.3f} ms around the wrapper, plain "
+          f"{plain:.3f} ms, library {lib:.3f} ms", flush=True)
+    res = dict(max_abs_err=max(mxs), ms=ms, plain_ms=plain, library_ms=lib)
+    for B, cum, window in c["cold"][:2]:
+        r = _decode_cold(dev, gen, B, cum, window, stacked=False)
+        tag = "" if B == c["cold"][0][0] else f"_b{B}_w{window}"
+        res.update({f"{k}{tag}": v for k, v in r.items() if not (tag and k == "bound_by")})
+    return res
 
 
 def _band_pairs(T: int, window: int) -> int:
@@ -1612,7 +1813,7 @@ def _expected_state_bytes(tc) -> int:
     )
 
 
-def phase_text_path(dev, card: str, params, cfg) -> dict:
+def phase_text_path(dev, card: str, params, cfg, profile: bool = False) -> dict:
     from infinitevl_tpu_torch.generation import Generator, decode_step
     from infinitevl_tpu_torch.models.state import init_decoder_state, state_bytes
 
@@ -1650,6 +1851,8 @@ def phase_text_path(dev, card: str, params, cfg) -> dict:
     torch.cuda.synchronize()
     launches = _read_launches(("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
                                "delta_step_fused_stacked", "delta_rule_chunk_fused"))
+    if profile:  # the last request's state: 9,000 prompt tokens, the ring full
+        _profile_decode_step(params, cfg, state, out[:, -1:], card)
     again = g.generate(prompts[0], max_new_tokens=new_tokens)
     require(again[0, :8].tolist() == results[0]["tokens"],
             "Generator.generate disagrees with generate_stream on request 1")
@@ -2633,14 +2836,18 @@ def phase_vit_window_path(dev, card: str) -> dict:
     return launches, peaks
 
 
-def _device_profile(fn, reps: int = 3):
+def _device_profile(fn, reps: int = 3, spans=None):
     """Device time of fn() from torch.profiler, per call: (total ms, kernel
-    count, ms by kind, [(ms, count, name)] by kernel)."""
+    count, ms by kind, [(ms, count, name)] by kernel). `total` sums kernel
+    times; a `spans` list is filled with every kernel's (start us, end us,
+    name), for the time covered where kernels overlap (a combine launched
+    early waits inside its own span)."""
     from torch.profiler import ProfilerActivity, profile
 
     kinds = {"C delta_chunk": ("delta_chunk",), "A1 swa_prefill": ("swa_prefill",),
              "H swa_train": ("swa_train",), "E/F vit_flash": ("vit_flash",),
-             "G int4_matmul": ("int4_",),
+             "G int4_matmul": ("int4_",), "A2 swa_decode": ("swa_decode",),
+             "B delta_step": ("delta_step",),
              "GEMM": ("gemm", "cutlass", "cublas", "xmma", "nvjet"),
              "copies and casts": ("copy_kernel",), "other": ()}
     fn()
@@ -2660,7 +2867,49 @@ def _device_profile(fn, reps: int = 3):
             sums[kind] += dev_us / 1e3 / reps
             count += ev.count
             rows.append((dev_us / 1e3 / reps, ev.count // reps, ev.key[:90]))
+    if spans is not None:
+        spans.extend(sorted((ev.time_range.start, ev.time_range.end, ev.name.lower())
+                            for ev in prof.events() if ev.device_type.name == "CUDA"))
     return sum(sums.values()), count // reps, sums, sorted(rows, reverse=True)
+
+
+def _covered_ms(spans, pat: str = "", reps: int = 3) -> float:
+    """Time covered by the sorted kernel spans whose name holds `pat`, per call."""
+    total, end = 0.0, float("-inf")
+    for a, b, name in spans:
+        if pat in name and b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3 / reps
+
+
+def _profile_decode_step(params, cfg, state, token, card: str) -> None:
+    """Where one bf16 decode step's time goes at 3B with the ring full: wall
+    time without the profiler, device busy, device kernels, and the device
+    time of A2 (9 SWA layers) and B (27 DeltaNet layers) by kernel. Each
+    step advances `state` in place."""
+    from infinitevl_tpu_torch.generation import decode_step
+
+    dev = state["swa_k"].device
+    tok = torch.as_tensor(token, device=dev)
+    zero = torch.zeros((1, 1), dtype=torch.long, device=dev)
+    step = lambda: decode_step(params, cfg, tok, zero, state)
+    wall = _host_ms(step)
+    spans = []
+    total, count, sums, rows = _device_profile(step, spans=spans)
+    busy = _covered_ms(spans)
+    by = lambda pat: ", ".join(f"{name[:60]} {ms:.4f} ms x{n}" for ms, n, name in rows
+                               if pat in name.lower())
+    print(f"[profile] one bf16 decode step at 3B (B 1, cum_len {state['cum_len']}, the ring "
+          f"full): {wall:.2f} ms unprofiled, device busy {busy:.3f} ms covered by kernels "
+          f"({100 * busy / wall:.0f}%, idle {100 - 100 * busy / wall:.0f}%; kernel times "
+          f"summed {total:.3f}), {count} device kernels; by kind (ms, summed): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sums.items())
+          + f"; A2 covers {_covered_ms(spans, 'swa_decode'):.4f} ms, by kernel: "
+          f"{by('swa_decode')}; B covers {_covered_ms(spans, 'delta_step'):.4f} ms, by "
+          f"kernel: {by('delta_step')} on '{card}'", flush=True)
+    for ms, n, name in rows[:12]:
+        print(f"[profile]   {ms:8.4f} ms  x{n:<5d} {name}", flush=True)
 
 
 def _host_ms(fn, reps: int = 5) -> float:
@@ -2748,9 +2997,10 @@ def _profile_int4_frame(eng, frames, frame_ms: float, card: str) -> None:
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
-    if only and not (kernels_only or "--train-only" in argv):
-        print("chip_smoke: --only= needs --kernels-only or --train-only (the whole run "
-              "reports every kernel)", file=sys.stderr)
+    text_only = "--text-only" in argv
+    if only and not (kernels_only or text_only or "--train-only" in argv):
+        print("chip_smoke: --only= needs --kernels-only, --text-only or --train-only (the "
+              "whole run reports every kernel)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
@@ -2769,6 +3019,11 @@ def main(argv) -> int:
     res = phase_kernels(dev, only)
     if kernels_only:
         return 0
+    if text_only:  # the text path alone (phase 5, with the decode-step profile)
+        cfg = infinitevl_3b()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        phase_text_path(dev, card, params, cfg, "--profile" in argv)
+        return 0
     if "--train-only" in argv:  # the training phases alone (4's training part, 8, 9)
         phase_train_cross_device(dev)
         phase_train_path(dev, card, "--profile" in argv)
@@ -2784,7 +3039,7 @@ def main(argv) -> int:
     print(f"[weights] InfiniteVL-3B random init from seed 0 in {time.perf_counter() - t0:.2f} s",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    text_launches = phase_text_path(dev, card, params, cfg)
+    text_launches = phase_text_path(dev, card, params, cfg, "--profile" in argv)
     stream_launches, image_launches = phase_stream_path(
         dev, card, params, cfg, "--profile" in argv)
     serve_launches = phase_serve_path(dev, card, params, cfg, "--profile" in argv)

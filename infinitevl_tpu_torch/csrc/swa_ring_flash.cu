@@ -1,5 +1,5 @@
 // Sliding-window attention over the ring KV buffer: kernels A1 (cached
-// prefill) and A2 (stacked single-token decode).
+// prefill), A2 (stacked single-token decode) and D (A2 on one ring).
 //
 // A1 replaces infinitevl_tpu/ops/swa_pallas.py::swa_ring_flash_attention
 // (_swa_kernel). Queries of one KV head are rows r = t*G + g at position
@@ -32,15 +32,40 @@
 //   below every row's window).
 //
 // A2 replaces infinitevl_tpu/ops/swa_pallas.py::swa_ring_flash_decode_stacked
-// (_swa_decode_kernel_stacked). The wrapper writes the token's K/V into
-// slot cum_len % cap of layer `layer` first (torch, same stream); the
-// kernel then attends over that layer's ring alone. Correct only for
-// cap >= window: the evicted token n - cap is then never visible.
-//   Bound on the H100: reading the layer's ring, 2 x cap x D x 2 bytes per
-//   KV head (4 MB per KV head at cap = 8192, bf16). A grid of (B, Hkv)
-//   would fill 2 of 132 SMs at B = 1, so the ring is split into chunks of
-//   `split_len` keys, one block each (split-KV), and a second kernel
-//   combines the partial softmax states.
+// (_swa_decode_kernel_stacked) and D ::swa_ring_flash_decode (the same body
+// on one unstacked ring, passed as a stack of one). One launch writes the
+// token's K/V into slot m0 = cum_len % cap of ring `layer` and attends G =
+// Hq / Hkv query heads over that ring alone under the window; a second
+// combines the splits. Correct only for cap >= window: the evicted token
+// cum_len - cap is then never visible.
+//   Bound on the H100: bytes. At 3B (Hkv 2, cap 8192), B 1 and a full ring
+//   a call reads 8.4 MB of K/V for ~67 MFLOP: 2.5 us at 3.35 TB/s. So the
+//   design keeps bytes in flight and reads nothing it does not need:
+//   - the walk covers only the tiles of 64 slots that hold a visible key
+//     (ceil(min(cum_len + 1, window) / 64), one more where the window's edge
+//     falls inside a tile), oldest first; only tiles at the window's lower
+//     edge, at the write point or past cap are masked element by element;
+//   - the tiles are split over blocks by a plan made from B, Hkv, the walk
+//     and the card's SM count (ops/swa_kernels.decode_split_plan: about one
+//     block per two SMs), and each block streams its tiles through three
+//     32 KB stages by TMA (a tile of one (layer, b, h) is 16 KB of K and 16
+//     KB of V, each contiguous), some 6 MB in flight over the card;
+//   - the products are tensor-core mma.sync m16n8k16 in the orientation of
+//     decode: keys as M and the G = 8 query heads of a KV head as N (S^T =
+//     K Q^T), then D as M and keys as K (O^T += V^T P^T), with P^T moved
+//     into the B operand in registers (movmatrix); no row of a tile is
+//     padding at G = 8. wgmma would want 64 rows, 7/8 of them padding, for
+//     a kernel that memory bounds anyway;
+//   - the token's write is in the kernel: the split that walks slot m0
+//     stores it, and every block takes that slot from new_k / new_v, so no
+//     block reads what the writer stores;
+//   - the splits' partials (m, l, acc) are added in the fixed order s = 0,
+//     1, ... by the combine kernel: two calls on equal inputs agree bit for
+//     bit. It is launched early (programmatic dependent launch), so its
+//     start-up overlaps the walk. One split (a short walk) writes the output
+//     itself: one launch.
+//   fp32 (the CPU-against-card checks) keeps an FMA body on the same walk,
+//   write and partials.
 #include "swa_fwd_wgmma.cuh"
 
 namespace {
@@ -381,8 +406,7 @@ swa_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // out = the splits' partials of each row added in the order s = 0, 1, ...:
-// one warp per row (b, h, r = t G + g), four dims a lane (A2's combine
-// generalised to many rows)
+// one warp per row (b, h, r = t G + g), four dims a lane
 __global__ void __launch_bounds__(128)
 swa_prefill_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
                            int B, int Tn, int Hq, int Hkv, int split) {
@@ -451,85 +475,467 @@ cudaError_t launch_prefill_bf16(const void* q, const void* nk, const void* nv, c
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- A2
-constexpr int A2_BK = 32;        // keys per shared-memory sub-tile (one per lane)
-constexpr int A2_THREADS = 128;  // 4 warps; warp w owns query rows w, w+4, ...
-constexpr int A2_MAXG = 16;      // query heads per KV head
-constexpr int A2_RPW = A2_MAXG / 4;
+// ---------------------------------------------------------------- A2 / D
+// The ring is walked in tiles of DEC_T slots (tile t: slots [t DEC_T,
+// (t + 1) DEC_T) below cap). The visible slots form one cyclic interval
+// of n_vis = min(cum_len + 1, window) slots ending at m0 = cum_len % cap,
+// so the visible tiles are n_tiles consecutive ones (mod n_ring) from
+// tile0, the tile of the oldest visible slot; split s of a (b, h) takes
+// walk steps [s tps, (s + 1) tps). ops/swa_kernels.decode_split_plan
+// chooses tps and the split count and decode_tile_walk is the walk's plain
+// twin: the two must agree with DecWalk.
+constexpr int DEC_T = 64;          // ring slots per tile
+constexpr int DEC_STAGES = 3;      // shared-memory stages of the bf16 body
+constexpr int DEC_CWARPS = 4;      // consumer warps; warp w owns keys 16 w .. 16 w + 15 of a tile
+constexpr int DEC_THREADS = 32 * (DEC_CWARPS + 1);  // and one producer warp
+constexpr int DEC_BOX = DEC_T * 128;                 // bytes of one TMA box: 64 slots x 64 dims
+constexpr int DEC_STAGE = 4 * DEC_BOX;               // K and V, two boxes each: 32 KB
+constexpr int DEC_SMEM = DEC_STAGES * DEC_STAGE + ivl::SMEM_ALIGN;
+constexpr int DEC_MAXG = 16;       // query heads per KV head
+constexpr int DEC_PART = HD + 4;   // a split's partial of one head: m (log2 units), l, 2 pad,
+                                   // acc[HD] (on 16 bytes)
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Partial softmax state per (b, h, split, g): [m, l, acc[HD]]
+struct DecWalk {
+  int cap, n_ring, m0, n_vis, tile0, n_tiles, tps, NS;
+
+  __host__ __device__ static DecWalk make(int cap, int cum_len, int window, int tps, int NS) {
+    DecWalk w;
+    w.cap = cap;
+    w.n_ring = (cap + DEC_T - 1) / DEC_T;
+    w.m0 = cum_len % cap;
+    w.n_vis = cum_len + 1 < window ? cum_len + 1 : window;
+    const int lo = ivl::pos_mod(w.m0 - w.n_vis + 1, cap);
+    w.tile0 = lo / DEC_T;
+    if (lo <= w.m0) {
+      w.n_tiles = w.m0 / DEC_T - w.tile0 + 1;
+    } else {  // wraps past slot cap - 1; both ends in one tile: every tile once
+      const int n = w.n_ring - w.tile0 + w.m0 / DEC_T + 1;
+      w.n_tiles = n < w.n_ring ? n : w.n_ring;
+    }
+    w.tps = tps;
+    w.NS = NS;
+    return w;
+  }
+  __device__ int tile(int i) const { return (tile0 + i) % n_ring; }
+  // every slot of tile t visible: no per-element mask
+  __device__ bool whole(int t) const {
+    const int a = t * DEC_T;
+    if (a + DEC_T > cap) return false;                  // a ragged last tile
+    if (a <= m0 && m0 < a + DEC_T - 1) return n_vis >= cap;  // holds m0 and m0 + 1
+    return ivl::pos_mod(m0 - a, cap) < n_vis;
+  }
+  __device__ bool sees(int slot) const {
+    return slot < cap && ivl::pos_mod(m0 - slot, cap) < n_vis;
+  }
+  // the split whose walk holds slot m0 (it writes the token into the ring)
+  __device__ int writer() const { return ivl::pos_mod(m0 / DEC_T - tile0, n_ring) / tps; }
+};
+
+// The output's head g of (b, h) from the partials of the NS splits: warp v
+// folds splits [v c, (v + 1) c) in order (c = ceil(NS / 8)), four dims a
+// lane, then warp 0 adds the eight in the order v = 0..7; m in log2 units.
+// The order is fixed, so equal inputs give equal bits.
+constexpr int DEC_C_WARPS = 8;
+
+__device__ __forceinline__ void store4(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
+  *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
 template <typename T>
-__global__ void __launch_bounds__(A2_THREADS)
-swa_decode_split_kernel(const T* __restrict__ q,        // [B, Hq, HD]
-                        const T* __restrict__ rings_k,  // [S, B, Hkv, cap, HD]
-                        const T* __restrict__ rings_v,
-                        float* __restrict__ part,       // [B*Hkv, NS, G, HD + 2]
-                        int B, int Hq, int Hkv, int cap, int layer,
-                        int n_written, int window, float scale, int split_len,
-                        int NS) {
-  __shared__ float Qs[A2_MAXG][HD];
-  __shared__ float Ks[A2_BK][HD + 1];
-  __shared__ float Vs[A2_BK][HD];
+__global__ void __launch_bounds__(32 * DEC_C_WARPS)
+swa_decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out, int Hq,
+                          int Hkv, int NS) {
+  __shared__ float4 sa[DEC_C_WARPS][32];
+  __shared__ float sml[DEC_C_WARPS][2];
+  const int G = Hq / Hkv;
+  const int bh = blockIdx.x, g = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = (NS + DEC_C_WARPS - 1) / DEC_C_WARPS;
+  const int s1 = min(NS, (warp + 1) * per);
+  const size_t step = (size_t)G * DEC_PART;
+  const float* p0 = part + ((size_t)bh * NS * G + g) * DEC_PART;
+  float M = NEG_INF, L = 0.f;
+  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+  ivl::grid_dependency_wait();  // launched early (PDL): the split kernel's partials
+#pragma unroll 4
+  for (int s = warp * per; s < s1; ++s) {
+    const float* pp = p0 + s * step;
+    const float m = pp[0], l = pp[1];
+    const float4 a = *reinterpret_cast<const float4*>(pp + 4 + 4 * lane);
+    const float mn = fmaxf(M, m);
+    const float r = exp2f(M - mn), e = exp2f(m - mn);
+    L = L * r + e * l;
+    A = make_float4(A.x * r + e * a.x, A.y * r + e * a.y, A.z * r + e * a.z, A.w * r + e * a.w);
+    M = mn;
+  }
+  if (lane == 0) {
+    sml[warp][0] = M;
+    sml[warp][1] = L;
+  }
+  sa[warp][lane] = A;
+  __syncthreads();
+  if (warp != 0) return;
+  float Mt = NEG_INF;
+#pragma unroll
+  for (int v = 0; v < DEC_C_WARPS; ++v) Mt = fmaxf(Mt, sml[v][0]);
+  float Lt = 0.f;
+  float4 At = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int v = 0; v < DEC_C_WARPS; ++v) {
+    const float e = exp2f(sml[v][0] - Mt);
+    const float4 a = sa[v][lane];
+    Lt += e * sml[v][1];
+    At = make_float4(At.x + e * a.x, At.y + e * a.y, At.z + e * a.z, At.w + e * a.w);
+  }
+  const float inv = 1.f / fmaxf(Lt, 1e-30f);
+  const int b = bh / Hkv, h = bh % Hkv;
+  store4(out + ((size_t)b * Hq + h * G + g) * HD + 4 * lane,
+         make_float4(At.x * inv, At.y * inv, At.z * inv, At.w * inv));
+}
+
+// One split's result for head g, dim d: the output itself when the walk
+// has one split, else its partial.
+template <typename T>
+__device__ __forceinline__ void dec_store(const DecWalk& w, T* out, float* part, int b, int h,
+                                          int s, int G, int Hq, int Hkv, int g, int d, float m,
+                                          float l, float a) {
+  if (w.NS == 1) {
+    out[((size_t)b * Hq + h * G + g) * HD + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+    return;
+  }
+  float* pp = part + (((size_t)(b * Hkv + h) * w.NS + s) * G + g) * DEC_PART;
+  if (d == 0) {
+    pp[0] = m;
+    pp[1] = l;
+  }
+  pp[4 + d] = a;
+}
+
+// bf16 body. grid (B Hkv, NS); warps 0-3 consume, warp 4 produces.
+//  - the producer's lane 0 streams the split's tiles through DEC_STAGES
+//    stages of 32 KB (full / empty mbarriers): four TMA boxes a tile, K and
+//    V as 64 slots x 64 dims in the 128-byte swizzle, from a 3-D map over
+//    the rings (dims, slot, ring plane), so a ragged last tile reads zeros;
+//    in the writer split its other lanes store the token's K/V into slot m0
+//  - consumer warp w takes keys 16 w .. 16 w + 15 of each tile with its own
+//    online softmax: S^T = K Q^T (mma.sync m16n8k16, keys as M, the G query
+//    heads as N, Q^T in registers for the whole walk), P^T in registers by
+//    movmatrix, then O^T += V^T P^T (D as M, V^T by ldmatrix.trans). The warp
+//    holding slot m0 first copies the token's K/V row over that slot from
+//    new_k / new_v, so no block reads the slot the writer stores to
+//  - at the end the four warps' states are added in smem in the order
+//    w = 0..3 into the split's partial (or the output, at one split)
+// NT: n-tiles of 8 query heads (G <= 8 NT); P is rounded to bf16 for P V.
+template <int NT>
+__global__ void __launch_bounds__(DEC_THREADS)
+swa_decode_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __nv_bfloat16* __restrict__ q,      // [B, Hq, HD]
+                       const __nv_bfloat16* __restrict__ new_k,  // [B, Hkv, HD]
+                       const __nv_bfloat16* __restrict__ new_v,
+                       __nv_bfloat16* __restrict__ rings_k,      // [S, B, Hkv, cap, HD]
+                       __nv_bfloat16* __restrict__ rings_v,
+                       __nv_bfloat16* __restrict__ out,          // [B, Hq, HD]
+                       float* __restrict__ part,                 // [B Hkv, NS, G, DEC_PART]
+                       int B, int Hq, int Hkv, int layer, DecWalk w, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = ivl::aligned_smem(smem_raw);
+  __shared__ uint64_t full[DEC_STAGES], empty[DEC_STAGES];
+  const int G = Hq / Hkv;
+  const int bh = blockIdx.x, s = blockIdx.y;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int i0 = s * w.tps, n = min(w.tps, w.n_tiles - i0);
+  const int plane = (layer * B + b) * Hkv + h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  ivl::launch_dependents();  // the combine may be scheduled now (it waits for this grid)
+  auto load = [&](int i) {   // walk step i0 + i into stage i % DEC_STAGES: four boxes
+    const int st = i % DEC_STAGES;
+    const int slot0 = w.tile(i0 + i) * DEC_T;
+    unsigned char* dst = smem + st * DEC_STAGE;
+    ivl::mbar_arrive_tx(&full[st], DEC_STAGE);
+    ivl::tma_load_3d(dst, &kmap, &full[st], 0, slot0, plane);
+    ivl::tma_load_3d(dst + DEC_BOX, &kmap, &full[st], 64, slot0, plane);
+    ivl::tma_load_3d(dst + 2 * DEC_BOX, &vmap, &full[st], 0, slot0, plane);
+    ivl::tma_load_3d(dst + 3 * DEC_BOX, &vmap, &full[st], 64, slot0, plane);
+  };
+  if (warp == DEC_CWARPS && lane == 0) {  // the first stages' loads go out before the barrier
+    ivl::prefetch_tensormap(&kmap);
+    ivl::prefetch_tensormap(&vmap);
+    for (int st = 0; st < DEC_STAGES; ++st) {
+      ivl::mbar_init(&full[st], 1);
+      ivl::mbar_init(&empty[st], DEC_CWARPS);
+    }
+    ivl::mbar_fence_init();
+    for (int i = 0; i < min(n, DEC_STAGES); ++i) load(i);
+  }
+  __syncthreads();
+
+  if (warp == DEC_CWARPS) {  // producer
+    if (s == w.writer()) {   // 16 bytes a lane: K's row, then V's
+      const size_t row = ((size_t)plane * w.cap + w.m0) * HD + 8 * (lane & 15);
+      const size_t src = (size_t)bh * HD + 8 * (lane & 15);
+      if (lane < 16)
+        *reinterpret_cast<uint4*>(rings_k + row) = *reinterpret_cast<const uint4*>(new_k + src);
+      else
+        *reinterpret_cast<uint4*>(rings_v + row) = *reinterpret_cast<const uint4*>(new_v + src);
+    }
+    if (lane == 0)
+      for (int i = DEC_STAGES; i < n; ++i) {
+        ivl::mbar_wait(&empty[i % DEC_STAGES], (i / DEC_STAGES - 1) & 1);
+        load(i);
+      }
+    return;
+  }
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const int k0 = 16 * warp;  // this warp's keys within a tile
+  uint32_t qb[NT][8][2];     // Q^T: B operand of S^T = K Q^T, k-step kk
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int g = 8 * nt + gid;
+    const __nv_bfloat16* qr = q + ((size_t)b * Hq + h * G + min(g, G - 1)) * HD + 2 * tig;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      qb[nt][kk][0] = g < G ? ivl::ld32(qr + 16 * kk) : 0u;
+      qb[nt][kk][1] = g < G ? ivl::ld32(qr + 16 * kk + 8) : 0u;
+    }
+  }
+  float acc[NT][8][4], m[NT][2], l[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      m[nt][j] = NEG_INF;
+      l[nt][j] = 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][mt][e] = 0.f;
+  }
+  const float sc = scale * LOG2E;
+  // ldmatrix rows of this lane: K (non-trans, A = K[key][dim]) takes key
+  // k0 + 8 ((lane / 8) % 2) + lane % 8 at dim + 8 (lane / 16); V (trans,
+  // A = V^T[dim][key]) key k0 + 8 (lane / 16) + lane % 8 at dim + 8 ((lane / 8) % 2)
+  const int kkey = k0 + ((lane >> 3) & 1) * 8 + (lane & 7), kdim = (lane >> 4) * 8;
+  const int vkey = k0 + (lane >> 4) * 8 + (lane & 7), vdim = ((lane >> 3) & 1) * 8;
+  // byte offset of (key, dim) in a stage's K or V half-pair: box dim / 64,
+  // row key, 16-byte chunk (dim % 64) / 8 swizzled by key % 8
+  auto at = [](int key, int dim) {
+    return (dim >> 6) * DEC_BOX + key * 128 + ((((dim & 63) >> 3) ^ (key & 7)) << 4);
+  };
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i % DEC_STAGES;
+    const int t = w.tile(i0 + i);
+    ivl::mbar_wait(&full[st], (i / DEC_STAGES) & 1);
+    unsigned char* ks = smem + st * DEC_STAGE;
+    unsigned char* vs = ks + 2 * DEC_BOX;
+    const int rm = w.m0 - t * DEC_T;  // the token's row in this tile, if in [0, DEC_T)
+    if (rm >= k0 && rm < k0 + 16) {    // warp-uniform: its row from new_k / new_v
+      const int c = lane & 15;
+      unsigned char* dst = (lane < 16 ? ks : vs) + at(rm, 8 * c);
+      const __nv_bfloat16* src = (lane < 16 ? new_k : new_v) + (size_t)bh * HD + 8 * c;
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      ivl::fence_async_smem();  // before TMA writes this stage again
+      __syncwarp();
+    }
+    const uint32_t ks32 = ivl::smem_u32(ks), vs32 = ivl::smem_u32(vs);
+
+    float sf[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sf[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t a[4];
+      ivl::ldsm_x4(a, ks32 + at(kkey, 16 * kk + kdim));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) ivl::mma_bf16(sf[nt], a, qb[nt][kk][0], qb[nt][kk][1]);
+    }
+
+    // sf[nt]: keys k0 + gid (e = 0, 1) and k0 + gid + 8 (e = 2, 3) x heads
+    // 8 nt + 2 tig + (e % 2)
+    const bool masked = !w.whole(t);  // block-uniform
+    bool vis0 = true, vis1 = true;
+    if (masked) {
+      vis0 = w.sees(t * DEC_T + k0 + gid);
+      vis1 = w.sees(t * DEC_T + k0 + gid + 8);
+    }
+    uint32_t pb[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float s0 = sf[nt][j] * sc, s1 = sf[nt][2 + j] * sc;
+        if (masked) {
+          s0 = vis0 ? s0 : NEG_INF;
+          s1 = vis1 ? s1 : NEG_INF;
+        }
+        float mx = fmaxf(s0, s1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m[nt][j], mx);
+        const float alpha = exp2f(m[nt][j] - m_new);
+        float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
+        if (masked) {  // a head that has seen no key yet has m_new = NEG_INF
+          p0 = vis0 ? p0 : 0.f;
+          p1 = vis1 ? p1 : 0.f;
+        }
+        l[nt][j] = l[nt][j] * alpha + p0 + p1;
+        m[nt][j] = m_new;
+#pragma unroll
+        for (int mt = 0; mt < 8; ++mt) {
+          acc[nt][mt][j] *= alpha;
+          acc[nt][mt][2 + j] *= alpha;
+        }
+        p[j][0] = p0;
+        p[j][1] = p1;
+      }
+      // rows key gid / gid + 8, cols heads 2 tig, 2 tig + 1 -> transposed:
+      // the B operand (k = keys, n = heads) of O^T += V^T P^T
+      pb[nt][0] = ivl::movmatrix_trans(pack_bf16(p[0][0], p[1][0]));
+      pb[nt][1] = ivl::movmatrix_trans(pack_bf16(p[0][1], p[1][1]));
+    }
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt) {
+      uint32_t a[4];
+      ivl::ldsm_x4_trans(a, vs32 + at(vkey, 16 * mt + vdim));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) ivl::mma_bf16(acc[nt][mt], a, pb[nt][0], pb[nt][1]);
+    }
+    __syncwarp();
+    if (lane == 0) ivl::mbar_arrive(&empty[st]);
+  }
+
+  // the four warps' (m, l, O^T) in smem (the stages are free: every TMA
+  // of the walk has landed), then added in the order w = 0..3
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[nt][j] += __shfl_xor_sync(0xffffffffu, l[nt][j], 4);
+      l[nt][j] += __shfl_xor_sync(0xffffffffu, l[nt][j], 8);
+      l[nt][j] += __shfl_xor_sync(0xffffffffu, l[nt][j], 16);
+    }
+  constexpr int NH = 8 * NT;
+  float* red = reinterpret_cast<float*>(smem);  // [CWARPS][NH][HD]
+  float* red_ml = red + DEC_CWARPS * NH * HD;   // [CWARPS][NH][2]
+  ivl::named_sync(1, 32 * DEC_CWARPS);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(warp * NH + 8 * nt + 2 * tig + (e & 1)) * HD + 16 * mt + gid + 8 * (e >> 1)] =
+            acc[nt][mt][e];
+    if (gid == 0)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red_ml[(warp * NH + 8 * nt + 2 * tig + j) * 2] = m[nt][j];
+        red_ml[(warp * NH + 8 * nt + 2 * tig + j) * 2 + 1] = l[nt][j];
+      }
+  }
+  ivl::named_sync(1, 32 * DEC_CWARPS);
+  const int d = threadIdx.x;  // 128 consumer threads: one dim each
+  for (int g = 0; g < G; ++g) {
+    float M = NEG_INF;
+#pragma unroll
+    for (int v = 0; v < DEC_CWARPS; ++v) M = fmaxf(M, red_ml[(v * NH + g) * 2]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int v = 0; v < DEC_CWARPS; ++v) {
+      const float e = exp2f(red_ml[(v * NH + g) * 2] - M);
+      L += e * red_ml[(v * NH + g) * 2 + 1];
+      A += e * red[(v * NH + g) * HD + d];
+    }
+    dec_store(w, out, part, b, h, s, G, Hq, Hkv, g, d, M, L, A);
+  }
+}
+
+// fp32 body (the CPU-against-card checks): FMA from shared memory, 32 slots
+// a sub-tile (one per lane), warp w owns query heads w, w + 4, ...; the
+// same walk, ring write and partials as the bf16 body. Tensor cores would
+// round fp32 operands.
+constexpr int DEC_F_BK = 32;
+constexpr int DEC_F_THREADS = 128;
+constexpr int DEC_F_RPW = DEC_MAXG / 4;
+
+__global__ void __launch_bounds__(DEC_F_THREADS)
+swa_decode_f32_kernel(const float* __restrict__ q,      // [B, Hq, HD]
+                      const float* __restrict__ new_k,  // [B, Hkv, HD]
+                      const float* __restrict__ new_v,
+                      float* __restrict__ rings_k,      // [S, B, Hkv, cap, HD]
+                      float* __restrict__ rings_v,
+                      float* __restrict__ out,          // [B, Hq, HD]
+                      float* __restrict__ part,         // [B Hkv, NS, G, DEC_PART]
+                      int B, int Hq, int Hkv, int layer, DecWalk w, float scale) {
+  __shared__ float Qs[DEC_MAXG][HD];
+  __shared__ float Ks[DEC_F_BK][HD + 1];
+  __shared__ float Vs[DEC_F_BK][HD];
 
   const int G = Hq / Hkv;
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, s = blockIdx.y;
   const int b = bh / Hkv, h = bh % Hkv;
-  const int split = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const size_t ring_off = (((size_t)layer * B + b) * Hkv + h) * (size_t)cap * HD;
-  const T* kb = rings_k + ring_off;
-  const T* vb = rings_v + ring_off;
+  const int i0 = s * w.tps, n = min(w.tps, w.n_tiles - i0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t ring_off = (((size_t)layer * B + b) * Hkv + h) * (size_t)w.cap * HD;
+  ivl::launch_dependents();
+  const float* nk = new_k + (size_t)bh * HD;
+  const float* nv = new_v + (size_t)bh * HD;
+  if (s == w.writer()) {
+    rings_k[ring_off + (size_t)w.m0 * HD + tid] = nk[tid];
+    rings_v[ring_off + (size_t)w.m0 * HD + tid] = nv[tid];
+  }
+  for (int i = tid; i < G * HD; i += DEC_F_THREADS)
+    Qs[i / HD][i % HD] = q[((size_t)b * Hq + h * G + i / HD) * HD + i % HD];
 
-  for (int i = tid; i < G * HD; i += A2_THREADS)
-    Qs[i / HD][i % HD] = to_f(q[((size_t)b * Hq + h * G + i / HD) * HD + i % HD]);
-
-  const int qp = n_written - 1;  // the query is the token just written
-  const int m0 = ivl::pos_mod(qp, cap);
-  float m_r[A2_RPW], l_r[A2_RPW], acc[A2_RPW][HD / 32];
+  const float sc = scale * LOG2E;
+  float m_r[DEC_F_RPW], l_r[DEC_F_RPW], acc[DEC_F_RPW][HD / 32];
 #pragma unroll
-  for (int rr = 0; rr < A2_RPW; ++rr) {
+  for (int rr = 0; rr < DEC_F_RPW; ++rr) {
     m_r[rr] = NEG_INF;
     l_r[rr] = 0.f;
 #pragma unroll
     for (int c = 0; c < HD / 32; ++c) acc[rr][c] = 0.f;
   }
 
-  const int s0 = split * split_len;
-  const int s1 = min(s0 + split_len, cap);
-  for (int k0 = s0; k0 < s1; k0 += A2_BK) {
-    const int j = k0 + lane;
-    bool vis = false;
-    if (j < s1) {
-      const int kp = ivl::ring_pos(n_written, m0, j, cap);
-      vis = kp >= 0 && kp <= qp && kp > qp - window;
-    }
+  for (int it = 0; it < 2 * n; ++it) {
+    const int j0 = w.tile(i0 + it / 2) * DEC_T + (it % 2) * DEC_F_BK;
+    const bool vis = w.sees(j0 + lane);
     // also the barrier that retires the previous sub-tile's readers
     if (!__syncthreads_or(vis)) continue;
-
-    for (int i = tid; i < A2_BK * HD; i += A2_THREADS) {
-      const int jj = i / HD, d = i % HD;
-      const int js = k0 + jj;
-      Ks[jj][d] = js < s1 ? to_f(kb[(size_t)js * HD + d]) : 0.f;
-      Vs[jj][d] = js < s1 ? to_f(vb[(size_t)js * HD + d]) : 0.f;
+    for (int x = tid; x < DEC_F_BK * HD; x += DEC_F_THREADS) {
+      const int jj = x / HD, dd = x % HD, js = j0 + jj;
+      const bool own = js == w.m0, in = js < w.cap;
+      Ks[jj][dd] = own ? nk[dd] : in ? rings_k[ring_off + (size_t)js * HD + dd] : 0.f;
+      Vs[jj][dd] = own ? nv[dd] : in ? rings_v[ring_off + (size_t)js * HD + dd] : 0.f;
     }
     __syncthreads();
-
 #pragma unroll
-    for (int rr = 0; rr < A2_RPW; ++rr) {
+    for (int rr = 0; rr < DEC_F_RPW; ++rr) {
       const int g = warp + 4 * rr;
       if (g < G) {  // warp-uniform
-        float s = 0.f;
-        for (int d = 0; d < HD; ++d) s += Qs[g][d] * Ks[lane][d];
-        s = vis ? s * scale : NEG_INF;
-        const float m_new = fmaxf(m_r[rr], ivl::warp_max(s));
-        const float alpha = expf(m_r[rr] - m_new);
-        const float p = vis ? expf(s - m_new) : 0.f;
+        float sv = 0.f;
+        for (int dd = 0; dd < HD; ++dd) sv += Qs[g][dd] * Ks[lane][dd];
+        sv = vis ? sv * sc : NEG_INF;
+        const float m_new = fmaxf(m_r[rr], ivl::warp_max(sv));
+        const float alpha = exp2f(m_r[rr] - m_new);
+        const float p = vis ? exp2f(sv - m_new) : 0.f;
         l_r[rr] = l_r[rr] * alpha + ivl::warp_sum(p);
         m_r[rr] = m_new;
 #pragma unroll
         for (int c = 0; c < HD / 32; ++c) acc[rr][c] *= alpha;
-        for (int jj = 0; jj < A2_BK; ++jj) {
+        for (int jj = 0; jj < DEC_F_BK; ++jj) {
           const float pj = __shfl_sync(0xffffffffu, p, jj);
 #pragma unroll
           for (int c = 0; c < HD / 32; ++c) acc[rr][c] += pj * Vs[jj][lane + 32 * c];
@@ -537,59 +943,68 @@ swa_decode_split_kernel(const T* __restrict__ q,        // [B, Hq, HD]
       }
     }
   }
-
 #pragma unroll
-  for (int rr = 0; rr < A2_RPW; ++rr) {
+  for (int rr = 0; rr < DEC_F_RPW; ++rr) {
     const int g = warp + 4 * rr;
-    if (g < G) {
-      float* pp = part + (((size_t)bh * NS + split) * G + g) * (HD + 2);
-      if (lane == 0) {
-        pp[0] = m_r[rr];
-        pp[1] = l_r[rr];
-      }
+    if (g < G)
 #pragma unroll
-      for (int c = 0; c < HD / 32; ++c) pp[2 + lane + 32 * c] = acc[rr][c];
-    }
+      for (int c = 0; c < HD / 32; ++c)
+        dec_store(w, out, part, b, h, s, G, Hq, Hkv, g, lane + 32 * c, m_r[rr], l_r[rr],
+                  acc[rr][c]);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(HD)
-swa_decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                          int Hq, int Hkv, int NS) {
+// a 3-D map over stacked bf16 rings [planes, cap, 128] (dims innermost
+// first: 128, cap, planes) with boxes of 64 dims x 64 slots x 1
+bool map_rings(CUtensorMap* map, const void* base, int cap, int planes) {
+  const cuuint64_t dims[3] = {HD, (cuuint64_t)cap, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {HD * 2, (cuuint64_t)cap * HD * 2};
+  const cuuint32_t box[3] = {64, DEC_T, 1};
+  return ivl::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+cudaError_t launch_decode(int dtype, const void* q, const void* nk, const void* nv, void* rk,
+                          void* rv, void* part, void* out, int B, int Hq, int Hkv, int S,
+                          int layer, const DecWalk& w, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const int bh = blockIdx.x;
-  const int b = bh / Hkv, h = bh % Hkv;
-  const int g = blockIdx.y;
-  const int d = threadIdx.x;
-  float M = NEG_INF;
-  for (int s = 0; s < NS; ++s)
-    M = fmaxf(M, part[(((size_t)bh * NS + s) * G + g) * (HD + 2)]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < NS; ++s) {
-    const float* pp = part + (((size_t)bh * NS + s) * G + g) * (HD + 2);
-    const float w = expf(pp[0] - M);
-    L += w * pp[1];
-    A += w * pp[2 + d];
+  const dim3 grid(B * Hkv, w.NS);
+  cudaError_t err;
+  if (dtype == ivl::DTYPE_F32) {
+    swa_decode_f32_kernel<<<grid, DEC_F_THREADS, 0, stream>>>(
+        (const float*)q, (const float*)nk, (const float*)nv, (float*)rk, (float*)rv,
+        (float*)out, (float*)part, B, Hq, Hkv, layer, w, scale);
+  } else {
+    CUtensorMap maps[2];
+    if (!map_rings(&maps[0], rk, w.cap, S * B * Hkv) ||
+        !map_rings(&maps[1], rv, w.cap, S * B * Hkv))
+      return cudaErrorInvalidValue;
+    auto kern = G <= 8 ? swa_decode_bf16_kernel<1> : swa_decode_bf16_kernel<2>;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    DEC_SMEM)) != cudaSuccess)
+      return err;
+    kern<<<grid, DEC_THREADS, DEC_SMEM, stream>>>(
+        maps[0], maps[1], (const __nv_bfloat16*)q, (const __nv_bfloat16*)nk,
+        (const __nv_bfloat16*)nv, (__nv_bfloat16*)rk, (__nv_bfloat16*)rv, (__nv_bfloat16*)out,
+        (float*)part, B, Hq, Hkv, layer, w, scale);
   }
-  out[((size_t)b * Hq + h * G + g) * HD + d] = from_f<T>(A / fmaxf(L, 1e-30f));
-}
-
-template <typename T>
-cudaError_t launch_decode(const void* q, const void* rk, const void* rv,
-                          void* part, void* out, int B, int Hq, int Hkv,
-                          int cap, int layer, int n_written, int window,
-                          float scale, int split_len, int NS,
-                          cudaStream_t stream) {
-  dim3 grid(B * Hkv, NS);
-  swa_decode_split_kernel<T><<<grid, A2_THREADS, 0, stream>>>(
-      (const T*)q, (const T*)rk, (const T*)rv, (float*)part, B, Hq, Hkv, cap,
-      layer, n_written, window, scale, split_len, NS);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  swa_decode_combine_kernel<T><<<dim3(B * Hkv, Hq / Hkv), HD, 0, stream>>>(
-      (const float*)part, (T*)out, Hq, Hkv, NS);
-  return cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess || w.NS == 1) return err;
+  // the combine with programmatic dependent launch: scheduled while the
+  // split kernel runs, it waits for that grid's memory before it reads
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv, G);
+  cfg.blockDim = dim3(32 * DEC_C_WARPS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (dtype == ivl::DTYPE_F32)
+    return cudaLaunchKernelEx(&cfg, swa_decode_combine_kernel<float>, (const float*)part,
+                              (float*)out, Hq, Hkv, w.NS);
+  return cudaLaunchKernelEx(&cfg, swa_decode_combine_kernel<__nv_bfloat16>,
+                            (const float*)part, (__nv_bfloat16*)out, Hq, Hkv, w.NS);
 }
 
 }  // namespace
@@ -615,26 +1030,25 @@ int ivl_swa_prefill(int dtype, const void* q, const void* new_k,
   return (int)cudaErrorInvalidValue;
 }
 
-// A2 (attention part; the K/V write precedes it on the same stream).
-// n_written counts the tokens in the ring INCLUDING the one just written.
-int ivl_swa_decode(int dtype, const void* q, const void* rings_k,
-                   const void* rings_v, void* part, void* out, int B, int Hq,
-                   int Hkv, int D, int cap, int layer, int n_written,
-                   int window, float scale, int split_len, int NS,
-                   void* stream) {
-  if (D != HD || Hq % Hkv != 0 || Hq / Hkv > A2_MAXG || split_len <= 0 ||
-      NS * split_len < cap)
+// A2 and D: write the token's K/V ([B, Hkv, HD]) into slot cum_len % cap
+// of ring `layer` of the stack [S, B, Hkv, cap, HD] and attend q's G
+// query heads of each KV head over that ring, the visible tiles walked in
+// NS splits of tps tiles (ops/swa_kernels.decode_split_plan); `part` is
+// fp32 scratch [B Hkv, NS, G, HD + 4] when NS > 1. Requires cap >= window.
+int ivl_swa_decode(int dtype, const void* q, const void* new_k, const void* new_v,
+                   void* rings_k, void* rings_v, void* part, void* out, int B, int Hq,
+                   int Hkv, int D, int cap, int S, int layer, int cum_len, int window,
+                   int tps, int NS, float scale, void* stream) {
+  if (D != HD || B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > DEC_MAXG || cap <= 0 ||
+      window < 1 || window > cap || cum_len < 0 || layer < 0 || layer >= S || tps <= 0 ||
+      NS <= 0 || (dtype != ivl::DTYPE_F32 && dtype != ivl::DTYPE_BF16))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == ivl::DTYPE_F32)
-    return (int)launch_decode<float>(q, rings_k, rings_v, part, out, B, Hq, Hkv,
-                                     cap, layer, n_written, window, scale,
-                                     split_len, NS, st);
-  if (dtype == ivl::DTYPE_BF16)
-    return (int)launch_decode<__nv_bfloat16>(q, rings_k, rings_v, part, out, B,
-                                             Hq, Hkv, cap, layer, n_written,
-                                             window, scale, split_len, NS, st);
-  return (int)cudaErrorInvalidValue;
+  const DecWalk w = DecWalk::make(cap, cum_len, window, tps, NS);
+  if ((long long)tps * NS < w.n_tiles || (long long)tps * (NS - 1) >= w.n_tiles ||
+      (NS > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_decode(dtype, q, new_k, new_v, rings_k, rings_v, part, out, B, Hq, Hkv,
+                            S, layer, w, scale, (cudaStream_t)stream);
 }
 
 const char* ivl_error_string(int err) {

@@ -103,7 +103,7 @@ def load_library() -> ctypes.CDLL:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.ivl_swa_prefill.argtypes = [I, P, P, P, P, P, P, P] + [I] * 9 + [F, P]
     lib.ivl_swa_prefill.restype = I
-    lib.ivl_swa_decode.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, P]
+    lib.ivl_swa_decode.argtypes = [I] + [P] * 7 + [I] * 11 + [F, P]
     lib.ivl_swa_decode.restype = I
     lib.ivl_delta_step.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
     lib.ivl_delta_step.restype = I

@@ -11,7 +11,7 @@ its `launches` attribute."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -22,9 +22,12 @@ from .swa import (
     swa_cached_attention,
     swa_prefill_reference,
 )
+from .vit_kernels import sm_count
 
 HEAD_DIM = 128  # the head dim the kernels are written for
-DECODE_SPLIT = 128  # ring keys per block of the split-KV decode pass
+DECODE_TILE = 64  # ring slots per tile of the decode walk (A2, D)
+DECODE_SMS_PER_BLOCK = 2  # the decode walk is split into about one block per two SMs
+DECODE_MIN_TILES = 2  # and at least two tiles a block (see decode_split_plan)
 MAX_GROUPS = 16  # query heads per KV head the decode kernel takes
 BWD_TILE = 64  # keys per block of H's bf16 dK/dV kernel
 BWD_TARGET_BLOCKS = 2 * 132  # dK/dV blocks wanted in flight: two per SM (measured on
@@ -150,32 +153,109 @@ def swa_ring_flash_attention(
 swa_ring_flash_attention.launches = 0
 
 
+class DecodeSplit(NamedTuple):
+    """How A2 and D walk the ring: the tiles of DECODE_TILE slots that hold
+    a visible key, oldest first, are tiles (tile0 + i) % n_ring for i <
+    n_tiles; split s (one block per batch row and KV head) takes steps
+    [s tiles_per_split, (s + 1) tiles_per_split)."""
+    split: int
+    tiles_per_split: int
+    tile0: int
+    n_tiles: int
+    partial_shape: tuple  # fp32 scratch [B Hkv, split, G, D + 4]; () if split == 1
+
+
+def decode_split_plan(B: int, Hq: int, Hkv: int, cap: int, cum_len: int, window: int,
+                      sms: int) -> DecodeSplit:
+    """The walk of the decode kernels (csrc/swa_ring_flash.cu, DecWalk) over
+    ring slots visible to the token at position cum_len (the slot m0 =
+    cum_len % cap it is written to and the min(cum_len + 1, window) - 1
+    before it, cyclically), split so that about one block per
+    DECODE_SMS_PER_BLOCK SMs walks at least DECODE_MIN_TILES tiles. Each
+    block keeps three tiles (96 KB) in flight, so some 64 blocks fill the
+    memory's pipe; more splits only add partials to combine, and a split of
+    one tile writes a partial of 4.2 KB against its 32 KB of K/V."""
+    n_ring = -(-cap // DECODE_TILE)
+    m0 = cum_len % cap
+    n_vis = min(cum_len + 1, window)
+    lo = (m0 - n_vis + 1) % cap
+    tile0 = lo // DECODE_TILE
+    if lo <= m0:
+        n_tiles = m0 // DECODE_TILE - tile0 + 1
+    else:  # wraps past slot cap - 1; both ends in one tile: every tile once
+        n_tiles = min(n_ring, n_ring - tile0 + m0 // DECODE_TILE + 1)
+    want = max(1, -(-sms // (DECODE_SMS_PER_BLOCK * B * Hkv)))
+    tps = min(n_tiles, max(DECODE_MIN_TILES, -(-n_tiles // want)))
+    split = -(-n_tiles // tps)
+    shape = (B * Hkv, split, Hq // Hkv, HEAD_DIM + 4) if split > 1 else ()
+    return DecodeSplit(split, tps, tile0, n_tiles, shape)
+
+
+class SplitWalk(NamedTuple):
+    """One split of the decode walk, as decode_tile_walk predicts it."""
+    tiles: List[int]  # ring tiles loaded, in walk order
+    masked: List[int]  # those masked element by element
+    writes: bool  # the split stores the token into slot m0
+
+
+def decode_tile_walk(plan: DecodeSplit, cap: int, cum_len: int,
+                     window: int) -> List[SplitWalk]:
+    """The plain twin of the decode kernels' walk (DecWalk): per split, the
+    tiles it loads, those it masks element by element (a tile is whole when
+    every slot of it is visible: it lies below cap and holds no slot past
+    the window's lower edge, nor the write point's unwritten or evicted
+    slots), and whether it owns slot m0."""
+    n_ring = -(-cap // DECODE_TILE)
+    m0 = cum_len % cap
+    n_vis = min(cum_len + 1, window)
+
+    def whole(t: int) -> bool:
+        a = t * DECODE_TILE
+        if a + DECODE_TILE > cap:
+            return False
+        if a <= m0 < a + DECODE_TILE - 1:  # holds m0 and m0 + 1
+            return n_vis >= cap
+        return (m0 - a) % cap < n_vis
+
+    writer = ((m0 // DECODE_TILE - plan.tile0) % n_ring) // plan.tiles_per_split
+    walk = []
+    for s in range(plan.split):
+        steps = range(s * plan.tiles_per_split,
+                      min((s + 1) * plan.tiles_per_split, plan.n_tiles))
+        tiles = [(plan.tile0 + i) % n_ring for i in steps]
+        walk.append(SplitWalk(tiles, [t for t in tiles if not whole(t)], s == writer))
+    return walk
+
+
 def _launch_decode(name, q, new_k, new_v, rings_k, rings_v, layer, cum_len, window,
                    scale) -> torch.Tensor:
-    """Write the token's K/V into slot cum_len % cap of ring `layer` of
-    `rings_*` ([S, B, Hkv, cap, D], or one ring [B, Hkv, cap, D] with layer
-    0), then launch ivl_swa_decode over that ring."""
+    """Launch ivl_swa_decode on ring `layer` of `rings_*` ([S, B, Hkv, cap,
+    D], or one ring [B, Hkv, cap, D] as a stack of one): the kernel writes
+    the token's K/V into slot cum_len % cap and attends over that ring
+    under decode_split_plan's walk; past one split a second kernel combines
+    the partials. No torch op but the allocations of the output and the
+    scratch."""
     B, _, Hq, D = q.shape
+    S = rings_k.shape[0] if rings_k.dim() == 5 else 1
     Hkv, cap = rings_k.shape[-3], rings_k.shape[-2]
+    if q.dtype == torch.bfloat16 and (rings_k.data_ptr() % 16 or rings_v.data_ptr() % 16):
+        raise ValueError(f"{name}: the bf16 kernel's TMA maps need rings on 16 bytes")
     if scale is None:
         scale = D**-0.5
-    slot = cum_len % cap
-    ring_k = rings_k[layer] if rings_k.dim() == 5 else rings_k
-    ring_v = rings_v[layer] if rings_v.dim() == 5 else rings_v
-    ring_k[:, :, slot] = new_k[:, 0].to(ring_k.dtype)
-    ring_v[:, :, slot] = new_v[:, 0].to(ring_v.dtype)
-    ns = -(-cap // DECODE_SPLIT)
-    part = torch.empty((B * Hkv, ns, Hq // Hkv, D + 2), dtype=torch.float32,
-                       device=q.device)
+    plan = decode_split_plan(B, Hq, Hkv, cap, int(cum_len), int(window),
+                             sm_count(q.device.index))
+    part = (torch.empty(plan.partial_shape, dtype=torch.float32, device=q.device)
+            if plan.split > 1 else None)
     out = torch.empty_like(q)
     lib = _build.load_library()
     with torch.cuda.device(q.device):  # launch on the tensors' card
         _build.check(
             lib.ivl_swa_decode(
-                _DTYPES[q.dtype], q.data_ptr(), rings_k.data_ptr(),
-                rings_v.data_ptr(), part.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, D, cap, int(layer), int(cum_len) + 1, int(window),
-                float(scale), DECODE_SPLIT, ns,
+                _DTYPES[q.dtype], q.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+                rings_k.data_ptr(), rings_v.data_ptr(),
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                B, Hq, Hkv, D, cap, S, int(layer), int(cum_len), int(window),
+                plan.tiles_per_split, plan.split, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream,
             ),
             name,
@@ -197,7 +277,9 @@ def swa_ring_flash_decode_stacked(
     """Kernel A2: write the token's K/V into slot cum_len % cap of layer
     `layer` of the stacked rings (IN PLACE), then attend over that ring
     alone. Requires cap >= window (the evicted token is then never
-    visible). Returns [B, 1, Hq, D] in q's dtype."""
+    visible). On the card both happen in one kernel (plus a combine past
+    one split), new_k / new_v in q's dtype and contiguous. Returns
+    [B, 1, Hq, D] in q's dtype."""
     name = "swa_ring_flash_decode_stacked"
     if _on_cpu(name, q):
         out = swa_cached_attention(
@@ -208,7 +290,8 @@ def swa_ring_flash_decode_stacked(
         return out
     B, T, Hq, D = q.shape
     S, _, Hkv, cap, _ = rings_k.shape
-    _check_cuda(name, dict(q=q, rings_k=rings_k, rings_v=rings_v), q.dtype)
+    _check_cuda(name, dict(q=q, new_k=new_k, new_v=new_v, rings_k=rings_k,
+                           rings_v=rings_v), q.dtype)
     if T != 1:
         raise ValueError(f"{name}: decode takes one token (got T={T})")
     if D != HEAD_DIM or Hq % Hkv or Hq // Hkv > MAX_GROUPS:
@@ -271,7 +354,8 @@ def swa_ring_flash_decode(
         return swa_ring_decode_plain(q, new_k, new_v, ring_k, ring_v, cum_len,
                                      window, scale)
     B, T, Hq, D = q.shape
-    _check_cuda(name, dict(q=q, ring_k=ring_k, ring_v=ring_v), q.dtype)
+    _check_cuda(name, dict(q=q, new_k=new_k, new_v=new_v, ring_k=ring_k, ring_v=ring_v),
+                q.dtype)
     if T != 1:
         raise ValueError(f"{name}: decode takes one token (got T={T})")
     if ring_k.dim() != 4 or ring_k.shape[0] != B or ring_k.shape[3] != D \
