@@ -38,8 +38,14 @@ non-zero):
      with the rings L2-cold (rotated over 9) at B 1 and 4, beside masked
      and unmasked SDPA timed the same way with the token's write on both
      sides, A2 in bf16 and fp32 under two windows and two calls held bit
-     for bit; B's device time with the state L2-cold. The library call is
-     a yardstick only; the port never calls it
+     for bit; B in bf16 and fp32, its device kernels in one call (one) and
+     its device time with the state L2-cold at B 1 and 4; C's bf16 body
+     against the fp32 and the bf16 plain versions and the twin of its
+     passes, over T 16,384 from a state, two calls bit for bit, its device
+     times in a CUDA graph (unpacked and packed), its passes by the profiler
+     and the scan under each value tile, its bound on the bf16 tensor cores
+     and on fp32 FMA. The library call is a yardstick only; the port never
+     calls it
   4. cross-device check: a small fp32 model on the CPU (plain versions) and
      on the card (kernels), through Generator (text; then int4 + fused
      projections, and speculative against greedy decoding on the card) and
@@ -56,7 +62,8 @@ non-zero):
      wraps after 32), an `ask` in the middle and one at the end, the
      frames-ask-frames state held bit for bit against the same frames with
      no ask; then one Generator request with a 1344x1344 image, which
-     reaches kernel E
+     reaches kernel E; under --profile a steady frame, the image's ViT and
+     one `ask` (its device kernels and those of the T <= 64 recurrence)
   7. serving path, at full 3B width and depth: the weights quantised to
      int4 on the card, an HTTP chat server on a loopback port answering
      real requests (plain, streamed over SSE, n = 2 with a stop sequence,
@@ -620,86 +627,172 @@ def _decode_cold(dev, gen, B: int, cum: int, window: int, stacked: bool) -> dict
                 library_gqa_device_ms=lib_ms.get("gqa"), **bnd)
 
 
+def _b_timings(dev, gen) -> dict:
+    """Kernel B at the 3B DeltaNet layer (bf16 q, k, v; g, beta fp32), per
+    batch size: the device kernels one call of the wrapper runs (from the
+    profiler) and the device time of a call in a CUDA graph with the state
+    cold in L2, as in a decode step (the rings and the weights pass between
+    two reads of one layer's slab): the calls rotate over the layers of two
+    stacks (113 MB at B 1). Only what it measures; no check."""
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_step_fused_stacked
+
+    c = B_CASE
+    L, H, K, V = c["L"], c["H"], c["K"], c["V"]
+    out = {}
+    for B in c["Bs"]:
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+        stacks = (rnd(L, B, H, K, V) * 0.1, rnd(L, B, H, K, V) * 0.1)
+        q, k, v = (rnd(B, H, d).to(torch.bfloat16) for d in (K, K, V))
+        g = -torch.rand((B, H), generator=gen, device=dev) * 0.5
+        beta = torch.sigmoid(rnd(B, H))
+        _, n_k, _, rows = _device_profile(
+            lambda: delta_step_fused_stacked(q, k, v, g, beta, stacks[0], c["timed"][1]))
+        turn = [0]
+
+        def cold():
+            turn[0] += 1
+            i = turn[0] % (2 * L)
+            return delta_step_fused_stacked(q, k, v, g, beta, stacks[i % 2], i // 2)
+
+        out[B] = dict(kernels=n_k, rows=rows, device_ms=time_graph_ms(cold))
+        del stacks
+    return out
+
+
 def _b_cases(dev, gen):
     from infinitevl_tpu_torch.ops.delta_kernels import delta_step_fused_stacked
     from infinitevl_tpu_torch.ops.delta_rule import delta_rule_step
 
     c = B_CASE
     L, H, K, V = c["L"], c["H"], c["K"], c["V"]
-    errs, mxs = [], []
-    for B in c["Bs"]:
-        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-        stack = rnd(L, B, H, K, V) * 0.1
-        for layer in c["layers"]:
-            q, k, v = rnd(B, H, K), rnd(B, H, K), rnd(B, H, V)
-            g = -torch.rand((B, H), generator=gen, device=dev) * 0.5
-            beta = torch.sigmoid(rnd(B, H))
-            krn = stack.clone()
-            o = delta_step_fused_stacked(q, k, v, g, beta, krn, layer)
-            o_ref, h_ref = delta_rule_step(q, k, v, g, beta, stack[layer])
-            torch.cuda.synchronize()
-            e = max(err_ratio(o, o_ref), err_ratio(krn[layer], h_ref))
-            require(e <= F32_TOL, f"B B={B} layer={layer} err_ratio {e:.3g}")
-            others = [i for i in range(L) if i != layer]
-            require(torch.equal(krn[others], stack[others]),
-                    f"B B={B} layer={layer}: other layers of the state changed")
-            errs.append(e)
-            mxs.append(max(max_abs(o, o_ref), max_abs(krn[layer], h_ref)))
-            if (B, layer) == c["timed"]:
-                ms = time_ms(lambda: delta_step_fused_stacked(q, k, v, g, beta, krn, layer))
+    errs, mxs = {}, []
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        errs[dtype] = []
+        for B in c["Bs"]:
+            rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+            stack = rnd(L, B, H, K, V) * 0.1
+            for layer in c["layers"]:
+                # q, k, v in the layer's dtype, g and beta fp32, as the model calls it
+                q, k, v = rnd(B, H, K).to(dtype), rnd(B, H, K).to(dtype), rnd(B, H, V).to(dtype)
+                g = -torch.rand((B, H), generator=gen, device=dev) * 0.5
+                beta = torch.sigmoid(rnd(B, H))
+                krn = stack.clone()
+                o = delta_step_fused_stacked(q, k, v, g, beta, krn, layer)
+                o_ref, h_ref = delta_rule_step(q, k, v, g, beta, stack[layer])
+                torch.cuda.synchronize()
+                require(o.dtype == dtype, f"B {dtype}: o in {o.dtype}")
+                e = max(err_ratio(o, o_ref), err_ratio(krn[layer], h_ref))
+                require(e <= tol, f"B {dtype} B={B} layer={layer} err_ratio {e:.3g}")
+                others = [i for i in range(L) if i != layer]
+                require(torch.equal(krn[others], stack[others]),
+                        f"B {dtype} B={B} layer={layer}: other layers of the state changed")
+                errs[dtype].append(e)
+                if dtype == torch.bfloat16:
+                    mxs.append(max(max_abs(o, o_ref), max_abs(krn[layer], h_ref)))
+                if dtype == torch.bfloat16 and (B, layer) == c["timed"]:
+                    ms = time_ms(lambda: delta_step_fused_stacked(q, k, v, g, beta, krn, layer))
 
-                def plain_fn():
-                    _, h = delta_rule_step(q, k, v, g, beta, stack[layer])
-                    stack[layer].copy_(h)
+                    def plain_fn():
+                        _, h = delta_rule_step(q, k, v, g, beta, stack[layer])
+                        stack[layer].copy_(h)
 
-                plain = time_ms(plain_fn)
-                # device time with the state cold in L2, as in a decode step (the
-                # rings and the weights pass between two reads of one layer's
-                # slab): the calls rotate over the layers of two stacks (113 MB at B 1)
-                stacks, turn = (krn, stack.clone()), [0]
+                    plain = time_ms(plain_fn)
+    timed = _b_timings(dev, gen)
+    # the slab read and written once, q, k, v and o in bf16, g and beta fp32;
+    # two reductions, decay, rank-1 update
+    bnds = {B: bound(4 * 2 * B * H * K * V + 2 * (2 * B * H * K + 2 * B * H * V) + 4 * 2 * B * H,
+                     7 * B * H * K * V, PEAK_F32_FLOPS) for B in c["Bs"]}
+    B1, B4 = c["Bs"]
+    print(f"[3 parity] B delta_step_fused_stacked: max err_ratio fp32 "
+          f"{max(errs[torch.float32]):.3g} (tol {F32_TOL}), bf16 {max(errs[torch.bfloat16]):.3g} "
+          f"(tol {BF16_TOL}), B {c['Bs']} x layers {c['layers']}, other layers bit-equal; device "
+          f"kernels in one call (bf16): " + ", ".join(
+              f"B {B} {r['kernels']} ({'; '.join(f'{nm[:40]} {t * 1e3:.2f} us' for t, _, nm in r['rows'])})"
+              for B, r in timed.items())
+          + f"; (B, layer)={c['timed']}: kernel {ms:.3f} ms around the wrapper, device in a "
+          f"CUDA graph with the state L2-cold B {B1} {timed[B1]['device_ms']:.4f} ms, B {B4} "
+          f"{timed[B4]['device_ms']:.4f} ms, plain {plain:.3f} ms, bound B {B1} "
+          f"{bnds[B1]['bound_ms']:.4f} ms / B {B4} {bnds[B4]['bound_ms']:.4f} ms "
+          f"({bnds[B1]['bound_by']})", flush=True)
+    for B, r in timed.items():
+        require(r["kernels"] == 1,
+                f"B: one call of the wrapper ran {r['kernels']} device kernels at B {B}")
+    return dict(max_abs_err=max(mxs), ms=ms, device_ms=timed[B1]["device_ms"],
+                device_ms_b4=timed[B4]["device_ms"], plain_ms=plain, library_ms=None,
+                kernels_per_call=timed[B1]["kernels"], bound_ms_b4=bnds[B4]["bound_ms"],
+                **bnds[B1])
 
-                def cold():
-                    turn[0] += 1
-                    i = turn[0] % (2 * L)
-                    return delta_step_fused_stacked(q, k, v, g, beta, stacks[i % 2], i // 2)
 
-                dev_ms = time_graph_ms(cold)
-                del stacks
-                # the slab read and written once; two reductions, decay, rank-1 update
-                bnd = bound(4 * (2 * B * H * K * V + 2 * B * H * K + 2 * B * H * V + 2 * B * H),
-                            7 * B * H * K * V, PEAK_F32_FLOPS)
-    print(f"[3 parity] B delta_step_fused_stacked: max err_ratio {max(errs):.3g} "
-          f"(tol {F32_TOL}), other layers bit-equal; (B, layer)={c['timed']}: "
-          f"kernel {ms:.3f} ms around the wrapper, device {dev_ms:.4f} ms in a CUDA graph "
-          f"with the state L2-cold, plain {plain:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']})", flush=True)
-    return dict(max_abs_err=max(mxs), ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=None,
-                **bnd)
-
-
-def _c_bound(B, T, H, K, V, elt) -> dict:
+def _c_bound(B, T, H, K, V, elt, peak=PEAK_F32_FLOPS) -> dict:
     """Kernel C's bound: q, k, v read and o written once in the model's
     dtype, g and beta in fp32, the state read and written once; per chunk
     of 64 and head the strictly lower half of k k^T (C (C-1) K), the lower
-    half of q k^T (C (C+1) K), the substitution (C (C-1) (K + V)), w S and
-    q S (2 C K V each), the lower half of the masked product (C (C+1) V)
-    and the state update (2 C K V), all in fp32."""
+    half of q k^T (C (C+1) K), the inverse applied to the right-hand sides
+    (C (C-1) (K + V)), w S and q S (2 C K V each), the lower half of the
+    masked product (C (C+1) V) and the state update (2 C K V), at `peak`:
+    the fp32 FMA rate (the fp32 body) or the bf16 tensor cores' (the bf16
+    body)."""
     C = 64
     n_chunks = -(-T // C)
     per_chunk = (C * (C - 1) * K + C * (C + 1) * K + C * (C - 1) * (K + V)
                  + 6 * C * K * V + C * (C + 1) * V)
     n_bytes = elt * (2 * B * T * H * K + 2 * B * T * H * V) + 4 * (2 * B * T * H + 2 * B * H * K * V)
-    return bound(n_bytes, B * H * n_chunks * per_chunk, PEAK_F32_FLOPS)
+    return bound(n_bytes, B * H * n_chunks * per_chunk, peak)
+
+
+def _c_inputs(dev, gen, B, T, dtype, packed=False):
+    """q, k, v in `dtype`, g, beta, an initial state and (packed) segment
+    ids at the DeltaNet layer's shape."""
+    c = C_CASE
+    H, K, V = c["H"], c["K"], c["V"]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    q, k, v = rnd(B, T, H, K).to(dtype), rnd(B, T, H, K).to(dtype), rnd(B, T, H, V).to(dtype)
+    g = -torch.rand((B, T, H), generator=gen, device=dev) * 0.2
+    beta = torch.sigmoid(rnd(B, T, H))
+    h0 = rnd(B, H, K, V) * 0.1
+    return q, k, v, g, beta, h0, (_c_segments(B, T, dev) if packed else None)
+
+
+def _c_timings(dev, gen) -> dict:
+    """Kernel C's device times in a CUDA graph (bf16 with a state unless
+    said): B 1 at T 257 (one frame) and T 2,048 (a prefill chunk), B 2 at T
+    2,048 unpacked and packed (_c_segments), the fp32 body at B 1, T 2,048;
+    the time of each pass from the profiler at T 257 and 2,048; and, where
+    the wrapper has a V-tile plan, the scan under each tile. Only what it
+    measures; no check."""
+    from infinitevl_tpu_torch.ops import delta_kernels as dk
+
+    shapes = dict(t257=(1, 257, torch.bfloat16, False), t2048=(1, 2048, torch.bfloat16, False),
+                  b2_t2048=(2, 2048, torch.bfloat16, False),
+                  b2_t2048_packed=(2, 2048, torch.bfloat16, True),
+                  f32_t2048=(1, 2048, torch.float32, False))
+    out, passes, sweep = {}, {}, {}
+    for name, (B, T, dtype, packed) in shapes.items():
+        q, k, v, g, beta, h0, seg = _c_inputs(dev, gen, B, T, dtype, packed)
+        call = lambda: dk.delta_rule_chunk_fused(q, k, v, g, beta, h0, segment_ids=seg)
+        out[name] = time_graph_ms(call)
+        if name in ("t257", "t2048"):
+            _, _, _, rows = _device_profile(call)
+            passes[name] = [(nm, t) for t, _, nm in rows if "delta_chunk" in nm.lower()]
+        if name in ("t257", "t2048", "b2_t2048"):
+            if hasattr(dk, "SCAN_V_TILES"):
+                kept = dk.SCAN_V_TILES
+                for bv in kept:
+                    dk.SCAN_V_TILES = (bv,)
+                    sweep[f"{name}_bv{bv}"] = time_graph_ms(call)
+                dk.SCAN_V_TILES = kept
+    return dict(device_ms=out, passes=passes, sweep=sweep)
 
 
 def _c_cases(dev, gen):
-    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_chunk_passes, delta_rule_chunk_fused
     from infinitevl_tpu_torch.ops.delta_rule import delta_rule_chunk
 
     c = C_CASE
     H, K, V = c["H"], c["K"], c["V"]
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     errs, mxs, timed = {}, [], {}
+    errs_b16, errs_twin = [], []
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, C_F32_TOL)):
         errs[dtype] = []
         for B in c["Bs"]:
@@ -722,29 +815,74 @@ def _c_cases(dev, gen):
                         o2, h2 = delta_rule_chunk_fused(q, k, v, g, beta, slab, out_state=slab)
                         require(h2 is slab and torch.equal(slab, hT) and torch.equal(o2, o),
                                 f"C {dtype} B={B} T={T}: in-place state differs")
+                    o3, h3 = delta_rule_chunk_fused(q, k, v, g, beta, h0)
+                    require(torch.equal(o3, o) and torch.equal(h3, hT),
+                            f"C {dtype} B={B} T={T}: two calls differ")
                     errs[dtype].append(e)
                     if dtype == torch.bfloat16:
                         mxs.append(max(max_abs(o, o_ref), max_abs(hT, h_ref)))
+                        # the JAX model path's bf16 precision (the plain chunk form
+                        # on bf16 inputs), and the twin of the kernel's passes
+                        for ref_fn, acc in ((delta_rule_chunk, errs_b16),
+                                            (delta_chunk_passes, errs_twin)):
+                            ro, rh = ref_fn(q, k, v, g, beta, h0)
+                            e = max(err_ratio(o, ro), err_ratio(hT, rh))
+                            require(e <= BF16_TOL, f"C bf16 B={B} T={T} init={init} against "
+                                    f"{ref_fn.__name__}: err_ratio {e:.3g}")
+                            acc.append(e)
                     if dtype == torch.bfloat16 and B == 1 and init and T in c["timed"]:
                         timed[T] = dict(
                             ms=time_ms(lambda: delta_rule_chunk_fused(q, k, v, g, beta, h0)),
                             plain_ms=time_ms(lambda: delta_rule_chunk(
                                 q, k, v, g, beta, h0, compute_dtype=torch.float32)),
-                            **_c_bound(1, T, H, K, V, 2))
+                            bound_fp32=_c_bound(1, T, H, K, V, 2),
+                            **_c_bound(1, T, H, K, V, 2, PEAK_BF16_FLOPS))
+    # drift over a long prefill: 256 chunks from an initial state, bf16 against fp32
+    T = 16384
+    q, k, v, g, beta, h0, _ = _c_inputs(dev, gen, 1, T, torch.bfloat16)
+    o, hT = delta_rule_chunk_fused(q, k, v, g, beta, h0)
+    o_ref, h_ref = delta_rule_chunk(q, k, v, g, beta, h0, compute_dtype=torch.float32)
+    drift = (err_ratio(o, o_ref), err_ratio(hT, h_ref))
+    require(max(drift) <= BF16_TOL, f"C bf16 at T {T}: err_ratio o {drift[0]:.3g}, state "
+            f"{drift[1]:.3g}")
+    del q, k, v, g, beta, h0, o, hT, o_ref, h_ref
+    torch.cuda.empty_cache()
     line = "; ".join(
         f"(B 1, T {T}, bf16, with state): kernel {r['ms']:.3f} ms, plain "
-        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-        for T, r in timed.items())
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bf16 "
+        f"tensor cores), {r['bound_fp32']['bound_ms']:.4f} ms ({r['bound_fp32']['bound_by']}; "
+        f"fp32 FMA)" for T, r in timed.items())
     print(f"[3 parity] C delta_rule_chunk_fused: max err_ratio bf16 "
-          f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
-          f"{max(errs[torch.float32]):.3g} (tol {C_F32_TOL}), o and final state, "
+          f"{max(errs[torch.bfloat16]):.3g} against the fp32 plain version, "
+          f"{max(errs_b16):.3g} against the bf16 one (delta_rule_chunk, the JAX model path's "
+          f"precision), {max(errs_twin):.3g} against the twin of the passes (tol {BF16_TOL}); "
+          f"fp32 {max(errs[torch.float32]):.3g} (tol {C_F32_TOL}), o and final state, "
           f"B {c['Bs']} x T {c['Ts']} x with/without state, the state written in "
-          f"place bit-equal; {line}", flush=True)
+          f"place bit-equal, two calls bit-equal; B 1, T {T} from a state, bf16 against "
+          f"fp32: o {drift[0]:.3g}, state {drift[1]:.3g} (tol {BF16_TOL}); {line}", flush=True)
     seg_res = _c_segment_cases(dev, gen)
+    tm = _c_timings(dev, gen)
+    dm = tm["device_ms"]
+    print("[3 parity] C timed, device ms in a CUDA graph (bf16, with state): "
+          + ", ".join(f"{k} {v_:.4f}" for k, v_ in dm.items())
+          + f"; packed / unpacked at B 2: {dm['b2_t2048_packed'] / dm['b2_t2048']:.3f}; "
+          + "passes by the profiler (ms): " + "; ".join(
+              f"{k}: " + ", ".join(f"{nm[:48]} {t:.4f}" for nm, t in rows)
+              for k, rows in tm["passes"].items())
+          + "; the scan's V-tile sweep (device ms): "
+          + (", ".join(f"{k} {v_:.4f}" for k, v_ in tm["sweep"].items()) or "no plan"),
+          flush=True)
     frame, chunk = timed[c["timed"][0]], timed[c["timed"][1]]
+    frame_fp32 = frame.pop("bound_fp32")
     return dict(max_abs_err=max(mxs + [seg_res.pop("max_abs_err")]), library_ms=None, **frame,
+                bound_ms_fp32_fma=frame_fp32["bound_ms"], device_ms=dm["t257"],
                 ms_t2048=chunk["ms"], plain_ms_t2048=chunk["plain_ms"],
-                bound_ms_t2048=chunk["bound_ms"], **seg_res)
+                bound_ms_t2048=chunk["bound_ms"],
+                bound_ms_t2048_fp32_fma=chunk["bound_fp32"]["bound_ms"],
+                device_ms_t2048=dm["t2048"], device_ms_b2_t2048=dm["b2_t2048"],
+                device_ms_b2_t2048_packed=dm["b2_t2048_packed"],
+                device_ms_f32_t2048=dm["f32_t2048"], scan_v_tile_sweep=tm["sweep"],
+                drift_t16384=max(drift), **seg_res)
 
 
 def _c_segments(B: int, T: int, dev) -> torch.Tensor:
@@ -805,7 +943,7 @@ def _c_segment_cases(dev, gen) -> dict:
     ms = time_ms(lambda: delta_rule_chunk_fused(q, k, v, g, beta, h0, segment_ids=seg))
     plain = time_ms(lambda: delta_rule_chunk(q, k, v, g, beta, h0, segment_ids=seg,
                                              compute_dtype=torch.float32))
-    bnd = _c_bound(1, T, H, K, V, 2)
+    bnd = _c_bound(1, T, H, K, V, 2, PEAK_BF16_FLOPS)
     print(f"[3 parity] C packed rows (segment ids: boundaries inside chunks, at a chunk edge, "
           f"three in one chunk, a pad tail): max err_ratio bf16 "
           f"{max(errs[torch.bfloat16]):.3g} (tol {BF16_TOL}), fp32 "
@@ -2034,6 +2172,7 @@ def phase_stream_path(dev, card: str, params, cfg, profile: bool) -> tuple:
     if profile:
         _profile_frames(eng, frames[:5], float(np.median(times)), card)
         _profile_image_vit(params, cfg, pixels, grid, card)
+        _profile_ask(eng, question, card)
     return stream_launches, image_launches
 
 
@@ -2955,6 +3094,35 @@ def _profile_frames(eng, frames, frame_ms: float, card: str) -> None:
           f"{count - vit_count} kernels on '{card}'", flush=True)
     for ms, n, name in rows[:12]:
         print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name}", flush=True)
+
+
+def _profile_ask(eng, question, card: str) -> None:
+    """Device kernels of one `ask` (its prompt through the DeltaNet layers'
+    recurrence, T <= 64, then 16 decode steps), and how many of them the
+    recurrence launches: its calls counted in the ask, and one call at the
+    ask's shape profiled alone."""
+    from infinitevl_tpu_torch.ops import delta_rule as dr
+
+    seen, plain = [], dr.delta_rule_recurrent
+
+    def counted(*args, **kw):
+        seen.append((args, kw))
+        return plain(*args, **kw)
+
+    dr.delta_rule_recurrent = counted
+    try:
+        run = lambda: eng.ask(question, max_new_tokens=ASK_NEW_TOKENS, eos_token_id=-1,
+                              chunk_size=ASK_NEW_TOKENS - 1)
+        total, count, sums, _ = _device_profile(run)
+    finally:
+        dr.delta_rule_recurrent = plain
+    calls = len(seen) // 4  # the profile's warm-up and three runs
+    args, kw = seen[0]
+    _, per_call, _, _ = _device_profile(lambda: plain(*args, **kw))
+    T = args[0].shape[1]
+    print(f"[profile] one ask of {ASK_NEW_TOKENS} tokens: device {total:.2f} ms, {count} device "
+          f"kernels; the T <= 64 recurrence (plain torch, T {T}): {calls} calls an ask x "
+          f"{per_call} kernels = {calls * per_call} kernels on '{card}'", flush=True)
 
 
 def _profile_image_vit(params, cfg, pixels, grid, card: str) -> None:

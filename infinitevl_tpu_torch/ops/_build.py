@@ -105,9 +105,9 @@ def load_library() -> ctypes.CDLL:
     lib.ivl_swa_prefill.restype = I
     lib.ivl_swa_decode.argtypes = [I] + [P] * 7 + [I] * 11 + [F, P]
     lib.ivl_swa_decode.restype = I
-    lib.ivl_delta_step.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.ivl_delta_step.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, F, P]
     lib.ivl_delta_step.restype = I
-    lib.ivl_delta_chunk.argtypes = [I, P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F, P]
+    lib.ivl_delta_chunk.argtypes = [I, P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F, I, P]
     lib.ivl_delta_chunk.restype = I
     lib.ivl_vit_flash.argtypes = [I, P, P, P, P, P, I, I, I, L, L, L, F, I, I, P]
     lib.ivl_vit_flash.restype = I

@@ -19,8 +19,10 @@ numbers and is not needed here.
 `delta_rule_step` is the plain version of the Hopper kernel
 `ops/delta_kernels.delta_step_fused_stacked` (B), and `delta_rule_chunk`
 with `compute_dtype=torch.float32` that of
-`ops/delta_kernels.delta_rule_chunk_fused` (C), which `gated_delta_rule`
-dispatches to for T above the recurrent threshold.
+`ops/delta_kernels.delta_rule_chunk_fused` (C) on fp32 inputs, which
+`gated_delta_rule` dispatches to for T above the recurrent threshold (on
+bf16 inputs C computes this module's bf16 precision model; its plain twin
+is `ops/delta_kernels.delta_chunk_passes`).
 
 Matmuls follow the JAX precision model: operands in the compute dtype
 (the input dtype for bf16/fp16 models, fp32 otherwise) and fp32

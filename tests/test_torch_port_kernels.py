@@ -30,7 +30,8 @@ from infinitevl_tpu.ops.swa_pallas import (
 from infinitevl_tpu_torch.models.quant import int4_matmul
 from infinitevl_tpu_torch.ops import _build
 from infinitevl_tpu_torch.ops.delta_kernels import (
-    chunk_scratch_floats,
+    chunk_scratch_bytes,
+    delta_chunk_passes,
     delta_rule_chunk_fused,
     delta_step_fused_stacked,
 )
@@ -251,19 +252,30 @@ def test_int4_launch_plan_per_dtype(M):
             assert rpb >= 128
 
 
-def test_delta_step_plain_matches_pallas_per_layer():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_delta_step_plain_matches_pallas_per_layer(dtype):
+    """Kernel B's plain version against the Pallas kernel in interpret mode,
+    layer by layer of the stack, with q, k, v in the layer's dtype (g and
+    beta fp32, as the model computes them). bf16: both sides round
+    l2norm(q) and l2norm(k) to bf16 and o at the end; o is held to 1e-3 (a
+    bf16 ulp where the fp32 summation order flips a rounding), the fp32
+    state to TOL."""
     rng = np.random.RandomState(11)
     L, B, H, K, V = 3, 2, 4, 16, 32
     q, k, v = rnd(rng, B, H, K), rnd(rng, B, H, K), rnd(rng, B, H, V)
     g = (-np.abs(rng.standard_normal((B, H))) * 0.2).astype(np.float32)
     beta = (1 / (1 + np.exp(-rng.standard_normal((B, H))))).astype(np.float32)
     stack = rnd(rng, L, B, H, K, V)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    o_tol = TOL if dtype == "float32" else 1e-3
     for layer in range(L):
-        o_ref, h_ref = j_delta_step(*map(jnp.asarray, (q, k, v, g, beta, stack)),
-                                    layer, interpret=True)
+        o_ref, h_ref = j_delta_step(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                                    *map(jnp.asarray, (g, beta, stack)), layer, interpret=True)
         th = torch.from_numpy(stack.copy())
-        o = delta_step_fused_stacked(*map(torch.from_numpy, (q, k, v, g, beta)), th, layer)
-        assert err_ratio(o, o_ref) < TOL, layer
+        o = delta_step_fused_stacked(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                                     *map(torch.from_numpy, (g, beta)), th, layer)
+        assert o.dtype == tdt and o_ref.dtype == jdt
+        assert err_ratio(o.float(), jnp.asarray(o_ref, jnp.float32)) < o_tol, layer
         assert err_ratio(th[layer], np.asarray(h_ref)[layer]) < TOL, layer
         others = [i for i in range(L) if i != layer]
         np.testing.assert_array_equal(th.numpy()[others], stack[others])
@@ -300,18 +312,30 @@ def test_delta_chunk_plain_matches_pallas_and_recurrence(T, with_state):
 
 
 def test_delta_chunk_wrapper_bf16_and_scratch_size():
-    """bf16 inputs: fp32 arithmetic on the widened values, o back in bf16."""
+    """bf16 inputs: the JAX model path's precision (the twin of the kernel's
+    bf16 passes), o in bf16 and the final state fp32, within bf16 rounding
+    of the fp32 arithmetic on the widened values; the initial state is read,
+    and written only where out_state says."""
     rng = np.random.RandomState(3)
     q, k, v = (torch.from_numpy(rnd(rng, 1, 70, 2, 128)).bfloat16() for _ in range(3))
     g = torch.from_numpy((-rng.uniform(size=(1, 70, 2))).astype(np.float32))
     beta = torch.from_numpy(rng.uniform(size=(1, 70, 2)).astype(np.float32))
-    o, s = delta_rule_chunk_fused(q, k, v, g, beta)
-    o32, s32 = delta_rule_chunk_fused(q.float(), k.float(), v.float(), g, beta)
-    assert o.dtype == torch.bfloat16 and torch.equal(o, o32.bfloat16())
-    assert torch.equal(s, s32)
-    # per (b, h, chunk): three [128, 64] tiles, one [64, 64], u [64, V], two
-    # scalars (the carry e^{g_C} and the flag of a segment starting at the edge)
-    assert chunk_scratch_floats(1, 257, 16, 256) == 16 * 5 * (3 * 8192 + 4096 + 64 * 256 + 2)
+    s0 = torch.from_numpy(rnd(rng, 1, 2, 128, 128, scale=0.1))
+    o, s = delta_rule_chunk_fused(q, k, v, g, beta, s0)
+    o_tw, s_tw = delta_chunk_passes(q, k, v, g, beta, s0)
+    assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
+    assert torch.equal(o, o_tw) and torch.equal(s, s_tw)
+    o32, s32 = delta_rule_chunk_fused(q.float(), k.float(), v.float(), g, beta, s0)
+    assert err_ratio(o.float(), o32) < 1e-2 and err_ratio(s, s32) < 1e-2
+    slab = s0.clone()
+    o2, s2 = delta_rule_chunk_fused(q, k, v, g, beta, slab, out_state=slab)
+    assert s2 is slab and torch.equal(slab, s) and torch.equal(o2, o)
+    # per (b, h, chunk): three [64, 128] tiles, one [64, 64], u [64, V], two
+    # fp32 scalars (the carry e^{g_C} and the flag of a segment starting at
+    # the edge); fp32 throughout for fp32 inputs, the tiles in bf16 for bf16
+    tiles = 3 * 8192 + 4096 + 64 * 256
+    assert chunk_scratch_bytes(1, 257, 16, 256, torch.float32) == 4 * 16 * 5 * (tiles + 2)
+    assert chunk_scratch_bytes(1, 257, 16, 256, torch.bfloat16) == 16 * 5 * (2 * tiles + 8)
 
 
 @pytest.mark.parametrize("S", [300, 512])
