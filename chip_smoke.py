@@ -5,16 +5,17 @@ NVIDIA H100.
     python3 chip_smoke.py                 # all phases; needs one CUDA card and nvcc
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and kernel parity
     python3 chip_smoke.py --profile       # all phases, plus torch.profiler breakdowns
-                                          # of one decode step, three steady frames
-                                          # and one LoRA step
+                                          # of one decode step, three steady frames,
+                                          # one LoRA step and one stage-1 step
     python3 chip_smoke.py --kernels-only --only=h,f  # a subset of phase 3
     python3 chip_smoke.py --train-only    # phases 1-3, then the training phases alone
     python3 chip_smoke.py --text-only --profile --only=a2,d,b  # phases 1-3, then 5
+    python3 chip_smoke.py --dt-only --only=h  # phases 1-3, 4's distillation steps, 10
 
---kernels-only, --text-only and --train-only are shortcuts for work on one
-part: they stop before the `kernels` line, the card's line and the final
-`{"ok": ...}` line, so only the run without them is the whole check. --only=
-is taken with one of the three and refused otherwise.
+--kernels-only, --text-only, --train-only and --dt-only are shortcuts for work
+on one part: they stop before the `kernels` line, the card's line and the
+final `{"ok": ...}` line, so only the run without them is the whole check.
+--only= is taken with one of the four and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -80,9 +81,26 @@ non-zero):
      F and E; then the step's peak memory at windows of 256 and 1,024
      patches, F's backward through its chunked twin and through the
      batched-dense plain version
+ 10. checkpoints and distillation, at full 3B width and depth (bf16, random
+     weights from seed 0): the all-full_attention teacher twin with the ViT
+     exported as HF safetensors in shards of 4 GB and read back (leaves and
+     a 64-token prompt's logits bit-equal; bytes, seconds, GB/s); stage 1 of
+     examples/train_3b_stage1.yaml through run_dt (teacher_model_path set
+     to that checkpoint, data_parallel 1, 3 steps on packed rows of 8,192);
+     stage 2 (cutoff 2,048, 3 steps) with the handoff from stage 1's train
+     state; one multimodal stage-2 step at 448x448; the teacher held
+     bit-unchanged after each run and the launches per step held to the
+     code's count; then the student exported through cli.cmd_export,
+     served through cli._build_generator (32 greedy tokens equal to the
+     in-memory student's), scored by cli.cmd_eval on examples/eval_mcq.yaml
+     at 3B (each padded prediction equal to the prompt's alone without
+     pads), and one cli.cmd_api request on a loopback port
+Phase 4 also takes one distillation step of each stage on the small fp32
+model, CPU against card.
 Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
-recipe, the ViT path) and read just after it. Then a JSON line of per-kernel results, the card's line, and
+recipe, the ViT path, every distillation run and CLI command) and read just
+after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -1790,6 +1808,98 @@ def phase_train_cross_device(dev) -> None:
           f"{delta_rule_chunk_fused.launches}", flush=True)
 
 
+def phase_dt_cross_device(dev) -> None:
+    """One distillation step of each stage on the small fp32 model, CPU
+    (plain versions) against the card (kernels), from the same teacher, the
+    same fresh mixers and the same batch: a dense full-attention teacher
+    (H with an unbounded window) converted with layer 0 kept; stage 1 on
+    tail-padded rows (B 2, T 300: the ids stay exact, C's packed path),
+    stage 2 on the same rows. The loss and every trainable leaf within
+    MODEL_TOL; the teacher bit-unchanged on the card."""
+    import dataclasses
+
+    from infinitevl_tpu_torch.models.convert import convert_attention, trainable_mask
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+    from infinitevl_tpu_torch.train.distill import (
+        apply_trainable_mask,
+        make_stage1_step,
+        make_stage2_step,
+        stage2_mask,
+    )
+    from infinitevl_tpu_torch.train.step import make_optimizer, tree_leaves_with_path
+
+    cfg = _small_config()
+    n = cfg.text.num_hidden_layers
+    tcfg = dataclasses.replace(cfg.text, layer_types=("full_attention",) * n)
+    teacher_cpu = init_text_params(tcfg, torch.Generator().manual_seed(4), "cpu", torch.float32)
+    student_cpu, scfg = convert_attention(teacher_cpu, tcfg, torch.Generator().manual_seed(5),
+                                          softmax_attention=(0,))
+    rng = np.random.RandomState(4)
+    B, T = 2, 300
+    seg = (np.arange(T)[None] < np.asarray([300, 211])[:, None]).astype(np.int32)
+    ids = rng.randint(0, cfg.text.vocab_size - 8, (B, T)) * seg
+    batch = dict(input_ids=ids, labels=np.where(seg > 0, ids, -100),
+                 position_ids=np.broadcast_to(np.arange(T)[None, None], (3, B, T)).copy(),
+                 segment_ids=seg)
+
+    def run(stage, device):
+        teacher = _clone_tree(teacher_cpu, device)
+        student, _ = convert_attention(teacher, tcfg, None, softmax_attention=(0,))
+        for i in range(1, n):  # the CPU's fresh mixers on both sides
+            for k, v in student_cpu["layers"][i].items():
+                if k not in ("mlp", "input_norm", "post_norm"):
+                    student["layers"][i][k] = _clone_tree(v, device)
+        tx = make_optimizer(1e-3, grad_clip=1e9)
+        if stage == 1:
+            mask = trainable_mask(student, scfg, softmax_attention=(0,))
+            step = make_stage1_step(scfg, tcfg, tx, 10.0)
+        else:
+            mask = stage2_mask(student)
+            step = make_stage2_step(scfg, tcfg, tx, 2.0)
+        apply_trainable_mask(student, mask, teacher)
+        zero = {k for k, v in tree_leaves_with_path(student) if not v.abs().sum()}
+        _, _, loss = step(student, tx.init(student), teacher, dict(batch))
+        trained = {k: v.detach() for k, v in tree_leaves_with_path(student) if v.requires_grad}
+        return float(loss), trained, teacher, zero
+
+    parts = []
+    for stage in (1, 2):
+        l_cpu, p_cpu, _, zero = run(stage, "cpu")
+        h.launches = h.launches_bwd = delta_rule_chunk_fused.launches = 0
+        l_dev, p_dev, teacher_dev, _ = run(stage, dev)
+        torch.cuda.synchronize()
+        launches = (h.launches, h.launches_bwd, delta_rule_chunk_fused.launches)
+        e_loss = abs(l_cpu - l_dev) / abs(l_cpu)
+        # a leaf that was zero before the step (a bias) holds the AdamW update
+        # alone, g / (|g| + eps) x lr, which maps rounding noise in a vanishing
+        # gradient to +-lr on either device: reported, not held (as in the
+        # packed step above)
+        e_par = max(err_ratio(v, p_cpu[k]) for k, v in p_dev.items() if k not in zero)
+        e_new = max((err_ratio(v, p_cpu[k]) for k, v in p_dev.items() if k in zero),
+                    default=0.0)
+        require(e_loss <= MODEL_TOL and e_par <= MODEL_TOL,
+                f"dt stage {stage}: loss err {e_loss:.3g}, trainable leaves err_ratio "
+                f"{e_par:.3g} CPU vs card")
+        want = dict(tree_leaves_with_path(teacher_cpu))
+        require(all(torch.equal(v.cpu(), want[k]) for k, v in tree_leaves_with_path(teacher_dev)),
+                f"dt stage {stage}: the teacher changed on the card")
+        # the teacher's n layers and the student's kept layer run H; stage 2
+        # differentiates the kept layer; C runs the n - 1 converted layers
+        expect = (n + 1, 0 if stage == 1 else 1, n - 1)
+        require(launches == expect, f"dt stage {stage}: H fwd / bwd / C launches {launches}, "
+                                    f"expected {expect}")
+        parts.append(f"stage {stage}: loss {l_dev:.6f}, loss err {e_loss:.2g}, {len(p_dev)} "
+                     f"trainable leaves err_ratio {e_par:.2g} (those zero before the step, "
+                     f"the update alone: {e_new:.2g}, not held), H fwd / bwd / C launches "
+                     f"{launches}")
+    print(f"[4 cross-device] one distillation step of each stage (a {n}-layer full-attention "
+          f"teacher, layer 0 kept, tail-padded rows B 2, T 300, lr 1e-3), fp32 small model, "
+          f"CPU against card, tol {MODEL_TOL}, the teacher bit-unchanged: " + "; ".join(parts),
+          flush=True)
+
+
 def phase_cross_device(dev) -> None:
     from infinitevl_tpu_torch.generation import Generator
     from infinitevl_tpu_torch.models.infinitevl import forward, get_rope_index
@@ -2608,21 +2718,22 @@ def _train_args(out_dir: str, **over):
     return parse_args(conf)
 
 
-def _run_recipe(name: str, args, card: str, expect_launches=None) -> dict:
-    """One run_sft call at 3B width: per-step losses and times from its
-    trainer_log.jsonl, peak memory, launch counts (set to 0 just before,
-    read just after)."""
+def _run_recipe(name: str, args, card: str, expect_launches=None, run=None,
+                tag: str = "8 train") -> dict:
+    """One workflow call at 3B width (`run`, default run_sft): per-step
+    losses and times from its trainer_log.jsonl, peak memory, launch counts
+    (set to 0 just before, read just after, held to `expect_launches` per
+    step)."""
     import os
 
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
     from infinitevl_tpu_torch.train.trainer import run_sft
 
     _free()
     torch.cuda.reset_peak_memory_stats()
-    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
-
     _reset_launches()
     t0 = time.perf_counter()
-    final = run_sft(args)
+    final = (run or run_sft)(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches(())
@@ -2644,15 +2755,16 @@ def _run_recipe(name: str, args, card: str, expect_launches=None) -> dict:
             require(launches[key] == per_step * steps,
                     f"{name}: {key} launched {launches[key]} times, expected "
                     f"{per_step} x {steps} steps")
-    print(f"[8 train] {name}: {steps} steps, losses {[round(x, 4) for x in losses]}, "
-          f"{step_ms:.0f} ms per step (median of steps 2..), "
-          f"{ntok / step_ms * 1e3:.0f} positions/s at {ntok} positions per step (pads "
-          f"included), {recs[-1]['tokens_per_sec']:.0f} real tok/s by the trainer's count "
-          f"over the whole run (first step included), peak memory "
-          f"{peak:.2f} GB, whole call {wall:.1f} s (weights from seed and dataset included); "
-          f"launches H fwd {launches['swa_train_flash_attention']} bwd {h.launches_bwd}, "
-          f"C {launches['delta_rule_chunk_fused']}, E {launches['segment_flash_attention']}, "
-          f"F {launches['window_flash_attention']} on '{card}'", flush=True)
+    timed = (f"{step_ms:.0f} ms per step (median of steps 2..), {ntok / step_ms * 1e3:.0f} "
+             f"positions/s at {ntok} positions per step (pads included), " if len(times)
+             else f"{ntok} positions, ")
+    print(f"[{tag}] {name}: {steps} steps, losses {[round(x, 6) for x in losses]}, {timed}"
+          f"{recs[-1]['tokens_per_sec']:.0f} real tok/s by the trainer's count over the whole "
+          f"run (first step included), peak memory {peak:.2f} GB, whole call {wall:.1f} s "
+          f"(weights, dataset and the final train-state save included); launches H fwd "
+          f"{launches['swa_train_flash_attention']} bwd {h.launches_bwd}, C "
+          f"{launches['delta_rule_chunk_fused']}, E {launches['segment_flash_attention']}, F "
+          f"{launches['window_flash_attention']} on '{card}'", flush=True)
     del final
     _free()
     return dict(losses=losses, step_ms=step_ms, peak_gb=peak, launches=launches)
@@ -2661,6 +2773,7 @@ def _run_recipe(name: str, args, card: str, expect_launches=None) -> dict:
 def phase_train_path(dev, card: str, profile: bool) -> dict:
     """Phase 8: SFT at 3B width and depth through run_sft / Trainer."""
     import os
+    import shutil
     import tempfile
 
     from infinitevl_tpu_torch.config import infinitevl_3b
@@ -2742,6 +2855,9 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
                     learning_rate=1e-5, **text),
         card, remat_launches)
     add(res["full_2048"])
+    # its train state (the decoder's weights and two moments) is the largest file
+    # of the phase; the card's machine limits what its disk ever held
+    shutil.rmtree(os.path.join(root, "d"))
 
     # (e) multimodal LoRA steps on data/mllm_demo.json's first image, resized by
     # the processor to 448x448 and to 1344x1344; the row is padded to cutoff_len
@@ -2831,6 +2947,7 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
             print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name}", flush=True)
     del straight, first, second, params
     _free()
+    shutil.rmtree(root, ignore_errors=True)
     res["total_launches"] = total
     return res
 
@@ -2973,6 +3090,479 @@ def phase_vit_window_path(dev, card: str) -> dict:
     del params, state
     _free()
     return launches, peaks
+
+
+# ---------------------------------------------------------------- distillation
+
+
+class _Spy:
+    """Wraps a module attribute (a function) for the duration of a `with`:
+    records every call's result, and runs `check(args, result)` on it."""
+
+    def __init__(self, module, name, check=None):
+        self.module, self.name, self.check = module, name, check
+        self.results = []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def wrapped(*args, **kw):
+            out = real(*args, **kw)
+            self.results.append(out)
+            if self.check is not None:
+                self.check(args, out)
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _ptrs(tree) -> set:
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    return {t.untyped_storage().data_ptr() for _, t in tree_leaves_with_path(tree)}
+
+
+def _require_teacher_unchanged(teacher, path: str, cfg, what: str) -> int:
+    """Every leaf of the teacher run_dt loaded (and kept) bit-equal to the
+    checkpoint on disk; returns the number of leaves compared."""
+    from infinitevl_tpu_torch.models.params import load_hf_checkpoint
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    fresh = dict(tree_leaves_with_path(load_hf_checkpoint(path, cfg)))
+    leaves = list(tree_leaves_with_path(teacher))
+    require(len(leaves) == len(fresh) and all(torch.equal(v, fresh[k]) for k, v in leaves),
+            f"{what}: the teacher changed")
+    del fresh
+    _free()
+    return len(leaves)
+
+
+def _dt_recipe(name: str, args, card: str, expect, teacher_cfg, teacher_dir: str) -> dict:
+    """One run_dt call at 3B (as _run_recipe measures it), its student and
+    the teacher it loaded, held bit-equal to the checkpoint afterwards."""
+    from infinitevl_tpu_torch.train import trainer as T
+
+    students = []
+    with _Spy(T, "load_hf_checkpoint") as loads:
+        r = _run_recipe(name, args, card, expect, tag="10 dt",
+                        run=lambda a: students.append(T.run_dt(a)))
+    require(len(loads.results) == 1, f"{name}: the teacher was loaded {len(loads.results)} times")
+    n_leaves = _require_teacher_unchanged(loads.results[0], teacher_dir, teacher_cfg, name)
+    print(f"[10 dt] {name}: the teacher's {n_leaves} leaves bit-equal to its checkpoint after "
+          f"the run", flush=True)
+    return dict(r, student=students[0], teacher=loads.results[0])
+
+
+def phase_dt_path(dev, card: str, profile: bool) -> dict:
+    """Phase 10: checkpoints and distillation at 3B width and depth (bf16,
+    random weights from seed 0): the teacher's HF checkpoint written and
+    read back, stage 1 of examples/train_3b_stage1.yaml through run_dt,
+    stage 2 with the handoff, one multimodal stage-2 step, then the
+    distilled student exported and served through the CLI. Files are
+    deleted as soon as nothing reads them: the card's machine limits what
+    its disk ever held (~45 GB)."""
+    import dataclasses
+    import os
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import infinitevl_tpu_torch.serve.api as api
+    from infinitevl_tpu_torch import cli
+    from infinitevl_tpu_torch.config import infinitevl_3b
+    from infinitevl_tpu_torch.eval.mcq import MCQEvaluator
+    from infinitevl_tpu_torch.generation import Generator
+    from infinitevl_tpu_torch.hparams import load_yaml_args
+    from infinitevl_tpu_torch.models.infinitevl import forward
+    from infinitevl_tpu_torch.models.params import (
+        init_params,
+        load_hf_checkpoint,
+        param_count,
+    )
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.distill import make_stage2_step
+    from infinitevl_tpu_torch.train.step import (
+        make_optimizer,
+        set_trainable,
+        tree_leaves_with_path,
+    )
+    from infinitevl_tpu_torch.utils.checkpoint import export_hf_safetensors, latest_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = infinitevl_3b()
+    tc = cfg.text
+    n, n_swa, n_lin = tc.num_hidden_layers, tc.num_swa_layers, tc.num_linear_layers
+    teacher_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        tc, layer_types=("full_attention",) * n))
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    root = tempfile.mkdtemp(prefix="ivl_dt_")
+    try:
+        # 1. the teacher's checkpoint: written in shards of 4 GB, read back
+        t0 = time.perf_counter()
+        teacher = init_params(teacher_cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_teacher = param_count(teacher)
+        shapes = init_params(cfg, None, "meta")  # the student's shapes, no memory
+        n_student = param_count(shapes)
+        n_text = param_count(shapes["text"])
+        # on disk at once: the teacher and one train state (at most the
+        # student's text weights and two moments; stage 1's goes once stage 2
+        # has read it)
+        need = 2 * (n_teacher + 3 * n_text)
+        free = shutil.disk_usage(root).free
+        require(free >= need, f"phase 10 needs {need / 1e9:.1f} GB of disk under {root} for "
+                              f"the teacher's checkpoint and the train states, "
+                              f"{free / 1e9:.1f} GB are free")
+        teacher_dir = os.path.join(root, "teacher")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = export_hf_safetensors(teacher, teacher_cfg, teacher_dir)
+        t_write = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(teacher_dir) if f.endswith(".safetensors"))
+        require(len(shards) >= 2 and os.path.exists(
+            os.path.join(teacher_dir, "model.safetensors.index.json")),
+            f"the teacher's checkpoint is not sharded: {shards}")
+        t0 = time.perf_counter()
+        loaded = load_hf_checkpoint(teacher_dir, teacher_cfg)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        a, b = dict(tree_leaves_with_path(teacher)), dict(tree_leaves_with_path(loaded))
+        require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+                "the teacher's leaves read back are not bit-equal")
+        ids = torch.from_numpy(np.random.RandomState(10).randint(0, tc.vocab_size - 8,
+                                                                 (1, 64))).to(dev)
+        pos = torch.arange(64, device=dev)[None, None].expand(3, 1, 64).contiguous()
+        _reset_launches()
+        with torch.no_grad():
+            la, _ = forward(teacher, teacher_cfg, ids, pos)
+            lb, _ = forward(loaded, teacher_cfg, ids, pos)
+        launches = _read_launches(("swa_train_flash_attention",))
+        require(torch.equal(la, lb), "the teacher's logits differ after the round trip")
+        require(launches["swa_train_flash_attention"] == 2 * n,
+                f"the teacher's forward launched H {launches['swa_train_flash_attention']} "
+                f"times, expected {2 * n} (its full_attention layers, window unbounded)")
+        add(launches)
+        print(f"[10 dt] teacher checkpoint (InfiniteVL-3B's all-full_attention twin with the "
+              f"ViT, {n_teacher / 1e9:.3f} B parameters, bf16, random init in {t_init:.2f} s): "
+              f"{nbytes / 1e9:.3f} GB in {len(shards)} shards written in {t_write:.2f} s "
+              f"({nbytes / 1e9 / t_write:.2f} GB/s, the card's tensors copied to the host "
+              f"included), read to the card in {t_read:.2f} s ({nbytes / 1e9 / t_read:.2f} "
+              f"GB/s, from the file system's cache right after the write); every leaf and the "
+              f"logits of a 64-token prompt bit-equal (H launched {2 * n} times for the two "
+              f"forwards), {free / 1e9:.1f} GB free for {need / 1e9:.1f} GB needed, on "
+              f"'{card}'", flush=True)
+        del teacher, loaded, a, b, la, lb
+        _free()
+
+        # 2. stage 1: the repo's 3B recipe, teacher from step 1's checkpoint
+        data_dir = os.path.join(root, "packed")
+        _packed_text_dataset(data_dir, n=90)
+        base = dict(teacher_model_path=teacher_dir, dataset="demo_packed", dataset_dir=data_dir,
+                    logging_steps=1, save_steps=10**6)
+
+        def recipe(out, **over):
+            args = load_yaml_args(os.path.join(here, "examples", "train_3b_stage1.yaml"))
+            for key, val in {**base, "output_dir": os.path.join(root, out), **over}.items():
+                group = next(g for g in (args.model, args.data, args.train, args.finetune)
+                             if hasattr(g, key))
+                setattr(group, key, val)
+            return args
+
+        args1 = recipe("stage1", data_parallel=1, max_steps=3)
+        rows = T.build_dataset(args1)
+        require(len(rows) >= 3 and all(int(np.asarray(r["segment_ids"]).max()) > 1
+                                       for r in rows[:3]),
+                f"packing made {len(rows)} rows, not 3 packed rows of 8192")
+        full1 = {"swa_train_flash_attention": n + n_swa, "swa_train_flash_attention_bwd": 0,
+                 "delta_rule_chunk_fused": n_lin}
+        print(f"[10 dt] stage 1: examples/train_3b_stage1.yaml with data_parallel 8 -> 1 (the "
+              f"port has no parallel/ yet), max_steps 3, {len(rows)} packed rows of 8192 "
+              f"({[int(np.asarray(r['segment_ids']).max()) for r in rows[:3]]} sequences in "
+              f"the first three), warm-up {args1.train.warmup_steps} steps as the recipe has "
+              f"it", flush=True)
+        r1 = _dt_recipe("stage 1 (layer MSE x 1000, T 8192)", args1, card, full1,
+                        teacher_cfg, teacher_dir)
+        add(r1["launches"])
+        s1, t1 = r1["student"], r1["teacher"]
+        shared = _ptrs(t1)
+        frozen = [(k, v) for k, v in tree_leaves_with_path(s1) if not v.requires_grad]
+        trained = [(k, v) for k, v in tree_leaves_with_path(s1) if v.requires_grad]
+        require(frozen and all(v.untyped_storage().data_ptr() in shared for _, v in frozen),
+                "stage 1: a frozen student leaf is not the teacher's own (unchecked)")
+        require(all(v.untyped_storage().data_ptr() not in shared for _, v in trained),
+                "stage 1: a trained student leaf aliases the teacher")
+        require(all(k.split("/")[1] not in {str(i) for i in args1.finetune.softmax_attention}
+                    for k, _ in trained), "stage 1: a preserved layer's leaf trained")
+        print(f"[10 dt] stage 1: {len(trained)} trained leaves (the {n_lin} converted layers' "
+              f"mixers, none aliasing the teacher); {len(frozen)} frozen leaves (preserved "
+              f"layers, MLPs, norms, embeddings), every one the teacher's own tensor, so "
+              f"bit-unchanged with it", flush=True)
+        if profile:
+            _profile_stage1(args1, s1, t1["text"], teacher_cfg.text, tc, card)
+        del s1, t1, r1, shared, frozen, trained
+        _free()
+        ckpt1 = os.path.join(root, "stage1", "checkpoints")
+        require(latest_step(ckpt1) == 3, f"stage 1 saved no step-3 train state: {ckpt1}")
+
+        # 3. stage 2 with the handoff from stage 1, then one multimodal step
+        soft = set(args1.finetune.softmax_attention)
+        held = {}
+
+        def check_handoff(margs, merged):
+            """The merged student: the preserved layers' attention as the fresh
+            conversion has it (the teacher's tensors), all else stage 1's. Stage
+            1's train state is read by now: its files go before stage 2 writes
+            its own (the card's machine limits what its disk ever held)."""
+            base_tree, update = margs
+            kept = ("mlp", "input_norm", "post_norm")
+            for i, lp in enumerate(merged["layers"]):
+                for key, leaf in lp.items():
+                    pristine = i in soft and key not in kept
+                    src = (base_tree if pristine else update)["layers"][i][key]
+                    held["pristine"] = held.get("pristine", 0) + pristine
+                    for (_, x), (_, y) in zip(tree_leaves_with_path(leaf),
+                                              tree_leaves_with_path(src)):
+                        require(torch.equal(x, y), f"handoff: layer {i} {key}")
+            shutil.rmtree(os.path.join(root, "stage1"))
+
+        args2 = recipe("stage2", data_parallel=1, max_steps=3, distill_stage=2, cutoff_len=2048,
+                       checkpoint_path=ckpt1)
+        full2 = {"swa_train_flash_attention": n + n_swa,
+                 "swa_train_flash_attention_bwd": n_swa, "delta_rule_chunk_fused": n_lin}
+        with _Spy(T, "merge_params", check_handoff) as merges:
+            r2 = _dt_recipe("stage 2 (logit KL at T 2 + CE, T 2048, from stage 1's state)",
+                            args2, card, full2, teacher_cfg, teacher_dir)
+        require(len(merges.results) == 1 and held.get("pristine") == 4 * len(soft),
+                f"stage 2: the handoff merged {len(merges.results)} times, kept "
+                f"{held.get('pristine')} preserved attention leaves as the teacher's")
+        add(r2["launches"])
+        s2 = r2["student"]
+        shared = _ptrs(r2["teacher"])
+        # (the handoff's leaves are the train state's own tensors, inv_freq too)
+        require(all(v.requires_grad == (k != "inv_freq")
+                    and (k == "inv_freq" or v.untyped_storage().data_ptr() not in shared)
+                    for k, v in tree_leaves_with_path(s2)),
+                "stage 2: a student leaf is frozen or aliases the teacher")
+        print(f"[10 dt] stage 2: the handoff kept the {len(soft)} preserved layers' attention "
+              f"({held['pristine']} weights) as the teacher's and took stage 1's mixers; every "
+              f"student leaf but rope's inv_freq trained on its own copy", flush=True)
+        teacher_full = r2["teacher"]
+        del r2, shared
+        shutil.rmtree(os.path.join(root, "stage2"))
+        _free()
+
+        # one stage-2 step of the student on a multimodal row at 448x448, by
+        # hand (the step function run_dt builds; no train state written)
+        mm = dict(dataset="mllm_demo", dataset_dir=os.path.join(here, "data"), max_samples=1,
+                  image_min_pixels=448 * 448, image_max_pixels=448 * 448, packing=False)
+        args3 = recipe("mm", data_parallel=1, max_steps=1, distill_stage=2, cutoff_len=512, **mm)
+        rows3 = T.build_dataset(args3, cfg=cfg)
+        require(T.is_multimodal(rows3) and tuple(rows3[0]["image_grid_thw"][0]) == (1, 32, 32),
+                f"the multimodal row: {rows3[0].get('image_grid_thw')}")
+        batch, grids, vgrids = next(iter(T._batches(args3, rows3, cfg, True)))
+        batch.pop("_n_tokens")
+        tx = make_optimizer(args3.train.learning_rate)
+        step3 = make_stage2_step(tc, teacher_cfg.text, tx, args3.finetune.distill_temperature,
+                                 full_cfg=cfg)
+        state3 = tx.init(s2)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss3 = step3(s2, state3, teacher_full, batch, grids, vgrids)
+        torch.cuda.synchronize()
+        t_mm = time.perf_counter() - t0
+        launches = _read_launches(("segment_flash_attention", "window_flash_attention"))
+        launches["swa_train_flash_attention_bwd"] = h.launches_bwd
+        expect3 = dict(full2, segment_flash_attention=4, window_flash_attention=28)
+        require(all(launches[k] == v for k, v in expect3.items()) and np.isfinite(float(loss3)),
+                f"the multimodal stage-2 step: loss {float(loss3)}, launches {launches}, "
+                f"expected {expect3}")
+        add(launches)
+        n_leaves = _require_teacher_unchanged(teacher_full, teacher_dir, teacher_cfg,
+                                              "the multimodal step")
+        print(f"[10 dt] one stage-2 step on a multimodal row (448x448: 1,024 patches, 256 "
+              f"image tokens, {len(batch['input_ids'][0])} positions; the frozen ViT run once "
+              f"for both models): loss {float(loss3):.6f}, {t_mm * 1e3:.0f} ms (the first "
+              f"multimodal step), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB, launches H fwd {launches['swa_train_flash_attention']} bwd "
+              f"{h.launches_bwd}, C {launches['delta_rule_chunk_fused']}, E "
+              f"{launches['segment_flash_attention']}, F {launches['window_flash_attention']}; "
+              f"the teacher's {n_leaves} leaves bit-equal to its checkpoint on '{card}'",
+              flush=True)
+        visual = teacher_full["visual"]
+        student_full = {"text": s2, "visual": visual}
+        set_trainable(student_full, lambda path, leaf: False)  # serving from here on
+        del state3, step3, teacher_full, batch, loss3
+        _free()
+
+        # 4. serve what was distilled
+        student_dir, export_dir = os.path.join(root, "student"), os.path.join(root, "export")
+        export_hf_safetensors(student_full, cfg, student_dir)
+        shutil.rmtree(teacher_dir)
+
+        def yaml_file(name, **conf):
+            path = os.path.join(root, f"{name}.yaml")
+            with open(path, "w") as f:
+                f.write("".join(f"{k}: {json.dumps(v)}\n" for k, v in conf.items()))
+            return path
+
+        _reset_launches()
+        cli.cmd_export(yaml_file("export", model_name_or_path=student_dir,
+                                 output_dir=export_dir))
+        shutil.rmtree(student_dir)
+        args_e = load_yaml_args(yaml_file("serve", model_name_or_path=export_dir))
+        gen_e, cfg_e = cli._build_generator(args_e)
+        require(cfg_e == cfg, "the exported config.json reads back to another config")
+        mem = dict(tree_leaves_with_path(student_full))
+        off = [k for k, v in tree_leaves_with_path(gen_e.params) if not torch.equal(v, mem[k])]
+        require(not off and len(mem) == len(list(tree_leaves_with_path(gen_e.params))),
+                f"the exported student's leaves differ from the in-memory student's: {off[:5]}")
+        prompt = np.random.RandomState(11).randint(0, tc.vocab_size - 8, (1, 50))
+        want = Generator(student_full, cfg).generate(prompt, max_new_tokens=32,
+                                                     temperature=0.0, eos_token_id=-1)
+        got = gen_e.generate(prompt, max_new_tokens=32, temperature=0.0, eos_token_id=-1)
+        require(got.shape == (1, 32) and np.array_equal(got, want),
+                f"the exported student's greedy tokens differ from the in-memory student's: "
+                f"{got.tolist()} vs {want.tolist()}")
+        del gen_e, student_full, s2, visual
+        _free()
+        print(f"[10 dt] cli export: the student ({n_student / 1e9:.3f} B parameters) through "
+              f"cmd_export into HF safetensors + Modelfile ({sorted(os.listdir(export_dir))[:4]}"
+              f"...); _build_generator from it: every leaf bit-equal and 32 greedy tokens of a "
+              f"50-token prompt identical to the in-memory student's", flush=True)
+
+        # the MCQ evaluator through cmd_eval: left-padded buckets against each
+        # prompt alone, no pads. In fp32 (bf16: false), so the two differ by
+        # the order of fp32 sums and not by bf16 rounding along two layouts
+        scored = []
+
+        def record(margs, out):
+            scored.append((margs[0], list(margs[1]), out))
+
+        conf = dict(config_preset="infinitevl_3b", model_name_or_path=export_dir,
+                    dataset="mcq_demo", dataset_dir=os.path.join(here, "data"), n_shot=3,
+                    eval_batch_size=4, eval_save_dir=os.path.join(root, "eval"), bf16=False)
+        ref = load_yaml_args(os.path.join(here, "examples", "eval_mcq.yaml"))
+        require((ref.data.dataset, ref.eval.n_shot, ref.eval.eval_batch_size)
+                == ("mcq_demo", 3, 4), "examples/eval_mcq.yaml changed")
+        t0 = time.perf_counter()
+        with _Spy(MCQEvaluator, "choice_logits", record):
+            metrics = cli.cmd_eval(yaml_file("eval", **conf))
+        t_eval = time.perf_counter() - t0
+        launches = _read_launches(("swa_train_flash_attention", "delta_rule_chunk_fused"))
+        add(launches)
+        ev = scored[0][0]
+        gap, n_prompts, lens = 0.0, 0, []
+        for _, prompts, padded in scored:
+            for p, row in zip(prompts, padded):
+                ids = np.asarray(ev.tokenizer.encode(p, add_special_tokens=False))[None]
+                lens.append(ids.shape[1])
+                t = torch.from_numpy(ids).to(dev)
+                pos = torch.arange(ids.shape[1], device=dev)[None, None].expand(3, 1, -1)
+                with torch.no_grad():
+                    alone, _ = forward(ev.generator.params, ev.generator.cfg, t,
+                                       pos.contiguous(), logits_to_keep=1)
+                alone = alone[0, 0, ev.choice_ids].cpu().numpy()
+                require(int(np.argmax(alone)) == int(np.argmax(row)),
+                        f"MCQ: the padded prediction differs from the prompt alone "
+                        f"({row} vs {alone})")
+                gap = max(gap, float(np.abs(alone - row).max()))
+                n_prompts += 1
+        del ev, scored
+        _free()
+        print(f"[10 dt] cli eval on examples/eval_mcq.yaml (preset 3B, the exported student, "
+              f"data/mcq_demo.json 3-shot, batches of 4, left-padded to buckets of 128, "
+              f"fp32): "
+              f"{metrics} in {t_eval:.1f} s; {n_prompts} prompts of {min(lens)}-{max(lens)} "
+              f"tokens, every padded prediction equal to the prompt's alone without pads, "
+              f"largest choice-logit gap {gap:.2e}; launches H "
+              f"{launches['swa_train_flash_attention']}, C {launches['delta_rule_chunk_fused']} "
+              f"on '{card}'", flush=True)
+
+        # cmd_api: one request on a loopback port
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        servers = []
+        _reset_launches()
+        with _Spy(api, "create_server") as made:
+            th = threading.Thread(target=cli.cmd_api,
+                                  args=(yaml_file("api", model_name_or_path=export_dir,
+                                                  max_new_tokens=16), port), daemon=True)
+            th.start()
+            t0 = time.perf_counter()
+            while not made.results and time.perf_counter() - t0 < 300 and th.is_alive():
+                time.sleep(0.2)
+            servers = list(made.results)
+        require(servers, "cmd_api started no server")
+        try:
+            status, body = _http(port, {"messages": [{"role": "user", "content":
+                                                      "Say hello to the distilled student."}],
+                                        "max_tokens": 16, "temperature": 0.0})
+        finally:
+            for srv in servers:
+                srv.shutdown()
+                srv.server_close()
+            th.join(timeout=60)
+        require(not th.is_alive(), "cmd_api's server thread did not stop")
+        require(status == 200 and body["choices"][0]["message"]["content"] is not None,
+                f"cmd_api request: {status} {body}")
+        launches = _read_launches(("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
+                                   "delta_step_fused_stacked"))
+        add(launches)
+        print(f"[10 dt] cli api on 127.0.0.1:{port}: one chat request answered "
+              f"({body.get('usage')}), the server stopped; launches A1 "
+              f"{launches['swa_ring_flash_attention']}, A2 "
+              f"{launches['swa_ring_flash_decode_stacked']}, B "
+              f"{launches['delta_step_fused_stacked']}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    total.setdefault("swa_train_flash_attention_bwd", 0)
+    return total
+
+
+def _profile_stage1(args, student, teacher_text, teacher_cfg, tc, card: str) -> None:
+    """Where one stage-1 step's time goes at 3B, T 8192 (one packed row):
+    wall time without the profiler, device busy, kernels by kind."""
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.distill import make_stage1_step
+    from infinitevl_tpu_torch.train.step import make_optimizer
+
+    tx = make_optimizer(1e-4)
+    # the converted 3B student's config is the deployed one (tc)
+    step = make_stage1_step(tc, teacher_cfg, tx, args.finetune.mse_factor)
+    state = tx.init(student)
+    data = T.build_dataset(args)
+    batch = next(iter(T._batches(args, data, T.build_config(args), False)))
+    batch.pop("_n_tokens")
+
+    def one_step():
+        step(student, state, teacher_text, dict(batch))
+
+    wall = _host_ms(one_step, reps=2)
+    total_ms, count, sums_k, rows = _device_profile(one_step, reps=1)
+    print(f"[profile] one stage-1 step, 3B, T 8192 packed: {wall:.0f} ms unprofiled, device "
+          f"busy {total_ms:.0f} ms ({100 * total_ms / wall:.0f}%, idle "
+          f"{100 - 100 * total_ms / wall:.0f}%), {count} device kernels; by kind (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sums_k.items()) + f" on '{card}'", flush=True)
+    for ms, n, name in rows[:14]:
+        print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name}", flush=True)
+
 
 
 def _device_profile(fn, reps: int = 3, spans=None):
@@ -3166,9 +3756,10 @@ def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
     text_only = "--text-only" in argv
-    if only and not (kernels_only or text_only or "--train-only" in argv):
-        print("chip_smoke: --only= needs --kernels-only, --text-only or --train-only (the "
-              "whole run reports every kernel)", file=sys.stderr)
+    if only and not (kernels_only or text_only or "--train-only" in argv
+                     or "--dt-only" in argv):
+        print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only or "
+              "--dt-only (the whole run reports every kernel)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
@@ -3194,11 +3785,17 @@ def main(argv) -> int:
         return 0
     if "--train-only" in argv:  # the training phases alone (4's training part, 8, 9)
         phase_train_cross_device(dev)
+        phase_dt_cross_device(dev)
         phase_train_path(dev, card, "--profile" in argv)
         phase_vit_window_path(dev, card)
         return 0
+    if "--dt-only" in argv:  # 4's distillation steps, then phase 10 alone
+        phase_dt_cross_device(dev)
+        phase_dt_path(dev, card, "--profile" in argv)
+        return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
+    phase_dt_cross_device(dev)
 
     cfg = infinitevl_3b()
     t0 = time.perf_counter()
@@ -3217,6 +3814,8 @@ def main(argv) -> int:
     train_launches = train["total_launches"]
     vit_launches, vit_peaks = phase_vit_window_path(dev, card)
     res["f"]["vit_train_step_peaks"] = vit_peaks
+    _free()
+    dt_launches = phase_dt_path(dev, card, "--profile" in argv)
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -3243,14 +3842,17 @@ def main(argv) -> int:
         {"name": name, "route": "cuda", "source": f"infinitevl_tpu_torch/csrc/{src}",
          "replaces": rep,
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
-         + serve_launches[name] + train_launches[name] + vit_launches[name],
+         + serve_launches[name] + train_launches[name] + vit_launches[name]
+         + dt_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
          "launches_serve_path": serve_launches[name],
          "launches_train_path": train_launches[name],
          "launches_vit_window_path": vit_launches[name],
-         **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]}
+         "launches_dt_path": dt_launches.get(name, 0),
+         **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
+             + dt_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

@@ -1,6 +1,6 @@
-"""Model parameters: random init and conversion from the JAX package's
-parameters (torch port of infinitevl_tpu/models/params.py without the
-checkpoint loaders).
+"""Model parameters: random init, HF safetensors checkpoint loading and
+conversion from the JAX package's parameters (torch port of
+infinitevl_tpu/models/params.py).
 
 Layout is the JAX one. Text: a dict with 'embed' [vocab, D], 'final_norm'
 [D], 'inv_freq' [head_dim/2] (fp32), optional untied 'lm_head' [D, vocab],
@@ -14,8 +14,10 @@ take {'text': ..., 'visual': ...}, as in JAX.
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,10 +72,14 @@ def init_swa_layer(cfg: TextConfig, gen, device, dtype) -> Params:
     }
 
 
-def init_delta_layer(cfg: TextConfig, gen, device, dtype) -> Params:
+def init_delta_layer(cfg: TextConfig, gen, device, dtype, mimic_init: bool = False) -> Params:
     """DeltaNet layer: A_log = log U(1e-4, 16), dt_bias = softplus^-1 of a
     log-uniform dt in [1e-3, 0.1], conv taps kaiming-uniform (fan_in = W),
-    as in the JAX init and the reference."""
+    as in the JAX init and the reference.
+
+    mimic_init (the distillation warm start, as in JAX): conv = identity
+    tap, a / b projections zeroed, A = 1 (A_log 0), dt = 1e-3, so the layer
+    starts out approximating softmax attention's value path."""
     D = cfg.hidden_size
     H = cfg.num_linear_heads
     HK = H * cfg.linear_head_dim
@@ -108,6 +114,16 @@ def init_delta_layer(cfg: TextConfig, gen, device, dtype) -> Params:
     if cfg.conv_bias:
         for n, d in (("q", HK), ("k", KD), ("v", VD)):
             p[f"conv_{n}_b"] = torch.zeros((d,), dtype=dtype, device=device)
+    if mimic_init:
+        ident = torch.zeros((W, 1), dtype=dtype, device=device)
+        ident[W - 1] = 1.0
+        for n, d in (("q", HK), ("k", KD), ("v", VD)):
+            p[f"conv_{n}_w"] = ident.expand(W, d).contiguous()
+        p["a_proj"]["kernel"] = torch.zeros_like(p["a_proj"]["kernel"])
+        p["b_proj"]["kernel"] = torch.zeros_like(p["b_proj"]["kernel"])
+        p["A_log"] = torch.zeros_like(p["A_log"])
+        dt = torch.full((H,), 1e-3, device=device)
+        p["dt_bias"] = (dt + torch.log(-torch.expm1(-dt))).float()
     return p
 
 
@@ -234,3 +250,192 @@ def adamw_state_from_jax_numpy(trainable_tree: Any, mu_np: Any, nu_np: Any, coun
     nu = dict(tree_leaves_with_path(from_jax_numpy(nu_np, device)))
     paths = [path for path, _ in trainable_leaves(trainable_tree)]
     return {"count": int(count), "mu": [mu[p] for p in paths], "nu": [nu[p] for p in paths]}
+
+
+def param_count(params: Params) -> int:
+    from ..train.step import tree_leaves_with_path
+
+    return sum(t.numel() for _, t in tree_leaves_with_path(params))
+
+
+# ---------------------------------------------------------------- HF checkpoints
+
+
+def _strip_prefix(name: str) -> Optional[Tuple[str, str]]:
+    """Normalize an HF tensor name -> ('text'|'visual'|'lm_head', rest).
+    Both layouts the reference accepts: `model.language_model.*` /
+    `model.visual.*` and the legacy `model.*` / `visual.*`."""
+    for pre in ("model.language_model.", "language_model.", "model.model."):
+        if name.startswith(pre):
+            return "text", name[len(pre):]
+    for pre in ("model.visual.", "visual."):
+        if name.startswith(pre):
+            return "visual", name[len(pre):]
+    if name == "lm_head.weight":
+        return "lm_head", ""
+    if name.startswith("model."):
+        return "text", name[len("model."):]
+    return None
+
+
+def checkpoint_files(path: str) -> List[str]:
+    """The safetensors files of a checkpoint: a file, or a directory with
+    model.safetensors.index.json (its shards) or loose *.safetensors."""
+    if not os.path.isdir(path):
+        return [path]
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            names = sorted(set(json.load(f)["weight_map"].values()))
+        return [os.path.join(path, n) for n in names]
+    return sorted(os.path.join(path, n) for n in os.listdir(path)
+                  if n.endswith(".safetensors"))
+
+
+def _iter_safetensors(path: str, device) -> Iterator[Tuple[str, torch.Tensor]]:
+    from ..utils.safetensors_io import iter_file
+
+    for fp in checkpoint_files(path):
+        yield from iter_file(fp, device)
+
+
+def _meta_to_zeros(tree, device):
+    """Leaves still on the meta device (no tensor of the checkpoint filled
+    them) become zeros on `device`."""
+    if isinstance(tree, dict):
+        return {k: _meta_to_zeros(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta_to_zeros(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_meta:
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    return tree
+
+
+def load_hf_checkpoint(
+    path: str,
+    cfg: InfiniteVLConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    params: Optional[Params] = None,
+    device: Optional[Device] = None,
+) -> Params:
+    """Load an HF-format InfiniteVL / Qwen2.5-VL-style safetensors
+    checkpoint into the params tree on `device` (None: the CUDA card).
+    Kernels are stored transposed ([out, in]), a Conv1d [D, 1, W] becomes
+    [W, D], the Conv3d patch embedding a matmul [C*tp*p*p, Dv]; A_log and
+    dt_bias stay fp32, everything else takes `dtype`; `inv_freq` is rebuilt
+    from the config; with tied embeddings a stored lm_head is dropped.
+    When `params` is given, tensors are loaded into a copy of it (missing
+    tensors keep its values); otherwise a tensor the checkpoint lacks is
+    zero. Raises when no tensor matched."""
+    device = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, None, "meta", dtype)  # shapes only
+        params["text"]["inv_freq"] = torch.as_tensor(
+            rope_init(cfg.text)[0], dtype=torch.float32, device=device)
+    text = dict(params["text"])
+    text_layers = [dict(lp, mlp=dict(lp["mlp"])) for lp in text["layers"]]
+    visual = dict(params["visual"])
+    vis_blocks = [dict(b, mlp=dict(b["mlp"])) for b in visual["blocks"]]
+    merger = dict(visual["merger"])
+
+    loaded = 0
+    for name, arr in _iter_safetensors(path, device):
+        hit = _strip_prefix(name)
+        if hit is None:
+            continue
+        scope, rest = hit
+        if scope == "lm_head":
+            text["lm_head"] = arr.to(dtype).T.contiguous()
+            loaded += 1
+        elif scope == "text":
+            loaded += _load_text_tensor(text, text_layers, rest, arr, dtype)
+        else:
+            loaded += _load_visual_tensor(vis_blocks, visual, merger, rest, arr, dtype)
+    if loaded == 0:
+        raise ValueError(f"no tensors matched under {path}")
+    text["layers"] = text_layers
+    visual["blocks"] = vis_blocks
+    visual["merger"] = merger
+    if cfg.text.tie_word_embeddings:
+        # tied checkpoints may still store lm_head == embed; the head reads embed
+        text.pop("lm_head", None)
+    return _meta_to_zeros({"text": text, "visual": visual}, device)
+
+
+def _set_linear(dst: Dict, key: str, arr: torch.Tensor, dtype, is_bias: bool) -> None:
+    p = dict(dst.get(key, {}))
+    if is_bias:
+        p["bias"] = arr.to(dtype)
+    else:
+        p["kernel"] = arr.to(dtype).T.contiguous()  # torch Linear [out, in] -> [in, out]
+    dst[key] = p
+
+
+def _load_text_tensor(text, layers, rest: str, arr, dtype) -> int:
+    if rest == "embed_tokens.weight":
+        text["embed"] = arr.to(dtype)
+        return 1
+    if rest == "norm.weight":
+        text["final_norm"] = arr.to(dtype)
+        return 1
+    if not rest.startswith("layers."):
+        return 0
+    parts = rest.split(".")
+    lp = layers[int(parts[1])]
+    tail = ".".join(parts[2:])
+    is_bias = tail.endswith(".bias")
+    if tail == "input_layernorm.weight":
+        lp["input_norm"] = arr.to(dtype)
+    elif tail == "post_attention_layernorm.weight":
+        lp["post_norm"] = arr.to(dtype)
+    elif tail.startswith("mlp."):
+        _set_linear(lp["mlp"], parts[3].split("_")[0], arr, dtype, is_bias)  # gate/up/down
+    elif tail.startswith("self_attn."):
+        sub = parts[3]
+        if sub in ("q_proj", "k_proj", "v_proj", "o_proj", "a_proj", "b_proj", "g_proj"):
+            _set_linear(lp, sub, arr, dtype, is_bias)
+        elif sub in ("A_log", "dt_bias"):
+            lp[sub] = arr.float()
+        elif sub == "o_norm":
+            lp["o_norm"] = arr.to(dtype)
+        elif sub.endswith("_conv1d"):
+            which = sub.split("_")[0]  # q/k/v
+            if is_bias:
+                lp[f"conv_{which}_b"] = arr.to(dtype)
+            else:  # torch Conv1d [D, 1, W] -> [W, D]
+                lp[f"conv_{which}_w"] = arr[:, 0, :].to(dtype).T.contiguous()
+        else:
+            return 0
+    else:
+        return 0
+    return 1
+
+
+def _load_visual_tensor(blocks, visual, merger, rest: str, arr, dtype) -> int:
+    is_bias = rest.endswith(".bias")
+    if rest == "patch_embed.proj.weight":
+        # Conv3d [Dv, C, tp, p, p] with kernel == stride -> matmul [C*tp*p*p, Dv]
+        visual["patch_embed"] = arr.reshape(arr.shape[0], -1).to(dtype).T.contiguous()
+        return 1
+    if rest == "merger.ln_q.weight":
+        merger["ln_q"] = arr.to(dtype)
+        return 1
+    if rest.startswith("merger.mlp."):
+        _set_linear(merger, "fc1" if rest.split(".")[2] == "0" else "fc2", arr, dtype, is_bias)
+        return 1
+    if not rest.startswith("blocks."):
+        return 0
+    parts = rest.split(".")
+    bp = blocks[int(parts[1])]
+    tail = ".".join(parts[2:])
+    if tail in ("norm1.weight", "norm2.weight"):
+        bp[tail.split(".")[0]] = arr.to(dtype)
+    elif tail.startswith("attn.qkv"):
+        _set_linear(bp, "qkv", arr, dtype, is_bias)
+    elif tail.startswith("attn.proj"):
+        _set_linear(bp, "proj", arr, dtype, is_bias)
+    elif tail.startswith("mlp."):
+        _set_linear(bp["mlp"], parts[3].split("_")[0], arr, dtype, is_bias)
+    else:
+        return 0
+    return 1

@@ -22,7 +22,7 @@ updated in place on that path."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -290,10 +290,15 @@ def text_forward(
     remat: bool = False,
     remat_group: int = 1,
     tail_pads_only: bool = False,  # the ids mark only pads after one sequence per row
-) -> Tuple[torch.Tensor, Optional[DecoderState]]:
+    output_hidden_states: bool = False,
+):
     """Run the decoder stack. With a state, the state is updated IN PLACE
     (rings, conv histories, delta_h, and cum_len += T) and returned.
-    Returns (final-normed hidden [B, T, D], state).
+    Returns (final-normed hidden [B, T, D], state), and with
+    `output_hidden_states` (hidden, state, hidden_states) as in JAX:
+    hidden_states[i] is layer i's input, [n] the last layer's output
+    before the final norm (what distillation regresses onto), [n + 1] the
+    normed final hidden.
 
     Without a state the forward is stateless (training). `remat` then wraps
     each layer in torch.utils.checkpoint: only the layer boundaries stay
@@ -315,9 +320,13 @@ def text_forward(
     x = inputs_embeds
     layers = params["layers"]
     roles = [cfg.layer_role(idx) for idx in range(len(layers))]
+    collected = [] if output_hidden_states else None
     if remat and state is None and torch.is_grad_enabled():
-        group = max(int(remat_group), 1)
+        # collecting needs every layer boundary: one layer a checkpoint
+        group = 1 if collected is not None else max(int(remat_group), 1)
         for start in range(0, len(layers), group):
+            if collected is not None:
+                collected.append(x)
             x = checkpoint(
                 _run_layers, layers[start : start + group], cfg,
                 roles[start : start + group], x, cos, sin, segment_ids, tail_pads_only,
@@ -326,6 +335,8 @@ def text_forward(
     else:
         swa_i = lin_i = 0
         for layer_p, role in zip(layers, roles):
+            if collected is not None:
+                collected.append(x)
             stack_idx = swa_i if role in (SLIDING, FULL) else lin_i
             x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, stack_idx,
                                       segment_ids, tail_pads_only)
@@ -333,9 +344,14 @@ def text_forward(
                 swa_i += 1
             else:
                 lin_i += 1
+    if collected is not None:
+        collected.append(x)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if state is not None:
         state["cum_len"] += inputs_embeds.shape[1]
+    if collected is not None:
+        collected.append(x)
+        return x, state, collected
     return x, state
 
 

@@ -32,9 +32,16 @@ from ..data.loader import (
 )
 from ..device import Device, resolve_device
 from ..hparams import AllArgs
-from ..models.params import init_params, init_text_params
-from ..utils.checkpoint import restore_train_state, save_train_state
+from ..models.convert import convert_attention, trainable_mask
+from ..models.params import init_params, init_text_params, load_hf_checkpoint
+from ..utils.checkpoint import (
+    filter_softmax_layers,
+    merge_params,
+    restore_train_state,
+    save_train_state,
+)
 from ..utils.logging import TrainerLog, get_logger, make_reporter
+from .distill import apply_trainable_mask, make_stage1_step, make_stage2_step, stage2_mask
 from .step import (
     make_mm_sft_train_step,
     make_optimizer,
@@ -398,10 +405,11 @@ def _make_tx(args: AllArgs, steps: int):
 
 
 def _load_or_init_params(args: AllArgs, cfg, mm: bool, dtype, device):
-    """Full (text + visual) tree for multimodal training, text-only otherwise."""
+    """Full (text + visual) tree for multimodal training, text-only otherwise:
+    the HF checkpoint at `model_name_or_path`, or random weights from the seed."""
     if args.model.model_name_or_path:
-        raise _later("loading an HF checkpoint (`model_name_or_path`, the "
-                     "safetensors loader)")
+        full = load_hf_checkpoint(args.model.model_name_or_path, cfg, dtype, device=device)
+        return full if mm else {"text": full["text"]}
     gen = torch.Generator(device=device).manual_seed(args.train.seed)
     if mm:
         return init_params(cfg, gen, device, dtype)
@@ -610,8 +618,80 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     return final
 
 
+def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
+           device: Optional[Device] = None):
+    """Distillation stage 1 or 2 (`stage: dt`, `distill_stage`). The teacher
+    is the dense full-attention model being converted: `teacher_params`, or
+    the checkpoint at `teacher_model_path`, or (neither) an
+    all-full_attention twin of the config from the seed. On multimodal data
+    the teacher's ViT is shared and frozen. `checkpoint_path` hands over a
+    previous stage's train state (its preserved softmax layers' attention
+    left out). Stage 1 trains the converted layers' mixers; stage 2 every
+    leaf of the student's text tree but rope's inv_freq. The teacher stays
+    bit-unchanged: the student's leaves that train are its own
+    (train/distill.py). Runs on the CUDA card unless `device="cpu"`.
+    Returns the student's text params."""
+    _refuse_later_options(args)
+    device = resolve_device(device)
+    cfg = build_config(args)
+    dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    tokenizer = resolve_tokenizer(args, cfg, tokenizer)
+    data = build_dataset(args, tokenizer, cfg=cfg)
+    mm = is_multimodal(data)
+    if teacher_params is None:
+        teacher_cfg = dataclasses.replace(
+            cfg.text, layer_types=("full_attention",) * cfg.text.num_hidden_layers)
+        full_cfg = dataclasses.replace(cfg, text=teacher_cfg)
+        if args.finetune.teacher_model_path:
+            full = load_hf_checkpoint(args.finetune.teacher_model_path, full_cfg, dtype,
+                                      device=device)
+            teacher_params = full if mm else full["text"]
+        else:
+            gen = torch.Generator(device=device).manual_seed(args.train.seed)
+            teacher_params = (init_params(full_cfg, gen, device, dtype) if mm
+                              else init_text_params(teacher_cfg, gen, device, dtype))
+    t_text = teacher_params["text"] if "text" in teacher_params else teacher_params
+    if mm and "visual" not in teacher_params:
+        raise ValueError("multimodal distillation needs a teacher with a visual tree; "
+                         "pass a full checkpoint via teacher_model_path")
+    set_trainable(teacher_params, lambda path, leaf: False)
+    student, student_cfg = convert_attention(
+        t_text, teacher_cfg,
+        torch.Generator(device=device).manual_seed(args.train.seed + 1),
+        softmax_attention=args.finetune.softmax_attention, mixer=args.finetune.mixer)
+    if args.finetune.checkpoint_path:
+        # stage handoff: the previous stage's weights, the preserved softmax
+        # layers' attention left as the teacher has it
+        _, prev = restore_train_state(args.finetune.checkpoint_path,
+                                      template={"params": student})
+        if prev is not None:
+            student = merge_params(
+                student, filter_softmax_layers(prev["params"], args.finetune.softmax_attention))
+    steps = args.train.max_steps or int(
+        np.ceil(args.train.num_train_epochs * len(data)
+                / args.train.per_device_train_batch_size))
+    tx = _make_tx(args, steps)
+    full_cfg = cfg if mm else None
+    if args.finetune.distill_stage == 1:
+        mask = trainable_mask(student, student_cfg, args.finetune.distill_weights,
+                              args.finetune.softmax_attention)
+        step_fn = make_stage1_step(student_cfg, teacher_cfg, tx, args.finetune.mse_factor,
+                                   full_cfg=full_cfg)
+    else:
+        mask = stage2_mask(student)
+        step_fn = make_stage2_step(student_cfg, teacher_cfg, tx,
+                                   args.finetune.distill_temperature, full_cfg=full_cfg,
+                                   remat=args.train.remat, remat_group=args.train.remat_group)
+    apply_trainable_mask(student, mask, teacher_params)
+    trainer = Trainer(
+        step_fn, student, tx.init(student), args.train.output_dir,
+        args.train.logging_steps, args.train.save_steps, extra_step_args=(teacher_params,),
+        report_to=args.train.report_to,
+    )
+    return trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
+
+
 _LATER_STAGES = {
-    "dt": "stage dt (models/convert.py + train/distill.py, run_dt)",
     "rm": "stage rm (train/dpo.py)",
     "dpo": "stage dpo (train/dpo.py)",
     "kto": "stage kto (train/dpo.py)",
@@ -620,10 +700,12 @@ _LATER_STAGES = {
 
 
 def run_exp(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
-    """Stage dispatch: sft and pt run; the other stages are not ported yet."""
+    """Stage dispatch: pt, sft and dt run; the other stages are not ported yet."""
     stage = args.finetune.stage
     if stage in ("sft", "pt"):
         return run_sft(args, tokenizer, device)
+    if stage == "dt":
+        return run_dt(args, tokenizer, device=device)
     if stage in _LATER_STAGES:
         raise _later(_LATER_STAGES[stage])
     raise NotImplementedError(

@@ -52,7 +52,8 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "speculative", "beam", "serve.batching", "serve.chat", "serve.api",
                "data.template", "data.loader", "hparams", "utils.logging",
                "utils.checkpoint", "train.step", "train.lora", "train.trainer",
-               "eval.text_metrics", "ops.swa_kernels"):
+               "eval.text_metrics", "ops.swa_kernels", "cli", "eval.mcq",
+               "models.convert", "train.distill", "utils.safetensors_io"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -87,6 +88,43 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "infinitevl_tpu"))
 print("FOREIGN_MODULES", bad)
 """
+
+
+CHECKPOINT_PROGRAM = r"""
+import sys, tempfile, os
+import torch
+import infinitevl_tpu_torch.train.trainer as trainer
+from infinitevl_tpu_torch.cli import cmd_export
+from infinitevl_tpu_torch.config import tiny_config
+from infinitevl_tpu_torch.hparams import load_yaml_args
+from infinitevl_tpu_torch.models.params import init_params, load_hf_checkpoint
+from infinitevl_tpu_torch.utils.checkpoint import export_hf_safetensors
+torch.set_num_threads(1)
+cfg = tiny_config()
+d = tempfile.mkdtemp()
+export_hf_safetensors(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), cfg, d + "/t")
+load_hf_checkpoint(d + "/t", cfg, device="cpu")
+args = load_yaml_args("examples/dt_stage1_tiny.yaml")
+args.train.output_dir, args.train.max_steps = d + "/dt", 1
+trainer.run_exp(args, device="cpu")
+with open(d + "/e.yaml", "w") as f:
+    f.write(f"config_preset: tiny\nmodel_name_or_path: {d}/t\noutput_dir: {d}/e\n")
+cmd_export(d + "/e.yaml", device="cpu")
+assert os.path.exists(d + "/e/model.safetensors")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "infinitevl_tpu", "safetensors", "transformers"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+def test_checkpoint_and_distillation_path_loads_no_safetensors_or_transformers():
+    """Export, load, a distillation step and `cli export` need neither the
+    `safetensors` nor the `transformers` package (the card's machine has
+    neither), nor anything of JAX."""
+    proc = subprocess.run([sys.executable, "-c", CHECKPOINT_PROGRAM], cwd=REPO, env=ENV,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
 
 
 def test_training_entry_point_loads_nothing_of_jax_and_defaults_to_the_card():

@@ -2,8 +2,8 @@
 fp32: the port's dataset pipeline and collators (batches equal the JAX
 collators' arrays exactly), `Trainer` loss curves from JAX-initialised
 weights carried across (<= 1e-4 of JAX's), `run_sft` on the two tiny
-recipes end to end, resume (bit-equal continuation), and the stages and
-options of later slices, which raise by name."""
+recipes end to end, resume (bit-equal continuation), and the stages,
+options and commands of later slices, which raise by name."""
 
 import glob
 import json
@@ -216,22 +216,37 @@ LATER = [
     ("rm_tiny.yaml", {}, "stage rm"),
     ("kto_tiny.yaml", {}, "stage kto"),
     ("ppo_tiny.yaml", {}, "stage ppo"),
-    ("dt_stage1_tiny.yaml", {}, "stage dt"),
+    ("dt_stage1_mamba2_tiny.yaml", {}, "ops/mamba2.py"),
     ("sft_pp_tiny.yaml", {}, "parallel/"),
     ("sft_tiny.yaml", dict(data_parallel=2), "parallel/"),
     ("sft_tiny.yaml", dict(streaming=True), "streaming"),
     ("sft_tiny.yaml", dict(use_optimizer="galore"), "galore"),
     ("sft_tiny.yaml", dict(finetuning_type="lora", use_dora=True), "DoRA"),
-    ("sft_tiny.yaml", dict(model_name_or_path="/nonexistent/ckpt"), "safetensors"),
 ]
 
 
-@pytest.mark.parametrize("name,over,match", LATER, ids=[m for _, _, m in LATER][:5] + [
-    "pipeline", "data_parallel", "streaming", "use_optimizer", "use_dora", "hf_checkpoint"])
+@pytest.mark.parametrize("name,over,match", LATER, ids=[m for _, _, m in LATER][:4] + [
+    "mixer_mamba2", "pipeline", "data_parallel", "streaming", "use_optimizer", "use_dora"])
 def test_stages_and_options_of_later_slices_raise(tmp_path, name, over, match):
     args = _args(thparams, name, tmp_path, **over)
     with pytest.raises(NotImplementedError, match=match):
         ttrainer.run_exp(args, device="cpu")
+
+
+@pytest.mark.parametrize("argv,env,match", [
+    (["board"], {}, "serve/webui.py"),
+    (["bench"], {}, "no benchmark"),
+    (["train", "sft_tiny.yaml"], {"WORLD_SIZE": "2"}, "parallel/"),
+    (["train", "sft_tiny.yaml"], {"NUM_PROCESSES": "4"}, "parallel/"),
+], ids=["board", "bench", "world_size", "num_processes"])
+def test_cli_commands_of_later_slices_raise(monkeypatch, argv, env, match):
+    from infinitevl_tpu_torch.cli import main
+
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    argv = argv[:1] + [os.path.join(REPO, "examples", a) for a in argv[1:]]
+    with pytest.raises(NotImplementedError, match=match):
+        main(argv)
 
 
 def test_memory_knobs_are_accepted_and_int4_training_refused(tmp_path):
