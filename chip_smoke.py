@@ -11,11 +11,12 @@ NVIDIA H100.
     python3 chip_smoke.py --train-only    # phases 1-3, then the training phases alone
     python3 chip_smoke.py --text-only --profile --only=a2,d,b  # phases 1-3, then 5
     python3 chip_smoke.py --dt-only --only=h  # phases 1-3, 4's distillation steps, 10
+    python3 chip_smoke.py --pref-only --only=h  # phases 1-3, 4's preference steps, 11
 
---kernels-only, --text-only, --train-only and --dt-only are shortcuts for work
+--kernels-only, --text-only, --train-only, --dt-only and --pref-only are shortcuts for work
 on one part: they stop before the `kernels` line, the card's line and the
 final `{"ok": ...}` line, so only the run without them is the whole check.
---only= is taken with one of the four and refused otherwise.
+--only= is taken with one of the five and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -95,12 +96,23 @@ non-zero):
      in-memory student's), scored by cli.cmd_eval on examples/eval_mcq.yaml
      at 3B (each padded prediction equal to the prompt's alone without
      pads), and one cli.cmd_api request on a loopback port
-Phase 4 also takes one distillation step of each stage on the small fp32
+11. the preference stages, at full 3B width (bf16, random weights from
+     seed 0), through run_exp: rm, dpo (sigmoid, then orpo with no reference
+     built) and kto at the full 36 layers, cutoff 1,024, two pairs (rows) a
+     step, remat, 3 steps each, no train state written (DPO's first loss ln
+     2, KTO's 0.5, the policy's and its frozen clone's first log-probs
+     bit-equal, the clone bit-unchanged after the steps); then rm at 12
+     layers from a 12-layer checkpoint with its train state saved, and ppo
+     (fp32) at 12 layers from both: B 4 prompts of 256 tokens, 64 tokens
+     sampled at temperature 1, 3 iterations, the first KL 0; launches per
+     step held to the code's count
+Phase 4 also takes one distillation step of each stage, one step each of
+rm, dpo and kto and one PPO iteration at temperature 0 on the small fp32
 model, CPU against card.
 Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
-recipe, the ViT path, every distillation run and CLI command) and read just
-after it. Then a JSON line of per-kernel results, the card's line, and
+recipe, the ViT path, every distillation run and CLI command, every preference
+stage) and read just after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -1900,6 +1912,167 @@ def phase_dt_cross_device(dev) -> None:
           flush=True)
 
 
+def phase_pref_cross_device(dev) -> None:
+    """One step of rm, dpo (sigmoid) and kto with remat, and one PPO
+    iteration at temperature 0, on the small fp32 model, CPU (plain
+    versions) against the card (kernels), from the same weights and batches:
+    right-padded chosen / rejected rows (B 2, T 300, a prompt of 40 masked),
+    the policy a little away from its reference. The loss and every
+    trainable leaf within MODEL_TOL, the reference bit-unchanged on the
+    card, launches per step as the code implies; PPO's rollout tokens
+    identical, its log-probs, values, advantages, loss and leaves within
+    MODEL_TOL."""
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused as c
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_step_fused_stacked as b
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_ring_flash_attention as a1
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_ring_flash_decode_stacked as a2
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+    from infinitevl_tpu_torch.train import dpo, ppo
+    from infinitevl_tpu_torch.train.step import (
+        full_finetune_leaf,
+        make_optimizer,
+        set_trainable,
+        trainable_leaves,
+        tree_leaves_with_path,
+    )
+
+    cfg = _small_config()
+    tc = cfg.text
+    n_swa, n_lin = tc.num_swa_layers, tc.num_linear_layers
+    base = init_text_params(tc, torch.Generator().manual_seed(6), "cpu", torch.float32)
+    head = torch.randn((tc.hidden_size, 1), generator=torch.Generator().manual_seed(7)) * 0.02
+    base_leaves = dict(tree_leaves_with_path(base))
+    rng = np.random.RandomState(6)
+    B, T = 2, 300
+
+    def side(lengths):
+        ids = np.zeros((B, T), np.int64)
+        labels = np.full((B, T), -100, np.int64)
+        for r, n in enumerate(lengths):
+            ids[r, :n] = rng.randint(1, tc.vocab_size - 8, n)
+            labels[r, 40 : n - 1] = ids[r, 41:n]
+        return ids, labels
+
+    pos = np.broadcast_to(np.arange(T)[None, None], (3, B, T)).copy()
+    (ci, cl), (ri, rl) = side((300, 211)), side((257, 300))
+    pair = dict(chosen_ids=ci, chosen_labels=cl, rejected_ids=ri, rejected_labels=rl,
+                position_ids=pos)
+    kto = dict(input_ids=ci, labels=cl, position_ids=pos, is_desirable=np.array([True, False]))
+
+    def policy_on(device, with_head, moved=True):
+        policy = _clone_tree(base, device)
+        with torch.no_grad():  # away from the reference, so the log-ratios count
+            for k, v in tree_leaves_with_path(policy):
+                if moved and k != "inv_freq":
+                    v.mul_(1.01)
+        if with_head:
+            policy["value_head"] = {"kernel": head.clone().to(device)}
+        set_trainable(policy, full_finetune_leaf)
+        return policy
+
+    def run(kind, device):
+        policy = policy_on(device, kind == "rm")
+        ref = _clone_tree(base, device)
+        tx = make_optimizer(1e-3, grad_clip=1e9)
+        zero = {k for k, v in tree_leaves_with_path(policy) if not v.abs().sum()}
+        if kind == "rm":
+            step, args = dpo.make_rm_step(tc, tx, remat=True), (dict(pair),)
+        elif kind == "dpo":
+            step, args = dpo.make_dpo_step(tc, tx, 0.1, "sigmoid", remat=True), (ref, dict(pair))
+        else:
+            step, args = dpo.make_kto_step(tc, tx, 0.1, remat=True), (ref, dict(kto))
+        _, _, loss = step(policy, tx.init(policy), *args)
+        trained = {k: v.detach() for k, v in trainable_leaves(policy)}
+        return float(loss), trained, ref, zero
+
+    parts = []
+    # (policy sides with remat: forward + recompute; reference forwards)
+    sides = {"rm": (2, 0), "dpo": (2, 2), "kto": (1, 1)}
+    for kind in ("rm", "dpo", "kto"):
+        l_cpu, p_cpu, _, zero = run(kind, "cpu")
+        h.launches = h.launches_bwd = c.launches = 0
+        l_dev, p_dev, ref_dev, _ = run(kind, dev)
+        torch.cuda.synchronize()
+        launches = (h.launches, h.launches_bwd, c.launches)
+        s_pol, s_ref = sides[kind]
+        expect = ((2 * s_pol + s_ref) * n_swa, s_pol * n_swa, (2 * s_pol + s_ref) * n_lin)
+        e_loss = abs(l_cpu - l_dev) / abs(l_cpu)
+        e_par = max(err_ratio(v, p_cpu[k]) for k, v in p_dev.items() if k not in zero)
+        e_new = max((err_ratio(v, p_cpu[k]) for k, v in p_dev.items() if k in zero),
+                    default=0.0)
+        require(e_loss <= MODEL_TOL and e_par <= MODEL_TOL,
+                f"{kind} step: loss err {e_loss:.3g}, trainable leaves err_ratio {e_par:.3g} "
+                f"CPU vs card")
+        require("inv_freq" not in p_dev and len(p_dev) == len(p_cpu),
+                f"{kind} step: the trainable leaves differ")
+        require(all(torch.equal(v.cpu(), base_leaves[k]) for k, v in tree_leaves_with_path(ref_dev)),
+                f"{kind} step: the reference changed on the card")
+        require(launches == expect, f"{kind} step: H fwd / bwd / C launches {launches}, "
+                                    f"expected {expect}")
+        parts.append(f"{kind}: loss {l_dev:.6f}, loss err {e_loss:.2g}, {len(p_dev)} trainable "
+                     f"leaves err_ratio {e_par:.2g} (those zero before the step, the update "
+                     f"alone: {e_new:.2g}, not held), H fwd / bwd / C {launches}")
+    print(f"[4 cross-device] one preference step of each stage with remat (right-padded rows "
+          f"B 2, T 300, lr 1e-3), fp32 small model, CPU against card, tol {MODEL_TOL}, the "
+          f"reference bit-unchanged: " + "; ".join(parts), flush=True)
+
+    # one PPO iteration at temperature 0: prompts of 100 tokens (A1, C), 8 decode
+    # steps (A2, B), the scoring and update forwards (H, C) and H's backward
+    T_p, R = 100, 8
+    prompts = [rng.randint(0, tc.vocab_size - 8, (B, T_p))]
+
+    def ppo_run(device):
+        seen = []
+
+        def reward_fn(full_ids, resp_mask):
+            seen.append(full_ids[:, T_p:].copy())
+            resp = full_ids[:, T_p:]
+            return ((resp % 2 == 0) * resp_mask).sum(1) / np.maximum(resp_mask.sum(1), 1)
+
+        policy = policy_on(device, True, moved=False)  # PPO starts at its reference
+        ref = _clone_tree(base, device)
+        with _Spy(ppo, "token_logprobs_and_values") as scores, \
+                _Spy(ppo, "gae_advantages") as gae:
+            _, stats = ppo.ppo_train(cfg, policy, ref, prompts, reward_fn, rollout_len=R,
+                                     temperature=0.0, learning_rate=1e-3, max_steps=1, seed=0)
+        logp, values = (t.detach().cpu() for t in scores.results[0])
+        adv = gae.results[0][0].cpu()
+        trained = {k: v.detach() for k, v in trainable_leaves(policy)}
+        return seen[0], logp, values, adv, stats[0], trained
+
+    for k in (a1, a2, b, c, h):
+        k.launches = 0
+    h.launches_bwd = 0
+    toks_cpu, lp_cpu, v_cpu, adv_cpu, s_cpu, p_cpu = ppo_run("cpu")
+    toks_dev, lp_dev, v_dev, adv_dev, s_dev, p_dev = ppo_run(dev)
+    torch.cuda.synchronize()
+    launches = dict(a1=a1.launches, a2=a2.launches, b=b.launches, c=c.launches, h=h.launches,
+                    h_bwd=h.launches_bwd)
+    # prefill: A1 and C a layer; R decode steps: A2 and B a layer; the policy's and
+    # the reference's scoring forwards and the update's: H and C a layer, H's backward
+    expect = dict(a1=n_swa, a2=R * n_swa, b=R * n_lin, c=4 * n_lin, h=3 * n_swa, h_bwd=n_swa)
+    errs = dict(logp=err_ratio(lp_dev, lp_cpu), values=err_ratio(v_dev, v_cpu),
+                adv=err_ratio(adv_dev, adv_cpu), loss=abs(s_dev.loss - s_cpu.loss) / abs(s_cpu.loss),
+                leaves=max(err_ratio(v, p_cpu[k]) for k, v in p_dev.items()
+                           if p_cpu[k].abs().sum() > 0 and base_leaves.get(k, head).abs().sum() > 0))
+    require(np.array_equal(toks_dev, toks_cpu),
+            f"PPO rollout: greedy tokens differ CPU vs card: {toks_dev.tolist()} vs "
+            f"{toks_cpu.tolist()}")
+    # the policy and its reference hold the same numbers: bit-equal log-probs
+    require(s_dev.kl == 0.0 and s_cpu.kl == 0.0,
+            f"PPO: the first KL is {s_dev.kl} on the card, {s_cpu.kl} on the CPU, not 0")
+    require(all(e <= MODEL_TOL for e in errs.values()),
+            f"PPO iteration: errors CPU vs card {errs}")
+    require(launches == expect, f"PPO iteration: launches {launches}, expected {expect}")
+    print(f"[4 cross-device] one PPO iteration at temperature 0 (B 2, prompts of {T_p}, {R} "
+          f"greedy tokens, a toy reward), fp32 small model, CPU against card, tol {MODEL_TOL}: "
+          f"tokens identical, KL {s_dev.kl} on both, loss "
+          f"{s_dev.loss:.6f}; err "
+          + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+          + f"; launches {launches}", flush=True)
+
+
 def phase_cross_device(dev) -> None:
     from infinitevl_tpu_torch.generation import Generator
     from infinitevl_tpu_torch.models.infinitevl import forward, get_rope_index
@@ -2719,11 +2892,12 @@ def _train_args(out_dir: str, **over):
 
 
 def _run_recipe(name: str, args, card: str, expect_launches=None, run=None,
-                tag: str = "8 train") -> dict:
+                tag: str = "8 train", positions=None) -> dict:
     """One workflow call at 3B width (`run`, default run_sft): per-step
     losses and times from its trainer_log.jsonl, peak memory, launch counts
     (set to 0 just before, read just after, held to `expect_launches` per
-    step)."""
+    step). `positions`: those a step runs through the model (default
+    cutoff_len x batch size)."""
     import os
 
     from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
@@ -2749,7 +2923,7 @@ def _run_recipe(name: str, args, card: str, expect_launches=None, run=None,
     # the log's clock starts before the first step; steady steps are the later ones
     times = np.diff([r["elapsed_s"] for r in recs]) * 1e3
     step_ms = float(np.median(times)) if len(times) else float("nan")
-    ntok = args.data.cutoff_len * args.train.per_device_train_batch_size
+    ntok = positions or args.data.cutoff_len * args.train.per_device_train_batch_size
     if expect_launches:
         for key, per_step in expect_launches.items():
             require(launches[key] == per_step * steps,
@@ -2767,7 +2941,8 @@ def _run_recipe(name: str, args, card: str, expect_launches=None, run=None,
           f"{launches['window_flash_attention']} on '{card}'", flush=True)
     del final
     _free()
-    return dict(losses=losses, step_ms=step_ms, peak_gb=peak, launches=launches)
+    return dict(losses=losses, step_ms=step_ms, peak_gb=peak, launches=launches,
+                positions_s=ntok / step_ms * 1e3 if len(times) else float("nan"))
 
 
 def phase_train_path(dev, card: str, profile: bool) -> dict:
@@ -3097,17 +3272,19 @@ def phase_vit_window_path(dev, card: str) -> dict:
 
 class _Spy:
     """Wraps a module attribute (a function) for the duration of a `with`:
-    records every call's result, and runs `check(args, result)` on it."""
+    records every call's result, and runs `check(args, result)` on it.
+    With `replace`, that function is called in place of the attribute's."""
 
-    def __init__(self, module, name, check=None):
-        self.module, self.name, self.check = module, name, check
+    def __init__(self, module, name, check=None, replace=None):
+        self.module, self.name, self.check, self.replace = module, name, check, replace
         self.results = []
 
     def __enter__(self):
         real = self.real = getattr(self.module, self.name)
+        call = self.replace or real
 
         def wrapped(*args, **kw):
-            out = real(*args, **kw)
+            out = call(*args, **kw)
             self.results.append(out)
             if self.check is not None:
                 self.check(args, out)
@@ -3536,6 +3713,306 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- preference stages
+
+
+def _pref_datasets(root: str) -> None:
+    """A dataset directory built from data/demo.json's rows, each answer
+    repeated to 600-980 words (the word-level tokenizer gives about a token
+    a word): `pref_long` pairs (prompt = a row's instruction, chosen = its
+    output, rejected = the next row's output), `kto_long` rows tagged
+    desirable and not in turn, and `ppo_prompts`, 12 instructions followed
+    by 300 words (cut at cutoff_len, so every prompt has its length)."""
+    import os
+
+    demo = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "data", "demo.json")))
+    words = [ex["output"].split() for ex in demo]
+    rng = np.random.RandomState(11)
+    n = len(demo)
+
+    def rep(ws, m):
+        return " ".join(ws[j % len(ws)] for j in range(m))
+
+    sets = {"pref_long": [], "kto_long": [], "ppo_prompts": []}
+    for i, ex in enumerate(demo):
+        sets["pref_long"].append({
+            "instruction": ex["instruction"], "input": "",
+            "chosen": rep(words[i], int(rng.randint(600, 980))),
+            "rejected": rep(words[(i + 1) % n], int(rng.randint(600, 980)))})
+        sets["kto_long"].append({"instruction": ex["instruction"], "input": "",
+                                 "output": rep(words[i], int(rng.randint(600, 980))),
+                                 "kto_tag": i % 2 == 0})
+    for i in range(12):
+        sets["ppo_prompts"].append({
+            "instruction": demo[i % n]["instruction"] + " "
+            + rep(words[(3 * i) % n] + words[(3 * i + 1) % n], 300),
+            "input": "", "output": demo[i % n]["output"]})
+    os.makedirs(root, exist_ok=True)
+    info = {}
+    for name, rows in sets.items():
+        with open(os.path.join(root, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+        info[name] = {"file_name": f"{name}.json", "formatting": "alpaca",
+                      **({"ranking": True} if name == "pref_long" else {})}
+    with open(os.path.join(root, "dataset_info.json"), "w") as f:
+        json.dump(info, f)
+
+
+def _checksum(tree) -> dict:
+    """Per leaf, the sum and the sum of squares of its bit patterns as
+    int64: a leaf changed in place changes them."""
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    out = {}
+    for k, v in tree_leaves_with_path(tree):
+        bits = v.detach().contiguous().view(
+            {2: torch.int16, 4: torch.int32}[v.element_size()]).long()
+        out[k] = (int(bits.sum()), int((bits * bits).sum()))
+        del bits
+    return out
+
+
+def _pref_stage(name: str, args, card: str, expect: dict, positions: int) -> dict:
+    """One preference stage through run_exp at 3B (measured as
+    _run_recipe measures it), with Trainer.save replaced (no train state is
+    written); the frozen reference's checksum after frozen_copy and after
+    the run, and the log-probs of each sequence_logprobs call."""
+    from infinitevl_tpu_torch.train import dpo as D
+    from infinitevl_tpu_torch.train import trainer as T
+
+    sums, saves = [], []
+
+    with _Spy(T, "frozen_copy", lambda a, out: sums.append((out, _checksum(out)))), \
+            _Spy(T.Trainer, "save", replace=lambda trainer: saves.append(trainer.step)), \
+            _Spy(D, "sequence_logprobs") as lps:
+        r = _run_recipe(name, args, card, expect, run=T.run_exp, tag="11 pref",
+                        positions=positions)
+    require(saves == [args.train.max_steps], f"{name}: Trainer.save called at steps {saves}")
+    print(f"[11 pref] {name}: Trainer.save was replaced, so the time above holds no "
+          f"train-state write", flush=True)
+    r["logps"] = [t.detach().float().cpu() for t in lps.results]
+    r["references"] = len(sums)
+    r["ref_unchanged"] = None
+    if sums:
+        ref, before = sums[0]
+        r["ref_unchanged"] = _checksum(ref) == before
+        r["ref_leaves"] = len(before)
+        require(r["ref_unchanged"], f"{name}: the frozen reference changed")
+    del sums, lps
+    _free()
+    return r
+
+
+def phase_pref_path(dev, card: str) -> dict:
+    """Phase 11: the preference stages at 3B width through run_exp (bf16,
+    random weights from seed 0, remat): rm, dpo (sigmoid and orpo) and kto at
+    the full 36 layers, cutoff 1,024, two pairs (rows) a step, 3 steps each,
+    no train state written; then rm at 12 layers from a 12-layer checkpoint
+    with its train state saved, and ppo (fp32) at 12 layers from that
+    checkpoint, scored by that reward model: prompts of 256 tokens, B 4, 64
+    sampled tokens, 3 iterations. Launches per step held to the code's
+    count, the reference bit-unchanged. Files go as soon as nothing reads
+    them (the card's machine limits what its disk ever held)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from infinitevl_tpu_torch.config import infinitevl_3b
+    from infinitevl_tpu_torch.models.params import init_text_params, param_count
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+    from infinitevl_tpu_torch.train import ppo as P
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.utils.checkpoint import export_hf_safetensors, latest_step
+
+    cfg = infinitevl_3b()
+    tc = cfg.text
+    cfg12 = dataclasses.replace(cfg, text=dataclasses.replace(
+        tc, num_hidden_layers=12, layer_types=None))
+    total, res = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def expect(text_cfg, sides, refs):
+        """Launches a step of policy sides with remat (forward + recompute)
+        and reference forwards: H and C a layer each, H's backward a side."""
+        return {"swa_train_flash_attention": (2 * sides + refs) * text_cfg.num_swa_layers,
+                "swa_train_flash_attention_bwd": sides * text_cfg.num_swa_layers,
+                "delta_rule_chunk_fused": (2 * sides + refs) * text_cfg.num_linear_layers}
+
+    root = tempfile.mkdtemp(prefix="ivl_pref_")
+    try:
+        n12 = param_count(init_text_params(cfg12.text, None, "meta"))
+        # on disk at once: the 12-layer checkpoint (bf16 text) and the 12-layer
+        # reward model's train state (weights and two bf16 moments)
+        need = 2 * n12 + 3 * 2 * (n12 + tc.hidden_size)
+        free = shutil.disk_usage(root).free
+        require(free >= need, f"phase 11 needs {need / 1e9:.1f} GB of disk under {root}, "
+                              f"{free / 1e9:.1f} GB are free")
+        data_dir = os.path.join(root, "data")
+        _pref_datasets(data_dir)
+        B, cutoff = 2, 1024
+        common = dict(dataset_dir=data_dir, cutoff_len=cutoff, per_device_train_batch_size=B,
+                      max_steps=3, remat=True, learning_rate=1e-5, save_steps=10**6)
+        rows = T.build_preference_dataset(_train_args(root, stage="rm", dataset="pref_long",
+                                                      **common))
+        lens = sorted(len(r[k]) for r in rows for k in ("chosen_ids", "rejected_ids"))
+        require(len(rows) == 8 and 600 <= lens[0] and lens[-1] <= cutoff,
+                f"the pairs are {lens} tokens long, not 600-{cutoff}")
+        print(f"[11 pref] {len(rows)} preference pairs of {lens[0]}-{lens[-1]} tokens "
+              f"(data/demo.json's answers repeated), padded to {cutoff}; {B} pairs a step, "
+              f"{free / 1e9:.1f} GB of disk free for {need / 1e9:.1f} GB needed", flush=True)
+        pair_pos, kto_pos = 2 * B * cutoff, B * cutoff
+
+        res["rm"] = r = _pref_stage(
+            f"(a) rm, {tc.num_hidden_layers} layers, remat, cutoff {cutoff}, {B} pairs", _train_args(
+                os.path.join(root, "rm"), stage="rm", dataset="pref_long", **common),
+            card, expect(tc, 2, 0), pair_pos)
+        add(r["launches"])
+        res["dpo"] = r = _pref_stage(
+            f"(b) dpo sigmoid, {tc.num_hidden_layers} layers", _train_args(
+                os.path.join(root, "dpo"), stage="dpo", dataset="pref_long", pref_loss="sigmoid",
+                **common), card, expect(tc, 2, 2), pair_pos)
+        add(r["launches"])
+        lp = r["logps"]  # step 1: reference chosen / rejected, then the policy's
+        same = [torch.equal(lp[0], lp[2]), torch.equal(lp[1], lp[3])]
+        require(r["references"] == 1 and abs(r["losses"][0] - float(np.log(2))) <= 1e-5,
+                f"dpo: first loss {r['losses'][0]}, not ln 2; {r['references']} references")
+        require(all(same), f"dpo: the policy's first log-probs {lp[2:4]} differ from its "
+                           f"clone's {lp[:2]} (bit-equal: {same})")
+        print(f"[11 pref] dpo: the first loss {r['losses'][0]:.7f} (ln 2 = {np.log(2):.7f}); "
+              f"the policy's and its frozen clone's log-probs bit-equal at step 1 "
+              f"({lp[2].tolist()}, {lp[3].tolist()}); the clone's {r['ref_leaves']} leaves "
+              f"bit-unchanged after 3 steps (checksums)", flush=True)
+        res["orpo"] = r = _pref_stage(
+            f"(c) dpo orpo (no reference), {tc.num_hidden_layers} layers", _train_args(
+                os.path.join(root, "orpo"), stage="dpo", dataset="pref_long", pref_loss="orpo",
+                **common), card, expect(tc, 2, 0), pair_pos)
+        add(r["launches"])
+        require(r["references"] == 0, f"orpo built {r['references']} references")
+        res["kto"] = r = _pref_stage(
+            f"(d) kto, {tc.num_hidden_layers} layers, {B} rows", _train_args(
+                os.path.join(root, "kto"), stage="kto", dataset="kto_long", **common),
+            card, expect(tc, 1, 1), kto_pos)
+        add(r["launches"])
+        lp = r["logps"]
+        require(r["references"] == 1 and abs(r["losses"][0] - 0.5) <= 1e-5
+                and torch.equal(lp[0], lp[1]),
+                f"kto: first loss {r['losses'][0]}, not 0.5, or the log-probs differ")
+        print(f"[11 pref] orpo built no reference; kto: the first loss {r['losses'][0]:.7f} "
+              f"(0.5), log-probs bit-equal to the clone's at step 1, the clone's "
+              f"{r['ref_leaves']} leaves bit-unchanged after 3 steps", flush=True)
+
+        # (e) a 12-layer model: its checkpoint, the reward model on it (train
+        # state saved), then ppo from both
+        ckpt = os.path.join(root, "ckpt12")
+        text12 = init_text_params(cfg12.text, torch.Generator(device=dev).manual_seed(0), dev,
+                                  torch.bfloat16)
+        export_hf_safetensors({"text": text12}, cfg12, ckpt)
+        del text12
+        _free()
+        args = _train_args(os.path.join(root, "rm12"), stage="rm", dataset="pref_long",
+                           model_name_or_path=ckpt, **common)
+        require(T.build_config(args) == cfg12, "the 12-layer checkpoint reads back to another "
+                                               "config")
+        res["rm12"] = r = _run_recipe(
+            f"(e) rm, 12 layers ({n12 / 1e9:.3f} B parameters), train state saved", args, card,
+            expect(cfg12.text, 2, 0), run=T.run_exp, tag="11 pref", positions=pair_pos)
+        add(r["launches"])
+        rm_ckpt = os.path.join(root, "rm12", "checkpoints")
+        require(latest_step(rm_ckpt) == 3, f"rm at 12 layers saved no step-3 state: {rm_ckpt}")
+        state_gb = sum(e.stat().st_size for e in os.scandir(rm_ckpt)) / 1e9
+
+        R, B_ppo, T_p, iters = 64, 4, 256, 3
+        args = _train_args(os.path.join(root, "ppo"), stage="ppo", dataset="ppo_prompts",
+                           dataset_dir=data_dir, model_name_or_path=ckpt,
+                           reward_model_path=rm_ckpt, cutoff_len=T_p,
+                           per_device_train_batch_size=B_ppo, max_steps=iters,
+                           ppo_rollout_len=R, temperature=1.0, learning_rate=1e-5)
+        roll_ms, sums = [], []
+        real_rollout = P.make_rollout
+
+        def timed_rollout(*a, **kw):
+            rollout = real_rollout(*a, **kw)
+
+            def timed(*args_):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = rollout(*args_)
+                torch.cuda.synchronize()
+                roll_ms.append((time.perf_counter() - t0) * 1e3)
+                require(out[0].shape == (B_ppo, R), f"rollout tokens {tuple(out[0].shape)}")
+                return out
+
+            return timed
+
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _Spy(P, "make_rollout", replace=timed_rollout), \
+                _Spy(T, "frozen_copy", lambda a, out: sums.append((out, _checksum(out)))):
+            policy, stats = T.run_exp(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(root, "rm12"))  # read: the reward model is on the card
+        launches = _read_launches(("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
+                                   "delta_step_fused_stacked", "delta_rule_chunk_fused",
+                                   "swa_train_flash_attention"))
+        launches["swa_train_flash_attention_bwd"] = h.launches_bwd
+        add(launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_swa, n_lin = cfg12.text.num_swa_layers, cfg12.text.num_linear_layers
+        # per iteration: the prefill (A1, C), R decode steps (A2, B), the reward
+        # model's forward, the policy's and the reference's scoring forwards and
+        # the update's (H, C), the update's backward (H)
+        per = {"swa_ring_flash_attention": n_swa, "swa_ring_flash_decode_stacked": R * n_swa,
+               "delta_step_fused_stacked": R * n_lin, "delta_rule_chunk_fused": 5 * n_lin,
+               "swa_train_flash_attention": 4 * n_swa, "swa_train_flash_attention_bwd": n_swa}
+        got = {k: launches[k] for k in per}
+        require(got == {k: v * iters for k, v in per.items()},
+                f"ppo: launches {got}, expected {per} x {iters} iterations")
+        require(len(stats) == iters and all(np.isfinite([s.loss, s.kl, s.mean_reward]).all()
+                                            for s in stats), f"ppo: stats {stats}")
+        require(stats[0].kl == 0.0, f"ppo: the first iteration's KL is {stats[0].kl}, not 0")
+        ref, before = sums[0]
+        require(len(sums) == 1 and _checksum(ref) == before, "ppo: the reference changed")
+        recs = [json.loads(line) for line in open(os.path.join(root, "ppo",
+                                                               "trainer_log.jsonl"))]
+        it_ms = np.diff([r_["elapsed_s"] for r_ in recs]) * 1e3
+        step_ms = float(np.median(it_ms))
+        roll = float(np.median(roll_ms[1:]))
+        res["ppo"] = dict(step_ms=step_ms, rollout_ms=roll, peak_gb=peak, launches=launches,
+                          positions_s=B_ppo * (T_p + R) / step_ms * 1e3,
+                          tokens_s=B_ppo * R / roll * 1e3, stats=[dataclasses.asdict(s)
+                                                                  for s in stats])
+        print(f"[11 pref] (e) ppo, 12 layers, fp32, from the 12-layer checkpoint and the reward "
+              f"model's train state ({state_gb:.2f} GB, deleted once read): {iters} iterations "
+              f"of B {B_ppo} prompts of {T_p} tokens, {R} tokens sampled at temperature 1.0; "
+              f"stats {[(round(s.loss, 6), round(s.mean_reward, 4), round(s.kl, 6)) for s in stats]} "
+              f"(loss, reward, KL; the first KL 0); {step_ms:.0f} ms per iteration (median of "
+              f"iterations 2..), of it the rollout {roll:.0f} ms ({B_ppo * R / roll * 1e3:.0f} "
+              f"sampled tok/s); {B_ppo * (T_p + R) / step_ms * 1e3:.0f} scored positions/s; "
+              f"peak memory {peak:.2f} GB; whole call {wall:.1f} s (weights, both checkpoints "
+              f"read); the reference's {len(before)} leaves bit-unchanged; launches per "
+              f"iteration A1 {got['swa_ring_flash_attention'] // iters}, A2 "
+              f"{got['swa_ring_flash_decode_stacked'] // iters}, B "
+              f"{got['delta_step_fused_stacked'] // iters}, C "
+              f"{got['delta_rule_chunk_fused'] // iters}, H fwd "
+              f"{got['swa_train_flash_attention'] // iters} bwd "
+              f"{got['swa_train_flash_attention_bwd'] // iters} on '{card}'", flush=True)
+        del policy, stats, sums, ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    total.setdefault("swa_train_flash_attention_bwd", 0)
+    res["total_launches"] = total
+    return res
+
+
 def _profile_stage1(args, student, teacher_text, teacher_cfg, tc, card: str) -> None:
     """Where one stage-1 step's time goes at 3B, T 8192 (one packed row):
     wall time without the profiler, device busy, kernels by kind."""
@@ -3757,9 +4234,10 @@ def main(argv) -> int:
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
     text_only = "--text-only" in argv
     if only and not (kernels_only or text_only or "--train-only" in argv
-                     or "--dt-only" in argv):
-        print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only or "
-              "--dt-only (the whole run reports every kernel)", file=sys.stderr)
+                     or "--dt-only" in argv or "--pref-only" in argv):
+        print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only, "
+              "--dt-only or --pref-only (the whole run reports every kernel)",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
@@ -3793,9 +4271,14 @@ def main(argv) -> int:
         phase_dt_cross_device(dev)
         phase_dt_path(dev, card, "--profile" in argv)
         return 0
+    if "--pref-only" in argv:  # 4's preference steps, then phase 11 alone
+        phase_pref_cross_device(dev)
+        phase_pref_path(dev, card)
+        return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
     phase_dt_cross_device(dev)
+    phase_pref_cross_device(dev)
 
     cfg = infinitevl_3b()
     t0 = time.perf_counter()
@@ -3816,6 +4299,8 @@ def main(argv) -> int:
     res["f"]["vit_train_step_peaks"] = vit_peaks
     _free()
     dt_launches = phase_dt_path(dev, card, "--profile" in argv)
+    _free()
+    pref_launches = phase_pref_path(dev, card)["total_launches"]
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -3843,7 +4328,7 @@ def main(argv) -> int:
          "replaces": rep,
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
          + serve_launches[name] + train_launches[name] + vit_launches[name]
-         + dt_launches.get(name, 0),
+         + dt_launches.get(name, 0) + pref_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
@@ -3851,8 +4336,10 @@ def main(argv) -> int:
          "launches_train_path": train_launches[name],
          "launches_vit_window_path": vit_launches[name],
          "launches_dt_path": dt_launches.get(name, 0),
+         "launches_pref_path": pref_launches.get(name, 0),
          **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
-             + dt_launches["swa_train_flash_attention_bwd"]}
+             + dt_launches["swa_train_flash_attention_bwd"]
+             + pref_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

@@ -7,10 +7,10 @@ encoded through a chat template into (input_ids, labels) with prompt
 tokens masked to IGNORE_INDEX, and optionally packed into fixed-length
 rows with per-token segment ids. Multimodal examples expand their
 <image> / <video> placeholders into vision pad-token runs and carry their
-flattened patches and grids.
+flattened patches and grids. Preference data is encoded as chosen /
+rejected pairs (rm, dpo) or as rows tagged desirable or not (kto).
 
-Streaming datasets and the pairwise / KTO encoders belong to trainers
-that are not ported yet."""
+Streaming datasets belong to a trainer that is not ported yet."""
 
 from __future__ import annotations
 
@@ -282,6 +282,63 @@ def encode_supervised(
             {
                 "input_ids": np.asarray(ids[:cutoff_len], np.int64),
                 "labels": np.asarray(labels[:cutoff_len], np.int64),
+            }
+        )
+    return out
+
+
+def encode_pairwise(
+    examples: Iterable[Dict[str, Any]],
+    tokenizer,
+    template: Template | str = "qwen2_vl",
+    cutoff_len: int = 2048,
+) -> List[Dict[str, np.ndarray]]:
+    """Preference pairs for rm/dpo: encode prompt+chosen and prompt+rejected
+    through the chat template (the reference PairwiseDataCollator path,
+    data/processor/pairwise.py). Each example needs messages ending with a
+    user turn plus 'chosen'/'rejected' response strings."""
+    if isinstance(template, str):
+        template = get_template(template)
+    out = []
+    for ex in examples:
+        if "chosen" not in ex:
+            raise ValueError(
+                "pairwise encoding needs 'chosen'/'rejected' responses; "
+                "mark the dataset with \"ranking\": true and use a "
+                "preference-format file"
+            )
+        enc = {}
+        for side in ("chosen", "rejected"):
+            msgs = list(ex["messages"]) + [
+                {"role": "assistant", "content": ex[side]}
+            ]
+            ids, labels = template.encode_turns(tokenizer, msgs)
+            enc[f"{side}_ids"] = np.asarray(ids[:cutoff_len], np.int64)
+            enc[f"{side}_labels"] = np.asarray(labels[:cutoff_len], np.int64)
+        out.append(enc)
+    return out
+
+
+def encode_kto(
+    examples: Iterable[Dict[str, Any]],
+    tokenizer,
+    template: Template | str = "qwen2_vl",
+    cutoff_len: int = 2048,
+) -> List[Dict[str, np.ndarray]]:
+    """Unpaired feedback for KTO: supervised encoding plus the per-example
+    desirability tag (reference data/processor/feedback.py kto_tag)."""
+    if isinstance(template, str):
+        template = get_template(template)
+    out = []
+    for ex in examples:
+        if "kto_tag" not in ex:
+            raise ValueError("kto encoding needs a 'kto_tag' bool per example")
+        ids, labels = template.encode_turns(tokenizer, ex["messages"])
+        out.append(
+            {
+                "input_ids": np.asarray(ids[:cutoff_len], np.int64),
+                "labels": np.asarray(labels[:cutoff_len], np.int64),
+                "is_desirable": np.bool_(ex["kto_tag"]),
             }
         )
     return out

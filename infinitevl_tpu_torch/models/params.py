@@ -222,8 +222,9 @@ def from_jax_numpy(params_np: Any, device: Optional[Device] = None,
     """Convert a JAX tree already moved to numpy (nested dicts, lists or
     tuples of arrays; e.g. `jax.tree.map(np.asarray, params)`) into the
     port's: the same tree with torch tensors. Layouts are shared, text and
-    visual alike, so no transpose happens. The tree may be model params, or
-    a LoRA adapter tree (`init_lora` output: {'a', 'b'} nodes, `{}` for a
+    visual alike, so no transpose happens. The tree may be model params (a
+    text tree may carry the preference stages' `value_head`: {'kernel':
+    [D, 1]}), or a LoRA adapter tree (`init_lora` output: {'a', 'b'} nodes, `{}` for a
     layer without adapters), which `trainable=True` marks as trainable
     leaves. None leaves stay None."""
     device = resolve_device(device)

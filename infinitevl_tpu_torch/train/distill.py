@@ -34,6 +34,7 @@ from .step import (
     apply_gradients,
     batch_to_device,
     cross_entropy_loss,
+    full_finetune_leaf,
     kl_distill_loss,
     trainable_leaves,
     tree_device,
@@ -238,16 +239,13 @@ def make_stage2_step(student_cfg: TextConfig, teacher_cfg: TextConfig, tx: AdamW
 
 def stage2_mask(student_params: Params):
     """Stage 2 trains every leaf of the student's text tree but `inv_freq`,
-    rope's derived constant: the reference keeps it as a buffer and the HF
-    format does not store it (the loader rebuilds it from the config), so a
-    trained one would not survive the export. (The JAX package's stage 2
-    moves it with the rest: a deliberate departure.)"""
-    def mask(tree, key=None):
+    as full finetuning does (train/step.full_finetune_leaf)."""
+    def mask(tree, key=""):
         if isinstance(tree, dict):
             return {k: mask(v, k) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return [mask(v) for v in tree]
-        return key != "inv_freq"
+        return full_finetune_leaf(key)
 
     return mask(student_params)
 

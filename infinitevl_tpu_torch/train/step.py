@@ -50,14 +50,39 @@ def cross_entropy_loss(
     return -(tok * mask).sum() / mask.sum().clamp(min=1)
 
 
-def _chunk_nll(h_c, lm_w, lb_c, w_is_vd):
+def _chunk_logprobs(h_c, lm_w, lb_c, w_is_vd):
     w = lm_w.to(h_c.dtype)
     logits = (h_c @ (w.T if w_is_vd else w)).float()
     mask = lb_c != IGNORE_INDEX
     safe = torch.where(mask, lb_c, 0)
-    logp = F.log_softmax(logits, dim=-1)
-    tok = torch.gather(logp, -1, safe[..., None])[..., 0]
-    return -(tok * mask).sum()
+    tok = torch.gather(F.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
+    return (tok * mask).sum(dim=-1)
+
+
+def chunked_logprobs(
+    hidden: torch.Tensor,  # [B, T, D]
+    lm_w: torch.Tensor,  # [D, V], or [V, D] with w_is_vd (the tied table's layout)
+    labels: torch.Tensor,  # [B, T]
+    chunk: int = 1024,
+    w_is_vd: bool = False,
+) -> torch.Tensor:
+    """Per row, the sum of the supervised positions' log-probs [B] fp32,
+    without ever holding the [T, V] logits: the sequence goes through the
+    head in chunks of `chunk` positions, each checkpointed when it is
+    differentiated so that its logits are recomputed in the backward. Each
+    chunk is made contiguous: torch.matmul runs [B, t, D] @ [D, V] as one
+    GEMM or as a batched one depending on the operand's layout and on
+    whether the weight requires grad, and the two round differently (a
+    trainable policy and its frozen copy must give bit-equal log-probs)."""
+    T = hidden.shape[1]
+    track = torch.is_grad_enabled() and (hidden.requires_grad or lm_w.requires_grad)
+    total = hidden.new_zeros(hidden.shape[0], dtype=torch.float32)
+    for t0 in range(0, T, chunk):
+        args = (hidden[:, t0 : t0 + chunk].contiguous(), lm_w, labels[:, t0 : t0 + chunk],
+                w_is_vd)
+        total = total + (checkpoint(_chunk_logprobs, *args, use_reentrant=False) if track
+                         else _chunk_logprobs(*args))
+    return total
 
 
 def fused_linear_cross_entropy(
@@ -67,16 +92,9 @@ def fused_linear_cross_entropy(
     chunk: int = 1024,
     w_is_vd: bool = False,
 ) -> torch.Tensor:
-    """CE without ever holding the [T, V] logits: the sequence goes through
-    the head in chunks of `chunk` positions, each checkpointed so that its
-    logits are recomputed in the backward. T needs no multiple of the chunk."""
-    T = hidden.shape[1]
-    track = torch.is_grad_enabled() and (hidden.requires_grad or lm_w.requires_grad)
-    nll = hidden.new_zeros((), dtype=torch.float32)
-    for t0 in range(0, T, chunk):
-        args = (hidden[:, t0 : t0 + chunk], lm_w, labels[:, t0 : t0 + chunk], w_is_vd)
-        nll = nll + (checkpoint(_chunk_nll, *args, use_reentrant=False) if track
-                     else _chunk_nll(*args))
+    """CE without ever holding the [T, V] logits (chunked_logprobs), mean
+    over the supervised positions. T needs no multiple of the chunk."""
+    nll = -chunked_logprobs(hidden, lm_w, labels, chunk, w_is_vd).sum()
     return nll / (labels != IGNORE_INDEX).sum().clamp(min=1)
 
 
@@ -130,6 +148,15 @@ def set_trainable(tree, predicate: Callable[[str, torch.Tensor], bool]) -> int:
         leaf.requires_grad_(on)
         n += on
     return n
+
+
+def full_finetune_leaf(path: str, leaf: Optional[torch.Tensor] = None) -> bool:
+    """The predicate of full finetuning: every leaf trains but rope's
+    `inv_freq`, a constant derived from the config. The reference keeps it
+    as a buffer and the HF format does not store it (the loader rebuilds
+    it), so a trained one would not survive the export. (The JAX package
+    moves it with the rest: a deliberate departure.)"""
+    return path.rsplit("/", 1)[-1] != "inv_freq"
 
 
 def _no_decay(path: str, x: torch.Tensor) -> bool:
@@ -310,12 +337,18 @@ def _layer_segments(segment_ids, layout: Optional[str], labels):
     return segment_ids, False, labels
 
 
+def head_weight(tp: Params) -> Tuple[torch.Tensor, bool]:
+    """The text tree's output head as (weight, w_is_vd): the tied embedding
+    table [V, D], or lm_head [D, V]."""
+    tied = "lm_head" not in tp
+    return (tp["embed"] if tied else tp["lm_head"]), tied
+
+
 def _head_loss(tp: Params, cfg: TextConfig, hidden, labels, remat: bool) -> torch.Tensor:
     if remat:
         # chunked CE avoids the [T, V] logits tensor (each fp32 chunk of
         # 1024 positions is chunk x V x 4 bytes)
-        tied = "lm_head" not in tp
-        w = tp["embed"] if tied else tp["lm_head"]
+        w, tied = head_weight(tp)
         ce_chunk = 512 if labels.shape[1] >= 16384 else 1024
         return fused_linear_cross_entropy(hidden, w, labels, chunk=ce_chunk, w_is_vd=tied)
     return cross_entropy_loss(lm_head(tp, cfg, hidden), labels)

@@ -1,9 +1,10 @@
-"""Training loop and the SFT / PT workflow (torch port of the one-device
-part of infinitevl_tpu/train/trainer.py): build config and params ->
-dataset -> optimizer -> step loop with JSONL logging, checkpoints and
-resume.
+"""Training loop and the workflows of every stage (torch port of the
+one-device part of infinitevl_tpu/train/trainer.py): build config and
+params -> dataset -> optimizer -> step loop with JSONL logging, checkpoints
+and resume. `run_exp` dispatches pt / sft (`run_sft`), dt (`run_dt`), rm,
+dpo, kto (`run_rm`, `run_dpo`, `run_kto`) and ppo (train/ppo.py).
 
-`run_sft(args)` runs on the CUDA card unless `device="cpu"` is passed.
+Each workflow runs on the CUDA card unless `device="cpu"` is passed.
 Collators are numpy (their batches equal the JAX package's arrays); the
 step functions move each batch to the parameters' device. Stages and
 options that are not ported yet raise NotImplementedError naming
@@ -22,6 +23,8 @@ import torch
 
 from ..config import InfiniteVLConfig, infinitevl_3b, tiny_config
 from ..data.loader import (
+    encode_kto,
+    encode_pairwise,
     encode_supervised,
     encode_supervised_mm,
     load_dataset_info,
@@ -39,10 +42,12 @@ from ..utils.checkpoint import (
     merge_params,
     restore_train_state,
     save_train_state,
+    tree_map,
 )
 from ..utils.logging import TrainerLog, get_logger, make_reporter
 from .distill import apply_trainable_mask, make_stage1_step, make_stage2_step, stage2_mask
 from .step import (
+    full_finetune_leaf,
     make_mm_sft_train_step,
     make_optimizer,
     make_sft_eval_fn,
@@ -99,13 +104,10 @@ def build_config(args: AllArgs) -> InfiniteVLConfig:
     return dataclasses.replace(cfg, text=text)
 
 
-def build_dataset(
-    args: AllArgs, tokenizer=None, cfg: Optional[InfiniteVLConfig] = None
-) -> List[Dict[str, np.ndarray]]:
-    if args.data.streaming:
-        raise _later("streaming datasets (`streaming: true`)")
-    info_path = os.path.join(args.data.dataset_dir, "dataset_info.json")
-    registry = load_dataset_info(info_path)
+def _load_examples(args: AllArgs) -> List[Dict[str, Any]]:
+    """The rows of the datasets `dataset` names (comma-separated, mixed by
+    mix_strategy), cut at max_samples."""
+    registry = load_dataset_info(os.path.join(args.data.dataset_dir, "dataset_info.json"))
     names = [n.strip() for n in args.data.dataset.split(",") if n.strip()]
     examples = load_mixed_examples(
         names, registry, args.data.dataset_dir,
@@ -117,6 +119,15 @@ def build_dataset(
     )
     if args.data.max_samples:
         examples = examples[: args.data.max_samples]
+    return examples
+
+
+def build_dataset(
+    args: AllArgs, tokenizer=None, cfg: Optional[InfiniteVLConfig] = None
+) -> List[Dict[str, np.ndarray]]:
+    if args.data.streaming:
+        raise _later("streaming datasets (`streaming: true`)")
+    examples = _load_examples(args)
     has_media = any(ex.get("images") or ex.get("videos") for ex in examples)
     if has_media:
         cfg = cfg or build_config(args)
@@ -272,6 +283,78 @@ def collate_mm(
         yield batch, _grids_key(igrids), _grids_key(vgrids)
 
 
+def build_preference_dataset(
+    args: AllArgs, tokenizer=None, kind: str = "pairwise"
+) -> List[Dict[str, np.ndarray]]:
+    """Pairwise (rm/dpo) or unpaired-feedback (kto) dataset encoding."""
+    examples = _load_examples(args)
+    tokenizer = resolve_tokenizer(args, None, tokenizer)
+    if kind == "pairwise":
+        return encode_pairwise(examples, tokenizer, args.data.template, args.data.cutoff_len)
+    return encode_kto(examples, tokenizer, args.data.template, args.data.cutoff_len)
+
+
+def _pad_rows(rows: List[np.ndarray], cutoff_len: int, fill) -> np.ndarray:
+    out = np.full((len(rows), cutoff_len), fill, np.int64)
+    for r, row in enumerate(rows):
+        L = min(len(row), cutoff_len)
+        out[r, :L] = row[:L]
+    return out
+
+
+def collate_pairwise(
+    examples: List[Dict[str, np.ndarray]],
+    batch_size: int,
+    cutoff_len: int,
+    pad_id: int = 0,
+    seed: int = 0,
+    epochs: float = 1.0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Chosen/rejected batches for rm/dpo (reference PairwiseDataCollator,
+    data/collator.py:219-253). Labels are next-token shifted; pads stay
+    right-aligned so causal attention never sees them from real tokens."""
+    total, order = _epoch_order(len(examples), batch_size, seed, epochs)
+    ar = np.arange(cutoff_len)
+    pos3 = np.ascontiguousarray(np.broadcast_to(ar[None, None], (3, batch_size, cutoff_len)))
+    for b in range(total):
+        idxs = order[b * batch_size : (b + 1) * batch_size]
+        batch = {"position_ids": pos3}
+        n_tok = 0
+        for side in ("chosen", "rejected"):
+            ids = _pad_rows([examples[i][f"{side}_ids"] for i in idxs], cutoff_len, pad_id)
+            labels = _pad_rows([examples[i][f"{side}_labels"] for i in idxs], cutoff_len, -100)
+            batch[f"{side}_ids"] = ids
+            batch[f"{side}_labels"] = shift_labels(labels)
+            n_tok += sum(len(examples[i][f"{side}_ids"]) for i in idxs)
+        batch["_n_tokens"] = np.int64(n_tok)
+        yield batch
+
+
+def collate_kto(
+    examples: List[Dict[str, np.ndarray]],
+    batch_size: int,
+    cutoff_len: int,
+    pad_id: int = 0,
+    seed: int = 0,
+    epochs: float = 1.0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Unpaired feedback batches (reference KTODataCollatorWithPadding)."""
+    total, order = _epoch_order(len(examples), batch_size, seed, epochs)
+    ar = np.arange(cutoff_len)
+    pos3 = np.ascontiguousarray(np.broadcast_to(ar[None, None], (3, batch_size, cutoff_len)))
+    for b in range(total):
+        idxs = order[b * batch_size : (b + 1) * batch_size]
+        ids = _pad_rows([examples[i]["input_ids"] for i in idxs], cutoff_len, pad_id)
+        labels = _pad_rows([examples[i]["labels"] for i in idxs], cutoff_len, -100)
+        yield {
+            "input_ids": ids,
+            "labels": shift_labels(labels),
+            "position_ids": pos3,
+            "is_desirable": np.array([examples[i]["is_desirable"] for i in idxs], bool),
+            "_n_tokens": np.int64(sum(len(examples[i]["input_ids"]) for i in idxs)),
+        }
+
+
 def _maybe_resume(trainer: "Trainer", args: AllArgs) -> None:
     """resume_from_checkpoint: a path, or "auto" to pick up the latest
     checkpoint under output_dir/checkpoints (starts fresh when none exists)."""
@@ -385,6 +468,12 @@ class Trainer:
         self.log.plot_loss()
         self.reporter.close()
         return self.params
+
+
+def _total_steps(args: AllArgs, n_rows: int) -> int:
+    """max_steps, or the steps of num_train_epochs over n_rows."""
+    return args.train.max_steps or int(
+        np.ceil(args.train.num_train_epochs * n_rows / args.train.per_device_train_batch_size))
 
 
 def _make_tx(args: AllArgs, steps: int):
@@ -545,10 +634,7 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
         from ..models.quant import quantize_params
 
         params = quantize_params(params)
-    steps = args.train.max_steps or int(
-        np.ceil(args.train.num_train_epochs * len(data)
-                / args.train.per_device_train_batch_size)
-    )
+    steps = _total_steps(args, len(data))
     tx = _make_tx(args, steps)
     ft = args.finetune.finetuning_type
     common = dict(eval_steps=args.train.eval_steps, report_to=args.train.report_to)
@@ -593,7 +679,7 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
             and int(path.split("/")[2]) >= first,
         )
     elif ft == "full":
-        set_trainable(params, lambda path, leaf: True)
+        set_trainable(params, full_finetune_leaf)
     else:
         raise ValueError(f"unknown finetuning_type {ft!r} (full | freeze | lora)")
     opt_state = tx.init(params)
@@ -667,9 +753,7 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
         if prev is not None:
             student = merge_params(
                 student, filter_softmax_layers(prev["params"], args.finetune.softmax_attention))
-    steps = args.train.max_steps or int(
-        np.ceil(args.train.num_train_epochs * len(data)
-                / args.train.per_device_train_batch_size))
+    steps = _total_steps(args, len(data))
     tx = _make_tx(args, steps)
     full_cfg = cfg if mm else None
     if args.finetune.distill_stage == 1:
@@ -691,23 +775,135 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
     return trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
 
 
-_LATER_STAGES = {
-    "rm": "stage rm (train/dpo.py)",
-    "dpo": "stage dpo (train/dpo.py)",
-    "kto": "stage kto (train/dpo.py)",
-    "ppo": "stage ppo (train/ppo.py)",
-}
+def _policy_params(args: AllArgs, cfg, dtype, device) -> Dict[str, Any]:
+    """The text tree the preference stages train: the HF checkpoint at
+    `model_name_or_path`, or random weights from the seed. Every leaf
+    trains but rope's inv_freq (train/step.full_finetune_leaf), whatever
+    finetuning_type says: the JAX package trains the whole tree here too."""
+    if args.model.model_name_or_path:
+        text = load_hf_checkpoint(args.model.model_name_or_path, cfg, dtype,
+                                  device=device)["text"]
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.train.seed)
+        text = init_text_params(cfg.text, gen, device, dtype)
+    set_trainable(text, full_finetune_leaf)
+    return text
+
+
+def frozen_copy(tree):
+    """A frozen reference: the same numbers in tensors of its own. JAX
+    passes the initial policy itself (its arrays never change); here the
+    optimizer updates the policy's leaves in place, so a shared reference
+    would move with it."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _pref_trainer(args: AllArgs, step_fn, params, tx, extra: tuple = ()) -> Trainer:
+    trainer = Trainer(
+        step_fn, params, tx.init(params), args.train.output_dir,
+        args.train.logging_steps, args.train.save_steps, extra_step_args=extra,
+        report_to=args.train.report_to,
+    )
+    _maybe_resume(trainer, args)
+    return trainer
+
+
+def run_rm(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
+    """Reward-model training: decoder + scalar value head over pairwise data
+    (reference train/rm/workflow.py). Runs on the CUDA card unless
+    `device="cpu"`. Returns the text tree with its `value_head`."""
+    from .dpo import make_rm_step
+
+    _refuse_later_options(args)
+    device = resolve_device(device)
+    cfg = build_config(args)
+    dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    data = build_preference_dataset(args, tokenizer, kind="pairwise")
+    params = _policy_params(args, cfg, dtype, device)
+    gen = torch.Generator(device=device).manual_seed(args.train.seed + 2)
+    head = torch.randn((cfg.text.hidden_size, 1), generator=gen, device=device) * 0.02
+    params["value_head"] = {"kernel": head.to(dtype).requires_grad_(True)}
+    steps = _total_steps(args, len(data))
+    tx = _make_tx(args, steps)
+    step_fn = make_rm_step(cfg.text, tx, remat=args.train.remat,
+                           remat_group=args.train.remat_group)
+    trainer = _pref_trainer(args, step_fn, params, tx)
+    batches = collate_pairwise(data, args.train.per_device_train_batch_size,
+                               args.data.cutoff_len, seed=args.train.seed,
+                               epochs=args.train.num_train_epochs)
+    return trainer.train(batches, max_steps=steps)
+
+
+def run_dpo(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
+    """DPO-family preference optimization (reference train/dpo/workflow.py).
+    The frozen reference is a copy of the initial policy (`frozen_copy`);
+    the reference-free losses (simpo, orpo) build none. Runs on the CUDA
+    card unless `device="cpu"`. Returns the policy's text tree."""
+    from .dpo import make_dpo_step, needs_reference
+
+    _refuse_later_options(args)
+    device = resolve_device(device)
+    cfg = build_config(args)
+    dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    data = build_preference_dataset(args, tokenizer, kind="pairwise")
+    policy = _policy_params(args, cfg, dtype, device)
+    ref = frozen_copy(policy) if needs_reference(args.finetune.pref_loss) else None
+    steps = _total_steps(args, len(data))
+    tx = _make_tx(args, steps)
+    step_fn = make_dpo_step(cfg.text, tx, beta=args.finetune.pref_beta,
+                            loss_type=args.finetune.pref_loss, remat=args.train.remat,
+                            remat_group=args.train.remat_group)
+    trainer = _pref_trainer(args, step_fn, policy, tx, (ref,))
+    batches = collate_pairwise(data, args.train.per_device_train_batch_size,
+                               args.data.cutoff_len, seed=args.train.seed,
+                               epochs=args.train.num_train_epochs)
+    return trainer.train(batches, max_steps=steps)
+
+
+def run_kto(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
+    """KTO unpaired-feedback stage (reference train/kto/workflow.py), with
+    a frozen copy of the initial policy as the reference. Runs on the CUDA
+    card unless `device="cpu"`. Returns the policy's text tree."""
+    from .dpo import make_kto_step
+
+    _refuse_later_options(args)
+    device = resolve_device(device)
+    cfg = build_config(args)
+    dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    data = build_preference_dataset(args, tokenizer, kind="kto")
+    policy = _policy_params(args, cfg, dtype, device)
+    ref = frozen_copy(policy)
+    steps = _total_steps(args, len(data))
+    tx = _make_tx(args, steps)
+    step_fn = make_kto_step(cfg.text, tx, beta=args.finetune.pref_beta, remat=args.train.remat,
+                            remat_group=args.train.remat_group)
+    trainer = _pref_trainer(args, step_fn, policy, tx, (ref,))
+    batches = collate_kto(data, args.train.per_device_train_batch_size, args.data.cutoff_len,
+                          seed=args.train.seed, epochs=args.train.num_train_epochs)
+    return trainer.train(batches, max_steps=steps)
+
+
+def run_ppo(args: AllArgs, tokenizer=None, reward_fn=None, device: Optional[Device] = None):
+    from .ppo import run_ppo as _run
+
+    return _run(args, tokenizer, reward_fn, device=device)
 
 
 def run_exp(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
-    """Stage dispatch: pt, sft and dt run; the other stages are not ported yet."""
+    """Stage dispatch (tuner.py:53-110)."""
     stage = args.finetune.stage
     if stage in ("sft", "pt"):
         return run_sft(args, tokenizer, device)
     if stage == "dt":
         return run_dt(args, tokenizer, device=device)
-    if stage in _LATER_STAGES:
-        raise _later(_LATER_STAGES[stage])
+    if stage == "rm":
+        return run_rm(args, tokenizer, device)
+    if stage == "dpo":
+        return run_dpo(args, tokenizer, device)
+    if stage == "kto":
+        return run_kto(args, tokenizer, device)
+    if stage == "ppo":
+        return run_ppo(args, tokenizer, device=device)
     raise NotImplementedError(
         f"unknown stage {stage!r} (pt | sft | dt | rm | dpo | kto | ppo)"
     )

@@ -22,11 +22,13 @@ import torch
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
+    """The same nest of dicts, lists and tuples with `fn` applied to every
+    tensor (other leaves kept)."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
@@ -35,7 +37,7 @@ def save_train_state(path: str, step: int, state: Dict[str, Any]) -> None:
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, f"step_{int(step)}.pt")
     tmp = f"{final}.tmp.{os.getpid()}"
-    torch.save({"step": int(step), "state": _map(lambda t: t.detach().cpu(), state)}, tmp)
+    torch.save({"step": int(step), "state": tree_map(lambda t: t.detach().cpu(), state)}, tmp)
     os.replace(tmp, final)
 
 

@@ -8,7 +8,8 @@ package on the CPU in fp32:
   then `eval` through `model_name_or_path` (the JAX package reads the
   port's export and reaches the same metrics), `chat` with `input`
   patched (the tokens of `Generator.generate`), `api` with `run_api`
-  patched, `train` on the SFT and distillation recipes;
+  patched, `train` on the SFT, distillation, rm, dpo and kto recipes (ppo:
+  tests/test_torch_port_ppo.py);
 - `resolve_tokenizer` on a tiny BPE built here: the ids of JAX's."""
 
 import builtins
@@ -167,7 +168,8 @@ def test_api_builds_its_backend(tmp_path, monkeypatch):
     assert ids.shape == (1, 2)
 
 
-@pytest.mark.parametrize("recipe", ["sft_tiny.yaml", "dt_stage1_tiny.yaml"])
+@pytest.mark.parametrize("recipe", ["sft_tiny.yaml", "dt_stage1_tiny.yaml", "rm_tiny.yaml",
+                                    "dpo_tiny.yaml", "kto_tiny.yaml"])
 def test_train_command_runs_the_recipe(tmp_path, recipe):
     conf = yaml.safe_load(open(os.path.join(REPO, "examples", recipe)))
     conf.update(output_dir=str(tmp_path / "out"), dataset_dir=os.path.join(REPO, "data"),

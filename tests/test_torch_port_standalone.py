@@ -53,7 +53,8 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "data.template", "data.loader", "hparams", "utils.logging",
                "utils.checkpoint", "train.step", "train.lora", "train.trainer",
                "eval.text_metrics", "ops.swa_kernels", "cli", "eval.mcq",
-               "models.convert", "train.distill", "utils.safetensors_io"):
+               "models.convert", "train.distill", "utils.safetensors_io", "train.dpo",
+               "train.ppo"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -115,6 +116,33 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "infinitevl_tpu", "safetensors", "transformers"))
 print("FOREIGN_MODULES", bad)
 """
+
+
+PREFERENCE_PROGRAM = r"""
+import sys, tempfile
+import torch
+import infinitevl_tpu_torch.train.trainer as trainer
+from infinitevl_tpu_torch.hparams import load_yaml_args
+torch.set_num_threads(1)
+d = tempfile.mkdtemp()
+for name in ("rm", "dpo", "kto", "ppo"):
+    args = load_yaml_args(f"examples/{name}_tiny.yaml")
+    args.train.output_dir, args.train.max_steps = f"{d}/{name}", 1
+    args.finetune.reward_model_path = f"{d}/rm/checkpoints"
+    trainer.run_exp(args, device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "infinitevl_tpu"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+def test_preference_stages_load_nothing_of_jax():
+    """rm, dpo, kto and ppo (from the rm checkpoint) through run_exp load
+    neither jax, optax nor the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", PREFERENCE_PROGRAM], cwd=REPO, env=ENV,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
 
 
 def test_checkpoint_and_distillation_path_loads_no_safetensors_or_transformers():
