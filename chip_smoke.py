@@ -12,11 +12,15 @@ NVIDIA H100.
     python3 chip_smoke.py --text-only --profile --only=a2,d,b  # phases 1-3, then 5
     python3 chip_smoke.py --dt-only --only=h  # phases 1-3, 4's distillation steps, 10
     python3 chip_smoke.py --pref-only --only=h  # phases 1-3, 4's preference steps, 11
+    python3 chip_smoke.py --long-only --only=h  # phases 1-3, 4's long-context and
+                                                # optimizer steps, 12 (with its 32K step
+                                                # without the per-layer checkpoint)
 
---kernels-only, --text-only, --train-only, --dt-only and --pref-only are shortcuts for work
+--kernels-only, --text-only, --train-only, --dt-only, --pref-only and --long-only are
+shortcuts for work
 on one part: they stop before the `kernels` line, the card's line and the
 final `{"ok": ...}` line, so only the run without them is the whole check.
---only= is taken with one of the five and refused otherwise.
+--only= is taken with one of the six and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -106,13 +110,25 @@ non-zero):
      (fp32) at 12 layers from both: B 4 prompts of 256 tokens, 64 tokens
      sampled at temperature 1, 3 iterations, the first KL 0; launches per
      step held to the code's count
-Phase 4 also takes one distillation step of each stage, one step each of
-rm, dpo and kto and one PPO iteration at temperature 0 on the small fp32
-model, CPU against card.
+12. long-context training and the custom optimizers, at 3B (bf16, random
+     weights from seed 0, B 1): examples/sft_32k_lora_yarn.yaml at cutoff
+     32,768 (3 steps) and examples/sft_64k_qlora_yarn.yaml at 65,536 (2
+     steps) through run_sft with gradient accumulation 8 -> 1, through the
+     sequence-chunked SWA (kernel H over 2 windows), DeltaNet (kernel C from
+     the carried state) and MLP layers; one LoRA step at 16,384 chunked
+     against the full-T path (loss and LoRA gradients); galore, apollo,
+     badam and adam_mini as full finetuning and loraplus on LoRA at 2,048, 3
+     steps; the frozen base bit-unchanged, no train state written, launches
+     per step held to the code's count; GaLore's SVD of the tied embedding
+Phase 3 also holds H on the chunked SWA layer's calls (2 windows, ids -1 /
+row / -2). Phase 4 also takes one distillation step of each stage, one step
+each of rm, dpo and kto, one PPO iteration at temperature 0, three steps
+through the sequence-chunked layers and three of each custom optimizer on
+the small fp32 model, CPU against card.
 Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
 recipe, the ViT path, every distillation run and CLI command, every preference
-stage) and read just after it. Then a JSON line of per-kernel results, the card's line, and
+stage, every phase-12 run) and read just after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -181,6 +197,12 @@ H_CASE = dict(Hq=16, Hkv=2,
               cases=((257, 8192, (1, 2)), (2048, 8192, (1, 2)), (4096, 1024, (1, 2)),
                      (8192, 8192, (1,))),
               timed=((2048, 8192), (8192, 8192), (4096, 1024)))
+# kernel H as the sequence-chunked SWA layer calls it (models/text.swa_forward_seq_chunked):
+# (prev ++ cur) = 2 windows = 16,384 positions at the deployed window, B 1, bf16, the ids
+# not ascending: the first chunk's -1 (zero history), a later chunk's previous segments,
+# then the row's, then -2 for tail pads. `cut` is where the row's second segment starts,
+# `pad` the tail pads. Timed on the first chunk's ids.
+H_CHUNK_CASE = dict(W=8192, cut=3000, pad=700, block=2048)
 H_BWD_F32_TOL = 1e-4  # fp32 gradients: sums over up to 8192 keys and 8 heads, in another order
 # kernel F at the ViT's shape: (S, win_len) with pads; 9216 patches are one
 # 1344x1344 image, 1024 one 448x448 frame; 64 is the deployed window
@@ -1380,8 +1402,112 @@ def _h_cases(dev, gen):
           f"{c['cases']}, each with and without packed segments; backward bit-reproducible",
           flush=True)
     main_case = timed[c["timed"][0]]
-    return dict(max_abs_err=max(mxs), **main_case,
-                other_shapes={f"T{T}_W{W}": r for (T, W), r in timed.items()})
+    other = {f"T{T}_W{W}": r for (T, W), r in timed.items()}
+    other["T16384_W8192_chunk_ids"] = _h_chunk_cases(dev, gen)
+    return dict(max_abs_err=max(mxs), **main_case, other_shapes=other)
+
+
+def _h_chunk_ids(kind: str, dev) -> torch.Tensor:
+    """[1, 2W] ids of one chunked-SWA call: `first` chunk -1 x W (the zero
+    history), then the row's segments 1 and 2, then -2 pads; a `later` chunk
+    the previous chunk's segments 1 and 2, then the row's 2 (continued) and
+    3, then -2 pads."""
+    c = H_CHUNK_CASE
+    W, cut, pad = c["W"], c["cut"], c["pad"]
+    first = kind == "first"
+    prev = [-1] * W if first else [1] * (W // 2) + [2] * (W - W // 2)
+    a, b = (1, 2) if first else (2, 3)
+    row = [a] * cut + [b] * (W - cut - pad) + [-2] * pad
+    return torch.tensor([prev + row], dtype=torch.int32, device=dev)
+
+
+def _swa_blocked_plain(q, k, v, window, seg, block):
+    """H's plain version (ops/swa.attention_dense under the band and segment
+    mask) in query blocks of `block` rows, each a checkpoint, so that only
+    one block's [block, T] scores exist at a time (the whole [T, T] at T
+    16,384 would not fit next to its gradient)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from infinitevl_tpu_torch.ops.swa import attention_dense, sliding_window_mask
+
+    T = q.shape[1]
+    pos = torch.arange(T, device=q.device)
+
+    def one(qb, kk, vv, t0):
+        mask = (sliding_window_mask(pos[t0:t0 + block], pos, window)[None]
+                & (seg[:, t0:t0 + block, None] == seg[:, None, :]))
+        return attention_dense(qb, kk, vv, mask)
+
+    return torch.cat([checkpoint(one, q[:, t0:t0 + block], k, v, t0, use_reentrant=False)
+                      for t0 in range(0, T, block)], dim=1)
+
+
+def _h_chunk_cases(dev, gen) -> dict:
+    """H forward and backward against its plain version on the chunked SWA
+    layer's calls (H_CHUNK_CASE), then timed: kernel, plain, SDPA with the
+    explicit mask, and the bound over the pairs these ids leave visible."""
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention
+
+    c = H_CHUNK_CASE
+    W, Hq, Hkv, D = c["W"], H_CASE["Hq"], H_CASE["Hkv"], 128
+    T = 2 * W
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    errs = []
+    for kind in ("first", "later"):
+        seg = _h_chunk_ids(kind, dev)
+        q, k, v, cot = mk(1, T, Hq, D), mk(1, T, Hkv, D), mk(1, T, Hkv, D), mk(1, T, Hq, D)
+        out, gk = _grads(lambda a, b_, c_: swa_train_flash_attention(a, b_, c_, W, None, seg),
+                         (q, k, v), cot)
+        ref, gr = _grads(lambda a, b_, c_: _swa_blocked_plain(a, b_, c_, W, seg, c["block"]),
+                         (q, k, v), cot)
+        what = f"H on the chunked layer's ids ({kind} chunk), T {T}, W {W}"
+        e = [err_ratio(out, ref)] + [err_ratio(a, b_) for a, b_ in zip(gk, gr)]
+        require(all(bool(torch.isfinite(a).all()) for a in (out, *gk)), f"{what}: not finite")
+        require(max(e) <= BF16_TOL, f"{what}: err_ratio out / dq / dk / dv {e}")
+        errs.append(e)
+        mx = max_abs(out, ref)
+        del out, gk, ref, gr
+    seg = _h_chunk_ids("first", dev)
+    q, k, v, cot = mk(1, T, Hq, D), mk(1, T, Hkv, D), mk(1, T, Hkv, D), mk(1, T, Hq, D)
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+    kern = lambda a, b_, c_: swa_train_flash_attention(a, b_, c_, W, None, seg)  # noqa: E731
+    pos = torch.arange(T, device=dev)
+    from infinitevl_tpu_torch.ops.swa import sliding_window_mask
+
+    mask = sliding_window_mask(pos, pos, W) & (seg[0, :, None] == seg[0, None, :])
+    G = Hq // Hkv
+    kr, vr = (x.repeat_interleave(G, 2).detach().requires_grad_(True) for x in (k, v))
+    lib = lambda a, b_, c_: sdpa(a, b_, c_, mask)  # noqa: E731
+    e_lib = err_ratio(lib(q, kr, vr), kern(q, k, v))
+    require(e_lib <= BF16_TOL, f"H chunk ids: library call err_ratio {e_lib:.3g}")
+
+    def fwd_bwd(fn, leaves):
+        torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    with torch.no_grad():
+        f_ms = time_ms(lambda: kern(q, k, v))
+        f_plain = time_ms(lambda: _swa_blocked_plain(q, k, v, W, seg, c["block"]), reps=3)
+        f_lib = time_ms(lambda: lib(q, kr, vr))
+    fb_ms = time_ms(lambda: fwd_bwd(kern, (ql, kl, vl)))
+    fb_lib = time_ms(lambda: fwd_bwd(lib, (ql, kr, vr)), reps=5)
+    # the pairs these ids leave visible: the band within each run of one id
+    runs = torch.unique_consecutive(seg[0], return_counts=True)[1].tolist()
+    pairs = Hq * sum(_band_pairs(n, W) for n in runs)
+    qo, kv = 2 * T * Hq * D, 2 * T * Hkv * D
+    b_f = bound(2 * qo + 2 * kv + 4 * T + 4 * Hq * T, 4 * D * pairs, PEAK_BF16_FLOPS)
+    b_b = bound(4 * qo + 4 * kv + 4 * T + 4 * Hq * T, 10 * D * pairs, PEAK_BF16_FLOPS)
+    print(f"[3 parity] H on the chunked SWA layer's calls, B 1, T {T} (2 windows of {W}), bf16, "
+          f"ids -1 / row / -2 (first chunk) and prev / row / -2 (later chunk): err_ratio out, "
+          f"dq, dk, dv {[[round(x, 5) for x in e] for e in errs]} (tol {BF16_TOL}) against the "
+          f"plain version in query blocks of {c['block']}; timed (first chunk's ids): forward "
+          f"kernel {f_ms:.3f} ms, plain {f_plain:.3f}, library {f_lib:.3f}, bound "
+          f"{b_f['bound_ms']:.4f} ({b_f['bound_by']}, {pairs} visible pairs); forward+backward "
+          f"kernel {fb_ms:.3f} (backward {fb_ms - f_ms:.3f}, bound {b_b['bound_ms']:.4f}), "
+          f"library {fb_lib:.3f} (backward {fb_lib - f_lib:.3f})", flush=True)
+    del q, k, v, cot, ql, kl, vl, kr, vr, mask
+    return dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib, **b_f, max_abs_err=mx,
+                bwd_ms=fb_ms - f_ms, fwd_bwd_ms=fb_ms, library_bwd_ms=fb_lib - f_lib,
+                bwd_bound_ms=b_b["bound_ms"], err_ratios=errs)
 
 
 def _window_segments(S: int, L: int, dev, gen) -> torch.Tensor:
@@ -3767,7 +3893,7 @@ def _checksum(tree) -> dict:
     out = {}
     for k, v in tree_leaves_with_path(tree):
         bits = v.detach().contiguous().view(
-            {2: torch.int16, 4: torch.int32}[v.element_size()]).long()
+            {1: torch.int8, 2: torch.int16, 4: torch.int32}[v.element_size()]).long()
         out[k] = (int(bits.sum()), int((bits * bits).sum()))
         del bits
     return out
@@ -4229,14 +4355,426 @@ def _profile_int4_frame(eng, frames, frame_ms: float, card: str) -> None:
           + f" on '{card}'", flush=True)
 
 
+# ---------------------------------------------------------------- long context, optimizers
+
+
+# phase 4's chunked stack: the small model with a window of 128 and the chunk
+# knobs scaled down, so that T 500 runs every layer sequence-chunked (SWA in
+# chunks of 128 over 2 windows, DeltaNet in chunks of 128, the MLP in chunks of
+# 100) on packed rows whose segments cross the chunk edges, with a pad tail
+LONG_SMALL = dict(sliding_window=128, delta_seq_chunk_t=256, delta_seq_chunk_eval=128,
+                  mlp_chunk_t=100, T=500)
+# phase 12: the recipes' cuts (PERF.md section 4) and the runs' shapes
+LONG_32K_STEPS, LONG_64K_STEPS = 3, 2
+LONG_EXACT_T = 16384  # (c): one LoRA step chunked and full-T
+OPTIM_T, OPTIM_STEPS = 2048, 3  # (d)
+OPTIM_RUNS = (("galore", dict(optimizer_update_gap=2)), ("apollo", dict(optimizer_update_gap=2)),
+              ("badam", dict()), ("adam_mini", dict()), ("loraplus", dict(finetuning_type="lora")))
+
+
+def _custom_tx(name: str, lr: float):
+    """One of train/optim.py's optimizers as run_sft's _make_tx builds it:
+    grad clip 1.0; GaLore's gap 3 keeps phase 4's three steps in one
+    projection period, where a column sign the SVD routine picks (LAPACK on
+    the CPU, cuSOLVER on the card) cancels."""
+    from infinitevl_tpu_torch.train.optim import make_custom_optimizer
+
+    kw = dict(galore=dict(rank=8, update_proj_gap=3), apollo=dict(rank=8, update_proj_gap=2),
+              loraplus=dict(lr_ratio=16.0), badam=dict(num_blocks=2, switch_interval=1),
+              adam_mini=dict()).get(name, {})
+    return make_custom_optimizer(name, lr, grad_clip=1.0, **kw)
+
+
+def phase_long_cross_device(dev) -> None:
+    """Phase 4, long context and optimizers: three full-finetuning steps with
+    remat through the sequence-chunked SWA, DeltaNet and MLP layers (LONG_SMALL)
+    on packed rows, and three steps of each custom optimizer (LoRA+ on LoRA)
+    on the small model's tail-padded rows, CPU (plain versions) against card
+    (kernels H and C, their gradients; C from the carried state), within
+    MODEL_TOL."""
+    import dataclasses
+
+    from infinitevl_tpu_torch.models import text as TX
+    from infinitevl_tpu_torch.models.params import init_params
+    from infinitevl_tpu_torch.ops.delta_kernels import delta_rule_chunk_fused as c_fn
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h_fn
+    from infinitevl_tpu_torch.train.lora import init_lora, make_lora_sft_step
+    from infinitevl_tpu_torch.train.step import (
+        make_optimizer,
+        make_sft_train_step,
+        read_segment_layout,
+        set_trainable,
+        tree_leaves_with_path,
+    )
+
+    small = _small_config()
+    L = LONG_SMALL
+    tc = dataclasses.replace(small.text, **{k: v for k, v in L.items() if k != "T"})
+    base = init_params(small, torch.Generator().manual_seed(5), "cpu", torch.float32)["text"]
+    rng = np.random.RandomState(5)
+    B, T = 2, L["T"]
+    batches = []
+    for starts in (((0, 100, 128, 300, 470), (0, 256)), ((0, 250), (0, 60, 384)),
+                   ((0,), (0, 127, 129))):
+        seg = np.zeros((B, T), np.int32)
+        for r, st in enumerate(starts):
+            for i, t0 in enumerate(st):
+                seg[r, t0:] = i + 1
+        seg[:, 480:] = 0
+        pos = np.zeros((B, T), np.int64)
+        for r in range(B):
+            for t in range(1, T):
+                pos[r, t] = pos[r, t - 1] + 1 if seg[r, t] == seg[r, t - 1] else 0
+        ids = rng.randint(0, tc.vocab_size - 8, (B, T)) * (seg > 0)
+        batches.append(dict(
+            input_ids=ids, labels=np.where((rng.uniform(size=(B, T)) < 0.7) & (seg > 0), ids,
+                                           -100),
+            position_ids=np.broadcast_to(pos[None], (3, B, T)).copy(), segment_ids=seg))
+    require(all(read_segment_layout(b["segment_ids"]) == "packed" for b in batches),
+            "phase 4 long: rows not packed")
+
+    def run(device):
+        params = {"text": _clone_tree(base, device)}
+        set_trainable(params, lambda path, leaf: path != "text/inv_freq")
+        tx = make_optimizer(1e-3, warmup_steps=1, total_steps=3)
+        step = make_sft_train_step(tc, tx, remat=True)
+        state = tx.init(params)
+        return [float(step(params, state, dict(b))[2]) for b in batches], params
+
+    with _Spy(TX, "_delta_chunk") as dchunks, _Spy(TX, "_swa_chunk") as schunks:
+        l_cpu, p_cpu = run("cpu")
+    _reset_launches()
+    l_dev, p_dev = run(dev)
+    torch.cuda.synchronize()
+    launches = (h_fn.launches, h_fn.launches_bwd, c_fn.launches)
+    require(dchunks.results and schunks.results, "phase 4 long: the chunked layers did not run")
+    require(all(n > 0 for n in launches), f"phase 4 long: H / H bwd / C launches {launches}")
+    cpu_leaves = dict(tree_leaves_with_path(p_cpu))
+    e_loss = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_dev))
+    e_par = max(err_ratio(v.detach(), cpu_leaves[k].detach())
+                for k, v in tree_leaves_with_path(p_dev) if cpu_leaves[k].abs().sum() > 0)
+    require(e_loss <= MODEL_TOL and e_par <= MODEL_TOL,
+            f"phase 4 long: loss err {e_loss:.3g}, params err_ratio {e_par:.3g}")
+    print(f"[4 cross-device] three full-finetuning steps with remat through the "
+          f"sequence-chunked layers (T {T}, window {tc.sliding_window}, DeltaNet chunks of "
+          f"{tc.delta_seq_chunk_eval}, MLP chunks of {tc.mlp_chunk_t}; packed rows crossing "
+          f"the chunk edges, a pad tail), fp32, CPU against card: losses "
+          f"{[round(x, 4) for x in l_dev]}, loss err {e_loss:.2g}, params err_ratio {e_par:.2g} "
+          f"(tol {MODEL_TOL}); launches on the card H {launches[0]} / bwd {launches[1]}, "
+          f"C {launches[2]}", flush=True)
+
+    # the five optimizers: three steps each on the small model's rows of 300
+    full = init_params(small, torch.Generator().manual_seed(6), "cpu", torch.float32)["text"]
+    opt_batches = []
+    for lengths in ((300, 211), (257, 300), (120, 70)):
+        seg = (np.arange(300)[None] < np.asarray(lengths)[:, None]).astype(np.int32)
+        ids = rng.randint(0, small.text.vocab_size - 8, (2, 300)) * seg
+        opt_batches.append(dict(
+            input_ids=ids, labels=np.where(seg > 0, ids, -100),
+            position_ids=np.broadcast_to(np.arange(300)[None, None], (3, 2, 300)).copy(),
+            segment_ids=seg))
+
+    def opt_run(name, device):
+        params = {"text": _clone_tree(full, device)}
+        tx = _custom_tx(name, 1e-3)
+        if name == "loraplus":
+            set_trainable(params, lambda path, leaf: False)
+            tree = _clone_tree(init_lora(params, torch.Generator().manual_seed(7), rank=4),
+                               device)
+            step = make_lora_sft_step(small.text, tx, base_params=params, alpha=8.0, rank=4)
+        else:
+            set_trainable(params, lambda path, leaf: path != "text/inv_freq")
+            tree = params
+            step = make_sft_train_step(small.text, tx)
+        state = tx.init(tree)
+        return [float(step(tree, state, dict(b))[2]) for b in opt_batches], tree
+
+    parts = []
+    for name, _ in OPTIM_RUNS:
+        l_cpu, t_cpu = opt_run(name, "cpu")
+        l_dev, t_dev = opt_run(name, dev)
+        torch.cuda.synchronize()
+        cpu_leaves = dict(tree_leaves_with_path(t_cpu))
+        e_loss = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_dev))
+        e_par = max(err_ratio(v.detach(), cpu_leaves[k].detach())
+                    for k, v in tree_leaves_with_path(t_dev) if cpu_leaves[k].abs().sum() > 0)
+        require(e_loss <= MODEL_TOL and e_par <= MODEL_TOL,
+                f"phase 4 {name}: loss err {e_loss:.3g}, params err_ratio {e_par:.3g}")
+        parts.append(f"{name} loss err {e_loss:.2g} params {e_par:.2g}")
+    print(f"[4 cross-device] three steps of each custom optimizer (train/optim.py; loraplus on "
+          f"LoRA r 4, the rest full finetuning), fp32 small model, CPU against card, tol "
+          f"{MODEL_TOL}: " + "; ".join(parts), flush=True)
+
+
+def _long_expect(tc, T: int) -> dict:
+    """Launches per step of a sequence-chunked LoRA step with remat: every
+    chunk's forward runs in the forward, in the layer's recompute (the
+    per-layer checkpoint wraps chunked layers) and in the chunk's own
+    recompute; H's backward once per SWA chunk; C's backward is plain torch."""
+    runs = 3
+    n_w = -(-T // tc.sliding_window)
+    n_d = -(-T // min(tc.delta_seq_chunk_t, tc.delta_seq_chunk_eval))
+    return {"swa_train_flash_attention": runs * n_w * tc.num_swa_layers,
+            "swa_train_flash_attention_bwd": n_w * tc.num_swa_layers,
+            "delta_rule_chunk_fused": runs * n_d * tc.num_linear_layers}
+
+
+def _long_recipe(name: str, args, card: str, expect=None, tag: str = "12 long") -> dict:
+    """One run_sft call as _run_recipe measures it, with Trainer.save replaced
+    (no train state is written) and the frozen base's checksum (the step's
+    extra argument: the bf16 or int8 base under LoRA) taken before and after
+    the steps, which must be bit-equal."""
+    from infinitevl_tpu_torch.train import trainer as T
+
+    saves, sums = [], []
+    real_train = T.Trainer.train
+
+    def train(trainer, *a, **kw):
+        base = trainer.extra[0] if trainer.extra else None
+        before = _checksum(base) if base is not None else None
+        out = real_train(trainer, *a, **kw)
+        if base is not None:
+            sums.append((len(before), _checksum(base) == before))
+        return out
+
+    with _Spy(T.Trainer, "save", replace=lambda trainer: saves.append(trainer.step)), \
+            _Spy(T.Trainer, "train", replace=train):
+        r = _run_recipe(name, args, card, expect, tag=tag)
+    require(saves == [args.train.max_steps], f"{name}: Trainer.save called at steps {saves}")
+    if args.finetune.finetuning_type == "lora":
+        require(sums and sums[0][1], f"{name}: the frozen base changed ({sums})")
+        print(f"[{tag}] {name}: the frozen base's {sums[0][0]} leaves bit-unchanged "
+              f"(checksums); Trainer.save replaced, so no train state was written", flush=True)
+    return r
+
+
+def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
+    """Phase 12: long-context training and the custom optimizers at 3B
+    (36 layers, full width, bf16, random weights from seed 0, B 1):
+    (a) examples/sft_32k_lora_yarn.yaml at cutoff 32,768 and (b)
+    examples/sft_64k_qlora_yarn.yaml at 65,536, with gradient_accumulation_steps
+    8 -> 1, max_steps 1000 -> 3 / 2 and logging_steps 10 -> 1, on one row of
+    data/demo.json's outputs repeated to the context; (c) one LoRA step at 16,384 through the chunked layers and through the full-T
+    path (delta_seq_chunk_t 0); (d) galore, apollo, badam and adam_mini as full
+    finetuning and loraplus on LoRA at cutoff 2,048 with remat, 3 steps;
+    then one SVD of the tied embedding's shape, GaLore's largest leaf."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from infinitevl_tpu_torch.hparams import load_yaml_args
+    from infinitevl_tpu_torch.config import LINEAR, SLIDING
+    from infinitevl_tpu_torch.models.text import (
+        delta_forward,
+        embed_tokens,
+        mrope_cos_sin,
+        rms_norm,
+        swa_attention_forward,
+    )
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.lora import _lora_loss, init_lora
+    from infinitevl_tpu_torch.train.optim import GaLore
+    from infinitevl_tpu_torch.train.step import (
+        _layer_segments,
+        batch_to_device,
+        set_trainable,
+        tree_leaves_with_path,
+    )
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="ivl_long_")
+    data_dir = os.path.join(root, "data")
+    _long_text_dataset(data_dir, 65536)
+    res, total = {}, {}
+
+    def add(r):
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    def recipe(yaml_name, out, **over):
+        args = load_yaml_args(os.path.join(here, "examples", yaml_name))
+        args.data.dataset, args.data.dataset_dir = "demo_long", data_dir
+        args.train.output_dir = os.path.join(root, out)
+        args.train.gradient_accumulation_steps, args.train.logging_steps = 1, 1
+        args.train.num_train_epochs = 1000.0  # the one row, repeated for every step
+        for key, val in over.items():
+            group = next(g for g in (args.data, args.train, args.finetune) if hasattr(g, key))
+            setattr(group, key, val)
+        return args
+
+    a = recipe("sft_32k_lora_yarn.yaml", "a", max_steps=LONG_32K_STEPS)
+    tc = T.build_config(a).text
+    require(tc.rope_type == "yarn" and tc.max_position_embeddings == 131072,
+            f"(a) rope {tc.rope_type} {tc.max_position_embeddings}")
+    res["lora_32k"] = _long_recipe(
+        "(a) sft_32k_lora_yarn.yaml at cutoff 32768 (yarn, LoRA r 8, remat)", a, card,
+        _long_expect(tc, 32768))
+    add(res["lora_32k"])
+    b = recipe("sft_64k_qlora_yarn.yaml", "b", max_steps=LONG_64K_STEPS)
+    res["qlora_64k"] = _long_recipe(
+        "(b) sft_64k_qlora_yarn.yaml at cutoff 65536 (yarn, int8 base, LoRA r 8, remat)",
+        b, card, _long_expect(T.build_config(b).text, 65536))
+    add(res["qlora_64k"])
+
+    # (c) the same LoRA step at 16,384: chunked layers against the full-T path
+    _free()
+    c_args = recipe("sft_32k_lora_yarn.yaml", "c", cutoff_len=LONG_EXACT_T, max_steps=1)
+    cfg = T.build_config(c_args)
+    data = T.build_dataset(c_args, T.resolve_tokenizer(c_args, cfg, None), cfg=cfg)
+    params = T._load_or_init_params(c_args, cfg, False, torch.bfloat16, dev)
+    set_trainable(params, lambda path, leaf: False)
+    lora = init_lora(params, torch.Generator(device=dev).manual_seed(1), rank=8)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():  # b != 0, so that a's gradients are not zero
+        for path, t in tree_leaves_with_path(lora):
+            if path.endswith("/b"):
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 1e-3)
+    batch = dict(next(iter(T._batches(c_args, data, cfg, False))))
+    batch.pop("_n_tokens")
+    batch = batch_to_device(batch, dev)
+    leaves = [t for _, t in tree_leaves_with_path(lora)]
+    # at random init the loss is near ln(vocab) on both paths and the mixers'
+    # outputs are small beside the MLPs' in the bf16 residual, so neither the
+    # loss nor the final hidden state tells the paths apart; the first SWA and
+    # DeltaNet layers' mixer outputs (a forward without grad, before the
+    # counted step) and the LoRA gradients do
+    tp = params["text"]
+    roles = [cfg.text.layer_role(i) for i in range(len(tp["layers"]))]
+    p_swa, p_lin = tp["layers"][roles.index(SLIDING)], tp["layers"][roles.index(LINEAR)]
+    seg, tail_pads_only, _ = _layer_segments(batch.get("segment_ids"),
+                                             batch.get("segment_layout"), batch["labels"])
+    with torch.no_grad():
+        x0 = embed_tokens(tp, batch["input_ids"])
+        cos, sin = mrope_cos_sin(batch["position_ids"], tp["inv_freq"], cfg.text.mrope_section,
+                                 cfg.text.attention_scaling, dtype=x0.dtype)
+    exact = {}
+    for label, tcfg in (("chunked", cfg.text),
+                        ("full-T", dataclasses.replace(cfg.text, delta_seq_chunk_t=0))):
+        _free()
+        with torch.no_grad():
+            mixers = [  # off the card, out of the step's peak
+                swa_attention_forward(
+                    p_swa, tcfg, rms_norm(x0, p_swa["input_norm"], tcfg.rms_norm_eps), cos, sin,
+                    None, None, None, segment_ids=seg).float().cpu(),
+                delta_forward(p_lin, tcfg, rms_norm(x0, p_lin["input_norm"], tcfg.rms_norm_eps),
+                              None, None, None, None, segment_ids=seg,
+                              tail_pads_only=tail_pads_only).float().cpu()]
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _lora_loss(tcfg, params, lora, batch, None, None, 16.0, 8, False, True, 1)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_launches(("swa_train_flash_attention", "delta_rule_chunk_fused"))
+        exact[label] = dict(loss=float(loss.detach()), mixers=mixers,
+                            grads=torch.cat([g.float().flatten() for g in grads]),
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9, ms=ms,
+                            launches=dict(launches, swa_train_flash_attention_bwd=h.launches_bwd))
+        del loss, grads, mixers
+    ch, fu = exact["chunked"], exact["full-T"]
+    e_loss = abs(ch["loss"] - fu["loss"]) / abs(fu["loss"])
+    e_swa, e_lin = (err_ratio(a, b) for a, b in zip(ch["mixers"], fu["mixers"]))
+    e_grad = err_ratio(ch["grads"], fu["grads"])
+    require(max(e_loss, e_swa, e_lin, e_grad) <= BF16_TOL,
+            f"(c) chunked against full-T at {LONG_EXACT_T}: loss err {e_loss:.3g}, mixer "
+            f"outputs err_ratio SWA {e_swa:.3g} DeltaNet {e_lin:.3g}, LoRA gradients "
+            f"err_ratio {e_grad:.3g}")
+    want = _long_expect(cfg.text, LONG_EXACT_T)
+    require(all(ch["launches"][k] == v for k, v in want.items()),
+            f"(c) chunked launches {ch['launches']}, expected {want}")
+    print(f"[12 long] (c) one LoRA step (loss and gradients) at {LONG_EXACT_T}, remat: chunked "
+          f"loss {ch['loss']:.6f}, full-T {fu['loss']:.6f} (err {e_loss:.2g}; near ln(vocab) "
+          f"on both at random init, so it cannot fail), the first SWA / DeltaNet layer's "
+          f"mixer output (no grad) err_ratio {e_swa:.2g} / {e_lin:.2g}, LoRA gradients err_ratio {e_grad:.2g} (tol {BF16_TOL}); peak memory chunked {ch['peak_gb']:.2f} GB, "
+          f"full-T {fu['peak_gb']:.2f} GB; ms (one forward+backward) chunked {ch['ms']:.0f}, "
+          f"full-T {fu['ms']:.0f}; launches H fwd / bwd, C: chunked "
+          f"{ch['launches']['swa_train_flash_attention']} / "
+          f"{ch['launches']['swa_train_flash_attention_bwd']}, "
+          f"{ch['launches']['delta_rule_chunk_fused']}, full-T "
+          f"{fu['launches']['swa_train_flash_attention']} / "
+          f"{fu['launches']['swa_train_flash_attention_bwd']}, "
+          f"{fu['launches']['delta_rule_chunk_fused']} on '{card}'", flush=True)
+    res["exact_16k"] = dict(loss_err=e_loss, swa_err=e_swa, delta_err=e_lin, grad_err=e_grad,
+                            **{f"{k}_{m}": exact[k][m] for k in exact for m in ("peak_gb", "ms")})
+    add(ch)
+    add(fu)
+    del params, tp, p_swa, p_lin, x0, cos, sin, lora, leaves, batch, seg, exact, ch, fu
+    _free()
+
+    # (d) the custom optimizers at 3B, cutoff 2,048, remat, three steps
+    d_base = dict(cutoff_len=OPTIM_T, max_steps=OPTIM_STEPS, remat=True)
+    # remat at 2,048 (one window: the full-T layers): each layer's forward twice
+    remat_launches = {"swa_train_flash_attention": 2 * tc.num_swa_layers,
+                      "swa_train_flash_attention_bwd": tc.num_swa_layers,
+                      "delta_rule_chunk_fused": 2 * tc.num_linear_layers}
+    for name, over in OPTIM_RUNS:
+        over = {"finetuning_type": "full", **over}
+        args = recipe("sft_32k_lora_yarn.yaml", f"d_{name}", use_optimizer=name, **d_base,
+                      **over)
+        svd_s = []
+
+        def timed_svd(tx, g, left, real=GaLore.svd_proj):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(tx, g, left)
+            torch.cuda.synchronize()
+            svd_s.append(time.perf_counter() - t0)
+            return out
+
+        with _Spy(GaLore, "svd_proj", replace=timed_svd):
+            r = _long_recipe(f"(d) use_optimizer: {name} ({args.finetune.finetuning_type}), "
+                             f"cutoff {OPTIM_T}", args, card, remat_launches)
+        extra = ""
+        if name == "galore":
+            r["svd_s"] = sum(svd_s)
+            extra = f", {len(svd_s)} SVDs in its refreshes took {sum(svd_s):.2f} s over the run"
+        print(f"[12 long] (d) {name}: peak {r['peak_gb']:.2f} GB against AdamW's full finetune "
+              f"(phase 8 (d)) {full_adamw_peak if full_adamw_peak is not None else 'not run'}"
+              f"{extra}", flush=True)
+        res[f"optim_{name}"] = r
+        add(r)
+        shutil.rmtree(args.train.output_dir, ignore_errors=True)
+
+    # GaLore's SVD on the card of its largest leaf, the tied 151,936 x 2,048
+    # embedding (fp32, torch's default routine, as GaLore.svd_proj): time and
+    # workspace above the input
+    _free()
+    shape = (tc.vocab_size, tc.hidden_size)
+    g = torch.randn(shape, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    u, _, vh = torch.linalg.svd(g, full_matrices=False)
+    torch.cuda.synchronize()
+    res["svd_embed"] = dict(seconds=time.perf_counter() - t0, workspace_gb=(
+        torch.cuda.max_memory_allocated() - base_mem) / 1e9)
+    require(bool(torch.isfinite(u[:, :8]).all()), "GaLore's SVD of the embedding: not finite")
+    del g, u, vh
+    print(f"[12 long] GaLore's SVD (fp32, torch.linalg.svd) of the {shape[0]} x {shape[1]} "
+          f"tied embedding: {res['svd_embed']['seconds']:.3f} s, "
+          f"{res['svd_embed']['workspace_gb']:.2f} GB above the input on '{card}'", flush=True)
+    _free()
+    shutil.rmtree(root, ignore_errors=True)
+    res["total_launches"] = total
+    print(f"[12 long] phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return res
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
     text_only = "--text-only" in argv
     if only and not (kernels_only or text_only or "--train-only" in argv
-                     or "--dt-only" in argv or "--pref-only" in argv):
+                     or "--dt-only" in argv or "--pref-only" in argv or "--long-only" in argv):
         print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only, "
-              "--dt-only or --pref-only (the whole run reports every kernel)",
+              "--dt-only, --pref-only or --long-only (the whole run reports every kernel)",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4275,10 +4813,15 @@ def main(argv) -> int:
         phase_pref_cross_device(dev)
         phase_pref_path(dev, card)
         return 0
+    if "--long-only" in argv:  # 4's long-context and optimizer steps, then phase 12 alone
+        phase_long_cross_device(dev)
+        phase_long_path(dev, card)
+        return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
     phase_dt_cross_device(dev)
     phase_pref_cross_device(dev)
+    phase_long_cross_device(dev)
 
     cfg = infinitevl_3b()
     t0 = time.perf_counter()
@@ -4301,6 +4844,8 @@ def main(argv) -> int:
     dt_launches = phase_dt_path(dev, card, "--profile" in argv)
     _free()
     pref_launches = phase_pref_path(dev, card)["total_launches"]
+    _free()
+    long_launches = phase_long_path(dev, card, train["full_2048"]["peak_gb"])["total_launches"]
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -4328,7 +4873,7 @@ def main(argv) -> int:
          "replaces": rep,
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
          + serve_launches[name] + train_launches[name] + vit_launches[name]
-         + dt_launches.get(name, 0) + pref_launches.get(name, 0),
+         + dt_launches.get(name, 0) + pref_launches.get(name, 0) + long_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
@@ -4337,9 +4882,11 @@ def main(argv) -> int:
          "launches_vit_window_path": vit_launches[name],
          "launches_dt_path": dt_launches.get(name, 0),
          "launches_pref_path": pref_launches.get(name, 0),
+         "launches_long_path": long_launches.get(name, 0),
          **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
              + dt_launches["swa_train_flash_attention_bwd"]
-             + pref_launches["swa_train_flash_attention_bwd"]}
+             + pref_launches["swa_train_flash_attention_bwd"]
+             + long_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

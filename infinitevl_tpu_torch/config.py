@@ -4,8 +4,9 @@ converts field by field), frozen and hashable so a config can key a cache.
 
 Semantics follow the reference's configuration_infinitevl.py and the
 deployed InfiniteVL-3B config.json. The knobs of the JAX build that have
-no effect here (use_pallas_*, mlp_chunk_t, delta_stream_min_chunks,
-delta_seq_chunk_*) are kept so that both packages read the same config."""
+no effect here (use_pallas_*, delta_stream_min_chunks) are kept so that
+both packages read the same config; mlp_chunk_t and delta_seq_chunk_* are
+read as in JAX (the sequence-chunked training layers, models/text.py)."""
 
 from __future__ import annotations
 
@@ -137,6 +138,12 @@ class TextConfig:
     # knobs of the JAX build, read by nothing in the port
     use_pallas_swa: bool = True
     use_pallas_delta_step: bool = True
+    # the stateless forward's sequence chunking (models/text.py), as in JAX:
+    # the MLP runs in chunks of mlp_chunk_t above it, at a multiple of it;
+    # above delta_seq_chunk_t positions (0: never) the DeltaNet layers run in
+    # chunks of min(delta_seq_chunk_t, delta_seq_chunk_eval) and the SWA
+    # layers (from 2 windows up) in chunks of one window.
+    # delta_stream_min_chunks is read by nothing in the port
     mlp_chunk_t: int = 4096
     delta_stream_min_chunks: int = 128
     delta_seq_chunk_t: int = 8192

@@ -18,23 +18,37 @@ sequences (with `tail_pads_only`, ids that only mark padding after one
 sequence per row stay away from the DeltaNet rule), dense nodes may carry LoRA side paths (`lora_a` / `lora_b`,
 train/lora.attach_lora), and `remat` checkpoints each layer (or group of
 layers) so its internals are recomputed in the backward. Nothing is
-updated in place on that path."""
+updated in place on that path.
+
+Above `cfg.delta_seq_chunk_t` positions (0 turns this off) a stateless
+layer runs in SEQUENCE chunks, each a checkpoint of its own, so that no
+full-length intermediate of the layer exists in its backward: SWA layers
+in chunks of one window with the previous chunk's post-RoPE K/V carried
+(kernel H over the 2W keys), DeltaNet layers in chunks of
+min(delta_seq_chunk_t, delta_seq_chunk_eval) with the fp32 state and the
+conv tails carried (kernel C from the carried state), the MLP in chunks of
+`cfg.mlp_chunk_t`. The chunked forms are exact: they compute the full-T
+layer's numbers up to summation order. Under `remat` the layer's
+checkpoint wraps its chunks' own, so a chunk's forward runs three times a
+step and only the layer boundaries stay alive (PERF.md §6: dropping the
+outer checkpoint at 32K saved no time and held more memory).
+`decoder_layer_chunk_forward` threads the same carries across calls."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import FULL, LINEAR, SLIDING, TextConfig
-from ..ops.delta_kernels import delta_step_fused_stacked
+from ..ops.delta_kernels import delta_rule_chunk_fused, delta_step_fused_stacked
 from ..ops.delta_rule import gated_delta_rule
 from ..ops.int4_kernels import int4_matmul_fused
 from ..ops.norms import rms_norm, rms_norm_gated, silu
 from ..ops.rope import apply_rotary, mrope_cos_sin
-from ..ops.short_conv import short_conv, short_conv_step
+from ..ops.short_conv import causal_conv1d, short_conv, short_conv_step
 from ..ops.swa import ring_write_stacked, swa_prefill_dense
 from ..ops.swa_kernels import (
     swa_ring_flash_attention,
@@ -90,6 +104,28 @@ def mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     return _dense(silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"])
 
 
+def _maybe_checkpoint(fn, *args):
+    """fn(*args), as a non-reentrant checkpoint when autograd records."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def mlp_forward_chunked(p: Params, x: torch.Tensor, chunk_t: int) -> torch.Tensor:
+    """The MLP over sequence chunks of `chunk_t` positions, each a
+    checkpoint: the SwiGLU backward's three [T, intermediate] temporaries
+    exist for one chunk at a time. Pointwise over T, so exact."""
+    T = x.shape[1]
+    return torch.cat([_maybe_checkpoint(mlp_forward, p, x[:, t0 : t0 + chunk_t])
+                      for t0 in range(0, T, chunk_t)], dim=1)
+
+
+def seq_chunked(cfg: TextConfig, T: int) -> bool:
+    """Whether a stateless forward of T positions runs its DeltaNet layers
+    (and, at T >= 2 windows, its SWA layers) sequence-chunked."""
+    return bool(cfg.delta_seq_chunk_t) and T > cfg.delta_seq_chunk_t
+
+
 def swa_attention_forward(
     p: Params,
     cfg: TextConfig,
@@ -109,6 +145,10 @@ def swa_attention_forward(
     B, T, _ = x.shape
     Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     window = window if window is not None else cfg.sliding_window
+    if rings_k is None and "q_proj" in p and T >= 2 * window and seq_chunked(cfg, T):
+        # long stateless forward: the layer in window-sized sequence chunks
+        # (swa_forward_seq_chunked), gated by the DeltaNet layers' threshold
+        return swa_forward_seq_chunked(p, cfg, x, cos, sin, segment_ids, window)
     if "qkv_proj" in p:  # fused layout (models/fuse.py): one matmul
         qkv = _dense(x, p["qkv_proj"])
         nq, nk = Hq * Dh, Hkv * Dh
@@ -161,6 +201,13 @@ def delta_forward(
     form's."""
     B, T, _ = x.shape
     H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
+    if conv_q is None and "q_proj" in p and seq_chunked(cfg, T):
+        # long stateless forward: the whole layer in sequence chunks
+        # (delta_forward_seq_chunked); delta_seq_chunk_t gates it and
+        # delta_seq_chunk_eval caps the chunk
+        return delta_forward_seq_chunked(
+            p, cfg, x, segment_ids, min(cfg.delta_seq_chunk_t, cfg.delta_seq_chunk_eval),
+            tail_pads_only=tail_pads_only)
     if "fused_proj" in p:  # fused layout (models/fuse.py): one matmul
         fused = _dense(x, p["fused_proj"])  # [B, T, 2 HK + VD + 2 H + HV]
         hk, vd = H * K, H * V
@@ -224,6 +271,233 @@ def delta_forward(
     return _dense(o.reshape(B, T, H * V), p["o_proj"])
 
 
+def _pad_time(x: torch.Tensor, pad: int, value=0) -> torch.Tensor:
+    """x [B, T, ...] with `pad` rows of `value` appended along T."""
+    return torch.cat([x, x.new_full((x.shape[0], pad, *x.shape[2:]), value)], dim=1)
+
+
+def _seq_ids(segment_ids: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    B, T = x.shape[:2]
+    if segment_ids is None:
+        return torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    return segment_ids.to(torch.int32)
+
+
+def _swa_chunk(p, cfg, window, x_c, cos_c, sin_c, seg_c, pk, pv, pseg):
+    """One chunk of swa_forward_seq_chunked: (y_c, k, v)."""
+    B, C, _ = x_c.shape
+    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q = _dense(x_c, p["q_proj"]).reshape(B, C, Hq, Dh)
+    k = _dense(x_c, p["k_proj"]).reshape(B, C, Hkv, Dh)
+    v = _dense(x_c, p["v_proj"]).reshape(B, C, Hkv, Dh)
+    q, k = apply_rotary(q, k, cos_c, sin_c)
+    # the query block is padded with inert zero rows so that (prev ++ cur)
+    # is square, as kernel H takes it; their outputs are dropped
+    out = swa_prefill_dense(
+        torch.cat([torch.zeros_like(q), q], dim=1), torch.cat([pk, k], dim=1),
+        torch.cat([pv, v], dim=1), window, segment_ids=torch.cat([pseg, seg_c], dim=1))
+    return _dense(out[:, C:].reshape(B, C, Hq * Dh), p["o_proj"]), k, v
+
+
+def swa_forward_seq_chunked(
+    p: Params,
+    cfg: TextConfig,
+    x: torch.Tensor,  # [B, T, D]
+    cos: torch.Tensor,  # [B, T, head_dim]
+    sin: torch.Tensor,
+    segment_ids: Optional[torch.Tensor],
+    window: int,
+    carry: Optional[Tuple] = None,
+    return_carry: bool = False,
+):
+    """Stateless sliding-window attention layer in window-sized sequence
+    chunks, each a checkpoint. A query at p sees keys in (p - W, p], so at
+    C = W with the previous chunk's post-RoPE K/V carried every query has
+    its window: attention runs over (prev ++ cur), 2W positions, through
+    kernel H, and keeps the current chunk's outputs. The first chunk's zero
+    history has segment id -1 and tail pads (T padded to a multiple of W)
+    -2, which no real token matches. Exact against the full-T layer; the
+    attention's operations double, and the backward never holds full-T
+    projections.
+
+    `carry` / `return_carry` thread the (k, v, segment ids) of the last
+    chunk across calls (decoder_layer_chunk_forward); they need T % window
+    == 0. Returns y [B, T, D], or (y, carry) with `return_carry`."""
+    B, T, _ = x.shape
+    Hkv, Dh = cfg.num_key_value_heads, cfg.head_dim
+    C = window
+    seg = _seq_ids(segment_ids, x)
+    pad = (-T) % C
+    if pad:
+        if carry is not None or return_carry:
+            raise ValueError(f"carry threading requires T % window == 0 (T={T}, W={C})")
+        x, cos, sin = (_pad_time(t, pad) for t in (x, cos, sin))
+        seg = _pad_time(seg, pad, -2)
+    if carry is None:
+        carry = (x.new_zeros((B, C, Hkv, Dh)), x.new_zeros((B, C, Hkv, Dh)),
+                 torch.full((B, C), -1, dtype=torch.int32, device=x.device))
+    pk, pv, pseg = carry
+    ys = []
+    for t0 in range(0, T + pad, C):
+        sl = slice(t0, t0 + C)
+        y_c, pk, pv = _maybe_checkpoint(_swa_chunk, p, cfg, window, x[:, sl], cos[:, sl],
+                                        sin[:, sl], seg[:, sl], pk, pv, pseg)
+        pseg = seg[:, sl]
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)[:, :T]
+    return (y, (pk, pv, pseg)) if return_carry else y
+
+
+def _delta_chunk(p, cfg, x_c, seg_c, rule_ids, s, tq, tk, tv, tseg):
+    """One chunk of delta_forward_seq_chunked: (y_c, state, q/k/v tails)."""
+    B, C, _ = x_c.shape
+    H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
+    W = p["conv_q_w"].shape[0]
+    raws, convs = [], []
+    for name, tail in (("q", tq), ("k", tk), ("v", tv)):
+        raw = _dense(x_c, p[f"{name}_proj"])
+        # the conv reads the tail's last W-1 rows as its left context
+        hist = torch.cat([torch.zeros_like(tail[:, :1]), tail], dim=1)
+        convs.append(causal_conv1d(raw, p[f"conv_{name}_w"], p.get(f"conv_{name}_b"),
+                                   initial_state=hist, segment_ids=seg_c,
+                                   initial_state_segment_ids=tseg))
+        raws.append(raw)
+    beta = torch.sigmoid(_dense(x_c, p["b_proj"]).float())
+    g = -torch.exp(p["A_log"].float()) * F.softplus(
+        _dense(x_c, p["a_proj"]).float() + p["dt_bias"].float())
+    # a segment starting on the chunk's edge severs the carried state
+    cont = (seg_c[:, 0] == tseg[:, -1]).float()[:, None, None, None]
+    o, s_new = delta_rule_chunk_fused(
+        convs[0].reshape(B, C, H, K), convs[1].reshape(B, C, H, K),
+        convs[2].reshape(B, C, H, V), g, beta, initial_state=s * cont,
+        chunk_size=cfg.delta_chunk_size, segment_ids=rule_ids)
+    o = rms_norm_gated(o, _dense(x_c, p["g_proj"]).reshape(B, C, H, V), p["o_norm"],
+                       eps=cfg.norm_eps)
+    y_c = _dense(o.reshape(B, C, H * V), p["o_proj"])
+    return (y_c, s_new, *(r[:, C - (W - 1):] for r in raws))
+
+
+def delta_forward_seq_chunked(
+    p: Params,
+    cfg: TextConfig,
+    x: torch.Tensor,  # [B, T, D]
+    segment_ids: Optional[torch.Tensor],
+    seq_chunk: int,
+    carry: Optional[Tuple] = None,
+    return_carry: bool = False,
+    tail_pads_only: bool = False,
+):
+    """Stateless DeltaNet layer in sequence chunks of `seq_chunk`, each a
+    checkpoint: projections, short conv, the delta rule (kernel C from the
+    carried state), gated norm and o_proj run per chunk, so the backward
+    never holds full-T intermediates. Exact against the full-T layer:
+    - conv: the previous chunk's last W-1 raw projections ride the carry
+      with their segment ids (-1 for the zero history), so taps across the
+      chunk edge match the full-T segment-masked conv;
+    - delta state: carried in fp32 [B, H, K, V] and zeroed where a chunk's
+      first token starts a new segment (the full rule's restart there).
+    Tail pads (T padded to a multiple of the chunk) take segment id -2.
+    The rule gets the chunk's ids only for packed rows: with
+    `tail_pads_only` or without ids, pads only follow the real tokens and
+    the causal rule keeps them from those (as delta_forward does).
+
+    `carry` / `return_carry` thread (state, q/k/v tails, tail ids) across
+    calls (decoder_layer_chunk_forward); they need T % seq_chunk == 0.
+    Returns y [B, T, D], or (y, carry) with `return_carry`."""
+    B, T, _ = x.shape
+    C = seq_chunk
+    seg = _seq_ids(segment_ids, x)
+    packed = segment_ids is not None and not tail_pads_only
+    pad = (-T) % C
+    if pad:
+        if carry is not None or return_carry:
+            raise ValueError(f"carry threading requires T % seq_chunk == 0 "
+                             f"(T={T}, chunk={C})")
+        x = _pad_time(x, pad)
+        seg = _pad_time(seg, pad, -2)
+    if carry is None:
+        carry = init_layer_seq_carry(p, cfg, LINEAR, B, x.dtype, x.device)
+    s, tq, tk, tv, tseg = carry
+    ys = []
+    for t0 in range(0, T + pad, C):
+        seg_c = seg[:, t0 : t0 + C]
+        y_c, s, tq, tk, tv = _maybe_checkpoint(
+            _delta_chunk, p, cfg, x[:, t0 : t0 + C], seg_c, seg_c if packed else None,
+            s, tq, tk, tv, tseg)
+        tseg = seg_c[:, C - tq.shape[1]:]
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)[:, :T]
+    return (y, (s, tq, tk, tv, tseg)) if return_carry else y
+
+
+def init_layer_seq_carry(p: Params, cfg: TextConfig, role: str, B: int, dtype,
+                         device=None) -> Tuple:
+    """The zero carry of a layer's first sequence chunk
+    (decoder_layer_chunk_forward). SLIDING: the previous window's post-RoPE
+    (k, v) and their segment ids, -1 (the zero history, seen by no real
+    token). LINEAR: the fp32 delta state, the conv tails (the last W-1 raw
+    projections) and their segment ids, -1."""
+    device = device or p["input_norm"].device
+    if role == SLIDING:
+        W, Hkv, Dh = cfg.sliding_window, cfg.num_key_value_heads, cfg.head_dim
+        return (torch.zeros((B, W, Hkv, Dh), dtype=dtype, device=device),
+                torch.zeros((B, W, Hkv, Dh), dtype=dtype, device=device),
+                torch.full((B, W), -1, dtype=torch.int32, device=device))
+    if role == LINEAR:
+        H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
+        W = p["conv_q_w"].shape[0]
+        tails = tuple(torch.zeros((B, W - 1, p[f"conv_{n}_w"].shape[1]), dtype=dtype,
+                                  device=device) for n in ("q", "k", "v"))
+        return (torch.zeros((B, H, K, V), dtype=torch.float32, device=device), *tails,
+                torch.full((B, W - 1), -1, dtype=torch.int32, device=device))
+    raise NotImplementedError(
+        f"the sequence-chunk carry exists for sliding and linear layers only (got {role!r}); "
+        "a full_attention layer needs every earlier key")
+
+
+def decoder_layer_chunk_forward(
+    p: Params,
+    cfg: TextConfig,
+    role: str,
+    x: torch.Tensor,  # [B, Tc, D] one sequence chunk
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    segment_ids: Optional[torch.Tensor],
+    carry: Tuple,
+) -> Tuple[torch.Tensor, Tuple]:
+    """The pre-norm residual block over one sequence chunk with the
+    cross-chunk state explicit: feeding a sequence's chunks left to right
+    and threading the carry (init_layer_seq_carry first) gives the full-T
+    stateless forward. SWA layers need Tc % sliding_window == 0. Returns
+    (x', carry')."""
+    h = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
+    if role == SLIDING:
+        attn, new_carry = swa_forward_seq_chunked(
+            p, cfg, h, cos, sin, segment_ids, cfg.sliding_window, carry=carry,
+            return_carry=True)
+    elif role == LINEAR:
+        Tc = x.shape[1]
+        sc = min(cfg.delta_seq_chunk_t or Tc, cfg.delta_seq_chunk_eval, Tc)
+        if Tc % sc:
+            sc = Tc
+        attn, new_carry = delta_forward_seq_chunked(p, cfg, h, segment_ids, sc, carry=carry,
+                                                    return_carry=True)
+    else:
+        raise NotImplementedError(f"the sequence-chunk carry exists for sliding and linear "
+                                  f"layers only (got {role!r})")
+    x = x + attn
+    return x + _mlp(p, cfg, rms_norm(x, p["post_norm"], cfg.rms_norm_eps), True), new_carry
+
+
+def _mlp(p: Params, cfg: TextConfig, h: torch.Tensor, stateless: bool) -> torch.Tensor:
+    """The MLP, sequence-chunked where JAX chunks it: a stateless forward
+    of more than cfg.mlp_chunk_t positions, a multiple of it."""
+    ct, T = cfg.mlp_chunk_t, h.shape[1]
+    if ct and stateless and T > ct and T % ct == 0:
+        return mlp_forward_chunked(p["mlp"], h, ct)
+    return mlp_forward(p["mlp"], h)
+
+
 def decoder_layer_forward(
     p: Params,
     cfg: TextConfig,
@@ -269,7 +543,7 @@ def decoder_layer_forward(
     else:
         raise NotImplementedError(f"layer role {role!r} is not ported to torch yet")
     x = x + attn
-    return x + mlp_forward(p["mlp"], rms_norm(x, p["post_norm"], cfg.rms_norm_eps))
+    return x + _mlp(p, cfg, rms_norm(x, p["post_norm"], cfg.rms_norm_eps), state is None)
 
 
 def _run_layers(layers, cfg, roles, x, cos, sin, segment_ids, tail_pads_only):
@@ -327,11 +601,9 @@ def text_forward(
         for start in range(0, len(layers), group):
             if collected is not None:
                 collected.append(x)
-            x = checkpoint(
-                _run_layers, layers[start : start + group], cfg,
-                roles[start : start + group], x, cos, sin, segment_ids, tail_pads_only,
-                use_reentrant=False,
-            )
+            run = (layers[start : start + group], cfg, roles[start : start + group], x, cos,
+                   sin, segment_ids, tail_pads_only)
+            x = checkpoint(_run_layers, *run, use_reentrant=False)
     else:
         swa_i = lin_i = 0
         for layer_p, role in zip(layers, roles):

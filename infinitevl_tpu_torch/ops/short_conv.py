@@ -27,11 +27,15 @@ def causal_conv1d(
     activation: str = "silu",
     initial_state: Optional[torch.Tensor] = None,  # [B, W, D] left context
     segment_ids: Optional[torch.Tensor] = None,  # [B, T]; packing boundaries
+    initial_state_segment_ids: Optional[torch.Tensor] = None,  # [B, W-1]
 ) -> torch.Tensor:
     """y[t] = sum_i w[i] * x[t - (W-1-i)], zero-padded (or padded with the
     tail of `initial_state`), accumulated in fp32. With `segment_ids`, taps
     from another packed segment contribute zero; the left context matches
-    no segment."""
+    no segment unless `initial_state_segment_ids` gives its ids (the
+    sequence-chunked layer, models/text.delta_forward_seq_chunked, passes
+    the previous chunk's, so a segment spanning the chunk edge keeps its
+    conv context)."""
     B, T, D = x.shape
     W = weight.shape[0]
     if initial_state is not None:
@@ -41,7 +45,10 @@ def causal_conv1d(
     xp = torch.cat([left, x], dim=1)  # [B, T + W - 1, D]
     segp = None
     if segment_ids is not None:
-        left_seg = segment_ids.new_full((B, W - 1), -1)
+        if initial_state_segment_ids is not None:
+            left_seg = initial_state_segment_ids.to(segment_ids.dtype)
+        else:
+            left_seg = segment_ids.new_full((B, W - 1), -1)
         segp = torch.cat([left_seg, segment_ids], dim=1)
     acc = torch.zeros((B, T, D), dtype=torch.float32, device=x.device)
     for i in range(W):

@@ -212,40 +212,37 @@ def make_schedule(
     return lr
 
 
-class AdamW:
-    """Clip by global norm, then AdamW, with optional gradient accumulation.
+class Optimizer:
+    """Clip by global norm, then the subclass's update, with optional
+    gradient accumulation: the wrapper the JAX package builds from
+    `optax.chain(clip_by_global_norm, ...)` and `optax.MultiSteps`.
 
-    The state is a plain dict: `count` (optimizer steps taken), `mu` and
-    `nu` (lists of moments, one per trainable leaf in tree order, in the
-    leaf's dtype) and, with `accumulation_steps` > 1, `mini_step` and `acc`
+    The state is a plain dict (nested lists of tensors and ints, which the
+    train-state checkpoint stores): `count` (optimizer steps taken), what
+    `_init` adds and, with `accumulation_steps` > 1, `mini_step` and `acc`
     (the running mean of the micro-batch gradients). `update` changes the
-    leaves and the state in place."""
+    leaves and the state in place. Subclasses give `_init(named)` and
+    `_apply(named, grads, state)` over the trainable leaves `named`
+    ((path, tensor) in tree order); `grads` is an iterable to be walked
+    once, in that order."""
 
-    def __init__(self, lr: Callable[[int], float], weight_decay: float = 0.01,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 grad_clip: float = 1.0, accumulation_steps: int = 1):
-        self.lr, self.weight_decay = lr, weight_decay
-        self.b1, self.b2, self.eps = b1, b2, eps
+    def __init__(self, grad_clip: Optional[float] = 1.0, accumulation_steps: int = 1):
         self.grad_clip = grad_clip
         self.accumulation_steps = max(int(accumulation_steps), 1)
 
     def init(self, params) -> Dict[str, Any]:
-        leaves = [t for _, t in trainable_leaves(params)]
-        state = {"count": 0,
-                 "mu": [torch.zeros_like(t) for t in leaves],
-                 "nu": [torch.zeros_like(t) for t in leaves]}
+        named = trainable_leaves(params)
+        state = {"count": 0, **self._init(named)}
         if self.accumulation_steps > 1:
             state["mini_step"] = 0
-            state["acc"] = [torch.zeros_like(t) for t in leaves]
+            state["acc"] = [torch.zeros_like(t) for _, t in named]
         return state
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any], params) -> None:
         named = trainable_leaves(params)
-        if len(named) != len(grads) or len(named) != len(state["mu"]):
-            raise ValueError(
-                f"{len(grads)} gradients and {len(state['mu'])} moments for "
-                f"{len(named)} trainable leaves")
+        if len(named) != len(grads):
+            raise ValueError(f"{len(grads)} gradients for {len(named)} trainable leaves")
         if self.accumulation_steps > 1:
             # running mean over the k micro-batches; one step on the k-th
             m = state["mini_step"]
@@ -257,18 +254,51 @@ class AdamW:
             grads = [acc.clone() for acc in state["acc"]]
             for acc in state["acc"]:
                 acc.zero_()
-        # clip by global norm
-        g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
-        clipped = bool(g_norm >= self.grad_clip)
-        count = state["count"] + 1
-        # bias corrections in fp32, as optax computes them
-        one = torch.ones((), dtype=torch.float32)
-        c1 = float(one - torch.tensor(self.b1, dtype=torch.float32) ** count)
-        c2 = float(one - torch.tensor(self.b2, dtype=torch.float32) ** count)
+        if self.grad_clip is not None:
+            g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            if bool(g_norm >= self.grad_clip):
+                # clipped leaf by leaf as _apply reaches it: a clipped copy of
+                # every gradient at once would hold the model's size again
+                grads = (g / g_norm.to(g.dtype) * self.grad_clip for g in grads)
+        self._apply(named, grads, state)
+        state["count"] += 1
+
+    def _init(self, named) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def _apply(self, named, grads, state) -> None:
+        raise NotImplementedError
+
+
+def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
+    """1 - b1^count and 1 - b2^count in fp32, as optax computes them."""
+    one = torch.ones((), dtype=torch.float32)
+    return (float(one - torch.tensor(b1, dtype=torch.float32) ** count),
+            float(one - torch.tensor(b2, dtype=torch.float32) ** count))
+
+
+class AdamW(Optimizer):
+    """Clip by global norm, then AdamW, with optional gradient accumulation.
+    Beside `count` the state holds `mu` and `nu` (lists of moments, one per
+    trainable leaf in tree order, in the leaf's dtype)."""
+
+    def __init__(self, lr: Callable[[int], float], weight_decay: float = 0.01,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 grad_clip: float = 1.0, accumulation_steps: int = 1):
+        super().__init__(grad_clip, accumulation_steps)
+        self.lr, self.weight_decay = lr, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def _init(self, named) -> Dict[str, Any]:
+        return {"mu": [torch.zeros_like(t) for _, t in named],
+                "nu": [torch.zeros_like(t) for _, t in named]}
+
+    def _apply(self, named, grads, state) -> None:
+        if len(named) != len(state["mu"]):
+            raise ValueError(f"{len(state['mu'])} moments for {len(named)} trainable leaves")
+        c1, c2 = bias_corrections(self.b1, self.b2, state["count"] + 1)
         lr = float(self.lr(state["count"]))
         for (path, p), g, mu, nu in zip(named, grads, state["mu"], state["nu"]):
-            if clipped:
-                g = g / g_norm.to(g.dtype) * self.grad_clip
             g = g.to(mu.dtype)
             mu.mul_(self.b1).add_(g * (1.0 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1.0 - self.b2))
@@ -276,7 +306,6 @@ class AdamW:
             if self.weight_decay and not _no_decay(path, p):
                 upd = upd + self.weight_decay * p
             p.add_((upd * -lr).to(p.dtype))
-        state["count"] = count
 
 
 def make_optimizer(

@@ -478,10 +478,25 @@ def _total_steps(args: AllArgs, n_rows: int) -> int:
 
 def _make_tx(args: AllArgs, steps: int):
     """Optimizer from TrainArgs; gradient_accumulation_steps > 1 takes one
-    optimizer update per k micro-batches (the mean of their gradients)."""
-    if args.finetune.use_optimizer:
-        raise _later(f"use_optimizer: {args.finetune.use_optimizer} (train/optim.py: "
-                     "GaLore, APOLLO, LoRA+, BAdam, Adam-mini)")
+    optimizer update per k micro-batches (the mean of their gradients).
+    FinetuneArgs.use_optimizer swaps in a custom optimizer (train/optim.py)
+    with JAX's keyword arguments and its constant learning rate, after the
+    same global-norm clip."""
+    ft, tr = args.finetune, args.train
+    if ft.use_optimizer:
+        from .optim import make_custom_optimizer
+
+        kw = {}
+        if ft.use_optimizer in ("galore", "apollo"):
+            kw = dict(rank=ft.optimizer_rank, update_proj_gap=ft.optimizer_update_gap)
+        elif ft.use_optimizer == "loraplus":
+            kw = dict(lr_ratio=ft.loraplus_lr_ratio, weight_decay=tr.weight_decay)
+        elif ft.use_optimizer == "badam":
+            kw = dict(num_blocks=ft.badam_num_blocks,
+                      switch_interval=ft.badam_switch_interval)
+        return make_custom_optimizer(ft.use_optimizer, tr.learning_rate,
+                                     grad_clip=tr.max_grad_norm,
+                                     accumulation_steps=tr.gradient_accumulation_steps, **kw)
     return make_optimizer(
         args.train.learning_rate,
         args.train.weight_decay,
