@@ -3,9 +3,10 @@ infinitevl_tpu/models/convert.py).
 
 Given a dense softmax-attention teacher, every decoder layer NOT in
 `softmax_attention` gets a freshly initialised Gated DeltaNet mixer
-(mimic_init warm start) and keeps the teacher's MLP and norms; preserved
-layers keep their attention weights and become the hybrid's
-sliding-attention layers.
+(mimic_init warm start), or with `mixer="mamba2"` a Mamba2 mixer whose
+q / k / v / o are the teacher's attention projections (k and v
+GQA-expanded), and keeps the teacher's MLP and norms; preserved layers keep
+their attention weights and become the hybrid's sliding-attention layers.
 
 Aliasing. As in JAX, the student SHARES the teacher's tensors wherever it
 keeps them (preserved layers, MLPs, norms, embeddings), so a converted 3B
@@ -24,8 +25,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import LINEAR, SLIDING, TextConfig
-from .params import init_delta_layer
+from ..config import LINEAR, MAMBA2, SLIDING, TextConfig
+from .params import init_delta_layer, init_mamba2_layer
 
 Params = Dict[str, Any]
 
@@ -82,22 +83,25 @@ def convert_attention(
     dtype: Optional[torch.dtype] = None,
 ) -> Tuple[Params, TextConfig]:
     """(student text params, student config). Preserved layers become
-    sliding_attention; the rest become Gated DeltaNet layers with fresh
-    (mimic_init) mixers drawn from `generator` (on the teacher's device),
-    the teacher's MLP and norms. The student shares the teacher's tensors
-    where it keeps them (see the module docstring)."""
+    sliding_attention; the rest become mixers drawn from `generator` (on
+    the teacher's device) with the teacher's MLP and norms:
+    - "gated_deltanet": the shipped target, every mixer weight fresh
+      (mimic_init);
+    - "mamba2": q_proj and o_proj are the teacher's, k_proj and v_proj the
+      teacher's expanded to every query head (`_gqa_expand`), the SSD side
+      (dt, A, D, conv, gate) fresh (mimic_init).
+    The student shares the teacher's tensors where it keeps them (see the
+    module docstring); the expanded k / v are new tensors."""
     mixer_key = _MIXER_ALIASES.get(mixer.lower())
     if mixer_key is None:
         raise NotImplementedError(
             f"mixer {mixer!r}: available mixers are {sorted(set(_MIXER_ALIASES.values()))}")
-    if mixer_key == "mamba2":
-        raise NotImplementedError(
-            "mixer mamba2 is not ported to torch yet (ops/mamba2.py, the Mamba2 SSD layer)")
     softmax = set(softmax_attention)
     n = teacher_cfg.num_hidden_layers
+    converted = LINEAR if mixer_key == "gated_deltanet" else MAMBA2
     student_cfg = dataclasses.replace(
         teacher_cfg,
-        layer_types=tuple(SLIDING if i in softmax else LINEAR for i in range(n)),
+        layer_types=tuple(SLIDING if i in softmax else converted for i in range(n)),
         use_sliding_window=True,
         sliding_window=teacher_cfg.sliding_window or 8192,
     )
@@ -108,7 +112,18 @@ def convert_attention(
     for i, lp in enumerate(student["layers"]):
         if i in softmax:
             continue
-        fresh = init_delta_layer(student_cfg, generator, device, dtype, mimic_init=mimic_init)
+        if converted == LINEAR:
+            fresh = init_delta_layer(student_cfg, generator, device, dtype,
+                                     mimic_init=mimic_init)
+        else:
+            fresh = init_mamba2_layer(student_cfg, generator, device, dtype,
+                                      mimic_init=mimic_init)
+            Hkv, Dh = teacher_cfg.num_key_value_heads, teacher_cfg.head_dim
+            groups = teacher_cfg.num_attention_heads // Hkv
+            fresh["q_proj"], fresh["o_proj"] = lp["q_proj"], lp["o_proj"]
+            for name in ("k_proj", "v_proj"):
+                w, b = _gqa_expand(lp[name]["kernel"], lp[name].get("bias"), Hkv, Dh, groups)
+                fresh[name] = {"kernel": w, **({"bias": b} if b is not None else {})}
         # the teacher's MLP and norms stay (the reference swaps only self_attn)
         fresh["mlp"] = lp["mlp"]
         fresh["input_norm"] = lp["input_norm"]

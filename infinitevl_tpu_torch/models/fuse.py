@@ -62,6 +62,8 @@ def _fuse_text_layer(layer: Params, groups=ALL_GROUPS) -> Params:
                 ("q_proj", "k_proj", "v_proj", "a_proj", "b_proj", "g_proj"),
                 "fused_proj",
             )
+    elif "conv_w" in layer:  # Mamba2 flavor: kept as it is, as in JAX
+        pass
     elif "q_proj" in layer and "qkv" in groups:  # SWA / full-attention flavor
         layer = _fuse_group(layer, ("q_proj", "k_proj", "v_proj"), "qkv_proj")
     if "mlp" in layer and "mlp" in groups:

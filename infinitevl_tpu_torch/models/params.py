@@ -127,6 +127,52 @@ def init_delta_layer(cfg: TextConfig, gen, device, dtype, mimic_init: bool = Fal
     return p
 
 
+def init_mamba2_layer(cfg: TextConfig, gen, device, dtype, mimic_init: bool = False) -> Params:
+    """Mamba2 mixer layer (the rules of JAX init_mamba2_layer): q / k / v
+    (= the SSD's C / B / x) with bias, a fused conv over [v, k, q] with
+    kaiming-uniform taps (fan_in = W) and a zero bias, dt_proj, per-head
+    dt_bias / A_log / D in fp32 (A_log = log U(1, 16), D = 1, dt_bias 0),
+    the gated RMSNorm's g_proj (std 0.02 * 2^-2.5) and o_norm, o_proj.
+
+    mimic_init (the distillation warm start): conv = identity tap, dt_proj
+    zeroed, dt_bias = softplus^-1 of a log-uniform dt in [1e-3, 0.1], A_log
+    = 1."""
+    D, H, Dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    HD, W = H * Dh, cfg.conv_size
+    bound = 1.0 / math.sqrt(W)
+    conv_w = _uniform((W, 3 * HD), -bound, bound, gen, device).to(dtype)
+    dt = torch.exp(
+        _uniform((H,), 0.0, 1.0, gen, device) * (math.log(0.1) - math.log(1e-3))
+        + math.log(1e-3)
+    ).clamp(min=1e-3)
+    ones = torch.ones((D,), dtype=dtype, device=device)
+    p = {
+        "input_norm": ones.clone(),
+        "post_norm": ones.clone(),
+        "q_proj": _linear(D, HD, gen, device, dtype, bias=True),
+        "k_proj": _linear(D, HD, gen, device, dtype, bias=True),
+        "v_proj": _linear(D, HD, gen, device, dtype, bias=True),
+        "o_proj": _linear(HD, D, gen, device, dtype),
+        "dt_proj": _linear(D, H, gen, device, dtype),
+        "g_proj": _linear(D, HD, gen, device, dtype, std=0.02 * 2**-2.5),
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((3 * HD,), dtype=dtype, device=device),
+        "dt_bias": (dt + torch.log(-torch.expm1(-dt)) if mimic_init
+                    else torch.zeros((H,), device=device)).float(),
+        "A_log": (torch.ones((H,), device=device) if mimic_init
+                  else torch.log(_uniform((H,), 1.0, 16.0, gen, device))).float(),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "o_norm": torch.ones((Dh,), dtype=dtype, device=device),
+        "mlp": _mlp(cfg, gen, device, dtype),
+    }
+    if mimic_init:
+        ident = torch.zeros((W, 1), dtype=dtype, device=device)
+        ident[W - 1] = 1.0
+        p["conv_w"] = ident.expand(W, 3 * HD).contiguous()
+        p["dt_proj"]["kernel"] = torch.zeros_like(p["dt_proj"]["kernel"])
+    return p
+
+
 def init_text_params(
     cfg: TextConfig,
     generator: torch.Generator,
@@ -140,10 +186,10 @@ def init_text_params(
     layers = []
     for i in range(cfg.num_hidden_layers):
         role = cfg.layer_role(i)
-        if role == MAMBA2:
-            raise NotImplementedError("mamba2 layers are not ported to torch yet")
         if role == LINEAR:
             layers.append(init_delta_layer(cfg, generator, device, dtype))
+        elif role == MAMBA2:
+            layers.append(init_mamba2_layer(cfg, generator, device, dtype))
         else:  # sliding or full attention share one parameter shape
             layers.append(init_swa_layer(cfg, generator, device, dtype))
     p = {

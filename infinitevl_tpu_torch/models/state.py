@@ -6,6 +6,10 @@ L = #DeltaNet layers):
   delta_h      : [L, B, H, K, V] fp32   recurrent state
   conv_q/k/v   : [L, B, W, D*]          raw-input history of the short convs
   cum_len      : int                    tokens processed so far (host int)
+and, only when the config has mamba2 layers (M of them; models/convert.py's
+mamba2 students), so that the deployed state is unchanged:
+  mamba_conv   : [M, B, W, 3*H*Dh]      raw-input history of the fused [v, k, q] conv
+  mamba_h      : [M, B, H, Dh, Dh] fp32 SSM state (N = P = head_dim)
 
 The model updates the tensors IN PLACE; branching a stream (decoding from
 a snapshot without disturbing the original) needs `clone_state` first;
@@ -31,10 +35,6 @@ def init_decoder_state(
 ) -> DecoderState:
     """Zero state; `device=None` means the CUDA card."""
     device = resolve_device(device)
-    if cfg.num_mamba2_layers:
-        raise NotImplementedError(
-            "mamba2 layers are not ported to the torch decoder yet"
-        )
     S = cfg.num_swa_layers
     L = cfg.num_linear_layers
     B = batch_size
@@ -44,7 +44,7 @@ def init_decoder_state(
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    return {
+    state = {
         "swa_k": zeros(S, B, cfg.num_key_value_heads, cfg.swa_capacity, cfg.head_dim),
         "swa_v": zeros(S, B, cfg.num_key_value_heads, cfg.swa_capacity, cfg.head_dim),
         "delta_h": zeros(L, B, cfg.num_linear_heads, K, cfg.head_v_dim, dt=torch.float32),
@@ -53,6 +53,12 @@ def init_decoder_state(
         "conv_v": zeros(L, B, W, cfg.linear_value_dim),
         "cum_len": 0,
     }
+    M = cfg.num_mamba2_layers
+    if M:
+        H, Dh = cfg.num_attention_heads, cfg.head_dim
+        state["mamba_conv"] = zeros(M, B, W, 3 * H * Dh)
+        state["mamba_h"] = zeros(M, B, H, Dh, Dh, dt=torch.float32)
+    return state
 
 
 def state_bytes(state: DecoderState) -> int:

@@ -9,7 +9,9 @@ layers, B for DeltaNet layers), T > 1 through the prefill kernel A1 plus a
 plain ring write for SWA layers and, for DeltaNet layers, the chunked
 delta rule kernel C (T above cfg.recurrent_threshold; the plain recurrence
 below it). A CUDA tensor always reaches the kernel, which raises on what it
-cannot take; a CPU tensor takes the kernel's plain version.
+cannot take; a CPU tensor takes the kernel's plain version. Mamba2 layers
+(the mamba2 conversion's students, models/convert.py) run plain torch on
+every device (`mamba2_forward`, ops/mamba2.py), as XLA runs them in JAX.
 
 Without a state the forward is stateless and differentiable (training):
 SWA layers go through kernel H (forward and backward), DeltaNet layers
@@ -42,10 +44,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import FULL, LINEAR, SLIDING, TextConfig
+from ..config import FULL, LINEAR, MAMBA2, SLIDING, TextConfig
 from ..ops.delta_kernels import delta_rule_chunk_fused, delta_step_fused_stacked
 from ..ops.delta_rule import gated_delta_rule
 from ..ops.int4_kernels import int4_matmul_fused
+from ..ops.mamba2 import mamba2_chunk_scan, mamba2_step
 from ..ops.norms import rms_norm, rms_norm_gated, silu
 from ..ops.rope import apply_rotary, mrope_cos_sin
 from ..ops.short_conv import causal_conv1d, short_conv, short_conv_step
@@ -61,7 +64,6 @@ Params = Dict[str, Any]
 # parameter layouts of the JAX package that are not ported yet
 _LATER = {
     "kernel_q4b": "biased int4 storage (no entry point produces it)",
-    "dora_scale": "DoRA adapters",
 }
 
 
@@ -80,7 +82,9 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     (`kernel_q4` / `kernel_q4f` + `scale4`: kernel G on a CUDA tensor).
     `lora_a` [d_in, r] and `lora_b` [r, d_out] (pre-scaled) add the low-rank
     side path (x @ a) @ b to the frozen kernel's output, so gradients and
-    intermediates stay rank-r sized."""
+    intermediates stay rank-r sized. `dora_scale` [d_out] (DoRA,
+    train/lora.attach_lora) rescales the columns before the bias:
+    y = x @ (m * (W + a b) / ||W + a b||_col) without forming the weight."""
     _not_ported(p)
     if "kernel_q" in p:
         y = (x @ p["kernel_q"].to(x.dtype)) * p["scale"].to(x.dtype)
@@ -90,6 +94,8 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
         y = x @ p["kernel"]
     if "lora_a" in p:
         y = y + ((x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)).to(y.dtype)
+    if "dora_scale" in p:
+        y = y * p["dora_scale"].to(y.dtype)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -269,6 +275,58 @@ def delta_forward(
         )
     o = rms_norm_gated(o, g_lin.reshape(B, T, H, V), p["o_norm"], eps=cfg.norm_eps)
     return _dense(o.reshape(B, T, H * V), p["o_proj"])
+
+
+def mamba2_forward(
+    p: Params,
+    cfg: TextConfig,
+    x: torch.Tensor,  # [B, T, D]
+    conv_state: Optional[torch.Tensor],  # stacked [M, B, W, 3 H Dh] or None
+    h_state: Optional[torch.Tensor],  # stacked [M, B, H, Dh, Dh] fp32 or None
+    layer_idx: int = 0,
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T]; stateless forward only
+) -> torch.Tensor:
+    """Mamba2 SSD mixer, the conversion's second target: q / k / v
+    projections (the SSD's C / B / x), one short conv over [v, k, q], per-
+    head dt from dt_proj, the D skip, the gated RMSNorm over g_proj, o_proj.
+    Stateless (segment_ids mask packed rows), cached chunked prefill (the
+    conv's history read with cfg.conv_carry, as the DeltaNet layer's), or a
+    T = 1 decode step; with a state, layer `layer_idx` of the stacked conv
+    history and SSM state is updated IN PLACE. Plain torch on every device
+    (the JAX package has no kernel for it). Returns [B, T, D]."""
+    B, T, _ = x.shape
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    HD = H * Dh
+    vkq = torch.cat([_dense(x, p["v_proj"]), _dense(x, p["k_proj"]), _dense(x, p["q_proj"])],
+                    dim=-1)
+    use_cache = conv_state is not None
+    decode = use_cache and T == 1
+    if decode:
+        y1, new_cs = short_conv_step(vkq[:, 0], p["conv_w"], p.get("conv_b"),
+                                     conv_state[layer_idx])
+        vkq = y1[:, None]
+    else:
+        vkq, new_cs = short_conv(vkq, p["conv_w"], p.get("conv_b"),
+                                 conv_state[layer_idx] if use_cache else None,
+                                 carry_history=cfg.conv_carry, segment_ids=segment_ids)
+    if use_cache:
+        conv_state[layer_idx].copy_(new_cs)
+    v, k, q = (t.reshape(B, T, H, Dh) for t in vkq.split(HD, dim=-1))
+    dt = F.softplus(_dense(x, p["dt_proj"]).float() + p["dt_bias"].float())  # [B, T, H]
+    A = -torch.exp(p["A_log"].float())
+    if decode:
+        y1, new_h = mamba2_step(v[:, 0], dt[:, 0], A, k[:, 0], q[:, 0], h_state[layer_idx])
+        y = y1[:, None]
+    else:
+        y, new_h = mamba2_chunk_scan(
+            v, dt, A, k, q, initial_state=h_state[layer_idx] if use_cache else None,
+            chunk_size=cfg.delta_chunk_size, segment_ids=segment_ids)
+    if use_cache:
+        h_state[layer_idx].copy_(new_h)
+    y = y + p["D"].to(y.dtype)[None, None, :, None] * v
+    o = rms_norm_gated(y, _dense(x, p["g_proj"]).reshape(B, T, H, Dh), p["o_norm"],
+                       eps=cfg.norm_eps)
+    return _dense(o.reshape(B, T, HD), p["o_proj"])
 
 
 def _pad_time(x: torch.Tensor, pad: int, value=0) -> torch.Tensor:
@@ -511,7 +569,7 @@ def decoder_layer_forward(
     tail_pads_only: bool = False,
 ) -> torch.Tensor:
     """Pre-norm residual block. `stack_idx` is the layer's index within the
-    SWA or DeltaNet stack of `state` (updated in place)."""
+    SWA, DeltaNet or Mamba2 stack of `state` (updated in place)."""
     if segment_ids is not None and state is not None:
         raise ValueError("segment_ids (packed sequences) belong to the stateless "
                          "forward; a cached forward takes one sequence per row")
@@ -540,6 +598,12 @@ def decoder_layer_forward(
                 p, cfg, h, state["conv_q"], state["conv_k"], state["conv_v"],
                 state["delta_h"], layer_idx=stack_idx,
             )
+    elif role == MAMBA2:
+        if state is None:
+            attn = mamba2_forward(p, cfg, h, None, None, segment_ids=segment_ids)
+        else:
+            attn = mamba2_forward(p, cfg, h, state["mamba_conv"], state["mamba_h"],
+                                  layer_idx=stack_idx)
     else:
         raise NotImplementedError(f"layer role {role!r} is not ported to torch yet")
     x = x + attn
@@ -605,17 +669,16 @@ def text_forward(
                    sin, segment_ids, tail_pads_only)
             x = checkpoint(_run_layers, *run, use_reentrant=False)
     else:
-        swa_i = lin_i = 0
+        # each role's index within its stack of the state: SWA, DeltaNet, Mamba2
+        stack_of = {SLIDING: 0, FULL: 0, LINEAR: 1, MAMBA2: 2}
+        counts = [0, 0, 0]
         for layer_p, role in zip(layers, roles):
             if collected is not None:
                 collected.append(x)
-            stack_idx = swa_i if role in (SLIDING, FULL) else lin_i
-            x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, stack_idx,
+            which = stack_of.get(role, 1)
+            x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, counts[which],
                                       segment_ids, tail_pads_only)
-            if role in (SLIDING, FULL):
-                swa_i += 1
-            else:
-                lin_i += 1
+            counts[which] += 1
     if collected is not None:
         collected.append(x)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

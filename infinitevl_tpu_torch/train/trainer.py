@@ -610,11 +610,9 @@ def _refuse_later_options(args: AllArgs) -> None:
     accepted: they pick a memory layout of the JAX layer loop and change no
     number, and the torch layer loop with per-layer checkpointing needs
     none of them (the stacked layout is not built)."""
-    t, f = args.train, args.finetune
+    t = args.train
     if t.pipeline_stages > 1 or t.data_parallel * t.model_parallel > 1:
         raise _later("parallel/ (pipeline_stages, data_parallel, model_parallel > 1)")
-    if f.use_dora:
-        raise _later("use_dora (DoRA)")
 
 
 def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
@@ -662,6 +660,7 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
         lora = init_lora(
             params, torch.Generator(device=device).manual_seed(args.train.seed + 1),
             rank=args.finetune.lora_rank, target=args.finetune.lora_target,
+            use_dora=args.finetune.use_dora,
         )
         opt_state = tx.init(lora)
         step_fn = make_lora_sft_step(cfg, tx, remat=args.train.remat,
@@ -736,7 +735,8 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
     device = resolve_device(device)
     cfg = build_config(args)
     dtype = torch.bfloat16 if args.train.bf16 else torch.float32
-    tokenizer = resolve_tokenizer(args, cfg, tokenizer)
+    # the tokenizer as given: build_dataset picks the text or the multimodal
+    # one, as JAX's run_dt does (a text row encodes without the config)
     data = build_dataset(args, tokenizer, cfg=cfg)
     mm = is_multimodal(data)
     if teacher_params is None:
@@ -794,7 +794,8 @@ def _policy_params(args: AllArgs, cfg, dtype, device) -> Dict[str, Any]:
     """The text tree the preference stages train: the HF checkpoint at
     `model_name_or_path`, or random weights from the seed. Every leaf
     trains but rope's inv_freq (train/step.full_finetune_leaf), whatever
-    finetuning_type says: the JAX package trains the whole tree here too."""
+    finetuning_type (and use_dora) say: the JAX package trains the whole
+    tree here too."""
     if args.model.model_name_or_path:
         text = load_hf_checkpoint(args.model.model_name_or_path, cfg, dtype,
                                   device=device)["text"]

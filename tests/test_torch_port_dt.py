@@ -190,9 +190,27 @@ def test_llama_pro_expand_and_gqa_order_match_jax(models):
 
 
 def test_mamba2_mixer_raises_by_name(models):
-    with pytest.raises(NotImplementedError, match="ops/mamba2.py"):
-        tconvert.convert_attention(models["tfull"]["text"], models["ttcfg"], None,
-                                   softmax_attention=SOFTMAX, mixer="mamba2")
+    """The mamba2 mixer used to raise here; it is ported now: the student
+    has JAX's structure and layer types, its q / o are the teacher's own
+    tensors and its k / v their GQA expansion (the weight copy is held
+    against JAX in tests/test_torch_port_mamba2.py). An unknown mixer still
+    raises by name."""
+    tt = models["tfull"]["text"]
+    student, scfg = tconvert.convert_attention(tt, models["ttcfg"], torch.Generator().manual_seed(1),
+                                               softmax_attention=SOFTMAX, mixer="mamba2")
+    js, jscfg = jconvert.convert_attention(models["jfull"]["text"], TEACHER_CFG,
+                                           jax.random.PRNGKey(1), softmax_attention=SOFTMAX,
+                                           mixer="mamba2")
+    assert scfg == to_port_config(dataclasses.replace(CFG, text=jscfg)).text
+    assert scfg.layer_types == ("sliding_attention",) + ("mamba2",) * (N - 1)
+    jl = dict(_jleaves(js))
+    assert {k: tuple(v.shape) for k, v in _leaves(student).items()} == \
+        {k: np.asarray(v).shape for k, v in jl.items()}
+    lp, tp = student["layers"][1], tt["layers"][1]
+    assert lp["q_proj"]["kernel"] is tp["q_proj"]["kernel"]
+    assert lp["o_proj"]["kernel"] is tp["o_proj"]["kernel"]
+    assert torch.equal(lp["k_proj"]["kernel"], tconvert._gqa_expand(
+        tp["k_proj"]["kernel"], None, 2, 16, 2)[0])
     with pytest.raises(NotImplementedError, match="available mixers"):
         tconvert.convert_attention(models["tfull"]["text"], models["ttcfg"], None, mixer="rwkv")
 

@@ -1,6 +1,9 @@
 """The port's LoRA path against the JAX package on the CPU in fp32: the
 adapter tree, the attached side path, rsLoRA, the int8 (QLoRA) base, three
-optimizer steps and the merged export. Adapters and optimizer state are
+optimizer steps and the merged export; DoRA (column norms, identity at
+init, attach against apply, every leaf's gradient and one step), PiSSA
+and LoftQ (sign-invariant: the factors' product, the residual base, the
+reconstruction error). Adapters and optimizer state are
 carried across as numpy (tests/torch_port_helpers.carry_train_state).
 
 Tolerances: forward logits and losses <= 1e-4 of JAX's (fp32 through 8
@@ -191,12 +194,218 @@ def test_lora_eval_fn_and_later_methods_raise(weights):
         jl, jp, {k: jnp.asarray(v) for k, v in b.items()})
     got = tlora.make_lora_eval_fn(TCFG.text, ALPHA, RANK)(tl, tp, dict(b))
     assert abs(float(got) - float(want)) / float(want) < 1e-4 and not got.requires_grad
+    # PiSSA and DoRA were refused here before they were ported: the same
+    # calls now build JAX's adapters (PiSSA's factors up to the SVD's column
+    # signs, so its product a @ b is compared), and a quantised base still
+    # raises ValueError for both, as in JAX
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="PiSSA"):
-        tlora.init_lora(tp, gen, method="pissa")
-    with pytest.raises(NotImplementedError, match="DoRA"):
-        tlora.init_lora(tp, gen, use_dora=True)
-    dora = {"text": {"layers": [{"q_proj": {"a": torch.zeros(32, 2), "b": torch.zeros(2, 32),
-                                            "m": torch.zeros(32)}}]}}
-    with pytest.raises(NotImplementedError, match="DoRA"):
-        tlora.attach_lora(tp, dora)
+    tl = tlora.init_lora(tp, gen, rank=RANK, method="pissa")
+    jl = jlora.init_lora(jp, jax.random.PRNGKey(0), rank=RANK, method="pissa")
+    _hold_principal(_ab_products(tl), _ab_products(jl), tp, 1.0)
+    tl = tlora.init_lora(tp, gen, rank=RANK, use_dora=True)
+    jl = jlora.init_lora(jp, jax.random.PRNGKey(0), rank=RANK, use_dora=True)
+    ms = {p: t for p, t in tree_leaves_with_path(tl) if p.endswith("/m")}
+    assert len(ms) == 4 * CFG.text.num_hidden_layers and all(t.requires_grad for t in ms.values())
+    assert tree_err({p: t for p, t in ms.items()}, {p: np.asarray(v) for p, v in
+                                                    _jpaths(jl) if p.endswith("/m")}) < 1e-6
+    tq = tquant.quantize_params(tp, min_size=0)
+    for kw in (dict(method="pissa"), dict(use_dora=True)):
+        with pytest.raises(ValueError, match="PiSSA/DoRA"):
+            tlora.init_lora(tq, gen, **kw)
+    w = tp["text"]["layers"][0]["q_proj"]["kernel"]
+    d_in, d_out = w.shape
+    dora = {"text": {"layers": [{"q_proj": {"a": torch.zeros(d_in, 2), "b": torch.zeros(2, d_out),
+                                            "m": torch.ones(d_out)}}]}}
+    q = tlora.attach_lora(tp, dora)["text"]["layers"][0]["q_proj"]
+    assert torch.allclose(q["dora_scale"], 1.0 / w.norm(dim=0), rtol=1e-6)
+
+
+def _jpaths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _jpaths(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _jpaths(v, f"{prefix}/{i}" if prefix else str(i))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def _ab_products(adapter):
+    """{node path: a @ b in fp64} of an adapter tree, JAX's or the port's:
+    the quantity an SVD's column signs leave unchanged."""
+    leaves = dict((p, np.asarray(t.detach() if hasattr(t, "detach") else t, np.float64))
+                  for p, t in _jpaths(adapter))
+    return {p[:-2]: a @ leaves[p[:-2] + "/b"] for p, a in leaves.items() if p.endswith("/a")}
+
+
+def _hold_principal(got, want, tp, scale):
+    """PiSSA's products a @ b (the base kernels' rank-r principal parts
+    over `scale`) against an fp64 SVD of the same kernels and against JAX's.
+    An fp32 SVD's rank-r subspace moves by about its rounding over the
+    relative gap 1 - s_r+1 / s_r (Davis-Kahan), and the tiny kernels' gaps
+    run down to 0.006: JAX's own product stands up to 1.4e-5 from the fp64
+    one there. So each kernel is held to 1e-6 / gap against fp64 and twice
+    that against JAX (1e-5 or tighter where the gap is 0.1 or wider)."""
+    assert set(got) == set(want) and len(got) == 4 * CFG.text.num_hidden_layers
+    for path, prod in got.items():
+        i, k = path.split("/")[2:4]
+        w = tp["text"]["layers"][int(i)][k]["kernel"].double().numpy()
+        u, sv, vt = np.linalg.svd(w, full_matrices=False)
+        exact = (u[:, :RANK] * sv[:RANK]) @ vt[:RANK] / scale
+        tol = 1e-6 / (1.0 - sv[RANK] / sv[RANK - 1])
+        assert err_ratio(prod, exact) < tol and err_ratio(prod, want[path]) < 2 * tol, path
+
+
+# ---------------------------------------------------------------- DoRA
+
+
+def test_dora_column_norms_match_jax_and_the_formed_weight():
+    rng = np.random.RandomState(0)
+    w, a, b = (rng.standard_normal(s).astype(np.float32) for s in ((48, 40), (48, 4), (4, 40)))
+    got = tlora._dora_column_norms(*map(torch.from_numpy, (w, a, b)))
+    want = jlora._dora_column_norms(*map(jnp.asarray, (w, a, b)))
+    assert got.dtype == torch.float32 and err_ratio(got, want) < 1e-5
+    assert err_ratio(got, np.linalg.norm(w.astype(np.float64) + a @ b, axis=0)) < 1e-5
+
+
+def _dora_adapter(jp, seed=0):
+    """A JAX DoRA adapter with every factor moved off its init, and the
+    port's copy."""
+    jl = jlora.init_lora(jp, jax.random.PRNGKey(seed + 1), rank=RANK, use_dora=True)
+    rng = np.random.RandomState(seed)
+    jl = jax.tree.map(lambda x: x + jnp.asarray(
+        0.02 * rng.standard_normal(x.shape).astype(np.float32)), jl)
+    tl, _ = carry_train_state(jl)
+    return jl, tl
+
+
+def test_dora_identity_at_init_and_attach_equals_apply(weights):
+    jp, tp = weights
+    b = _batch(5)
+    lora = tlora.init_lora(tp, torch.Generator().manual_seed(0), rank=RANK, use_dora=True)
+    with torch.no_grad():
+        base = _logits_t(tp, b["input_ids"], b["position_ids"])
+        init = _logits_t(tlora.attach_lora(tp, lora, ALPHA, RANK), b["input_ids"],
+                         b["position_ids"])
+    assert err_ratio(init, base) < 1e-6  # b = 0 and m = ||W||_col: the base model
+    jl, tl = _dora_adapter(jp)
+    want = _logits_j(jlora.attach_lora(jp, jl, ALPHA, RANK), b["input_ids"], b["position_ids"])
+    with torch.no_grad():
+        att = _logits_t(tlora.attach_lora(tp, tl, ALPHA, RANK), b["input_ids"],
+                        b["position_ids"])
+        app = _logits_t(tlora.apply_lora(tp, tl, ALPHA, RANK), b["input_ids"],
+                        b["position_ids"])
+    assert err_ratio(att, want) < 1e-4 and err_ratio(att, app) < 1e-5
+    assert err_ratio(att, base) > 1e-3
+    assert tree_err(tlora.merge_lora(tp, tl, ALPHA, RANK), jlora.merge_lora(jp, jl, ALPHA, RANK)) \
+        < 1e-5
+
+
+def test_dora_step_gradients_and_update_match_jax(weights):
+    """The gradient of every DoRA leaf (a, b and the magnitude m) against
+    jax.grad, then one make_lora_sft_step from the same adapter and AdamW
+    state: loss and adapter <= 1e-4; the base bit-unchanged."""
+    jp, tp = weights
+    jl, tl = _dora_adapter(jp, seed=4)
+    b = _batch(6)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+
+    def jloss(l):
+        m = jlora.attach_lora(jp, l, ALPHA, RANK)
+        return jstep.sft_loss_fn(m["text"], CFG.text, jb["input_ids"], jb["labels"],
+                                 jb["position_ids"])
+
+    want, jg = jax.jit(jax.value_and_grad(jloss))(jl)
+    merged = tlora.attach_lora(tp, tl, ALPHA, RANK)
+    got = tstep.sft_loss_fn(merged["text"], TCFG.text, *(
+        torch.from_numpy(b[k]) for k in ("input_ids", "labels", "position_ids")))
+    named = list(tree_leaves_with_path(tl))
+    grads = torch.autograd.grad(got, [t for _, t in named])
+    jgl = {p: np.asarray(v) for p, v in _jpaths(jg)}
+    assert abs(float(got) - float(want)) <= 1e-4 * float(want)
+    errs = {p: err_ratio(g, jgl[p]) for (p, _), g in zip(named, grads)}
+    assert {p.rsplit("/", 1)[1] for p in errs} == {"a", "b", "m"}
+    assert max(errs.values()) < 1e-4, max(errs.items(), key=lambda kv: kv[1])
+    jtx = jstep.make_optimizer(5e-3, grad_clip=1e9)
+    jstate = jtx.init(jl)
+    tl, tstate = carry_train_state(jl, jstate)
+    before = {p: t.clone() for p, t in tree_leaves_with_path(tp)}
+    jl2, _, lj = jax.jit(jlora.make_lora_sft_step(CFG.text, jtx, alpha=ALPHA, rank=RANK))(
+        jl, jstate, jp, jb)
+    tl2, _, lt = tlora.make_lora_sft_step(TCFG.text, tstep.make_optimizer(5e-3, grad_clip=1e9),
+                                          alpha=ALPHA, rank=RANK)(tl, tstate, tp, dict(b))
+    assert abs(float(lt) - float(lj)) <= 1e-4 * float(lj)
+    assert tree_err(tl2, jl2) < 1e-4
+    assert all(torch.equal(t, before[p]) for p, t in tree_leaves_with_path(tp))
+
+
+# ---------------------------------------------------------------- PiSSA, LoftQ
+
+
+@pytest.mark.parametrize("alpha", [None, 3.0 * RANK], ids=["alpha_rank", "alpha_3r"])
+def test_pissa_decompose_matches_jax(weights, alpha):
+    """The residual base against JAX's (<= 1e-5), the adapter's product
+    a @ b as _hold_principal holds it (LAPACK and torch choose the singular
+    vectors' signs apart, so the factors themselves are not compared), and
+    the invariant: apply_lora(residual, adapter) is the base, logits
+    <= 1e-5."""
+    jp, tp = weights
+    jres, jad = jlora.pissa_decompose(jp, jax.random.PRNGKey(0), rank=RANK, alpha=alpha)
+    tres, tad = tlora.pissa_decompose(tp, None, rank=RANK, alpha=alpha)
+    a = alpha if alpha is not None else RANK
+    _hold_principal(_ab_products(tad), _ab_products(jad), tp, a / RANK)
+    assert tree_err(tres, jres) < 1e-5
+    assert all(t.requires_grad for _, t in tree_leaves_with_path(tad))
+    assert not any(t.requires_grad for _, t in tree_leaves_with_path(tres))
+    b = _batch(7)
+    with torch.no_grad():
+        base = _logits_t(tp, b["input_ids"], b["position_ids"])
+        back = _logits_t(tlora.apply_lora(tres, tad, a, RANK), b["input_ids"],
+                         b["position_ids"])
+        side = _logits_t(tlora.attach_lora(tres, tad, a, RANK), b["input_ids"],
+                         b["position_ids"])
+    assert err_ratio(back, base) < 1e-5 and err_ratio(side, base) < 1e-5
+    # the residual is the base less its principal part: far from the base
+    k0 = tp["text"]["layers"][0]["q_proj"]["kernel"]
+    assert err_ratio(tres["text"]["layers"][0]["q_proj"]["kernel"], k0.numpy()) > 1e-2
+
+
+def test_loftq_init_matches_jax(weights):
+    """Per target kernel: int8 integers and scales as JAX's (the first
+    round quantises W itself; later rounds quantise W less the SVD's
+    product, which the two LAPACKs round apart by an ulp at most, so an
+    integer may move by one), the adapter's a @ b <= 1e-4 of JAX's, and
+    ||W - (deq(Q) + s a b)||_F equal to JAX's within 1e-4 and below plain
+    int8's ||W - deq(quant(W))||_F. Non-targets stay the base's tensors."""
+    jp, tp = weights
+    alpha, iters = 2.0 * RANK, 3
+    jq, jad = jlora.loftq_init(jp, rank=RANK, alpha=alpha, iters=iters)
+    tq, tad = tlora.loftq_init(tp, rank=RANK, alpha=alpha, iters=iters)
+    got, want = _ab_products(tad), _ab_products(jad)
+    assert set(got) == set(want) and len(got) == 4 * CFG.text.num_hidden_layers
+    assert max(err_ratio(got[p], want[p]) for p in want) < 1e-4
+    scale = alpha / RANK
+    for i, (tl_, jl_) in enumerate(zip(tq["text"]["layers"], jq["text"]["layers"])):
+        assert tl_["mlp"]["up"]["kernel"] is tp["text"]["layers"][i]["mlp"]["up"]["kernel"]
+        for k in tlora.TARGETS:
+            qi, ji = tl_[k]["kernel_q"].numpy().astype(int), np.asarray(jl_[k]["kernel_q"], int)
+            assert tl_[k]["kernel_q"].dtype == torch.int8 and "kernel" not in tl_[k]
+            assert np.abs(qi - ji).max() <= 1 and (qi != ji).mean() < 1e-3
+            assert err_ratio(tl_[k]["scale"], jl_[k]["scale"]) < 1e-6
+            w = tp["text"]["layers"][i][k]["kernel"].double()
+            deq = tquant.dequantize_kernel(tl_[k], torch.float32).double()
+            err = float(torch.linalg.norm(w - deq - scale * torch.from_numpy(
+                got[f"text/layers/{i}/{k}"])))
+            jdeq = np.asarray(jquant.dequantize_kernel(jl_[k], jnp.float32), np.float64)
+            jerr = float(np.linalg.norm(w.numpy() - jdeq - scale * want[f"text/layers/{i}/{k}"]))
+            plain = float(torch.linalg.norm(
+                w - tquant.dequantize_kernel(tquant.quantize_kernel(w.float()), torch.float32)))
+            assert abs(err - jerr) <= 1e-4 * jerr and err < plain, (i, k, err, jerr, plain)
+    b = _batch(8)
+    want_l = _logits_j(jlora.attach_lora(jq, jad, alpha, RANK), b["input_ids"],
+                       b["position_ids"])
+    with torch.no_grad():
+        got_l = _logits_t(tlora.attach_lora(tq, tad, alpha, RANK), b["input_ids"],
+                          b["position_ids"])
+    assert err_ratio(got_l, want_l) < 1e-4

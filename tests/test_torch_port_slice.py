@@ -175,9 +175,13 @@ def test_paths_of_later_slices_raise(weights):
     x, w, a, b = (torch.randn(*s) for s in ((3, 4), (4, 5), (4, 2), (2, 5)))
     assert torch.allclose(_dense(x, {"kernel": w, "lora_a": a, "lora_b": b}),
                           x @ w + (x @ a) @ b, atol=1e-6)
-    for key in ("dora_scale", "kernel_q4b"):
-        with pytest.raises(NotImplementedError, match=key):
-            _dense(torch.zeros(1, 4), {key: torch.zeros(4, 4), "kernel": torch.zeros(4, 4)})
+    # DoRA's column scale is ported (train/lora.attach_lora): it multiplies
+    # the output before the bias; the biased int4 layout still raises
+    s, bias = torch.randn(5), torch.randn(5)
+    assert torch.allclose(_dense(x, {"kernel": w, "lora_a": a, "lora_b": b, "dora_scale": s,
+                                     "bias": bias}), (x @ w + (x @ a) @ b) * s + bias, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="kernel_q4b"):
+        _dense(torch.zeros(1, 4), {"kernel_q4b": torch.zeros(4, 4), "kernel": torch.zeros(4, 4)})
     with pytest.raises(NotImplementedError, match="layer_stacks"):
         text_forward({**tp["text"], "layer_stacks": {}}, TCFG.text,
                      torch.zeros(1, 4, TCFG.text.hidden_size), pos)

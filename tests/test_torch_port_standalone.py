@@ -54,7 +54,7 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "utils.checkpoint", "train.step", "train.lora", "train.trainer",
                "eval.text_metrics", "ops.swa_kernels", "cli", "eval.mcq",
                "models.convert", "train.distill", "utils.safetensors_io", "train.dpo",
-               "train.ppo", "train.optim"):
+               "train.ppo", "train.optim", "ops.mamba2"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -105,9 +105,10 @@ cfg = tiny_config()
 d = tempfile.mkdtemp()
 export_hf_safetensors(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), cfg, d + "/t")
 load_hf_checkpoint(d + "/t", cfg, device="cpu")
-args = load_yaml_args("examples/dt_stage1_tiny.yaml")
-args.train.output_dir, args.train.max_steps = d + "/dt", 1
-trainer.run_exp(args, device="cpu")
+for name in ("dt_stage1_tiny", "dt_stage1_mamba2_tiny"):
+    args = load_yaml_args(f"examples/{name}.yaml")
+    args.train.output_dir, args.train.max_steps = f"{d}/{name}", 1
+    trainer.run_exp(args, device="cpu")
 with open(d + "/e.yaml", "w") as f:
     f.write(f"config_preset: tiny\nmodel_name_or_path: {d}/t\noutput_dir: {d}/e\n")
 cmd_export(d + "/e.yaml", device="cpu")
