@@ -16,12 +16,13 @@ NVIDIA H100.
                                                 # optimizer steps, 12
     python3 chip_smoke.py --mamba2-only --only=h  # phases 1-3, 4's mamba2 and DoRA
                                                   # steps, 13
+    python3 chip_smoke.py --parallel-only --only=h  # phases 1-3, 4's two-rank steps, 14
 
---kernels-only, --text-only, --train-only, --dt-only, --pref-only, --long-only and
---mamba2-only are shortcuts for work
+--kernels-only, --text-only, --train-only, --dt-only, --pref-only, --long-only,
+--mamba2-only and --parallel-only are shortcuts for work
 on one part: they stop before the `kernels` line, the card's line and the
 final `{"ok": ...}` line, so only the run without them is the whole check.
---only= is taken with one of the seven and refused otherwise.
+--only= is taken with one of the eight and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -113,13 +114,13 @@ non-zero):
      step held to the code's count
 12. long-context training and the custom optimizers, at 3B (bf16, random
      weights from seed 0, B 1): examples/sft_32k_lora_yarn.yaml at cutoff
-     32,768 (2 steps) and examples/sft_64k_qlora_yarn.yaml at 65,536 (2
-     steps) through run_sft with gradient accumulation 8 -> 1, through the
+     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (1 step each)
+     through run_sft with gradient accumulation 8 -> 1, through the
      sequence-chunked SWA (kernel H over 2 windows), DeltaNet (kernel C from
-     the carried state) and MLP layers; one LoRA step at 16,384 chunked
+     the carried state) and MLP layers; at 8 layers one LoRA step at 16,384 chunked
      against the full-T path (loss and LoRA gradients); galore, apollo,
-     badam and adam_mini as full finetuning and loraplus on LoRA at 2,048, 3
-     steps; the frozen base bit-unchanged, no train state written, launches
+     badam and adam_mini as full finetuning and loraplus on LoRA at 2,048 and
+     8 layers, 3 steps; the frozen base bit-unchanged, no train state written, launches
      per step held to the code's count; GaLore's SVD of the tied embedding
 13. the Mamba2 conversion mixer and the LoRA variants at 3B (bf16, random
      weights from seed 0, B 1): stage 1 of examples/train_3b_stage1.yaml with
@@ -132,18 +133,31 @@ non-zero):
      2,048 (its first loss the base model's), pissa_decompose at full depth
      (the base's logits back), loftq_init on 4 layers (below plain int8's
      error on every kernel), one LoRA step each
+14. data parallelism at 3B, in one world of two gloo ranks sharing the card
+     (NCCL refuses two ranks on one GPU): (a) stage 1 of
+     examples/train_3b_stage1.yaml at data_parallel 2 under fsdp (warm-up
+     100 -> 0, 2 steps on packed rows of 2,048) against the same steps in one
+     process at per_device_train_batch_size 2 (losses, and after step 1 the
+     trainable leaves and their first moments), the teacher bit-unchanged on
+     each rank, each rank holding exactly half the sharded bytes; (b) full
+     finetuning through run_sft at 2,048 on data/demo.json streamed, fsdp at
+     36 layers for one step (each rank's peak beside phase 8's one-process peak), then
+     fsdp and replicated at 12 layers (their losses equal); (c) the port's
+     collectives (the layer gather forward and backward, the gradient and
+     count all_reduce) in a world of one NCCL rank, bit-equal at world 1
 Phase 3 also holds H on the chunked SWA layer's calls (2 windows, ids -1 /
 row / -2). Phase 4 also takes one distillation step of each stage, one step
 each of rm, dpo and kto, one PPO iteration at temperature 0, three steps
 through the sequence-chunked layers and three of each custom optimizer, a
 hybrid with Mamba2 layers (cached prefill, decode, greedy tokens), one
 stage-1 step of the mamba2 conversion and one DoRA step on the small fp32
-model, CPU against card.
+model, CPU against card, and two run_sft steps over two gloo ranks on the
+card against one process at the same global batch (fsdp, packed rows).
 Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
 recipe, the ViT path, every distillation run and CLI command, every preference
-stage, every phase-12 run, phase 13's runs, frames, ask and request) and read just
-after it. Then a JSON line of per-kernel results, the card's line, and
+stage, every phase-12 run, phase 13's runs, frames, ask and request, each rank
+of phase 14's runs, summed) and read just after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -3130,7 +3144,7 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
 
     res["lora_2048"] = _run_recipe(
         "(a) LoRA r 8 on q/k/v/o, remat, cutoff_len 2048, B 1",
-        _train_args(os.path.join(root, "a"), cutoff_len=2048, max_steps=6, **text, **lora),
+        _train_args(os.path.join(root, "a"), cutoff_len=2048, max_steps=4, **text, **lora),
         card, remat_launches)
     la = res["lora_2048"]["losses"]
     require(la[-1] < la[0], f"(a): the loss did not fall on the repeated batch: {la}")
@@ -3160,7 +3174,7 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     add(res["lora_packed"])
     res["lora_8192"] = _run_recipe(
         "(b) the same at cutoff_len 8192",
-        _train_args(os.path.join(root, "b"), cutoff_len=8192, max_steps=3, **text, **lora),
+        _train_args(os.path.join(root, "b"), cutoff_len=8192, max_steps=2, **text, **lora),
         card, remat_launches)
     add(res["lora_8192"])
     res["qlora_2048"] = _run_recipe(
@@ -3169,16 +3183,18 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
                     quantization_bit=8, **text, **lora),
         card, remat_launches)
     add(res["qlora_2048"])
-    res["full_2048"] = _run_recipe(
-        f"(d) full finetuning of the decoder, depth {tc.num_hidden_layers}, remat, "
-        "cutoff_len 2048",
-        _train_args(os.path.join(root, "d"), cutoff_len=2048, max_steps=3, remat=True,
-                    learning_rate=1e-5, **text),
-        card, remat_launches)
+    # Trainer.save replaced: the train state (the decoder's weights and two
+    # moments, ~18 GB) took ~20 s to write and is read by nothing; (f) holds
+    # save / resume
+    with _Spy(T.Trainer, "save", replace=lambda trainer: None):
+        res["full_2048"] = _run_recipe(
+            f"(d) full finetuning of the decoder, depth {tc.num_hidden_layers}, remat, "
+            "cutoff_len 2048, Trainer.save replaced",
+            _train_args(os.path.join(root, "d"), cutoff_len=2048, max_steps=3, remat=True,
+                        learning_rate=1e-5, **text),
+            card, remat_launches)
     add(res["full_2048"])
-    # its train state (the decoder's weights and two moments) is the largest file
-    # of the phase; the card's machine limits what its disk ever held
-    shutil.rmtree(os.path.join(root, "d"))
+    shutil.rmtree(os.path.join(root, "d"), ignore_errors=True)
 
     # (e) multimodal LoRA steps on data/mllm_demo.json's first image, resized by
     # the processor to 448x448 and to 1344x1344; the row is padded to cutoff_len
@@ -4403,9 +4419,12 @@ def _profile_int4_frame(eng, frames, frame_ms: float, card: str) -> None:
 LONG_SMALL = dict(sliding_window=128, delta_seq_chunk_t=256, delta_seq_chunk_eval=128,
                   mlp_chunk_t=100, T=500)
 # phase 12: the recipes' cuts (PERF.md section 4) and the runs' shapes
-LONG_32K_STEPS, LONG_64K_STEPS = 2, 2  # a timed step after the first
+# one step each, timed whole (PERF.md section 4 lists the cuts)
+LONG_32K_STEPS, LONG_64K_STEPS = 1, 1
 LONG_EXACT_T = 16384  # (c): one LoRA step chunked and full-T
 OPTIM_T, OPTIM_STEPS = 2048, 3  # (d)
+# (c)'s and (d)'s depth (at 36, GaLore's refresh alone took 77 s)
+LONG_CD_LAYERS = 8
 # galore's gap 3 refreshes its projections once in the 3 steps (at step 1, ~330 SVDs at
 # 3B); phase 4 holds the refresh CPU against card at small size
 OPTIM_RUNS = (("galore", dict(optimizer_update_gap=3)), ("apollo", dict(optimizer_update_gap=2)),
@@ -4593,9 +4612,9 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
     (36 layers, full width, bf16, random weights from seed 0, B 1):
     (a) examples/sft_32k_lora_yarn.yaml at cutoff 32,768 and (b)
     examples/sft_64k_qlora_yarn.yaml at 65,536, with gradient_accumulation_steps
-    8 -> 1, max_steps 1000 -> 2 and logging_steps 10 -> 1, on one row of
+    8 -> 1, max_steps 1000 -> 1 and logging_steps 10 -> 1, on one row of
     data/demo.json's outputs repeated to the context; (c) one LoRA step at 16,384 through the chunked layers and through the full-T
-    path (delta_seq_chunk_t 0); (d) galore, apollo, badam and adam_mini as full
+    path (delta_seq_chunk_t 0); (c) and (d) at LONG_CD_LAYERS layers; (d) galore, apollo, badam and adam_mini as full
     finetuning and loraplus on LoRA at cutoff 2,048 with remat, 3 steps;
     then one SVD of the tied embedding's shape, GaLore's largest leaf."""
     import dataclasses
@@ -4658,6 +4677,12 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
         "(b) sft_64k_qlora_yarn.yaml at cutoff 65536 (yarn, int8 base, LoRA r 8, remat)",
         b, card, _long_expect(T.build_config(b).text, 65536))
     add(res["qlora_64k"])
+
+    # (c) and (d) at LONG_CD_LAYERS layers of the 3B width
+    real_3b = T.infinitevl_3b
+    T.infinitevl_3b = lambda: dataclasses.replace(real_3b(), text=dataclasses.replace(
+        real_3b().text, num_hidden_layers=LONG_CD_LAYERS,
+        layer_types=real_3b().text.layer_types[:LONG_CD_LAYERS]))
 
     # (c) the same LoRA step at 16,384: chunked layers against the full-T path
     _free()
@@ -4728,7 +4753,8 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
     want = _long_expect(cfg.text, LONG_EXACT_T)
     require(all(ch["launches"][k] == v for k, v in want.items()),
             f"(c) chunked launches {ch['launches']}, expected {want}")
-    print(f"[12 long] (c) one LoRA step (loss and gradients) at {LONG_EXACT_T}, remat: chunked "
+    print(f"[12 long] (c) one LoRA step (loss and gradients) at {LONG_EXACT_T}, "
+          f"{cfg.text.num_hidden_layers} layers, remat: chunked "
           f"loss {ch['loss']:.6f}, full-T {fu['loss']:.6f} (err {e_loss:.2g}; near ln(vocab) "
           f"on both at random init, so it cannot fail), the first SWA / DeltaNet layer's "
           f"mixer output (no grad) err_ratio {e_swa:.2g} / {e_lin:.2g}, LoRA gradients err_ratio {e_grad:.2g} (tol {BF16_TOL}); peak memory chunked {ch['peak_gb']:.2f} GB, "
@@ -4747,12 +4773,14 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
     del params, tp, p_swa, p_lin, x0, cos, sin, lora, leaves, batch, seg, exact, ch, fu
     _free()
 
-    # (d) the custom optimizers at 3B, cutoff 2,048, remat, three steps
+    # (d) the custom optimizers at 3B width and LONG_CD_LAYERS layers, cutoff
+    # 2,048, remat, three steps
     d_base = dict(cutoff_len=OPTIM_T, max_steps=OPTIM_STEPS, remat=True)
+    tc_d = cfg.text
     # remat at 2,048 (one window: the full-T layers): each layer's forward twice
-    remat_launches = {"swa_train_flash_attention": 2 * tc.num_swa_layers,
-                      "swa_train_flash_attention_bwd": tc.num_swa_layers,
-                      "delta_rule_chunk_fused": 2 * tc.num_linear_layers}
+    remat_launches = {"swa_train_flash_attention": 2 * tc_d.num_swa_layers,
+                      "swa_train_flash_attention_bwd": tc_d.num_swa_layers,
+                      "delta_rule_chunk_fused": 2 * tc_d.num_linear_layers}
     for name, over in OPTIM_RUNS:
         over = {"finetuning_type": "full", **over}
         args = recipe("sft_32k_lora_yarn.yaml", f"d_{name}", use_optimizer=name, **d_base,
@@ -4769,17 +4797,20 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
 
         with _Spy(GaLore, "svd_proj", replace=timed_svd):
             r = _long_recipe(f"(d) use_optimizer: {name} ({args.finetune.finetuning_type}), "
-                             f"cutoff {OPTIM_T}", args, card, remat_launches)
+                             f"{LONG_CD_LAYERS} layers, cutoff {OPTIM_T}", args, card,
+                             remat_launches)
         extra = ""
         if name == "galore":
             r["svd_s"] = sum(svd_s)
             extra = f", {len(svd_s)} SVDs in its refreshes took {sum(svd_s):.2f} s over the run"
-        print(f"[12 long] (d) {name}: peak {r['peak_gb']:.2f} GB against AdamW's full finetune "
-              f"(phase 8 (d)) {full_adamw_peak if full_adamw_peak is not None else 'not run'}"
-              f"{extra}", flush=True)
+        print(f"[12 long] (d) {name}: peak {r['peak_gb']:.2f} GB at {LONG_CD_LAYERS} layers "
+              f"(AdamW's full finetune at 36 layers, phase 8 (d): "
+              f"{full_adamw_peak if full_adamw_peak is not None else 'not run'}){extra}",
+              flush=True)
         res[f"optim_{name}"] = r
         add(r)
         shutil.rmtree(args.train.output_dir, ignore_errors=True)
+    T.infinitevl_3b = real_3b
 
     # GaLore's SVD on the card of its largest leaf, the tied 151,936 x 2,048
     # embedding (fp32, torch's default routine, as GaLore.svd_proj): time and
@@ -5359,16 +5390,509 @@ def phase_mamba2_path(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 14 (parallel)
+
+PAR_SMALL_STEPS = 2  # phase 4's parallel part: two run_sft steps, fsdp, packed rows
+PAR_TOL = 1e-4  # its losses and weights, two ranks against one process (fp32)
+PAR_STEPS = 2  # phase 14's runs, but (b)'s at 36 layers
+PAR_FULL36_STEPS = 1  # (b) at 36 layers: its peak is step 1's (the moments exist from init)
+PAR_DT_ROWS = 2048  # (a): packed rows (the recipe's 8,192, cut to fit the script's time)
+PAR_DT_TOL = (2e-3, 1e-2)  # (a): step 1's and step 2's loss, relative (bf16)
+PAR_DT_LEAF_TOL = 1e-2  # (a): the trainable leaves after step 1, err_ratio
+PAR_SHORT_LAYERS = 12  # (b): the replicated run's depth (two AdamW states fit)
+PAR_REPL_TOL = 1e-3  # (b): replicated against fsdp losses at that depth
+PAR_DEADLINE = 900.0  # seconds a world of ranks may take before it is killed
+
+
+class _StepHook:
+    """Wraps a module's step factory for the duration of a `with`: the step
+    it makes calls `after(step_no, params, opt_state)` after each step, on
+    every rank (the hook may run collectives: every rank reaches it at the
+    same step)."""
+
+    def __init__(self, module, name, after):
+        self.module, self.name, self.after = module, name, after
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def factory(*a, **kw):
+            step = self.real(*a, **kw)
+            count = [0]
+
+            def wrapped(params, opt_state, *rest):
+                out = step(params, opt_state, *rest)
+                count[0] += 1
+                self.after(count[0], params, opt_state)
+                return out
+
+            return wrapped
+
+        setattr(self.module, self.name, factory)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _trainer_records(T, run):
+    """run() with T.Trainer.save replaced (no train state written) and the
+    Trainer kept: (run's result, the trainer's step records)."""
+    trainers = []
+    real_train, real_save = T.Trainer.train, T.Trainer.save
+
+    def train(self, *a, **kw):
+        trainers.append(self)
+        return real_train(self, *a, **kw)
+
+    T.Trainer.train, T.Trainer.save = train, lambda self: None
+    try:
+        out = run()
+    finally:
+        T.Trainer.train, T.Trainer.save = real_train, real_save
+    return out, [r for r in trainers[0].log.records if "loss" in r]
+
+
+def _step_ms(recs) -> list:
+    """Per-step wall ms from the trainer's clock (step 1 from its start)."""
+    t = [0.0] + [r["elapsed_s"] for r in recs]
+    return [round((b - a) * 1e3, 1) for a, b in zip(t, t[1:])]
+
+
+def _cut_3b(layers: int):
+    import dataclasses
+
+    from infinitevl_tpu_torch.config import infinitevl_3b
+
+    cfg = infinitevl_3b()
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=layers, layer_types=cfg.text.layer_types[:layers]))
+
+
+def _par_small(job, T):
+    """Phase 4's parallel part on one rank (or in one process): run_sft on
+    the small fp32 model, fsdp, packed rows."""
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    real = T.tiny_config
+    T.tiny_config = _small_config
+    try:
+        final, recs = _trainer_records(T, lambda: T.run_sft(_train_args(**job["args"])))
+    finally:
+        T.tiny_config = real
+    return dict(losses=[r["loss"] for r in recs],
+                final={k: v.detach().cpu() for k, v in tree_leaves_with_path(final)})
+
+
+def _par_stage1(job, T, dev):
+    """(a) on one rank, or in one process: stage 1 of train_3b_stage1.yaml
+    at 3B; the teacher from seed 0 in memory, Trainer.save replaced."""
+    import dataclasses
+
+    from infinitevl_tpu_torch.models.params import init_params
+    from infinitevl_tpu_torch.parallel.sharding import (
+        gather_leaf,
+        gather_opt_state,
+        local_bytes,
+        world_rank,
+    )
+    from infinitevl_tpu_torch.train.step import trainable_leaves
+
+    cfg = _cut_3b(36)
+    teacher_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, layer_types=("full_attention",) * cfg.text.num_hidden_layers))
+    held = {}
+
+    def check(margs, _out):  # after the shards exist, before step 1
+        held["student"], held["teacher"] = margs[0], margs[2]
+        held["before"] = _checksum(margs[2])
+
+    def after(step_no, student, opt_state):
+        """After step 1: the trainable leaves and their first moments (the
+        step's clipped global gradients x (1 - b1)), gathered, to rank 0's file."""
+        if step_no != 1 or job["step1_file"] is None:
+            return
+        named = trainable_leaves(student)
+        with torch.no_grad():
+            leaves = {k: gather_leaf(v).detach() for k, v in named}
+            mu = gather_opt_state(opt_state, [v for _, v in named], keys=("mu",))["mu"]
+        if world_rank() == 0:
+            torch.save({"leaves": {k: v.cpu() for k, v in leaves.items()},
+                        "mu": {k: m.cpu() for (k, _), m in zip(named, mu)}}, job["step1_file"])
+        del leaves, mu
+
+    args = _dt_args(job)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _Spy(T, "apply_trainable_mask", check), _StepHook(T, "make_stage1_step", after):
+        # the teacher is made in the call: no reference here keeps it whole
+        final, recs = _trainer_records(T, lambda: T.run_dt(
+            args, teacher_params=init_params(teacher_cfg,
+                                             torch.Generator(device=dev).manual_seed(0)),
+            teacher_cfg=teacher_cfg.text))
+    del final
+    torch.cuda.synchronize()
+    out = dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=_launch_counts(),
+               unchanged=_checksum(held["teacher"]) == held["before"],
+               n_teacher=len(held["before"]))
+    out["held_bytes"], out["whole_bytes"] = local_bytes([held["teacher"], held["student"]])
+    return out
+
+
+def _dt_args(job):
+    import os
+
+    from infinitevl_tpu_torch.hparams import load_yaml_args
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = load_yaml_args(os.path.join(here, "examples", "train_3b_stage1.yaml"))
+    for group, key, val in ((args.train, "data_parallel", job["data_parallel"]),
+                            (args.train, "param_mode", "fsdp"),
+                            (args.train, "per_device_train_batch_size", job["per_device"]),
+                            (args.train, "max_steps", PAR_STEPS),
+                            # the recipe's 100 warm-up steps leave step 1's rate at 0
+                            (args.train, "warmup_steps", 0),
+                            (args.train, "logging_steps", 1),
+                            (args.train, "save_steps", 10**6),
+                            (args.train, "output_dir", job["out"]),
+                            (args.data, "cutoff_len", PAR_DT_ROWS),
+                            (args.data, "dataset", "demo_packed"),
+                            (args.data, "dataset_dir", job["data_dir"])):
+        setattr(group, key, val)
+    return args
+
+
+def _launch_counts() -> dict:
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+
+    out = {k.__name__: k.launches for k in _kernel_wrappers()}
+    out["swa_train_flash_attention_bwd"] = h.launches_bwd
+    return out
+
+
+def _par_full(job, T):
+    """(b) on one rank: run_sft full finetuning at T 2,048 on data/demo.json
+    streamed, fsdp at the full depth (PAR_FULL36_STEPS), then fsdp and
+    replicated at PAR_SHORT_LAYERS (PAR_STEPS); Trainer.save replaced."""
+    from infinitevl_tpu_torch.parallel.sharding import local_bytes
+
+    runs = {}
+    real_cfg = T.infinitevl_3b
+    for name, layers, mode, steps in (
+            ("fsdp_36", 36, "fsdp", PAR_FULL36_STEPS),
+            (f"fsdp_{PAR_SHORT_LAYERS}", PAR_SHORT_LAYERS, "fsdp", PAR_STEPS),
+            (f"replicated_{PAR_SHORT_LAYERS}", PAR_SHORT_LAYERS, "replicated", PAR_STEPS)):
+        T.infinitevl_3b = lambda layers=layers: _cut_3b(layers)
+        held = {}
+        real_init = T.Trainer.__init__
+
+        def init(self, step_fn, params, *a, **kw):
+            held["params"] = params
+            real_init(self, step_fn, params, *a, **kw)
+
+        T.Trainer.__init__ = init
+        _free()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            final, recs = _trainer_records(T, lambda: T.run_sft(_train_args(
+                f"{job['out']}/{name}", cutoff_len=2048, max_steps=steps, remat=True,
+                learning_rate=1e-5, dataset="demo", dataset_dir=job["repo_data"],
+                streaming=True, packing=False, data_parallel=2, param_mode=mode)))
+        finally:
+            T.infinitevl_3b, T.Trainer.__init__ = real_cfg, real_init
+        torch.cuda.synchronize()
+        held_b, whole_b = local_bytes(held.pop("params"))
+        del final
+        runs[name] = dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          launches=_launch_counts(), held_bytes=held_b, whole_bytes=whole_b,
+                          layers=layers, steps=steps)
+    return runs
+
+
+def _par_rank(rank, world, job):
+    """One rank of a spawned world of phases 4 and 14 (module level, so that
+    the spawned process can import it): its job on cuda:0, its results."""
+    from infinitevl_tpu_torch.train import trainer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if job["kind"] == "small":
+        return _par_small(job, T)
+    if job["kind"] == "phase14":  # (a), then (b), in one world
+        return dict(stage1=_par_stage1(job, T, dev), full=_par_full(job, T))
+    if job["kind"] == "nccl":
+        return _par_nccl(dev)
+    raise ValueError(job["kind"])
+
+
+def _par_nccl(dev):
+    """(c) in a world of one NCCL rank: the port's collectives on one 3B
+    layer's leaves, each result bit-equal to its input."""
+    import torch.distributed as dist
+
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.parallel.sharding import (
+        Mesh,
+        ShardInfo,
+        all_reduce_sum,
+        gather_leaf,
+        global_sum,
+        param_spec,
+        use_mesh,
+    )
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    cfg = _cut_3b(2)
+    layers = init_text_params(cfg.text, torch.Generator(device=dev).manual_seed(0),
+                              dev)["layers"]
+    checks, n_bytes = {"gather": 0, "reduce_scatter": 0, "all_reduce": 0}, 0
+    for i, lp in enumerate(layers):  # one SWA layer and one DeltaNet layer
+        for path, leaf in tree_leaves_with_path(lp, f"text/layers/{i}"):
+            spec = param_spec(path, leaf.shape, 2, 1, "fsdp")
+            dim = spec.index("data") if "data" in spec else 0
+            x = leaf.detach().clone().requires_grad_(True)
+            x._ivl_shard = ShardInfo(dim, int(leaf.shape[dim]), 1, 0)
+            full = gather_leaf(x)  # all_gather forward
+            g = torch.randn_like(full)
+            (gx,) = torch.autograd.grad(full, x, g)  # reduce_scatter backward
+            summed = all_reduce_sum(g)
+            checks["gather"] += torch.equal(full.detach(), leaf)
+            checks["reduce_scatter"] += torch.equal(gx, g)
+            checks["all_reduce"] += torch.equal(summed, g)
+            n_bytes += leaf.numel() * leaf.element_size()
+    n = sum(1 for _ in tree_leaves_with_path(layers))
+    count = torch.tensor(12345, device=dev)
+    with use_mesh(Mesh(1, 1, 0)):
+        same_count = torch.equal(global_sum(count), count)  # one rank: no reduce
+    checks["count"] = torch.equal(all_reduce_sum(count), count)
+    torch.cuda.synchronize()
+    return dict(checks=checks, leaves=n, bytes=n_bytes, same_count=same_count,
+                backend=dist.get_backend(), nccl=".".join(map(str, torch.cuda.nccl.version())))
+
+
+def phase_parallel_cross_device(dev) -> None:
+    """Phase 4's parallel part: two gloo ranks on the card run two run_sft
+    steps (fsdp, packed rows, the small fp32 model), held against the same
+    steps in one process at the global batch: losses, then the weights,
+    within PAR_TOL (leaves zero before the steps are reported, not held)."""
+    import os
+    import tempfile
+
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.parallel.launch import spawn_ranks
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    root = tempfile.mkdtemp(prefix="ivl_par4_")
+    data_dir = os.path.join(root, "data")
+    _packed_text_dataset(data_dir, n=14)
+    common = dict(config_preset="tiny", bf16=False, cutoff_len=1024, packing=True,
+                  dataset="demo_packed", dataset_dir=data_dir, max_steps=PAR_SMALL_STEPS,
+                  learning_rate=1e-3, param_mode="fsdp")
+    t0 = time.perf_counter()
+    two = spawn_ranks(_par_rank, 2, ({"kind": "small", "args": dict(
+        out_dir=os.path.join(root, "two"), data_parallel=2, **common)},),
+        device="cuda:0", timeout=PAR_DEADLINE)
+    t_two = time.perf_counter() - t0
+    one = _par_small({"args": dict(out_dir=os.path.join(root, "one"),
+                                   per_device_train_batch_size=2, **common)}, T)
+    l1, l2 = one["losses"], two[0]["losses"]
+    e_loss = max(abs(a - b) / abs(a) for a, b in zip(l1, l2))
+    require(len(l1) == len(l2) == PAR_SMALL_STEPS and e_loss <= PAR_TOL,
+            f"phase 4 parallel: losses {l2} against one process's {l1}")
+    require(all(torch.equal(two[0]["final"][k], two[1]["final"][k]) for k in one["final"]),
+            "phase 4 parallel: the ranks returned different weights")
+    # run_sft's weights: the seed's on the card (zero leaves: the biases)
+    start = init_text_params(_small_config().text, torch.Generator(device=dev).manual_seed(0),
+                             dev, torch.float32)
+    zero = {k for k, v in tree_leaves_with_path({"text": start}) if not v.abs().sum()}
+    errs = {k: err_ratio(two[0]["final"][k], v) for k, v in one["final"].items()}
+    e_par = max(e for k, e in errs.items() if k not in zero)
+    e_zero = max((e for k, e in errs.items() if k in zero), default=0.0)
+    require(e_par <= PAR_TOL, f"phase 4 parallel: weights err_ratio {e_par:.3g}")
+    print(f"[4 cross-device] two gloo ranks on the card, {PAR_SMALL_STEPS} run_sft steps, "
+          f"fsdp, packed rows (cutoff 1,024, one row a rank), fp32 small model, against one "
+          f"process at the same global batch of 2 rows, tol {PAR_TOL}: losses {l2} (one "
+          f"process {l1}, err {e_loss:.2g}), weights err_ratio {e_par:.2g} over "
+          f"{len(errs) - len(zero)} leaves (zero before the steps, the update alone: "
+          f"{e_zero:.2g}, not held); the ranks' weights bit-equal; the world took "
+          f"{t_two:.1f} s", flush=True)
+
+
+def phase_parallel_path(dev, card: str, full_peak_gb=None) -> dict:
+    """Phase 14 at 3B, one world of two gloo ranks sharing the card for (a)
+    and (b): (a) stage 1 of examples/train_3b_stage1.yaml (data_parallel 8
+    -> 2, fsdp, PAR_STEPS steps on packed rows of PAR_DT_ROWS), against the
+    same steps in one process at per_device_train_batch_size 2; (b) full
+    finetuning through run_sft at T 2,048 on data/demo.json streamed, fsdp
+    at 36 layers (PAR_FULL36_STEPS), then fsdp and replicated at
+    PAR_SHORT_LAYERS (PAR_STEPS); (c) the
+    port's collectives in a world of one NCCL rank. Returns the launches of
+    (a) and (b), summed over the ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    from infinitevl_tpu_torch.config import infinitevl_3b
+    from infinitevl_tpu_torch.parallel.launch import spawn_ranks
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.step import trainable_leaves
+
+    t_phase = time.perf_counter()
+    tc = infinitevl_3b().text
+    n, n_swa, n_lin = tc.num_hidden_layers, tc.num_swa_layers, tc.num_linear_layers
+    root = tempfile.mkdtemp(prefix="ivl_par_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = os.path.join(root, "packed")
+    _packed_text_dataset(data_dir, n=90)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        step1 = os.path.join(root, "step1_two.pt")
+        t0 = time.perf_counter()
+        world = spawn_ranks(_par_rank, 2, ({
+            "kind": "phase14", "data_parallel": 2, "per_device": 1, "data_dir": data_dir,
+            "out": os.path.join(root, "ranks"), "step1_file": step1,
+            "repo_data": os.path.join(here, "data")},), device="cuda:0", timeout=PAR_DEADLINE)
+        t_world = time.perf_counter() - t0
+        two, full = [w["stage1"] for w in world], [w["full"] for w in world]
+
+        # (a) the same two steps in one process at the global batch
+        _free()
+        ref = {}
+
+        def after_one(step_no, student, opt_state):
+            if step_no == 1:
+                named = trainable_leaves(student)
+                ref["leaves"] = {k: v.detach().clone() for k, v in named}
+                ref["mu"] = {k: m.clone() for (k, _), m in zip(named, opt_state["mu"])}
+
+        with _StepHook(T, "make_stage1_step", after_one):
+            one = _par_stage1({"data_parallel": 1, "per_device": 2, "out": os.path.join(root, "a1"),
+                               "data_dir": data_dir, "step1_file": None}, T, dev)
+        got = torch.load(step1, map_location=dev, weights_only=True)
+        os.remove(step1)
+        e_leaf = max(err_ratio(got["leaves"][k], v) for k, v in ref["leaves"].items())
+        e_mu = max(err_ratio(got["mu"][k], v) for k, v in ref["mu"].items() if v.abs().sum())
+        n_leaves = len(ref["leaves"])
+        del got, ref
+        _free()
+        l2, l1 = two[0]["losses"], one["losses"]
+        e_l = [abs(a - b) / abs(b) for a, b in zip(l2, l1)]
+        require(len(l2) == len(l1) == PAR_STEPS and all(e <= t for e, t in zip(e_l, PAR_DT_TOL)),
+                f"(a) losses over two ranks {l2} against one process {l1} (tol {PAR_DT_TOL})")
+        require(e_leaf <= PAR_DT_LEAF_TOL and e_mu <= PAR_DT_LEAF_TOL,
+                f"(a) after step 1: trainable leaves err_ratio {e_leaf:.3g}, first moments "
+                f"{e_mu:.3g}")
+        require(all(r["unchanged"] for r in two) and one["unchanged"],
+                "(a) the teacher changed on a rank")
+        expect = {"swa_train_flash_attention": (n + n_swa) * PAR_STEPS,
+                  "swa_train_flash_attention_bwd": 0, "delta_rule_chunk_fused": n_lin * PAR_STEPS}
+        for r, res in enumerate(two):
+            require(2 * res["held_bytes"] == res["whole_bytes"],
+                    f"(a) rank {r} holds {res['held_bytes']} of {res['whole_bytes']} bytes")
+            got_l = {k: res["launches"][k] for k in expect}
+            require(got_l == expect, f"(a) rank {r} launches {got_l}, expected {expect}")
+            add(res["launches"])
+        print(f"[14 parallel] (a) stage 1 of train_3b_stage1.yaml at 3B ({n} layers, the "
+              f"teacher the all-full_attention twin with the ViT, data_parallel 8 -> 2, fsdp, "
+              f"warm-up 100 -> 0, {PAR_STEPS} steps on packed rows of {PAR_DT_ROWS}, one row a "
+              f"rank), two gloo ranks sharing the card: losses {[round(x, 6) for x in l2]}, one "
+              f"process at per_device_train_batch_size 2: {[round(x, 6) for x in l1]} "
+              f"(relative err {[float(f'{e:.2g}') for e in e_l]}, tol {PAR_DT_TOL}); after "
+              f"step 1 the {n_leaves} trainable leaves err_ratio {e_leaf:.2g} and their first "
+              f"moments (the clipped global "
+              f"gradients x 0.1) err_ratio {e_mu:.2g} (tol {PAR_DT_LEAF_TOL}); the teacher's "
+              f"{two[0]['n_teacher']} leaves bit-unchanged on each rank (checksums of its "
+              f"shards)", flush=True)
+        for r, res in enumerate(two):
+            print(f"[14 parallel] (a) rank {r}: ms per step {res['step_ms']} (step 1 from "
+                  f"the trainer's start), peak {res['peak_gb']:.2f} GB (max_memory_allocated "
+                  f"in its process), holds {res['held_bytes'] / 1e9:.3f} GB of the sharded "
+                  f"leaves' {res['whole_bytes'] / 1e9:.3f} GB (exactly half), H fwd / bwd / C "
+                  f"launches {[res['launches'][k] for k in expect]}; two ranks share the "
+                  f"card's SMs and memory and move the gathers through gloo on the host: these "
+                  f"step times are not data parallelism's speed; on '{card}'", flush=True)
+        print(f"[14 parallel] (a) one process: ms per step {one['step_ms']}, peak "
+              f"{one['peak_gb']:.2f} GB on '{card}'", flush=True)
+
+        # (b) full finetuning over the same two ranks
+        short = f"fsdp_{PAR_SHORT_LAYERS}", f"replicated_{PAR_SHORT_LAYERS}"
+        lf, lr = full[0][short[0]]["losses"], full[0][short[1]]["losses"]
+        e_r = max(abs(a - b) / abs(a) for a, b in zip(lf, lr))
+        require(len(lf) == len(lr) == PAR_STEPS and e_r <= PAR_REPL_TOL,
+                f"(b) replicated losses {lr} against fsdp {lf} at {PAR_SHORT_LAYERS} layers")
+        for name, res0 in full[0].items():
+            layers, steps = res0["layers"], res0["steps"]
+            n_swa_l = sum(1 for t in _cut_3b(layers).text.layer_types if t != "linear_attention")
+            expect_b = {"swa_train_flash_attention": 2 * n_swa_l * steps,
+                        "swa_train_flash_attention_bwd": n_swa_l * steps,
+                        "delta_rule_chunk_fused": 2 * (layers - n_swa_l) * steps}
+            for r in range(2):
+                res = full[r][name]
+                got_l = {k: res["launches"][k] for k in expect_b}
+                require(got_l == expect_b, f"(b) {name} rank {r} launches {got_l}, "
+                                           f"expected {expect_b}")
+                require(len(res["losses"]) == steps and np.isfinite(res["losses"]).all(),
+                        f"(b) {name}: losses {res['losses']}")
+                if name.startswith("fsdp"):
+                    require(2 * res["held_bytes"] == res["whole_bytes"],
+                            f"(b) {name} rank {r} holds {res['held_bytes']} of "
+                            f"{res['whole_bytes']} bytes")
+                add(res["launches"])
+                versus = ""
+                if name == "fsdp_36":
+                    versus = (f" (phase 8's one-process full_2048 peak: {full_peak_gb:.2f} GB)"
+                              if full_peak_gb is not None else
+                              " (phase 8's one-process peak: not measured in this run)")
+                print(f"[14 parallel] (b) {name} ({layers} layers, {steps} step(s), full "
+                      f"finetuning, T 2,048, "
+                      f"data/demo.json streamed, padded rows, remat) rank {r}: losses "
+                      f"{[round(x, 6) for x in res['losses']]}, ms per step {res['step_ms']}, "
+                      f"peak {res['peak_gb']:.2f} GB{versus}, holds "
+                      f"{res['held_bytes'] / 1e9:.3f} GB of the params' sharded "
+                      f"{res['whole_bytes'] / 1e9:.3f} GB; on '{card}'", flush=True)
+        print(f"[14 parallel] (b) replicated against fsdp at {PAR_SHORT_LAYERS} layers: losses "
+              f"{lr} / {lf}, relative err {e_r:.2g} (tol {PAR_REPL_TOL}); the world of (a) "
+              f"and (b) took {t_world:.1f} s (spawn, weights, datasets, steps)", flush=True)
+
+        # (c) the port's collectives on NCCL, a world of one
+        nc = spawn_ranks(_par_rank, 1, ({"kind": "nccl"},), backend="nccl", device="cuda:0",
+                         timeout=PAR_DEADLINE)[0]
+        require(nc["backend"] == "nccl" and all(v == nc["leaves"] for k, v in nc["checks"].items()
+                                                if k != "count")
+                and nc["checks"]["count"] and nc["same_count"],
+                f"(c) NCCL collectives not bit-equal at world 1: {nc}")
+        print(f"[14 parallel] (c) a world of one NCCL rank (NCCL {nc['nccl']}): the layer "
+              f"gather Function forward (all_gather) and backward (reduce_scatter), the "
+              f"gradient all_reduce and the global-count all_reduce on the {nc['leaves']} "
+              f"leaves of one SWA and one DeltaNet 3B layer ({nc['bytes'] / 1e6:.1f} MB), each "
+              f"bit-equal to its input; a world above one on NCCL needs a machine with more "
+              f"than one card", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[14 parallel] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
     text_only = "--text-only" in argv
     if only and not (kernels_only or text_only or "--train-only" in argv
                      or "--dt-only" in argv or "--pref-only" in argv or "--long-only" in argv
-                     or "--mamba2-only" in argv):
+                     or "--mamba2-only" in argv or "--parallel-only" in argv):
         print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only, "
-              "--dt-only, --pref-only, --long-only or --mamba2-only (the whole run reports "
-              "every kernel)", file=sys.stderr)
+              "--dt-only, --pref-only, --long-only, --mamba2-only or --parallel-only (the "
+              "whole run reports every kernel)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
@@ -5414,12 +5938,17 @@ def main(argv) -> int:
         phase_mamba2_cross_device(dev)
         phase_mamba2_path(dev, card)
         return 0
+    if "--parallel-only" in argv:  # 4's parallel part, then phase 14 alone
+        phase_parallel_cross_device(dev)
+        phase_parallel_path(dev, card)
+        return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
     phase_dt_cross_device(dev)
     phase_pref_cross_device(dev)
     phase_long_cross_device(dev)
     phase_mamba2_cross_device(dev)
+    phase_parallel_cross_device(dev)
 
     cfg = infinitevl_3b()
     t0 = time.perf_counter()
@@ -5446,6 +5975,8 @@ def main(argv) -> int:
     long_launches = phase_long_path(dev, card, train["full_2048"]["peak_gb"])["total_launches"]
     _free()
     m2_launches = phase_mamba2_path(dev, card)
+    _free()
+    par_launches = phase_parallel_path(dev, card, train["full_2048"]["peak_gb"])
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -5474,7 +6005,7 @@ def main(argv) -> int:
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
          + serve_launches[name] + train_launches[name] + vit_launches[name]
          + dt_launches.get(name, 0) + pref_launches.get(name, 0) + long_launches.get(name, 0)
-         + m2_launches.get(name, 0),
+         + m2_launches.get(name, 0) + par_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
@@ -5485,11 +6016,14 @@ def main(argv) -> int:
          "launches_pref_path": pref_launches.get(name, 0),
          "launches_long_path": long_launches.get(name, 0),
          "launches_mamba2_path": m2_launches.get(name, 0),
+         # summed over the ranks of phase 14's worlds
+         "launches_parallel_path": par_launches.get(name, 0),
          **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
              + dt_launches["swa_train_flash_attention_bwd"]
              + pref_launches["swa_train_flash_attention_bwd"]
              + long_launches["swa_train_flash_attention_bwd"]
-             + m2_launches["swa_train_flash_attention_bwd"]}
+             + m2_launches["swa_train_flash_attention_bwd"]
+             + par_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

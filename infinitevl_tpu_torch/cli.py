@@ -3,9 +3,11 @@ subcommands train / chat / api / eval / export / version.
 
 Every command runs on the CUDA card; the `cmd_*` functions take
 `device="cpu"` for the plain versions on the CPU (what the tests do).
-`board` (the training web board, serve/webui.py), `bench` (the port has no
-benchmark yet) and a multi-process `train` (parallel/) are not ported and
-raise by name."""
+`board` (the training web board, serve/webui.py) and `bench` (the port has
+no benchmark yet) are not ported and raise by name. `train` runs one
+process per rank under torchrun:
+  torchrun --nproc_per_node N -m infinitevl_tpu_torch.cli train recipe.yaml
+with `data_parallel: N` in the recipe."""
 
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import sys
 
 USAGE = """infinitevl-tpu (PyTorch + CUDA) CLI
   python -m infinitevl_tpu_torch.cli train <config.yaml>   # pt/sft/dt stages
+  torchrun --nproc_per_node N -m infinitevl_tpu_torch.cli train <config.yaml>
+                                               # data_parallel: N, one process per rank
   python -m infinitevl_tpu_torch.cli chat <config.yaml>    # interactive CLI chat
   python -m infinitevl_tpu_torch.cli api <config.yaml>     # OpenAI-compatible server
   python -m infinitevl_tpu_torch.cli eval <config.yaml>    # MCQ evaluator
@@ -73,18 +77,14 @@ def _tokenizer(args, cfg=None):
     return resolve_tokenizer(args, cfg)
 
 
-def _refuse_multi_process() -> None:
-    for var in ("WORLD_SIZE", "NUM_PROCESSES"):
-        if int(os.environ.get(var, "1") or 1) > 1:
-            raise NotImplementedError(
-                f"{var}={os.environ[var]}: multi-process training (parallel/, "
-                "maybe_init_distributed) is not ported to torch yet")
-
-
 def cmd_train(config_path: str, device=None):
+    """Train the yaml's stage. Under torchrun (WORLD_SIZE > 1) each process
+    joins the group first (parallel/sharding.maybe_init_distributed, on
+    cuda:LOCAL_RANK) and trains its rank of `data_parallel`."""
+    from .parallel.sharding import maybe_init_distributed
     from .train.trainer import run_exp
 
-    _refuse_multi_process()
+    maybe_init_distributed(device=device)
     args = _load(config_path)
     return run_exp(args, tokenizer=_tokenizer(args), device=device)
 

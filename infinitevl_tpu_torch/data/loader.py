@@ -10,7 +10,10 @@ rows with per-token segment ids. Multimodal examples expand their
 flattened patches and grids. Preference data is encoded as chosen /
 rejected pairs (rm, dpo) or as rows tagged desirable or not (kto).
 
-Streaming datasets belong to a trainer that is not ported yet."""
+Streaming datasets (`streaming: true`) go through the lazy twins
+`iter_examples`, `stream_mixed_examples` and `encode_supervised_stream`:
+nothing is materialized, and train/trainer.collate_stream shuffles and
+packs them through a bounded reservoir."""
 
 from __future__ import annotations
 
@@ -208,6 +211,16 @@ def _iter_raw_rows(
                 yield from json.load(f)
 
 
+def iter_examples(
+    attr: DatasetAttr, data_dir: str = "data"
+) -> Iterable[Dict[str, Any]]:
+    """Lazily yield converted examples for one registry entry (streaming
+    mode: nothing is materialized; per-attr num_samples is ignored, matching
+    the reference's streaming semantics)."""
+    for row in _iter_raw_rows(attr, data_dir, streaming=True):
+        yield _convert_row(attr, row)
+
+
 def load_examples(
     attr: DatasetAttr, data_dir: str = "data"
 ) -> List[Dict[str, Any]]:
@@ -264,6 +277,78 @@ def load_mixed_examples(
         out.append(sets[i][cursors[i]])
         cursors[i] += 1
     return out
+
+
+def stream_mixed_examples(
+    names: List[str],
+    registry: Dict[str, DatasetAttr],
+    data_dir: str = "data",
+    mix_strategy: str = "concat",
+    interleave_probs: Optional[List[float]] = None,
+    seed: int = 42,
+) -> Iterable[Dict[str, Any]]:
+    """Lazy multi-dataset mixing: the strategies of load_mixed_examples over
+    iterators, nothing materialized.
+
+    - concat: sources chained back to back
+    - interleave_under: sample by probs until ANY source is exhausted
+    - interleave_over: sample until ALL sources have completed at least
+      once; exhausted sources restart from the beginning
+    """
+    if len(names) == 1 or mix_strategy == "concat":
+        for n in names:
+            yield from iter_examples(registry[n], data_dir)
+        return
+    if not mix_strategy.startswith("interleave"):
+        raise ValueError(f"unknown mixing strategy {mix_strategy!r}")
+    probs = interleave_probs or [1.0 / len(names)] * len(names)
+    if len(probs) != len(names):
+        raise ValueError(
+            f"interleave_probs has {len(probs)} entries for {len(names)} datasets"
+        )
+    total = float(sum(probs))
+    probs = [p / total for p in probs]
+    rng = np.random.RandomState(seed)
+    iters = [iter_examples(registry[n], data_dir) for n in names]
+    completed = [False] * len(names)
+    under = mix_strategy.endswith("under")
+    while True:
+        i = int(rng.choice(len(names), p=probs))
+        try:
+            yield next(iters[i])
+        except StopIteration:
+            completed[i] = True
+            if under or all(completed):
+                return
+            iters[i] = iter_examples(registry[names[i]], data_dir)
+            try:
+                yield next(iters[i])
+            except StopIteration:  # empty dataset: nothing to wrap around
+                return
+
+
+def encode_supervised_stream(
+    examples: Iterable[Dict[str, Any]],
+    tokenizer,
+    template: Template | str = "qwen2_vl",
+    cutoff_len: int = 2048,
+) -> Iterable[Dict[str, np.ndarray]]:
+    """Lazy twin of encode_supervised for streaming mode. Multimodal
+    examples raise: streaming is text-only (use the materialized path with
+    bucketed resolutions)."""
+    if isinstance(template, str):
+        template = get_template(template)
+    for ex in examples:
+        if ex.get("images") or ex.get("videos"):
+            raise ValueError(
+                "streaming mode supports text-only datasets; multimodal "
+                "training needs the materialized path (streaming: false)"
+            )
+        ids, labels = template.encode_turns(tokenizer, ex["messages"])
+        yield {
+            "input_ids": np.asarray(ids[:cutoff_len], np.int64),
+            "labels": np.asarray(labels[:cutoff_len], np.int64),
+        }
 
 
 def encode_supervised(

@@ -135,6 +135,11 @@ def scatter_vision_embeds(
     i-th True position (row-major) receives vision_embeds[i]. Written as a
     gather + where, so no host sync counts the mask."""
     B, T, D = inputs_embeds.shape
+    if vision_embeds.shape[0] == 0:
+        # none of the features lands in these rows (a data-parallel rank's
+        # slice of the global batch's media): they still enter the result,
+        # as an exact zero, so every rank runs the same ViT backward
+        return inputs_embeds + vision_embeds.sum().to(inputs_embeds.dtype)
     flat_mask = vision_mask.reshape(-1)
     idx = torch.cumsum(flat_mask.to(torch.int64), dim=0) - 1
     idx = idx.clamp(0, vision_embeds.shape[0] - 1)

@@ -34,7 +34,11 @@ layer's numbers up to summation order. Under `remat` the layer's
 checkpoint wraps its chunks' own, so a chunk's forward runs three times a
 step and only the layer boundaries stay alive (PERF.md §6: dropping the
 outer checkpoint at 32K saved no time and held more memory).
-`decoder_layer_chunk_forward` threads the same carries across calls."""
+`decoder_layer_chunk_forward` threads the same carries across calls.
+
+Under FSDP (parallel/sharding.py) `text_forward` gathers the tree's
+top-level leaves once and each layer inside its checkpointed unit; with
+no shard in the process the gathers return their argument."""
 
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from ..ops.swa_kernels import (
     swa_ring_flash_attention,
     swa_ring_flash_decode_stacked,
 )
+from ..parallel.sharding import gather_top, gather_tree
 from .state import DecoderState
 
 Params = Dict[str, Any]
@@ -611,10 +616,12 @@ def decoder_layer_forward(
 
 
 def _run_layers(layers, cfg, roles, x, cos, sin, segment_ids, tail_pads_only):
-    """A run of stateless layers (one checkpointed unit of `remat_group`)."""
+    """A run of stateless layers (one checkpointed unit of `remat_group`).
+    A sharded layer is gathered here, inside the checkpoint: its full
+    weights live while it runs and are gathered again by the recompute."""
     for layer_p, role in zip(layers, roles):
-        x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, None, 0, segment_ids,
-                                  tail_pads_only)
+        x = decoder_layer_forward(gather_tree(layer_p), cfg, role, x, cos, sin, None, 0,
+                                  segment_ids, tail_pads_only)
     return x
 
 
@@ -651,6 +658,7 @@ def text_forward(
             "scan-over-layers params (layer_stacks) are not ported to torch: the "
             "Python layer loop with per-layer checkpointing takes their place"
         )
+    params = gather_top(params)
     cos, sin = mrope_cos_sin(
         position_ids, params["inv_freq"], cfg.mrope_section,
         cfg.attention_scaling, dtype=inputs_embeds.dtype,
@@ -676,8 +684,8 @@ def text_forward(
             if collected is not None:
                 collected.append(x)
             which = stack_of.get(role, 1)
-            x = decoder_layer_forward(layer_p, cfg, role, x, cos, sin, state, counts[which],
-                                      segment_ids, tail_pads_only)
+            x = decoder_layer_forward(gather_tree(layer_p), cfg, role, x, cos, sin, state,
+                                      counts[which], segment_ids, tail_pads_only)
             counts[which] += 1
     if collected is not None:
         collected.append(x)

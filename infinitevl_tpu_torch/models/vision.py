@@ -31,6 +31,7 @@ from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rotary_vision, vision_cos_sin, vision_rot_pos_ids
 from ..ops.swa import attention_dense
 from ..ops.vit_flash import vit_full_attention, vit_window_attention
+from ..parallel.sharding import gather_top, gather_tree
 from .text import _dense
 
 Params = Dict[str, Any]
@@ -253,6 +254,7 @@ def vision_forward(
     """Full ViT: patch embed -> window reorder -> blocks -> merger ->
     restore. Returns [seq_merged, out_hidden] in the original token order."""
     unit = cfg.spatial_merge_unit
+    params = gather_top(params)  # FSDP: the patch embedding and the merger once
     tensors = plan_tensors(plan, pixel_values.device)
     x = pixel_values.to(params["patch_embed"].dtype) @ params["patch_embed"]
     # reorder to window order with pad slots
@@ -261,7 +263,7 @@ def vision_forward(
 
     fullatt = set(cfg.fullatt_block_indexes)
     for i, bp in enumerate(params["blocks"]):
-        x = vision_block_forward(bp, cfg, x, plan, i in fullatt, tensors)
+        x = vision_block_forward(gather_tree(bp), cfg, x, plan, i in fullatt, tensors)
 
     # merger: RMSNorm -> concat the 2x2 merged unit -> MLP (exact GELU)
     m = params["merger"]

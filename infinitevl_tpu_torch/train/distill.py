@@ -1,9 +1,10 @@
 """Distillation training ("dt") stages (torch port of
 infinitevl_tpu/train/distill.py).
 
-- Stage 1: the teacher runs once, collecting every decoder layer's input
-  and output; each student layer is fed the TEACHER's input and regressed
-  (MSE x mse_factor) onto the teacher's output.
+- Stage 1: each student layer is fed the TEACHER's input to that layer and
+  regressed (MSE x mse_factor) onto the teacher layer's output; the step
+  runs the teacher's layer i and the student's term i together, layer by
+  layer (`teacher_layer_io` gives the teacher's hidden states at once).
 - Stage 2: KL between the student's and the teacher's logits with
   temperature^2 scaling (plus CE where the batch has labels).
 
@@ -16,7 +17,12 @@ updates the student and the optimizer state IN PLACE, like every step of
 the port (train/step.py). Gradients are clipped by the global norm of the
 TRAINABLE leaves: the JAX package also counts the zero-masked gradients
 of the frozen leaves (a deliberate departure, as for `freeze`); and stage
-2 leaves rope's `inv_freq` frozen (see stage2_mask)."""
+2 leaves rope's `inv_freq` frozen (see stage2_mask).
+
+Under FSDP (parallel/sharding.py) stage 1 gathers the teacher's layer (in
+its forward) and the student's layer (in its term) where each runs; a leaf
+the student shares with the teacher is one shard, which a trainable
+student leaf clones (apply_trainable_mask) with its layout."""
 
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from ..config import TextConfig
 from ..models.text import decoder_layer_forward, embed_tokens, lm_head, text_forward
 from ..ops.rope import mrope_cos_sin
+from ..parallel.sharding import copy_shard_info, gather_top, gather_tree, global_mean
 from .step import (
     IGNORE_INDEX,
     AdamW,
@@ -66,8 +73,9 @@ def teacher_layer_io(
 
 
 def _stage1_term(lp, cfg, role, x_in, x_out, cos, sin, segment_ids, scale) -> torch.Tensor:
-    out = decoder_layer_forward(lp, cfg, role, x_in, cos, sin, None, 0, segment_ids)
-    return ((out.float() - x_out.float()) ** 2).mean() * scale
+    # FSDP: the student's layer is gathered here, in the unit that runs it
+    out = decoder_layer_forward(gather_tree(lp), cfg, role, x_in, cos, sin, None, 0, segment_ids)
+    return global_mean((out.float() - x_out.float()) ** 2) * scale
 
 
 def _cos_sin(student_params, cfg, position_ids, dtype):
@@ -97,15 +105,18 @@ def stage1_loss(
 def vision_features(full_params: Params, full_cfg, batch: Dict[str, Any], grid_thw,
                     video_grid_thw) -> Dict[str, torch.Tensor]:
     """The frozen, shared ViT's features of a batch's images and videos,
-    computed once for the teacher and the student."""
+    computed once for the teacher and the student (under data parallelism
+    on the global batch's pixels, this rank's rows sliced out: see
+    train/step.mm_sft_loss_fn)."""
     from ..models.infinitevl import encode_vision
 
     feats = {}
-    if batch.get("pixel_values") is not None:
-        feats["image"] = encode_vision(full_params, full_cfg, batch["pixel_values"], grid_thw)
-    if batch.get("pixel_values_videos") is not None:
-        feats["video"] = encode_vision(full_params, full_cfg, batch["pixel_values_videos"],
-                                       video_grid_thw)
+    for name, key, grids in (("image", "pixel_values", grid_thw),
+                             ("video", "pixel_values_videos", video_grid_thw)):
+        if batch.get(key) is not None:
+            vis = encode_vision(full_params, full_cfg, batch[key], grids)
+            rows = batch.get(f"{name}_rows")
+            feats[name] = vis if rows is None else vis[rows[0] : rows[1]]
     return feats
 
 
@@ -126,7 +137,7 @@ def _mm_embeds(text_params: Params, full_cfg, input_ids: torch.Tensor,
 
 def _teacher_embeds(teacher_params, full_cfg, batch, grid_thw, video_grid_thw):
     """(teacher embeds, vision features) of a device batch."""
-    t_text = _text(teacher_params)
+    t_text = gather_top(_text(teacher_params))
     if batch.get("inputs_embeds") is not None:
         return batch["inputs_embeds"], {}
     if full_cfg is None:
@@ -152,23 +163,32 @@ def make_stage1_step(student_cfg: TextConfig, teacher_cfg: TextConfig, tx: AdamW
         if seg is not None and batch.get("segment_layout") == "single":
             seg = None
         with torch.no_grad():
-            embeds, _ = _teacher_embeds(teacher, full_cfg, batch, grid_thw, video_grid_thw)
-        hidden = teacher_layer_io(_text(teacher), teacher_cfg, embeds,
-                                  batch["position_ids"], seg)
-        cos, sin = _cos_sin(student, student_cfg, batch["position_ids"], hidden[0].dtype)
+            x, _ = _teacher_embeds(teacher, full_cfg, batch, grid_thw, video_grid_thw)
+        t_text, pos = _text(teacher), batch["position_ids"]
+        t_cos, t_sin = _cos_sin(t_text, teacher_cfg, pos, x.dtype)
+        cos, sin = _cos_sin(student, student_cfg, pos, x.dtype)
         layers = student["layers"]
         scale = mse_factor / len(layers)
         grads: Dict[int, torch.Tensor] = {}
-        total = torch.zeros((), dtype=torch.float32, device=hidden[0].device)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, lp in enumerate(layers):
-            leaves = [t for _, t in trainable_leaves(lp)]
+            # the teacher's layer i and the student's in one unit (under FSDP
+            # both gathered here, a leaf they share once): the teacher's
+            # output, then the student's term on the same input
+            tp, lp = gather_tree((t_text["layers"][i], lp))
+            with torch.no_grad():
+                x_out = decoder_layer_forward(tp, teacher_cfg, teacher_cfg.layer_role(i), x,
+                                              t_cos, t_sin, None, 0, seg)
+            leaves = [t for _, t in trainable_leaves(student["layers"][i])]
             with torch.set_grad_enabled(bool(leaves)):
-                term = _stage1_term(lp, student_cfg, student_cfg.layer_role(i), hidden[i],
-                                    hidden[i + 1], cos, sin, seg, scale)
+                term = _stage1_term(lp, student_cfg, student_cfg.layer_role(i), x, x_out, cos,
+                                    sin, seg, scale)
             if leaves:  # this layer's graph is freed before the next is built
                 for t, g in zip(leaves, torch.autograd.grad(term, leaves, allow_unused=True)):
                     grads[id(t)] = torch.zeros_like(t) if g is None else g
             total = total + term.detach()
+            x = x_out
+            del tp, lp
         ordered = [grads[id(t)] if id(t) in grads else torch.zeros_like(t)
                    for _, t in trainable_leaves(student)]
         tx.update(ordered, opt_state, student)
@@ -193,6 +213,7 @@ def stage2_loss(
     """KL(teacher || student) of the logits at temperature T, times T^2,
     over the positions `labels` supervise (all without labels), plus the
     CE on the labels where there are any."""
+    student_params = gather_top(student_params)
     hidden, _ = text_forward(student_params, student_cfg, inputs_embeds, position_ids, None,
                              segment_ids, remat=remat, remat_group=remat_group,
                              tail_pads_only=tail_pads_only)
@@ -220,16 +241,17 @@ def make_stage2_step(student_cfg: TextConfig, teacher_cfg: TextConfig, tx: AdamW
             batch.get("segment_ids"), batch.get("segment_layout"),
             labels if labels is not None else torch.zeros_like(batch["input_ids"]))
         labels = None if labels is None else masked
-        t_text = _text(teacher)
+        t_text = gather_top(_text(teacher))
         with torch.no_grad():
             t_embeds, feats = _teacher_embeds(teacher, full_cfg, batch, grid_thw,
                                               video_grid_thw)
             t_hidden, _ = text_forward(t_text, teacher_cfg, t_embeds, pos, None, seg,
                                        tail_pads_only=tail_pads_only)
             t_logits = lm_head(t_text, teacher_cfg, t_hidden)
-        s_embeds = (_mm_embeds(student, full_cfg, batch["input_ids"], feats)
-                    if full_cfg is not None else embed_tokens(student, batch["input_ids"]))
-        loss = stage2_loss(student, student_cfg, s_embeds, pos, t_logits, labels, temperature,
+        s_top = gather_top(student)  # FSDP: the embedding and head once a step
+        s_embeds = (_mm_embeds(s_top, full_cfg, batch["input_ids"], feats)
+                    if full_cfg is not None else embed_tokens(s_top, batch["input_ids"]))
+        loss = stage2_loss(s_top, student_cfg, s_embeds, pos, t_logits, labels, temperature,
                            seg, tail_pads_only, remat, remat_group)
         apply_gradients(loss, student, tx, opt_state)
         return student, opt_state, loss.detach()
@@ -286,7 +308,7 @@ def apply_trainable_mask(params: Params, mask, teacher: Optional[Params] = None)
     for path, leaf in list(tree_leaves_with_path(params)):
         on = flags[path] and leaf.is_floating_point()
         if on and leaf.untyped_storage().data_ptr() in shared:
-            leaf = leaf.detach().clone()
+            leaf = copy_shard_info(leaf.detach().clone(), leaf)
             _replace_leaf(params, path, leaf)
         leaf.requires_grad_(on)
         n += on

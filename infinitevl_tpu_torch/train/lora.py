@@ -309,6 +309,7 @@ def _lora_loss(cfg, base, lora, batch, grid_thw, video_grid_thw, alpha, rank,
             video_grid_thw=video_grid_thw, segment_ids=batch.get("segment_ids"),
             remat=remat, remat_group=remat_group,
             segment_layout=batch.get("segment_layout"),
+            image_rows=batch.get("image_rows"), video_rows=batch.get("video_rows"),
         )
     return sft_loss_fn(
         merged["text"] if "text" in merged else merged, cfg, batch["input_ids"],

@@ -20,7 +20,14 @@ picks its treatment where JAX's path does.
   block active per `switch_interval` steps.
 - Adam-mini (arXiv:2406.16793): one second moment per Hessian block (a
   head of q/k, an output column elsewhere, a coordinate for embeddings
-  and 1-D leaves)."""
+  and 1-D leaves).
+
+Under data parallelism every one of them sees the global batch's gradients
+(train/step.Optimizer.update). Under `param_mode: fsdp` LoRA+ and BAdam
+update each slice of a sharded leaf elementwise, as on the whole leaf;
+GaLore, APOLLO and Adam-mini read each whole leaf (an SVD, a projection,
+a per-head block) and raise NotImplementedError where a trainable leaf is
+sharded (`whole_leaf`); under `replicated` all five run."""
 
 from __future__ import annotations
 
@@ -78,6 +85,8 @@ class GaLore(Optimizer):
     n)) instead of O(m n). The projection is the top-r singular vectors of
     the gradient at steps 1, 1 + gap, ... (torch.linalg.svd in fp32, the
     default routine)."""
+
+    whole_leaf = True
 
     def __init__(self, learning_rate: LR, rank: int = 8, update_proj_gap: int = 200,
                  scale: float = 0.25, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -147,6 +156,8 @@ class Apollo(Optimizer):
     ||projected Adam update|| / (||projected gradient|| + eps). Other
     leaves take plain Adam. `projection(path, index, window, d, rank,
     device)` draws the projection; the default is `apollo_projection`."""
+
+    whole_leaf = True
 
     def __init__(self, learning_rate: LR, rank: int = 8, update_proj_gap: int = 200,
                  scale: float = 1.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -285,6 +296,8 @@ class AdamMini(Optimizer):
     """Adam-mini: fp32 momentum per coordinate, the second moment one
     scalar per block of adam_mini_rule (the mean of g^2 over the block),
     decoupled weight decay on every leaf."""
+
+    whole_leaf = True
 
     def __init__(self, learning_rate: LR, head_dim: int = 128, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,

@@ -318,9 +318,16 @@ def run_ppo(args, tokenizer=None, reward_fn=None, device: Optional[Device] = Non
     from ..data.loader import load_dataset_info, load_examples, resolve_tokenizer
     from ..utils.checkpoint import restore_train_state, tree_map
     from ..utils.logging import TrainerLog
-    from .trainer import _policy_params, _refuse_later_options, build_config, frozen_copy
+    from .trainer import (
+        _policy_params,
+        _refuse_later_options,
+        _refuse_multi_rank,
+        build_config,
+        frozen_copy,
+    )
 
     _refuse_later_options(args)
+    _refuse_multi_rank("ppo")
     if reward_fn is None and not args.finetune.reward_model_path:
         raise ValueError(
             "ppo needs reward_model_path (a checkpoint from the rm stage) "

@@ -14,7 +14,12 @@ number: global-norm clip, then Adam moments with bias correction and
 update (skipped for 1-D leaves, norms, A_log and dt_bias), then the
 schedule's learning rate read at the count before the step. Gradient
 accumulation keeps the running mean of k micro-batch gradients and takes
-one optimizer step on the k-th, as `optax.MultiSteps` does."""
+one optimizer step on the k-th, as `optax.MultiSteps` does.
+
+Under data parallelism (parallel/sharding.py) every loss divides by the
+global batch's count, the optimizer sums the replicated leaves' gradients
+over the ranks and clips by the global norm; with one process both are the
+one-process numbers."""
 
 from __future__ import annotations
 
@@ -28,6 +33,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import InfiniteVLConfig, TextConfig
 from ..models.text import embed_tokens, lm_head, text_forward
+from ..parallel.sharding import (
+    data_parallel,
+    gather_top,
+    global_mean,
+    global_sum,
+    grad_sq_norm,
+    refuse_whole_leaf_optimizer,
+    sync_gradients,
+)
 
 IGNORE_INDEX = -100
 
@@ -42,12 +56,13 @@ def cross_entropy_loss(
     labels: torch.Tensor,  # [B, T] with IGNORE_INDEX masking
 ) -> torch.Tensor:
     """Next-token CE over the supervised positions (labels already shifted
-    by the collator), mean over them."""
+    by the collator), mean over them (over the global batch's, under data
+    parallelism: parallel/sharding.global_sum)."""
     mask = labels != IGNORE_INDEX
     safe = torch.where(mask, labels, 0)
     logp = F.log_softmax(logits.float(), dim=-1)
     tok = torch.gather(logp, -1, safe[..., None])[..., 0]
-    return -(tok * mask).sum() / mask.sum().clamp(min=1)
+    return -(tok * mask).sum() / global_sum(mask.sum()).clamp(min=1)
 
 
 def _chunk_logprobs(h_c, lm_w, lb_c, w_is_vd):
@@ -95,7 +110,7 @@ def fused_linear_cross_entropy(
     """CE without ever holding the [T, V] logits (chunked_logprobs), mean
     over the supervised positions. T needs no multiple of the chunk."""
     nll = -chunked_logprobs(hidden, lm_w, labels, chunk, w_is_vd).sum()
-    return nll / (labels != IGNORE_INDEX).sum().clamp(min=1)
+    return nll / global_sum((labels != IGNORE_INDEX).sum()).clamp(min=1)
 
 
 def kl_distill_loss(
@@ -109,13 +124,14 @@ def kl_distill_loss(
     s = F.log_softmax(student_logits / t, dim=-1)
     p = F.softmax(teacher_logits / t, dim=-1)
     kl = (p * (torch.log(p.clamp(min=1e-9)) - s)).sum(-1)
-    kl = (kl * mask).sum() / mask.sum().clamp(min=1) if mask is not None else kl.mean()
+    kl = ((kl * mask).sum() / global_sum(mask.sum()).clamp(min=1) if mask is not None
+          else global_mean(kl))
     return kl * (t * t)
 
 
 def layerwise_mse_loss(diffs) -> torch.Tensor:
     """Average per-layer MSE over (student, teacher) pairs."""
-    losses = [((a.float() - b.float()) ** 2).mean() for a, b in diffs]
+    losses = [global_mean((a.float() - b.float()) ** 2) for a, b in diffs]
     return sum(losses) / len(losses)
 
 
@@ -226,12 +242,18 @@ class Optimizer:
     ((path, tensor) in tree order); `grads` is an iterable to be walked
     once, in that order."""
 
+    # the update reads each whole leaf (an SVD, a projection, a block mean):
+    # refused on the slices of FSDP
+    whole_leaf = False
+
     def __init__(self, grad_clip: Optional[float] = 1.0, accumulation_steps: int = 1):
         self.grad_clip = grad_clip
         self.accumulation_steps = max(int(accumulation_steps), 1)
 
     def init(self, params) -> Dict[str, Any]:
         named = trainable_leaves(params)
+        if self.whole_leaf:
+            refuse_whole_leaf_optimizer(type(self).__name__, [t for _, t in named])
         state = {"count": 0, **self._init(named)}
         if self.accumulation_steps > 1:
             state["mini_step"] = 0
@@ -243,6 +265,10 @@ class Optimizer:
         named = trainable_leaves(params)
         if len(named) != len(grads):
             raise ValueError(f"{len(grads)} gradients for {len(named)} trainable leaves")
+        # data parallelism: the global batch's gradients (replicated leaves
+        # all-reduced; a shard's came summed from its gather's backward)
+        leaves = [t for _, t in named]
+        grads = sync_gradients(leaves, grads)
         if self.accumulation_steps > 1:
             # running mean over the k micro-batches; one step on the k-th
             m = state["mini_step"]
@@ -255,7 +281,8 @@ class Optimizer:
             for acc in state["acc"]:
                 acc.zero_()
         if self.grad_clip is not None:
-            g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            g_norm = (torch.sqrt(grad_sq_norm(leaves, grads)) if data_parallel()
+                      else torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
             if bool(g_norm >= self.grad_clip):
                 # clipped leaf by leaf as _apply reaches it: a clipped copy of
                 # every gradient at once would hold the model's size again
@@ -395,6 +422,7 @@ def sft_loss_fn(
     remat_group: int = 1,
     segment_layout: Optional[str] = None,  # see _layer_segments
 ) -> torch.Tensor:
+    params = gather_top(params)  # FSDP: the embedding / tied head and the norm, once
     embeds = inputs_embeds if inputs_embeds is not None else embed_tokens(params, input_ids)
     segment_ids, tail_pads_only, labels = _layer_segments(segment_ids, segment_layout, labels)
     hidden, _ = text_forward(
@@ -418,17 +446,24 @@ def mm_sft_loss_fn(
     remat: bool = False,
     remat_group: int = 1,
     segment_layout: Optional[str] = None,  # see _layer_segments
+    image_rows: Optional[Tuple[int, int]] = None,  # data parallelism: see below
+    video_rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Multimodal SFT loss: ViT features scattered into the token embeds."""
+    """Multimodal SFT loss: ViT features scattered into the token embeds.
+    Under data parallelism the ViT runs on the global batch's pixels on
+    every rank and `image_rows` / `video_rows` slice out the features of
+    this rank's rows (parallel/sharding.rank_rows_mm)."""
     from ..models.infinitevl import encode_vision, scatter_vision_embeds
 
-    tp = params["text"]
+    tp = gather_top(params["text"])
     embeds = embed_tokens(tp, input_ids)
     if pixel_values is not None:
         vis = encode_vision(params, cfg, pixel_values, grid_thw)
+        vis = vis if image_rows is None else vis[image_rows[0] : image_rows[1]]
         embeds = scatter_vision_embeds(embeds, vis, input_ids == cfg.image_token_id)
     if pixel_values_videos is not None:
         vis = encode_vision(params, cfg, pixel_values_videos, video_grid_thw)
+        vis = vis if video_rows is None else vis[video_rows[0] : video_rows[1]]
         embeds = scatter_vision_embeds(embeds, vis, input_ids == cfg.video_token_id)
     segment_ids, tail_pads_only, labels = _layer_segments(segment_ids, segment_layout, labels)
     hidden, _ = text_forward(
@@ -483,6 +518,7 @@ def make_mm_sft_train_step(cfg: InfiniteVLConfig, tx: AdamW, remat: bool = False
             video_grid_thw=video_grid_thw, segment_ids=batch.get("segment_ids"),
             remat=remat, remat_group=remat_group,
             segment_layout=batch.get("segment_layout"),
+            image_rows=batch.get("image_rows"), video_rows=batch.get("video_rows"),
         )
         apply_gradients(loss, params, tx, opt_state)
         return params, opt_state, loss.detach()

@@ -8,7 +8,17 @@ Each workflow runs on the CUDA card unless `device="cpu"` is passed.
 Collators are numpy (their batches equal the JAX package's arrays); the
 step functions move each batch to the parameters' device. Stages and
 options that are not ported yet raise NotImplementedError naming
-themselves; none is silently ignored."""
+themselves; none is silently ignored.
+
+`run_sft` and `run_dt` train with `data_parallel` > 1 as one process per
+rank (torchrun, or parallel/launch.spawn_ranks): every rank collates the
+same global batch (per_device_train_batch_size x data_parallel rows, as
+JAX's) and trains its rows of it, under `param_mode` fsdp (the leaves
+sharded, parallel/sharding.py), replicated or tp (replicated while
+model_parallel is 1). Rank 0 alone writes the log, the reporters' files and
+the checkpoints, which hold the gathered state in the one-process format.
+`streaming: true` reads, mixes and encodes the datasets lazily
+(`build_dataset_stream`, `collate_stream`)."""
 
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import InfiniteVLConfig, infinitevl_3b, tiny_config
 from ..data.loader import (
@@ -27,16 +38,34 @@ from ..data.loader import (
     encode_pairwise,
     encode_supervised,
     encode_supervised_mm,
+    encode_supervised_stream,
     load_dataset_info,
     load_mixed_examples,
     pack_examples,
     resolve_tokenizer,
     shift_labels,
+    stream_mixed_examples,
 )
 from ..device import Device, resolve_device
 from ..hparams import AllArgs
 from ..models.convert import convert_attention, trainable_mask
 from ..models.params import init_params, init_text_params, load_hf_checkpoint
+from ..parallel.sharding import (
+    Mesh,
+    create_mesh,
+    gather_full,
+    gather_opt_state,
+    global_sum,
+    load_into,
+    load_opt_state,
+    rank_rows,
+    rank_rows_mm,
+    shard_params,
+    use_mesh,
+    whole_batch,
+    world_rank,
+    world_size,
+)
 from ..utils.checkpoint import (
     filter_softmax_layers,
     merge_params,
@@ -53,6 +82,7 @@ from .step import (
     make_sft_eval_fn,
     make_sft_train_step,
     set_trainable,
+    trainable_leaves,
 )
 
 logger = get_logger(__name__)
@@ -122,11 +152,40 @@ def _load_examples(args: AllArgs) -> List[Dict[str, Any]]:
     return examples
 
 
+def build_dataset_stream(args: AllArgs, tokenizer=None) -> Iterator[Dict[str, np.ndarray]]:
+    """Lazy dataset pipeline for streaming mode: the registry's local files
+    read line by line, mixed and encoded on the fly; collate_stream adds the
+    shuffle reservoir and windowed packing. The reference's constraint set
+    raises ValueError."""
+    if args.finetune.stage not in ("sft", "pt"):
+        raise ValueError("streaming is only supported for the sft/pt stages")
+    if args.train.max_steps is None:
+        raise ValueError("streaming datasets have no length — set `max_steps` to bound the run")
+    if args.data.max_samples:
+        raise ValueError("`max_samples` cannot cap a streaming dataset; drop it or disable "
+                         "`streaming`")
+    if 0 < args.data.val_size < 1:
+        raise ValueError("fractional `val_size` is incompatible with `streaming`")
+    registry = load_dataset_info(os.path.join(args.data.dataset_dir, "dataset_info.json"))
+    names = [n.strip() for n in args.data.dataset.split(",") if n.strip()]
+    examples = stream_mixed_examples(
+        names, registry, args.data.dataset_dir,
+        mix_strategy=args.data.mix_strategy,
+        interleave_probs=(
+            list(args.data.interleave_probs) if args.data.interleave_probs else None
+        ),
+        seed=args.train.seed,
+    )
+    tokenizer = resolve_tokenizer(args, None, tokenizer)
+    return encode_supervised_stream(examples, tokenizer, args.data.template,
+                                    args.data.cutoff_len)
+
+
 def build_dataset(
     args: AllArgs, tokenizer=None, cfg: Optional[InfiniteVLConfig] = None
 ) -> List[Dict[str, np.ndarray]]:
     if args.data.streaming:
-        raise _later("streaming datasets (`streaming: true`)")
+        return build_dataset_stream(args, tokenizer)
     examples = _load_examples(args)
     has_media = any(ex.get("images") or ex.get("videos") for ex in examples)
     if has_media:
@@ -218,6 +277,48 @@ def collate(
     for b in range(total):
         idxs = order[b * batch_size : (b + 1) * batch_size]
         yield _rows_to_batch([examples[i] for i in idxs], batch_size, cutoff_len, pad_id)
+
+
+def collate_stream(
+    encoded: Iterable[Dict[str, np.ndarray]],
+    batch_size: int,
+    cutoff_len: int,
+    pad_id: int = 0,
+    seed: int = 0,
+    buffer_size: int = 16384,
+    packing: bool = False,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Streaming collator: consume a lazy encoded-example iterator, shuffle
+    through a `buffer_size` reservoir, optionally greedy-knapsack-pack each
+    refill window, and yield fixed-shape batches until the stream is
+    exhausted (max_steps bounds training in streaming mode)."""
+    rng = np.random.RandomState(seed)
+    it = iter(encoded)
+    exhausted = False
+    carry: List[Dict[str, np.ndarray]] = []  # post-pack tail rows
+    while not exhausted:
+        window: List[Dict[str, np.ndarray]] = []
+        for _ in range(max(buffer_size, batch_size)):
+            try:
+                window.append(next(it))
+            except StopIteration:
+                exhausted = True
+                break
+        if packing and window:
+            window = pack_examples(window, cutoff_len, pad_token_id=pad_id)
+        rows = carry + window
+        if not rows:
+            return
+        order = rng.permutation(len(rows))
+        n_full = len(rows) // batch_size
+        for b in range(n_full):
+            picked = [rows[i] for i in order[b * batch_size : (b + 1) * batch_size]]
+            yield _rows_to_batch(picked, batch_size, cutoff_len, pad_id)
+        # tail rows (< batch_size) carry into the next window; the final
+        # window's tail rides out as one padded short batch
+        carry = [rows[i] for i in order[n_full * batch_size :]]
+    if carry:
+        yield _rows_to_batch(carry, batch_size, cutoff_len, pad_id)
 
 
 def _grids_key(grids) -> Optional[tuple]:
@@ -366,7 +467,13 @@ def _maybe_resume(trainer: "Trainer", args: AllArgs) -> None:
 
 class Trainer:
     """Step loop with logging, checkpoints and resume. `params` (or the
-    adapter tree) and `opt_state` are updated in place by `step_fn`."""
+    adapter tree) and `opt_state` are updated in place by `step_fn`.
+
+    Under data parallelism (`mesh`) every rank runs the loop over its rows
+    of each global batch: the loss it logs is the global batch's (the
+    ranks' parts summed), the eval pass runs on whole batches, and rank 0
+    alone writes files. A checkpoint holds the gathered state in the
+    one-process format, so a state saved by n ranks resumes in m."""
 
     def __init__(
         self,
@@ -380,7 +487,10 @@ class Trainer:
         eval_hook: Optional[Callable] = None,  # (params) -> eval loss
         eval_steps: Optional[int] = None,  # None = once at the end of training
         report_to=None,
+        mesh: Optional[Mesh] = None,
     ):
+        self.mesh = mesh
+        self.main = world_rank() == 0
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
@@ -390,8 +500,8 @@ class Trainer:
         self.extra = extra_step_args
         self.eval_hook = eval_hook
         self.eval_steps = eval_steps
-        self.log = TrainerLog(output_dir)
-        self.reporter = make_reporter(report_to, output_dir)
+        self.log = TrainerLog(output_dir)  # writes on rank 0 alone
+        self.reporter = make_reporter(report_to if self.main else None, output_dir)
         self.step = 0
         self._eval_at = -1
 
@@ -400,14 +510,27 @@ class Trainer:
         if self.eval_hook is None or self.step == self._eval_at:
             return None
         self._eval_at = self.step
-        el = float(self.eval_hook(self.params))
+        with whole_batch():  # every rank evaluates every held-out row
+            el = float(self.eval_hook(self.params))
         self.log.log(self.step, eval_loss=round(el, 6))
         self.reporter.log(self.step, eval_loss=el)
         logger.info(f"step {self.step}: eval_loss={el:.4f}")
         return el
 
+    def _trainable(self) -> List[torch.Tensor]:
+        return [t for _, t in trainable_leaves(self.params)]
+
     def resume(self, path: Optional[str] = None):
         ckpt_dir = path or os.path.join(self.output_dir, "checkpoints")
+        if self.mesh is not None:
+            # the one-process state, each rank taking its slices in place
+            step, state = restore_train_state(ckpt_dir)
+            if state is not None:
+                load_into(self.params, state["params"])
+                load_opt_state(self.opt_state, state["opt_state"], self._trainable())
+                self.step = step
+                logger.info(f"resumed from step {step}")
+            return
         step, state = restore_train_state(
             ckpt_dir, template={"params": self.params, "opt_state": self.opt_state}
         )
@@ -418,10 +541,14 @@ class Trainer:
             logger.info(f"resumed from step {step}")
 
     def save(self):
-        save_train_state(
-            os.path.join(self.output_dir, "checkpoints"), self.step,
-            {"params": self.params, "opt_state": self.opt_state},
-        )
+        state = {"params": self.params, "opt_state": self.opt_state}
+        if self.mesh is not None:  # every rank gathers; rank 0 writes
+            state = {"params": gather_full(self.params),
+                     "opt_state": gather_opt_state(self.opt_state, self._trainable())}
+        if self.main:
+            save_train_state(os.path.join(self.output_dir, "checkpoints"), self.step, state)
+        if self.mesh is not None:
+            dist.barrier()
 
     def train(self, batches: Iterable, max_steps: Optional[int] = None):
         """Run the step loop over `batches`. After `resume`, the batches the
@@ -450,6 +577,7 @@ class Trainer:
             self.params, self.opt_state, loss = self.step_fn(
                 self.params, self.opt_state, *self.extra, batch, *statics
             )
+            loss = global_sum(loss)  # data parallelism: the global batch's loss
             self.step += 1
             tokens += int(ntok)
             if self.step % self.logging_steps == 0 or self.step == 1:
@@ -465,15 +593,18 @@ class Trainer:
                 self.save()
         self.evaluate()
         self.save()
-        self.log.plot_loss()
+        if self.main:
+            self.log.plot_loss()
         self.reporter.close()
         return self.params
 
 
-def _total_steps(args: AllArgs, n_rows: int) -> int:
-    """max_steps, or the steps of num_train_epochs over n_rows."""
+def _total_steps(args: AllArgs, data) -> int:
+    """max_steps, or the steps of num_train_epochs over the rows of `data`
+    at per_device_train_batch_size (JAX's count, whatever data_parallel;
+    a stream, which has no length, needs max_steps)."""
     return args.train.max_steps or int(
-        np.ceil(args.train.num_train_epochs * n_rows / args.train.per_device_train_batch_size))
+        np.ceil(args.train.num_train_epochs * len(data) / args.train.per_device_train_batch_size))
 
 
 def _make_tx(args: AllArgs, steps: int):
@@ -520,24 +651,42 @@ def _load_or_init_params(args: AllArgs, cfg, mm: bool, dtype, device):
     return {"text": init_text_params(cfg.text, gen, device, dtype)}
 
 
-def _batches(args: AllArgs, data, cfg, mm: bool):
-    B = args.train.per_device_train_batch_size
-    kw = dict(seed=args.train.seed, epochs=args.train.num_train_epochs)
+def _batches(args: AllArgs, data, cfg, mm: bool, mesh: Optional[Mesh] = None):
+    """The global batches, per_device_train_batch_size x data_parallel rows
+    each (JAX's), from the seed; with a mesh, this rank's rows of each."""
+    B = args.train.per_device_train_batch_size * max(args.train.data_parallel, 1)
+    if args.data.streaming:
+        batches = collate_stream(data, B, args.data.cutoff_len, seed=args.train.seed,
+                                 buffer_size=args.data.buffer_size, packing=args.data.packing)
+    elif mm:
+        batches = collate_mm(data, cfg, B, args.data.cutoff_len, seed=args.train.seed,
+                             epochs=args.train.num_train_epochs)
+    else:
+        batches = collate(data, B, args.data.cutoff_len, seed=args.train.seed,
+                          epochs=args.train.num_train_epochs)
+    if mesh is None:
+        return batches
     if mm:
-        return collate_mm(data, cfg, B, args.data.cutoff_len, **kw)
-    return collate(data, B, args.data.cutoff_len, **kw)
+        return (rank_rows_mm(item, mesh, cfg) for item in batches)
+    return (rank_rows(batch, mesh) for batch in batches)
 
 
 def _split_val(args: AllArgs, data, mm: bool):
     """Carve the val_size held-out split off the training data: a fraction
-    samples a seeded permutation, an integer >= 1 takes an absolute count.
-    Text-only: multimodal data skips it with a warning."""
+    samples a seeded permutation, an integer >= 1 takes an absolute count
+    (a stream gives up its first val_size examples). Text-only: multimodal
+    data skips it with a warning."""
     vs = args.data.val_size
     if not vs:
         return data, None
     if mm:
         logger.warning("val_size eval is text-only; skipped for multimodal data")
         return data, None
+    if args.data.streaming:
+        import itertools
+
+        it = iter(data)
+        return it, list(itertools.islice(it, int(vs)))
     n = len(data)
     n_val = int(vs) if vs >= 1 else max(1, int(n * vs))
     n_val = min(n_val, n - 1)
@@ -611,26 +760,58 @@ def _refuse_later_options(args: AllArgs) -> None:
     number, and the torch layer loop with per-layer checkpointing needs
     none of them (the stacked layout is not built)."""
     t = args.train
-    if t.pipeline_stages > 1 or t.data_parallel * t.model_parallel > 1:
-        raise _later("parallel/ (pipeline_stages, data_parallel, model_parallel > 1)")
+    if t.pipeline_stages > 1:
+        raise _later("parallel/pipeline.py (pipeline_stages > 1; the slice after tensor "
+                     "parallelism)")
+    if t.model_parallel > 1:
+        raise _later("tensor parallelism (model_parallel > 1; the next parallel/ slice)")
+
+
+def _maybe_mesh(args: AllArgs) -> Optional[Mesh]:
+    """The data-parallel mesh of sft / pt / dt, None for one process. The
+    process group's world must be data_parallel x model_parallel."""
+    t = args.train
+    if t.data_parallel * t.model_parallel <= 1 and world_size() == 1:
+        return None
+    return create_mesh(data=t.data_parallel, model=t.model_parallel)
+
+
+def _refuse_multi_rank(stage: str) -> None:
+    """The preference stages train in one process, as JAX's do (they never
+    take a mesh): data_parallel is read and ignored there, and a launch of
+    several ranks raises."""
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"stage {stage!r} across {world_size()} ranks: the preference stages train in "
+            "one process (data_parallel does not apply to them, as in JAX)")
 
 
 def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     """SFT / PT workflow: text-only or multimodal, full / freeze / lora
-    finetuning, QLoRA with `quantization_bit: 8`. Runs on the CUDA card
-    unless `device="cpu"`. Returns the final params (LoRA: merged)."""
+    finetuning, QLoRA with `quantization_bit: 8`, data parallelism over the
+    process group's ranks (`data_parallel`, `param_mode`). Runs on the CUDA
+    card unless `device="cpu"`. Returns the final params (LoRA: merged),
+    whole on every rank."""
     _refuse_later_options(args)
-    device = resolve_device(device)
+    mesh = _maybe_mesh(args)
+    with use_mesh(mesh):
+        return _run_sft(args, tokenizer, resolve_device(device), mesh)
+
+
+def _run_sft(args: AllArgs, tokenizer, device: torch.device, mesh: Optional[Mesh]):
     cfg = build_config(args)
     tcfg = cfg.text
     dtype = torch.bfloat16 if args.train.bf16 else torch.float32
+    mode = args.train.param_mode
     # one tokenizer instance for the whole workflow: SimpleTokenizer grows
     # its vocab while encoding, so do_predict must decode with the instance
     # that encoded the dataset
     tokenizer = resolve_tokenizer(args, cfg, tokenizer)
     data = build_dataset(args, tokenizer, cfg=cfg)
-    mm = is_multimodal(data)
+    # a stream is lazy and text-only: nothing of it is read before training
+    mm = False if args.data.streaming else is_multimodal(data)
     data, eval_data = _split_val(args, data, mm)
+    predict = args.train.do_predict and not mm and not args.data.streaming
     params = _load_or_init_params(args, cfg, mm, dtype, device)
     if args.model.quantization_bit is not None:
         # QLoRA: int8 frozen base + rank-r adapters
@@ -647,21 +828,27 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
         from ..models.quant import quantize_params
 
         params = quantize_params(params)
-    steps = _total_steps(args, len(data))
+    steps = _total_steps(args, data)
     tx = _make_tx(args, steps)
     ft = args.finetune.finetuning_type
-    common = dict(eval_steps=args.train.eval_steps, report_to=args.train.report_to)
+    common = dict(eval_steps=args.train.eval_steps, report_to=args.train.report_to, mesh=mesh)
+    batches = _batches(args, data, cfg, mm, mesh)
     if ft == "lora":
         from .lora import init_lora, make_lora_eval_fn, make_lora_sft_step, merge_lora
 
         kw = dict(alpha=args.finetune.lora_alpha, rank=args.finetune.lora_rank,
                   use_rslora=args.finetune.use_rslora)
         set_trainable(params, lambda path, leaf: False)
-        lora = init_lora(
+        lora = init_lora(  # from the whole kernels; the adapters stay replicated
             params, torch.Generator(device=device).manual_seed(args.train.seed + 1),
             rank=args.finetune.lora_rank, target=args.finetune.lora_target,
             use_dora=args.finetune.use_dora,
         )
+        if args.finetune.use_dora and mesh is not None and mode == "fsdp":
+            raise NotImplementedError(
+                "use_dora under param_mode fsdp (DoRA's column norms read each whole base "
+                "kernel) is not ported to torch yet; use param_mode: replicated")
+        params = shard_params(params, mesh, mode)
         opt_state = tx.init(lora)
         step_fn = make_lora_sft_step(cfg, tx, remat=args.train.remat,
                                      remat_group=args.train.remat_group, **kw)
@@ -676,9 +863,9 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
             extra_step_args=(params,), eval_hook=eval_hook, **common,
         )
         _maybe_resume(trainer, args)
-        lora = trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
-        merged = merge_lora(params, lora, **kw)
-        if args.train.do_predict and not mm:
+        lora = trainer.train(batches, max_steps=steps)
+        merged = merge_lora(gather_full(params), lora, **kw)
+        if predict:
             predict_and_score(merged, cfg, data, tokenizer, args, device)
         return merged
     if ft == "freeze":
@@ -696,7 +883,8 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
         set_trainable(params, full_finetune_leaf)
     else:
         raise ValueError(f"unknown finetuning_type {ft!r} (full | freeze | lora)")
-    opt_state = tx.init(params)
+    params = shard_params(params, mesh, mode)
+    opt_state = tx.init(params)  # the moments of a shard are the shard's
     if mm:
         step_fn = make_mm_sft_train_step(cfg, tx, remat=args.train.remat,
                                          remat_group=args.train.remat_group)
@@ -711,8 +899,8 @@ def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
         args.train.logging_steps, args.train.save_steps, eval_hook=eval_hook, **common,
     )
     _maybe_resume(trainer, args)
-    final = trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
-    if args.train.do_predict and not mm:
+    final = gather_full(trainer.train(batches, max_steps=steps))
+    if predict:
         # text-only scoring
         predict_and_score(final, cfg, data, tokenizer, args, device)
     return final
@@ -729,10 +917,23 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
     left out). Stage 1 trains the converted layers' mixers; stage 2 every
     leaf of the student's text tree but rope's inv_freq. The teacher stays
     bit-unchanged: the student's leaves that train are its own
-    (train/distill.py). Runs on the CUDA card unless `device="cpu"`.
-    Returns the student's text params."""
+    (train/distill.py). With data_parallel > 1 each rank trains its rows
+    of the global batch; under fsdp a leaf the student shares with the
+    teacher is sharded once. Runs on the CUDA card unless `device="cpu"`.
+    Returns the student's text params, whole on every rank."""
     _refuse_later_options(args)
-    device = resolve_device(device)
+    mesh = _maybe_mesh(args)
+    # the teacher passes on in a holder: no frame but _run_dt's keeps the whole
+    # tree alive once it is sharded
+    holder = [teacher_params]
+    del teacher_params
+    with use_mesh(mesh):
+        return _run_dt(args, tokenizer, holder, teacher_cfg, resolve_device(device), mesh)
+
+
+def _run_dt(args: AllArgs, tokenizer, holder: list, teacher_cfg, device: torch.device,
+            mesh: Optional[Mesh]):
+    teacher_params = holder.pop()
     cfg = build_config(args)
     dtype = torch.bfloat16 if args.train.bf16 else torch.float32
     # the tokenizer as given: build_dataset picks the text or the multimodal
@@ -760,6 +961,7 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
         t_text, teacher_cfg,
         torch.Generator(device=device).manual_seed(args.train.seed + 1),
         softmax_attention=args.finetune.softmax_attention, mixer=args.finetune.mixer)
+    del t_text
     if args.finetune.checkpoint_path:
         # stage handoff: the previous stage's weights, the preserved softmax
         # layers' attention left as the teacher has it
@@ -768,7 +970,7 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
         if prev is not None:
             student = merge_params(
                 student, filter_softmax_layers(prev["params"], args.finetune.softmax_attention))
-    steps = _total_steps(args, len(data))
+    steps = _total_steps(args, data)
     tx = _make_tx(args, steps)
     full_cfg = cfg if mm else None
     if args.finetune.distill_stage == 1:
@@ -781,13 +983,18 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
         step_fn = make_stage2_step(student_cfg, teacher_cfg, tx,
                                    args.finetune.distill_temperature, full_cfg=full_cfg,
                                    remat=args.train.remat, remat_group=args.train.remat_group)
+    # one memo: a tensor the student shares with the teacher becomes one shard
+    memo: Dict[int, Any] = {}
+    teacher_params = shard_params(teacher_params, mesh, args.train.param_mode, memo)
+    student = shard_params(student, mesh, args.train.param_mode, memo)
+    del memo
     apply_trainable_mask(student, mask, teacher_params)
     trainer = Trainer(
         step_fn, student, tx.init(student), args.train.output_dir,
         args.train.logging_steps, args.train.save_steps, extra_step_args=(teacher_params,),
-        report_to=args.train.report_to,
+        report_to=args.train.report_to, mesh=mesh,
     )
-    return trainer.train(_batches(args, data, cfg, mm), max_steps=steps)
+    return gather_full(trainer.train(_batches(args, data, cfg, mm, mesh), max_steps=steps))
 
 
 def _policy_params(args: AllArgs, cfg, dtype, device) -> Dict[str, Any]:
@@ -831,6 +1038,7 @@ def run_rm(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     from .dpo import make_rm_step
 
     _refuse_later_options(args)
+    _refuse_multi_rank('rm')
     device = resolve_device(device)
     cfg = build_config(args)
     dtype = torch.bfloat16 if args.train.bf16 else torch.float32
@@ -839,7 +1047,7 @@ def run_rm(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     gen = torch.Generator(device=device).manual_seed(args.train.seed + 2)
     head = torch.randn((cfg.text.hidden_size, 1), generator=gen, device=device) * 0.02
     params["value_head"] = {"kernel": head.to(dtype).requires_grad_(True)}
-    steps = _total_steps(args, len(data))
+    steps = _total_steps(args, data)
     tx = _make_tx(args, steps)
     step_fn = make_rm_step(cfg.text, tx, remat=args.train.remat,
                            remat_group=args.train.remat_group)
@@ -858,13 +1066,14 @@ def run_dpo(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     from .dpo import make_dpo_step, needs_reference
 
     _refuse_later_options(args)
+    _refuse_multi_rank('dpo')
     device = resolve_device(device)
     cfg = build_config(args)
     dtype = torch.bfloat16 if args.train.bf16 else torch.float32
     data = build_preference_dataset(args, tokenizer, kind="pairwise")
     policy = _policy_params(args, cfg, dtype, device)
     ref = frozen_copy(policy) if needs_reference(args.finetune.pref_loss) else None
-    steps = _total_steps(args, len(data))
+    steps = _total_steps(args, data)
     tx = _make_tx(args, steps)
     step_fn = make_dpo_step(cfg.text, tx, beta=args.finetune.pref_beta,
                             loss_type=args.finetune.pref_loss, remat=args.train.remat,
@@ -883,13 +1092,14 @@ def run_kto(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     from .dpo import make_kto_step
 
     _refuse_later_options(args)
+    _refuse_multi_rank('kto')
     device = resolve_device(device)
     cfg = build_config(args)
     dtype = torch.bfloat16 if args.train.bf16 else torch.float32
     data = build_preference_dataset(args, tokenizer, kind="kto")
     policy = _policy_params(args, cfg, dtype, device)
     ref = frozen_copy(policy)
-    steps = _total_steps(args, len(data))
+    steps = _total_steps(args, data)
     tx = _make_tx(args, steps)
     step_fn = make_kto_step(cfg.text, tx, beta=args.finetune.pref_beta, remat=args.train.remat,
                             remat_group=args.train.remat_group)
@@ -906,7 +1116,9 @@ def run_ppo(args: AllArgs, tokenizer=None, reward_fn=None, device: Optional[Devi
 
 
 def run_exp(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
-    """Stage dispatch (tuner.py:53-110)."""
+    """Stage dispatch (tuner.py:53-110). sft / pt / dt train across the
+    process group's ranks, whose number must be data_parallel (ValueError
+    otherwise); the preference stages train in one process."""
     stage = args.finetune.stage
     if stage in ("sft", "pt"):
         return run_sft(args, tokenizer, device)

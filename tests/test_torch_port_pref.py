@@ -330,7 +330,9 @@ def test_reference_is_a_frozen_copy_built_only_when_needed(tmp_path, monkeypatch
     # JAX's rm, dpo and kto train the whole tree whatever finetuning_type and
     # use_dora say, and so does the port now that DoRA exists: the option runs
     (dict(use_dora=True, finetuning_type="lora", max_steps=1), None),
-    (dict(data_parallel=2), "parallel/"),
+    # JAX's preference stages train in one process whatever data_parallel
+    # says, and so does the port now that parallel/ exists: the option runs
+    (dict(data_parallel=2, max_steps=1), None),
     # ported since (train/optim.py): the case now holds that the option runs
     (dict(use_optimizer="galore", max_steps=1), None),
 ], ids=["use_dora", "data_parallel", "use_optimizer"])

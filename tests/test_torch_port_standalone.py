@@ -54,7 +54,8 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "utils.checkpoint", "train.step", "train.lora", "train.trainer",
                "eval.text_metrics", "ops.swa_kernels", "cli", "eval.mcq",
                "models.convert", "train.distill", "utils.safetensors_io", "train.dpo",
-               "train.ppo", "train.optim", "ops.mamba2"):
+               "train.ppo", "train.optim", "ops.mamba2", "parallel.sharding",
+               "parallel.launch"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)

@@ -216,8 +216,11 @@ LATER = [
     # ported since (ops/mamba2.py): the case now holds that the mixer runs
     ("dt_stage1_mamba2_tiny.yaml", dict(max_steps=1), None),
     ("sft_pp_tiny.yaml", {}, "parallel/"),
-    ("sft_tiny.yaml", dict(data_parallel=2), "parallel/"),
-    ("sft_tiny.yaml", dict(streaming=True), "streaming"),
+    # ported since (parallel/sharding.py): data_parallel 2 needs a world of two
+    # ranks (tests/test_torch_port_parallel.py); one process refuses it by name
+    ("sft_tiny.yaml", dict(data_parallel=2), (ValueError, "data_parallel")),
+    # ported since (streaming datasets): the case now holds that the option runs
+    ("sft_tiny.yaml", dict(streaming=True, max_steps=1), None),
     # ported since (train/optim.py): the case now holds that the option runs
     ("sft_tiny.yaml", dict(use_optimizer="galore", max_steps=1), None),
     # ported since (train/lora.py, DoRA)
@@ -229,14 +232,17 @@ LATER = [
     "mixer_mamba2", "pipeline", "data_parallel", "streaming", "use_optimizer", "use_dora"])
 def test_stages_and_options_of_later_slices_raise(tmp_path, name, over, match):
     """Each raises by name; a case whose option a slice has ported since
-    (match None) runs one step with a finite loss instead."""
+    (match None) runs one step with a finite loss instead, and one whose
+    option now needs more than the test gives it ((error, match)) raises
+    that error by name."""
     args = _args(thparams, name, tmp_path, **over)
     if match is None:
         ttrainer.run_exp(args, device="cpu")
         recs = [json.loads(l) for l in open(os.path.join(str(tmp_path), "trainer_log.jsonl"))]
         assert [np.isfinite(r["loss"]) for r in recs if "loss" in r] == [True]
         return
-    with pytest.raises(NotImplementedError, match=match):
+    error, match = match if isinstance(match, tuple) else (NotImplementedError, match)
+    with pytest.raises(error, match=match):
         ttrainer.run_exp(args, device="cpu")
 
 
@@ -268,16 +274,22 @@ def test_full_finetune_survives_the_hf_export(tmp_path):
 @pytest.mark.parametrize("argv,env,match", [
     (["board"], {}, "serve/webui.py"),
     (["bench"], {}, "no benchmark"),
-    (["train", "sft_tiny.yaml"], {"WORLD_SIZE": "2"}, "parallel/"),
-    (["train", "sft_tiny.yaml"], {"NUM_PROCESSES": "4"}, "parallel/"),
+    # ported since (parallel/): `train` joins the launcher's world, and a world
+    # above one without its address raises by name instead of training alone
+    (["train", "sft_tiny.yaml"], {"WORLD_SIZE": "2"}, (ValueError, "MASTER_ADDR")),
+    (["train", "sft_tiny.yaml"], {"NUM_PROCESSES": "4"}, (ValueError, "COORDINATOR_ADDRESS")),
 ], ids=["board", "bench", "world_size", "num_processes"])
 def test_cli_commands_of_later_slices_raise(monkeypatch, argv, env, match):
     from infinitevl_tpu_torch.cli import main
 
+    for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "MASTER_ADDR",
+                "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     for key, val in env.items():
         monkeypatch.setenv(key, val)
     argv = argv[:1] + [os.path.join(REPO, "examples", a) for a in argv[1:]]
-    with pytest.raises(NotImplementedError, match=match):
+    error, match = match if isinstance(match, tuple) else (NotImplementedError, match)
+    with pytest.raises(error, match=match):
         main(argv)
 
 
