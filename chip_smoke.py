@@ -16,7 +16,7 @@ NVIDIA H100.
                                                 # optimizer steps, 12
     python3 chip_smoke.py --mamba2-only --only=h  # phases 1-3, 4's mamba2 and DoRA
                                                   # steps, 13
-    python3 chip_smoke.py --parallel-only --only=h  # phases 1-3, 4's two-rank steps, 14
+    python3 chip_smoke.py --parallel-only --only=h  # phases 1-3, 4's two-rank steps, 14, 15
 
 --kernels-only, --text-only, --train-only, --dt-only, --pref-only, --long-only,
 --mamba2-only and --parallel-only are shortcuts for work
@@ -114,7 +114,7 @@ non-zero):
      step held to the code's count
 12. long-context training and the custom optimizers, at 3B (bf16, random
      weights from seed 0, B 1): examples/sft_32k_lora_yarn.yaml at cutoff
-     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (1 step each)
+     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (12 layers) (1 step each)
      through run_sft with gradient accumulation 8 -> 1, through the
      sequence-chunked SWA (kernel H over 2 windows), DeltaNet (kernel C from
      the carried state) and MLP layers; at 8 layers one LoRA step at 16,384 chunked
@@ -135,18 +135,34 @@ non-zero):
      error on every kernel), one LoRA step each
 14. data parallelism at 3B, in one world of two gloo ranks sharing the card
      (NCCL refuses two ranks on one GPU): (a) stage 1 of
-     examples/train_3b_stage1.yaml at data_parallel 2 under fsdp (warm-up
-     100 -> 0, 2 steps on packed rows of 2,048) against the same steps in one
+     examples/train_3b_stage1.yaml at 12 layers, data_parallel 2 under fsdp
+     (warm-up 100 -> 0, 2 steps on packed rows of 2,048) against the same steps in one
      process at per_device_train_batch_size 2 (losses, and after step 1 the
      trainable leaves and their first moments), the teacher bit-unchanged on
      each rank, each rank holding exactly half the sharded bytes; (b) full
-     finetuning through run_sft at 2,048 on data/demo.json streamed, fsdp at
-     36 layers for one step (each rank's peak beside phase 8's one-process peak), then
-     fsdp and replicated at 12 layers (their losses equal); (c) the port's
+     finetuning through run_sft at 2,048 on data/demo.json streamed, fsdp and
+     replicated at 12 layers (their losses equal); (c) the port's
      collectives (the layer gather forward and backward, the gradient and
      count all_reduce) in a world of one NCCL rank, bit-equal at world 1
+15. tensor parallelism at 3B (the model axis: Megatron-style slices with
+     their collectives in the forwards), gloo ranks sharing the card: in one
+     world of two (model_parallel 2) (a) full finetuning through run_sft at
+     36 layers, T 2,048, tp, 2 steps, against one process (losses, exactly
+     half the model-sharded bytes a rank, each rank's peak, the all_reduce
+     seconds and the head's share), and in fp32 every trainable leaf's
+     gradient on the first batch, slice by slice; (b) stage 1 of train_3b_stage1.yaml at 12
+     layers and packed rows of 8,192 (the teacher bit-unchanged); (d) one
+     multimodal LoRA step at 12 layers with the ViT's 32 blocks (E and F)
+     against one process; (e) generation.prefill of 1,000 tokens and 16
+     decode_step calls on the sharded params and each rank's part of the
+     state, at 4 layers in fp32 (greedy tokens equal, logits <= 1e-3) and
+     36 in bf16 (fed tokens, logits <= 1e-2, beside the fp32 model's); then
+     in a world of four (data 2 x model 2) (c) full finetuning under fsdp
+     at 12 layers against phase 14 (b)'s replicated run (the same global
+     batch)
 Phase 3 also holds H on the chunked SWA layer's calls (2 windows, ids -1 /
-row / -2). Phase 4 also takes one distillation step of each stage, one step
+row / -2), and A1, A2, H, B, C, E and F at the local shapes of
+model_parallel 2 (GQA 8/1, 8 DeltaNet heads, 8 ViT heads). Phase 4 also takes one distillation step of each stage, one step
 each of rm, dpo and kto, one PPO iteration at temperature 0, three steps
 through the sequence-chunked layers and three of each custom optimizer, a
 hybrid with Mamba2 layers (cached prefill, decode, greedy tokens), one
@@ -157,7 +173,7 @@ Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
 recipe, the ViT path, every distillation run and CLI command, every preference
 stage, every phase-12 run, phase 13's runs, frames, ask and request, each rank
-of phase 14's runs, summed) and read just after it. Then a JSON line of per-kernel results, the card's line, and
+of phase 14's and 15's runs, summed) and read just after it. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -1724,12 +1740,118 @@ def _grad_cases(dev, gen) -> dict:
     return res
 
 
+# the local shapes that model_parallel 2 hands the kernels at 3B: SWA GQA 16/2 -> 8/1,
+# DeltaNet 16 -> 8 heads, the ViT 16 -> 8 heads (head dims unchanged)
+TP_LOCAL = dict(Hq=8, Hkv=1, H=8, vit_H=8)
+
+
+def _tp_local_cases(dev, gen) -> dict:
+    """Phase 3 at the tensor-parallel path's local shapes: A1 (a 2,048-token
+    chunk over a full ring), A2 (the decode write and attend, stacked
+    rings), H (forward and backward at T 2,048), B (a decode step, 27
+    layers), C (T 2,048 from a state), E (S 9,216, three segments) and F
+    (S 9,216, windows of 64), bf16, each against its plain version."""
+    from infinitevl_tpu_torch.ops.delta_kernels import (
+        delta_rule_chunk_fused,
+        delta_step_fused_stacked,
+    )
+    from infinitevl_tpu_torch.ops.delta_rule import delta_rule_chunk, delta_rule_step
+    from infinitevl_tpu_torch.ops.swa import (
+        ring_write_stacked,
+        swa_cached_attention,
+        swa_prefill_reference,
+    )
+    from infinitevl_tpu_torch.ops.swa_kernels import (
+        swa_ring_flash_attention,
+        swa_ring_flash_decode_stacked,
+        swa_train_flash_attention,
+    )
+    from infinitevl_tpu_torch.ops.vit_flash import (
+        attention_segment_chunked,
+        window_attention_reference,
+    )
+    from infinitevl_tpu_torch.ops.vit_kernels import (
+        segment_flash_attention,
+        window_flash_attention,
+    )
+
+    c = TP_LOCAL
+    Hq, Hkv, H, D, cap = c["Hq"], c["Hkv"], c["H"], 128, 8192
+    bf = torch.bfloat16
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(bf)
+    errs = {}
+    # A1
+    q, nk, nv = mk(1, 2048, Hq, D), mk(1, 2048, Hkv, D), mk(1, 2048, Hkv, D)
+    rk, rv = mk(1, Hkv, cap, D), mk(1, Hkv, cap, D)
+    errs["A1"] = max(err_ratio(swa_ring_flash_attention(q, nk, nv, rk, rv, cum, cap),
+                               swa_cached_attention(q, nk, nv, rk, rv, cum, cap,
+                                                    write_ring=False))
+                     for cum in (0, 5000, 20000))
+    # A2: the stacked rings of 9 SWA layers, the token written in the kernel
+    rks, rvs = mk(9, 1, Hkv, cap, D), mk(9, 1, Hkv, cap, D)
+    e = 0.0
+    for layer, cum in ((0, 0), (4, 8191), (8, 20000)):
+        q, nk, nv = mk(1, 1, Hq, D), mk(1, 1, Hkv, D), mk(1, 1, Hkv, D)
+        k_krn, v_krn, k_ref, v_ref = rks.clone(), rvs.clone(), rks.clone(), rvs.clone()
+        out = swa_ring_flash_decode_stacked(q, nk, nv, k_krn, v_krn, layer, cum, cap)
+        ref = swa_cached_attention(q, nk, nv, k_ref[layer], v_ref[layer], cum, cap,
+                                   write_ring=False)
+        ring_write_stacked(k_ref, v_ref, layer, nk, nv, cum)
+        require(torch.equal(k_krn, k_ref) and torch.equal(v_krn, v_ref),
+                f"A2 local shapes layer {layer} cum {cum}: the rings differ from the plain write")
+        e = max(e, err_ratio(out, ref))
+    errs["A2"] = e
+    # H, forward and backward
+    q, k, v, cot = mk(1, 2048, Hq, D), mk(1, 2048, Hkv, D), mk(1, 2048, Hkv, D), mk(1, 2048, Hq, D)
+    out, gk = _grads(lambda a, b_, c_: swa_train_flash_attention(a, b_, c_, 8192), (q, k, v), cot)
+    ref, gr = _grads(lambda a, b_, c_: swa_prefill_reference(a, b_, c_, 8192, 0), (q, k, v), cot)
+    errs["H"] = max([err_ratio(out, ref)] + [err_ratio(a, b_) for a, b_ in zip(gk, gr)])
+    # B
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    stack = rnd(27, 1, H, D, 256) * 0.1
+    q, k, v = rnd(1, H, D).to(bf), rnd(1, H, D).to(bf), rnd(1, H, 256).to(bf)
+    g, beta = -torch.rand((1, H), generator=gen, device=dev) * 0.5, torch.sigmoid(rnd(1, H))
+    krn = stack.clone()
+    o = delta_step_fused_stacked(q, k, v, g, beta, krn, 13)
+    o_ref, h_ref = delta_rule_step(q, k, v, g, beta, stack[13])
+    errs["B"] = max(err_ratio(o, o_ref), err_ratio(krn[13], h_ref))
+    # C from a state
+    q, k, v = rnd(1, 2048, H, D).to(bf), rnd(1, 2048, H, D).to(bf), rnd(1, 2048, H, 256).to(bf)
+    g = -torch.rand((1, 2048, H), generator=gen, device=dev) * 0.2
+    beta, h0 = torch.sigmoid(rnd(1, 2048, H)), rnd(1, H, D, 256) * 0.1
+    o, hT = delta_rule_chunk_fused(q, k, v, g, beta, h0)
+    o_ref, h_ref = delta_rule_chunk(q, k, v, g, beta, h0, compute_dtype=torch.float32)
+    errs["C"] = max(err_ratio(o, o_ref), err_ratio(hT, h_ref))
+    # E and F at the ViT's local heads, q / k / v slices of one projection
+    S, vh = 9216, c["vit_H"]
+    q, k, v = torch.randn((S, 3, vh, 80), generator=gen, device=dev).to(bf).unbind(1)
+    seg = torch.zeros(S, dtype=torch.int32, device=dev)
+    seg[S * 2 // 5: S * 3 // 4] = 1
+    seg[S * 3 // 4:] = 2
+    errs["E"] = err_ratio(segment_flash_attention(q, k, v, seg),
+                          attention_segment_chunked(q, k, v, seg))
+    wseg = torch.arange(S, device=dev, dtype=torch.int32) // 64
+    errs["F"] = err_ratio(window_flash_attention(q, k, v, wseg, 64),
+                          window_attention_reference(q, k, v, wseg, 64))
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        require(e <= BF16_TOL, f"{name} at the tensor-parallel local shapes: err_ratio {e:.3g}")
+    print(f"[3 parity] tensor-parallel local shapes (model_parallel 2 at 3B: SWA GQA {Hq}/{Hkv}, "
+          f"DeltaNet {H} heads, ViT {vh} heads), bf16, against the plain versions, tol "
+          f"{BF16_TOL}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + " (A1 over a full ring at cum_len 0 / 5,000 / 20,000, T 2,048; A2 at three (layer, "
+          "cum_len), its rings bit-equal to the plain write; H forward, dq, dk, dv at T 2,048; B "
+          "at layer 13 of 27; C at T 2,048 from a state; E at S 9,216 in 3 segments; F at S "
+          "9,216, windows of 64)", flush=True)
+    return {"max_err": max(errs.values()), **{f"err_{k}": v for k, v in errs.items()}}
+
+
 def phase_kernels(dev, only=None) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = {"a1": _a1_cases, "a2": _a2_cases, "b": _b_cases, "c": _c_cases,
              "e": _e_cases, "g": _g_cases, "d": _d_cases, "h": _h_cases, "f": _f_cases,
-             "grad": _grad_cases, "gates": _gate_cases}
+             "grad": _grad_cases, "gates": _gate_cases, "tp": _tp_local_cases}
     res = {}
     for name, fn in cases.items():
         if only is None or name in only:
@@ -4421,6 +4543,7 @@ LONG_SMALL = dict(sliding_window=128, delta_seq_chunk_t=256, delta_seq_chunk_eva
 # phase 12: the recipes' cuts (PERF.md section 4) and the runs' shapes
 # one step each, timed whole (PERF.md section 4 lists the cuts)
 LONG_32K_STEPS, LONG_64K_STEPS = 1, 1
+LONG_64K_LAYERS = 12  # (b)'s depth (at 36 layers it peaked at 18.73-19.29 GB: PERF.md §6)
 LONG_EXACT_T = 16384  # (c): one LoRA step chunked and full-T
 OPTIM_T, OPTIM_STEPS = 2048, 3  # (d)
 # (c)'s and (d)'s depth (at 36, GaLore's refresh alone took 77 s)
@@ -4611,7 +4734,7 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
     """Phase 12: long-context training and the custom optimizers at 3B
     (36 layers, full width, bf16, random weights from seed 0, B 1):
     (a) examples/sft_32k_lora_yarn.yaml at cutoff 32,768 and (b)
-    examples/sft_64k_qlora_yarn.yaml at 65,536, with gradient_accumulation_steps
+    examples/sft_64k_qlora_yarn.yaml at 65,536 (LONG_64K_LAYERS deep), with gradient_accumulation_steps
     8 -> 1, max_steps 1000 -> 1 and logging_steps 10 -> 1, on one row of
     data/demo.json's outputs repeated to the context; (c) one LoRA step at 16,384 through the chunked layers and through the full-T
     path (delta_seq_chunk_t 0); (c) and (d) at LONG_CD_LAYERS layers; (d) galore, apollo, badam and adam_mini as full
@@ -4672,17 +4795,15 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
         "(a) sft_32k_lora_yarn.yaml at cutoff 32768 (yarn, LoRA r 8, remat)", a, card,
         _long_expect(tc, 32768))
     add(res["lora_32k"])
+    # (b) at LONG_64K_LAYERS, (c) and (d) at LONG_CD_LAYERS layers of the 3B width
+    real_3b = T.infinitevl_3b
+    T.infinitevl_3b = lambda: _cut_3b(LONG_64K_LAYERS)
     b = recipe("sft_64k_qlora_yarn.yaml", "b", max_steps=LONG_64K_STEPS)
     res["qlora_64k"] = _long_recipe(
-        "(b) sft_64k_qlora_yarn.yaml at cutoff 65536 (yarn, int8 base, LoRA r 8, remat)",
-        b, card, _long_expect(T.build_config(b).text, 65536))
+        f"(b) sft_64k_qlora_yarn.yaml at cutoff 65536 (yarn, int8 base, LoRA r 8, remat), "
+        f"{LONG_64K_LAYERS} layers", b, card, _long_expect(T.build_config(b).text, 65536))
     add(res["qlora_64k"])
-
-    # (c) and (d) at LONG_CD_LAYERS layers of the 3B width
-    real_3b = T.infinitevl_3b
-    T.infinitevl_3b = lambda: dataclasses.replace(real_3b(), text=dataclasses.replace(
-        real_3b().text, num_hidden_layers=LONG_CD_LAYERS,
-        layer_types=real_3b().text.layer_types[:LONG_CD_LAYERS]))
+    T.infinitevl_3b = lambda: _cut_3b(LONG_CD_LAYERS)
 
     # (c) the same LoRA step at 16,384: chunked layers against the full-T path
     _free()
@@ -5394,8 +5515,7 @@ def phase_mamba2_path(dev, card: str) -> dict:
 
 PAR_SMALL_STEPS = 2  # phase 4's parallel part: two run_sft steps, fsdp, packed rows
 PAR_TOL = 1e-4  # its losses and weights, two ranks against one process (fp32)
-PAR_STEPS = 2  # phase 14's runs, but (b)'s at 36 layers
-PAR_FULL36_STEPS = 1  # (b) at 36 layers: its peak is step 1's (the moments exist from init)
+PAR_STEPS = 2  # phase 14's runs
 PAR_DT_ROWS = 2048  # (a): packed rows (the recipe's 8,192, cut to fit the script's time)
 PAR_DT_TOL = (2e-3, 1e-2)  # (a): step 1's and step 2's loss, relative (bf16)
 PAR_DT_LEAF_TOL = 1e-2  # (a): the trainable leaves after step 1, err_ratio
@@ -5485,8 +5605,9 @@ def _par_small(job, T):
 
 
 def _par_stage1(job, T, dev):
-    """(a) on one rank, or in one process: stage 1 of train_3b_stage1.yaml
-    at 3B; the teacher from seed 0 in memory, Trainer.save replaced."""
+    """Phase 14 (a) and phase 15 (b) on one rank, or in one process: stage 1
+    of train_3b_stage1.yaml at 3B width (job["layers"] deep, default 36);
+    the teacher from seed 0 in memory, Trainer.save replaced."""
     import dataclasses
 
     from infinitevl_tpu_torch.models.params import init_params
@@ -5498,7 +5619,8 @@ def _par_stage1(job, T, dev):
     )
     from infinitevl_tpu_torch.train.step import trainable_leaves
 
-    cfg = _cut_3b(36)
+    layers = job.get("layers", 36)
+    cfg = _cut_3b(layers)
     teacher_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
         cfg.text, layer_types=("full_attention",) * cfg.text.num_hidden_layers))
     held = {}
@@ -5524,12 +5646,17 @@ def _par_stage1(job, T, dev):
     args = _dt_args(job)
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    with _Spy(T, "apply_trainable_mask", check), _StepHook(T, "make_stage1_step", after):
-        # the teacher is made in the call: no reference here keeps it whole
-        final, recs = _trainer_records(T, lambda: T.run_dt(
-            args, teacher_params=init_params(teacher_cfg,
-                                             torch.Generator(device=dev).manual_seed(0)),
-            teacher_cfg=teacher_cfg.text))
+    real_cfg = T.infinitevl_3b
+    T.infinitevl_3b = lambda: cfg
+    try:
+        with _Spy(T, "apply_trainable_mask", check), _StepHook(T, "make_stage1_step", after):
+            # the teacher is made in the call: no reference here keeps it whole
+            final, recs = _trainer_records(T, lambda: T.run_dt(
+                args, teacher_params=init_params(teacher_cfg,
+                                                 torch.Generator(device=dev).manual_seed(0)),
+                teacher_cfg=teacher_cfg.text))
+    finally:
+        T.infinitevl_3b = real_cfg
     del final
     torch.cuda.synchronize()
     out = dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
@@ -5548,7 +5675,8 @@ def _dt_args(job):
     here = os.path.dirname(os.path.abspath(__file__))
     args = load_yaml_args(os.path.join(here, "examples", "train_3b_stage1.yaml"))
     for group, key, val in ((args.train, "data_parallel", job["data_parallel"]),
-                            (args.train, "param_mode", "fsdp"),
+                            (args.train, "model_parallel", job.get("model_parallel", 1)),
+                            (args.train, "param_mode", job.get("param_mode", "fsdp")),
                             (args.train, "per_device_train_batch_size", job["per_device"]),
                             (args.train, "max_steps", PAR_STEPS),
                             # the recipe's 100 warm-up steps leave step 1's rate at 0
@@ -5556,7 +5684,7 @@ def _dt_args(job):
                             (args.train, "logging_steps", 1),
                             (args.train, "save_steps", 10**6),
                             (args.train, "output_dir", job["out"]),
-                            (args.data, "cutoff_len", PAR_DT_ROWS),
+                            (args.data, "cutoff_len", job.get("rows", PAR_DT_ROWS)),
                             (args.data, "dataset", "demo_packed"),
                             (args.data, "dataset_dir", job["data_dir"])):
         setattr(group, key, val)
@@ -5573,14 +5701,13 @@ def _launch_counts() -> dict:
 
 def _par_full(job, T):
     """(b) on one rank: run_sft full finetuning at T 2,048 on data/demo.json
-    streamed, fsdp at the full depth (PAR_FULL36_STEPS), then fsdp and
-    replicated at PAR_SHORT_LAYERS (PAR_STEPS); Trainer.save replaced."""
+    streamed, fsdp and replicated at PAR_SHORT_LAYERS (PAR_STEPS);
+    Trainer.save replaced."""
     from infinitevl_tpu_torch.parallel.sharding import local_bytes
 
     runs = {}
     real_cfg = T.infinitevl_3b
     for name, layers, mode, steps in (
-            ("fsdp_36", 36, "fsdp", PAR_FULL36_STEPS),
             (f"fsdp_{PAR_SHORT_LAYERS}", PAR_SHORT_LAYERS, "fsdp", PAR_STEPS),
             (f"replicated_{PAR_SHORT_LAYERS}", PAR_SHORT_LAYERS, "replicated", PAR_STEPS)):
         T.infinitevl_3b = lambda layers=layers: _cut_3b(layers)
@@ -5626,6 +5753,10 @@ def _par_rank(rank, world, job):
         return dict(stage1=_par_stage1(job, T, dev), full=_par_full(job, T))
     if job["kind"] == "nccl":
         return _par_nccl(dev)
+    if job["kind"] == "tp2":  # phase 15 (a), (b), (d), (e), in one world
+        return _tp_world2(job, T, dev)
+    if job["kind"] == "tp4":  # phase 15 (c)
+        return dict(full=_tp_full(job, T, TP_SHORT_LAYERS, "fsdp", 2, 2))
     raise ValueError(job["kind"])
 
 
@@ -5723,27 +5854,27 @@ def phase_parallel_cross_device(dev) -> None:
           f"{t_two:.1f} s", flush=True)
 
 
-def phase_parallel_path(dev, card: str, full_peak_gb=None) -> dict:
+def phase_parallel_path(dev, card: str) -> tuple:
     """Phase 14 at 3B, one world of two gloo ranks sharing the card for (a)
     and (b): (a) stage 1 of examples/train_3b_stage1.yaml (data_parallel 8
     -> 2, fsdp, PAR_STEPS steps on packed rows of PAR_DT_ROWS), against the
     same steps in one process at per_device_train_batch_size 2; (b) full
     finetuning through run_sft at T 2,048 on data/demo.json streamed, fsdp
-    at 36 layers (PAR_FULL36_STEPS), then fsdp and replicated at
-    PAR_SHORT_LAYERS (PAR_STEPS); (c) the
-    port's collectives in a world of one NCCL rank. Returns the launches of
-    (a) and (b), summed over the ranks."""
+    and replicated at PAR_SHORT_LAYERS (PAR_STEPS; a 36-layer fsdp run's
+    18.91 GB peak a rank is in PERF.md §6); (c) the port's collectives in a
+    world of one NCCL rank. Returns
+    the launches of (a) and (b), summed over the ranks, and (b)'s
+    replicated losses (phase 15 (c) is held against them)."""
     import os
     import shutil
     import tempfile
 
-    from infinitevl_tpu_torch.config import infinitevl_3b
     from infinitevl_tpu_torch.parallel.launch import spawn_ranks
     from infinitevl_tpu_torch.train import trainer as T
     from infinitevl_tpu_torch.train.step import trainable_leaves
 
     t_phase = time.perf_counter()
-    tc = infinitevl_3b().text
+    tc = _cut_3b(PAR_SHORT_LAYERS).text  # (a)'s depth
     n, n_swa, n_lin = tc.num_hidden_layers, tc.num_swa_layers, tc.num_linear_layers
     root = tempfile.mkdtemp(prefix="ivl_par_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5760,7 +5891,7 @@ def phase_parallel_path(dev, card: str, full_peak_gb=None) -> dict:
         t0 = time.perf_counter()
         world = spawn_ranks(_par_rank, 2, ({
             "kind": "phase14", "data_parallel": 2, "per_device": 1, "data_dir": data_dir,
-            "out": os.path.join(root, "ranks"), "step1_file": step1,
+            "layers": n, "out": os.path.join(root, "ranks"), "step1_file": step1,
             "repo_data": os.path.join(here, "data")},), device="cuda:0", timeout=PAR_DEADLINE)
         t_world = time.perf_counter() - t0
         two, full = [w["stage1"] for w in world], [w["full"] for w in world]
@@ -5776,7 +5907,8 @@ def phase_parallel_path(dev, card: str, full_peak_gb=None) -> dict:
                 ref["mu"] = {k: m.clone() for (k, _), m in zip(named, opt_state["mu"])}
 
         with _StepHook(T, "make_stage1_step", after_one):
-            one = _par_stage1({"data_parallel": 1, "per_device": 2, "out": os.path.join(root, "a1"),
+            one = _par_stage1({"data_parallel": 1, "per_device": 2, "layers": n,
+                               "out": os.path.join(root, "a1"),
                                "data_dir": data_dir, "step1_file": None}, T, dev)
         got = torch.load(step1, map_location=dev, weights_only=True)
         os.remove(step1)
@@ -5848,16 +5980,11 @@ def phase_parallel_path(dev, card: str, full_peak_gb=None) -> dict:
                             f"(b) {name} rank {r} holds {res['held_bytes']} of "
                             f"{res['whole_bytes']} bytes")
                 add(res["launches"])
-                versus = ""
-                if name == "fsdp_36":
-                    versus = (f" (phase 8's one-process full_2048 peak: {full_peak_gb:.2f} GB)"
-                              if full_peak_gb is not None else
-                              " (phase 8's one-process peak: not measured in this run)")
                 print(f"[14 parallel] (b) {name} ({layers} layers, {steps} step(s), full "
                       f"finetuning, T 2,048, "
                       f"data/demo.json streamed, padded rows, remat) rank {r}: losses "
                       f"{[round(x, 6) for x in res['losses']]}, ms per step {res['step_ms']}, "
-                      f"peak {res['peak_gb']:.2f} GB{versus}, holds "
+                      f"peak {res['peak_gb']:.2f} GB, holds "
                       f"{res['held_bytes'] / 1e9:.3f} GB of the params' sharded "
                       f"{res['whole_bytes'] / 1e9:.3f} GB; on '{card}'", flush=True)
         print(f"[14 parallel] (b) replicated against fsdp at {PAR_SHORT_LAYERS} layers: losses "
@@ -5880,6 +6007,474 @@ def phase_parallel_path(dev, card: str, full_peak_gb=None) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[14 parallel] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total, lr
+
+
+# phase 15: tensor parallelism at 3B, two gloo ranks sharing the card (model 2),
+# then four (data 2 x model 2)
+TP_STEPS = 2  # (a) and (c): full finetuning steps; (b) stage-1 steps
+TP_DT_LAYERS = 12  # (b): stage 1's depth at T 8,192 (the time budget's)
+TP_DT_ROWS = 8192
+TP_SHORT_LAYERS = 12  # (c) and (d)
+TP_PROMPT, TP_NEW = 1000, 16  # (e): prompt tokens, then greedy (fp32) or forced (bf16) steps
+TP_F32_LAYERS = 4  # (e) in fp32
+TP_LOSS_TOL = PAR_DT_TOL  # (a), (c), (d): step 1's and step 2's loss, relative (bf16)
+# (a): the fp32 model's gradients of every trainable leaf on two ranks against one
+# process, err_ratio (in bf16 at random init both sides move far from the fp32 model's
+# numbers, 0.26 to 0.37 err_ratio on the card (PERF.md §6), so the gradients are held in fp32)
+TP_GRAD_TOL = 1e-2
+# (e): fp32, two ranks against one process; bf16, two ranks' logits against the fp32
+# model's within this of one bf16 process's own
+TP_LOGIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+class _CollectiveClock:
+    """Times every torch.distributed.all_reduce of this process for the
+    duration of a `with` (the host clock around the call, a device sync
+    before it, so the time is the collective's own): calls, seconds and
+    bytes, the head's partial logits (last dim `vocab`) apart from the
+    rest (the layers' sums, the gradients' and counts')."""
+
+    def __init__(self, vocab: int):
+        self.vocab, self.calls = vocab, {"head": [0, 0.0, 0], "other": [0, 0.0, 0]}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        real = self.real = dist.all_reduce
+
+        def timed(t, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(t, *a, **kw)
+            c = self.calls["head" if t.ndim and t.shape[-1] == self.vocab else "other"]
+            c[0] += 1
+            c[1] += time.perf_counter() - t0
+            c[2] += t.numel() * t.element_size()
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self.real
+
+
+def _tp_full_args(job, layers: int, data: int, model: int, mode: str = "tp",
+                  bf16: bool = True, steps: int = TP_STEPS):
+    return _train_args(
+        f"{job['out']}/full_{layers}_{data}x{model}_{bf16}", cutoff_len=2048, max_steps=steps,
+        remat=True, learning_rate=1e-5, dataset="demo", dataset_dir=job["repo_data"],
+        streaming=True, packing=False, bf16=bf16, data_parallel=data, model_parallel=model,
+        param_mode=mode)
+
+
+def _tp_full(job, T, layers: int, mode: str, data: int, model: int):
+    """Full finetuning through run_sft at T 2,048 on data/demo.json streamed
+    (remat, lr 1e-5, TP_STEPS steps, bf16), `layers` deep, on a (data,
+    model) mesh under `mode` (data x model 1: one process); Trainer.save
+    replaced; every all_reduce timed."""
+    from infinitevl_tpu_torch.parallel.sharding import local_bytes
+
+    held = {}
+    real_init, real_cfg = T.Trainer.__init__, T.infinitevl_3b
+
+    def init(self, step_fn, params, *a, **kw):
+        held["params"] = params
+        real_init(self, step_fn, params, *a, **kw)
+
+    T.Trainer.__init__, T.infinitevl_3b = init, lambda: _cut_3b(layers)
+    _free()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    clock = _CollectiveClock(_cut_3b(layers).text.vocab_size)
+    try:
+        with clock:
+            final, recs = _trainer_records(T, lambda: T.run_sft(
+                _tp_full_args(job, layers, data, model, mode)))
+    finally:
+        T.Trainer.__init__, T.infinitevl_3b = real_init, real_cfg
+    torch.cuda.synchronize()
+    held_b, whole_b = local_bytes(held.pop("params"))
+    del final
+    _free()
+    return dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=_launch_counts(),
+                held_bytes=held_b, whole_bytes=whole_b, layers=layers, collectives=clock.calls)
+
+
+def _tp_grads(job, T, dev, model: int, save=None, ref=None):
+    """(a)'s gradients in fp32 at 36 layers: the SFT loss of run_sft's first
+    batch (remat) differentiated with respect to every leaf full finetuning
+    trains, the weights from the seed as run_sft makes them; in one process
+    written whole to `save`, or on `model` ranks under tp held slice by
+    slice against `ref`: per leaf (sum |g - ref|, sum |ref|, model-sharded)."""
+    from infinitevl_tpu_torch.data.loader import resolve_tokenizer
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.parallel.sharding import create_mesh, shard_params, tp_info
+    from infinitevl_tpu_torch.train.step import (
+        batch_to_device,
+        full_finetune_leaf,
+        set_trainable,
+        sft_loss_fn,
+        trainable_leaves,
+    )
+
+    _free()
+    args = _tp_full_args(job, 36, 1, model, bf16=False, steps=1)
+    real_cfg, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(36)
+    try:
+        cfg = T.build_config(args)
+    finally:
+        T.infinitevl_3b = real_cfg
+    data = T.build_dataset(args, resolve_tokenizer(args, cfg, None), cfg=cfg)
+    b = batch_to_device(next(iter(T._batches(args, data, cfg, False))), dev)
+    params = {"text": init_text_params(cfg.text, torch.Generator(device=dev).manual_seed(
+        args.train.seed), dev, torch.float32)}
+    set_trainable(params, full_finetune_leaf)
+    if model > 1:
+        params = shard_params(params, create_mesh(1, model), "tp")
+    named = trainable_leaves(params)
+    loss = sft_loss_fn(params["text"], cfg.text, b["input_ids"], b["labels"], b["position_ids"],
+                       b.get("segment_ids"), remat=True, segment_layout=b.get("segment_layout"))
+    grads = torch.autograd.grad(loss, [t for _, t in named])
+    if save is not None:
+        torch.save({k: g.cpu() for (k, _), g in zip(named, grads)}, save)
+        return {}
+    want, sums = torch.load(ref, map_location="cpu", mmap=True, weights_only=True), {}
+    for (k, t), g in zip(named, grads):
+        r, info = want[k], tp_info(t)
+        if info is not None:
+            r = r.narrow(info.dim, info.rank * t.shape[info.dim], t.shape[info.dim])
+        r = r.to(dev)
+        sums[k] = (float((g - r).abs().sum()), float(r.abs().sum()), info is not None)
+    del want, params, grads
+    _free()
+    return sums
+
+
+def _tp_mm(job, T, model: int):
+    """(d) one multimodal LoRA step through run_sft (TP_SHORT_LAYERS deep, the
+    ViT's 32 blocks, data/mllm_demo.json's first image at 448x448, the row
+    padded to 512), on `model` ranks (1: one process); Trainer.save replaced."""
+    real_cfg = T.infinitevl_3b
+    T.infinitevl_3b = lambda: _cut_3b(TP_SHORT_LAYERS)
+    _free()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        final, recs = _trainer_records(T, lambda: T.run_sft(_train_args(
+            f"{job['out']}/mm_{model}", cutoff_len=512, max_steps=1, dataset="mllm_demo",
+            dataset_dir=job["repo_data"], max_samples=1, image_min_pixels=448 * 448,
+            image_max_pixels=448 * 448, finetuning_type="lora", lora_rank=8, lora_alpha=16,
+            remat=True, model_parallel=model, param_mode="tp")))
+    finally:
+        T.infinitevl_3b = real_cfg
+    torch.cuda.synchronize()
+    del final
+    _free()
+    return dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=_launch_counts())
+
+
+def _tp_forced_tokens():
+    return torch.randint(0, 150000, (1, TP_NEW), generator=torch.Generator().manual_seed(7))
+
+
+def _tp_cached(dev, layers: int, dtype, mesh=None, forced=None) -> dict:
+    """(e) the library path on the 3B width, `layers` deep, weights from seed
+    0: generation.prefill of a TP_PROMPT-token prompt into a fresh state
+    (with `mesh`: the params sharded and the rank's part of the state), then
+    TP_NEW decode_step calls, greedy or fed `forced` tokens. The logits of
+    the prompt's last token and of each step, the tokens fed, ms of the
+    prefill and per step, the state's bytes."""
+    from infinitevl_tpu_torch.generation import decode_step, prefill
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.models.state import init_decoder_state, state_bytes
+    from infinitevl_tpu_torch.parallel.sharding import shard_params
+
+    cfg = _cut_3b(layers)
+    params = {"text": init_text_params(cfg.text, torch.Generator(device=dev).manual_seed(0), dev,
+                                       dtype)}
+    if mesh is not None:
+        params = shard_params(params, mesh, "tp")
+    state = init_decoder_state(cfg.text, 1, dtype, dev, mesh=mesh)
+    ids = torch.randint(0, 150000, (1, TP_PROMPT), generator=torch.Generator().manual_seed(5))
+    ids = ids.to(dev)
+    pos = torch.arange(TP_PROMPT, device=dev)[None, None].expand(3, 1, TP_PROMPT)
+    zero = torch.zeros((1, 1), dtype=torch.long, device=dev)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, cfg, ids, pos, state)
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) * 1e3
+    out, fed = [logits.float().cpu()], []
+    t0 = time.perf_counter()
+    for i in range(TP_NEW):
+        tok = logits.argmax(-1, keepdim=True) if forced is None else forced[:, i : i + 1].to(dev)
+        fed.append(tok.cpu())
+        logits, state = decode_step(params, cfg, tok, zero, state)
+        out.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) * 1e3 / TP_NEW
+    res = dict(logits=torch.stack(out), tokens=torch.cat(fed, 1), prefill_ms=t_pre,
+               decode_ms=t_dec, state_mb=state_bytes(state) / 1e6, launches=_launch_counts())
+    del params, state
+    _free()
+    return res
+
+
+def _tp_world2(job, T, dev):
+    """Phase 15 on one of two ranks (model_parallel 2): (a), (b), (d), (e)."""
+    from infinitevl_tpu_torch.parallel.sharding import create_mesh
+
+    out = {"full": _tp_full(job, T, 36, "tp", 1, 2),
+           "grads": _tp_grads(job, T, dev, 2, ref=job["grad_file"])}
+    out["stage1"] = _par_stage1({
+        "data_parallel": 1, "model_parallel": 2, "param_mode": "tp", "per_device": 1,
+        "layers": TP_DT_LAYERS, "rows": TP_DT_ROWS, "data_dir": job["data_dir"],
+        "out": f"{job['out']}/stage1", "step1_file": None}, T, dev)
+    _free()
+    out["mm"] = _tp_mm(job, T, 2)
+    mesh = create_mesh(1, 2)
+    out["cached"] = {"f32": _tp_cached(dev, TP_F32_LAYERS, torch.float32, mesh),
+                     "bf16": _tp_cached(dev, 36, torch.bfloat16, mesh, _tp_forced_tokens())}
+    return out
+
+
+def _grad_err(parts) -> float:
+    """The largest per-leaf err_ratio of the ranks' gradients, each leaf's
+    sums over its model-sharded slices added (a replicated leaf: rank 0's)."""
+    worst = 0.0
+    for k, (d0, r0, sharded) in parts[0].items():
+        d, r = (sum(p[k][0] for p in parts), sum(p[k][1] for p in parts)) if sharded else (d0, r0)
+        if r > 0:
+            worst = max(worst, d / r)
+    return worst
+
+
+def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
+    """Phase 15: tensor parallelism at 3B, gloo ranks sharing the card. One
+    world of two ranks (model_parallel 2): (a) full finetuning at 36 layers
+    under tp against one process, (b) stage 1 of train_3b_stage1.yaml at
+    T 8,192 and TP_DT_LAYERS, (d) one multimodal LoRA step with the ViT, (e)
+    a cached prefill of TP_PROMPT tokens and TP_NEW decode steps in fp32 at
+    TP_F32_LAYERS and in bf16 at 36 layers against one process; then one
+    world of four (data 2 x model 2): (c) full finetuning under fsdp at
+    TP_SHORT_LAYERS against phase 14's replicated run at that depth (the
+    same global batch). Returns the launches of (a)-(e), summed over the
+    ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    from infinitevl_tpu_torch.config import infinitevl_3b
+    from infinitevl_tpu_torch.parallel.launch import spawn_ranks
+    from infinitevl_tpu_torch.train import trainer as T
+
+    t_phase = time.perf_counter()
+    tc = infinitevl_3b().text
+    missed = []  # every part runs and prints; the phase fails at its end
+
+    def hold(ok: bool, what: str) -> None:
+        if not ok:
+            missed.append(what)
+            print(f"[15 tp] CHECK FAILED: {what}", flush=True)
+
+    root = tempfile.mkdtemp(prefix="ivl_tp_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_dir = os.path.join(root, "packed")
+    _packed_text_dataset(data_dir, n=90)
+    job = {"out": os.path.join(root, "runs"), "repo_data": os.path.join(here, "data"),
+           "data_dir": data_dir, "grad_file": os.path.join(root, "grads_one_fp32.pt")}
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def layer_launches(layers, steps):  # full finetuning with remat, a rank
+        n_swa = sum(1 for t in _cut_3b(layers).text.layer_types if t != "linear_attention")
+        return {"swa_train_flash_attention": 2 * n_swa * steps,
+                "swa_train_flash_attention_bwd": n_swa * steps,
+                "delta_rule_chunk_fused": 2 * (layers - n_swa) * steps}
+
+    try:
+        # (a) one process first; its fp32 gradients go to a file the ranks read
+        one = _tp_full(job, T, 36, "tp", 1, 1)
+        _tp_grads(job, T, dev, 1, save=job["grad_file"])
+        _free()
+        t0 = time.perf_counter()
+        world = spawn_ranks(_par_rank, 2, (dict(job, kind="tp2"),), device="cuda:0",
+                            timeout=PAR_DEADLINE)
+        t_world = time.perf_counter() - t0
+        os.remove(job["grad_file"])
+
+        # (a)
+        full = [w["full"] for w in world]
+        l2, l1 = full[0]["losses"], one["losses"]
+        e_l = [abs(a - b) / abs(b) for a, b in zip(l2, l1)]
+        hold(len(l2) == len(l1) == TP_STEPS and all(e <= t for e, t in zip(e_l, TP_LOSS_TOL)),
+                f"(a) losses over two model ranks {l2} against one process {l1}")
+        e_grad = _grad_err([w["grads"] for w in world])
+        hold(e_grad <= TP_GRAD_TOL, f"(a) fp32 gradients err_ratio {e_grad:.3g}")
+        expect = layer_launches(36, TP_STEPS)
+        for r, res in enumerate(full):
+            hold(2 * res["held_bytes"] == res["whole_bytes"],
+                    f"(a) rank {r} holds {res['held_bytes']} of {res['whole_bytes']} bytes")
+            got_l = {k: res["launches"][k] for k in expect}
+            hold(got_l == expect, f"(a) rank {r} launches {got_l}, expected {expect}")
+            add(res["launches"])
+        vs8 = (f"phase 8's one-process full_2048 peak {full_peak_gb:.2f} GB" if full_peak_gb
+               else "phase 8's peak not measured in this run")
+        print(f"[15 tp] (a) full finetuning through run_sft at 3B ({tc.num_hidden_layers} "
+              f"layers, T 2,048, data/demo.json streamed, remat, lr 1e-5, {TP_STEPS} steps), "
+              f"model_parallel 2 under tp, two gloo ranks sharing the card: losses "
+              f"{[round(x, 6) for x in l2]}, one process {[round(x, 6) for x in l1]} "
+              f"(relative err {[float(f'{e:.2g}') for e in e_l]}, tol {TP_LOSS_TOL}); in fp32 the "
+              f"gradients of the {len(world[0]['grads'])} trainable leaves on the first batch, "
+              f"two ranks against one process, the largest leaf's err_ratio {e_grad:.3g} (tol "
+              f"{TP_GRAD_TOL}, each leaf's slices summed)", flush=True)
+        for r, res in enumerate(full):
+            (nh, th, bh), (no, to, bo) = (res["collectives"][k] for k in ("head", "other"))
+            print(f"[15 tp] (a) rank {r}: all_reduce over the {TP_STEPS} steps (host clock "
+                  f"around each call after a device sync): {no + nh} calls, {to + th:.2f} s, "
+                  f"{(bo + bh) / 1e9:.2f} GB; of them the head's partial logits {nh} calls, "
+                  f"{th:.2f} s, {bh / 1e9:.2f} GB ({th / max(to + th, 1e-9):.0%} of the "
+                  f"all_reduce seconds); the rest (the layers' sums and their backward's, "
+                  f"the gradients' norm) {no} calls, {to:.2f} s", flush=True)
+            print(f"[15 tp] (a) rank {r}: ms per step {res['step_ms']} (step 1 from the "
+                  f"trainer's start), peak {res['peak_gb']:.2f} GB "
+                  f"(one process: {one['peak_gb']:.2f} GB, {one['step_ms']} ms per step; "
+                  f"{vs8}), holds {res['held_bytes'] / 1e9:.3f} GB of the model-sharded leaves' "
+                  f"{res['whole_bytes'] / 1e9:.3f} GB (exactly half), H fwd / bwd / C launches "
+                  f"{[res['launches'][k] for k in expect]}; on '{card}'", flush=True)
+
+        # (b)
+        s1 = [w["stage1"] for w in world]
+        n_swa_b = sum(1 for t in _cut_3b(TP_DT_LAYERS).text.layer_types if t != "linear_attention")
+        expect_b = {"swa_train_flash_attention": (TP_DT_LAYERS + n_swa_b) * PAR_STEPS,
+                    "swa_train_flash_attention_bwd": 0,
+                    "delta_rule_chunk_fused": (TP_DT_LAYERS - n_swa_b) * PAR_STEPS}
+        for r, res in enumerate(s1):
+            hold(res["unchanged"], f"(b) the teacher changed on rank {r}")
+            hold(2 * res["held_bytes"] == res["whole_bytes"],
+                    f"(b) rank {r} holds {res['held_bytes']} of {res['whole_bytes']} bytes")
+            hold(len(res["losses"]) == PAR_STEPS and np.isfinite(res["losses"]).all(),
+                    f"(b) rank {r}: losses {res['losses']}")
+            got_l = {k: res["launches"][k] for k in expect_b}
+            hold(got_l == expect_b, f"(b) rank {r} launches {got_l}, expected {expect_b}")
+            add(res["launches"])
+        hold(s1[0]["losses"] == s1[1]["losses"], "(b) the ranks logged different losses")
+        print(f"[15 tp] (b) stage 1 of train_3b_stage1.yaml at 3B width, {TP_DT_LAYERS} layers "
+              f"(teacher and student), packed rows of {TP_DT_ROWS}, model_parallel 2 under tp, "
+              f"warm-up 100 -> 0, {PAR_STEPS} steps: losses "
+              f"{[round(x, 6) for x in s1[0]['losses']]}, ms per step {s1[0]['step_ms']} / "
+              f"{s1[1]['step_ms']}, peak {s1[0]['peak_gb']:.2f} / {s1[1]['peak_gb']:.2f} GB a "
+              f"rank, {s1[0]['held_bytes'] / 1e9:.3f} of {s1[0]['whole_bytes'] / 1e9:.3f} GB of "
+              f"the model-sharded leaves held; the teacher's {s1[0]['n_teacher']} leaves "
+              f"bit-unchanged on each rank; on '{card}'", flush=True)
+
+        # (d) against the same step in one process
+        mm = [w["mm"] for w in world]
+        mm_one = _tp_mm(job, T, 1)
+        e_mm = abs(mm[0]["losses"][0] - mm_one["losses"][0]) / abs(mm_one["losses"][0])
+        hold(e_mm <= TP_LOSS_TOL[0], f"(d) loss {mm[0]['losses']} against {mm_one['losses']}")
+        for r, res in enumerate(mm):
+            hold(res["launches"]["segment_flash_attention"] == 4
+                    and res["launches"]["window_flash_attention"] == 28,
+                    f"(d) rank {r}: E / F launches {res['launches']}")
+            add(res["launches"])
+        print(f"[15 tp] (d) one multimodal LoRA step through run_sft at 3B width "
+              f"({TP_SHORT_LAYERS} layers, the ViT's 32 blocks sharded: its fused qkv gathered, "
+              f"8 of 16 heads a rank), one 448x448 image, model_parallel 2: loss "
+              f"{mm[0]['losses'][0]:.6f}, one process {mm_one['losses'][0]:.6f} (relative err "
+              f"{e_mm:.2g}, tol {TP_LOSS_TOL[0]}), ms {mm[0]['step_ms']} / one process "
+              f"{mm_one['step_ms']}, peak {mm[0]['peak_gb']:.2f} GB a rank / "
+              f"{mm_one['peak_gb']:.2f}; E / F launches a rank 4 / 28; on '{card}'", flush=True)
+
+        # (e) against one process
+        for key, layers, dtype, forced in (("f32", TP_F32_LAYERS, torch.float32, None),
+                                           ("bf16", 36, torch.bfloat16, _tp_forced_tokens())):
+            ref = _tp_cached(dev, layers, dtype, None, forced)
+            # bf16: the same steps of the fp32 model, the yardstick of both bf16 runs
+            ref32 = None if forced is None else _tp_cached(dev, layers, torch.float32, None,
+                                                           forced)["logits"]
+            e_one32 = None if ref32 is None else err_ratio(ref["logits"], ref32)
+            for r, w in enumerate(world):
+                got = w["cached"][key]
+                e = err_ratio(got["logits"], ref["logits"] if ref32 is None else ref32)
+                bound = TP_LOGIT_TOL[dtype] + (e_one32 or 0.0)
+                hold(e <= bound, f"(e) {key} rank {r}: logits err_ratio {e:.3g} (tol {bound:.3g})")
+                hold(torch.equal(got["tokens"], ref["tokens"]),
+                        f"(e) {key} rank {r}: tokens {got['tokens']} against {ref['tokens']}")
+                for name in ("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
+                             "delta_step_fused_stacked", "delta_rule_chunk_fused"):
+                    hold(got["launches"][name] > 0, f"(e) {key} rank {r}: {name} not launched")
+                add(got["launches"])
+            got = world[0]["cached"][key]
+            print(f"[15 tp] (e) {key}, {layers} layers at 3B width: generation.prefill of "
+                  f"{TP_PROMPT} tokens, then {TP_NEW} decode_step calls "
+                  f"({'greedy' if forced is None else 'fed seeded tokens'}) on the sharded params "
+                  f"and each rank's part of the state ({got['state_mb']:.1f} MB a rank, one process "
+                  f"{ref['state_mb']:.1f}): logits err_ratio against one process "
+                  f"{max(err_ratio(w['cached'][key]['logits'], ref['logits']) for w in world):.3g}"
+                  + ("" if ref32 is None else f", tokens equal; against the fp32 model's logits: "
+                     f"two ranks {err_ratio(got['logits'], ref32):.3g}, one bf16 process "
+                     f"{e_one32:.3g} (held: two ranks within {TP_LOGIT_TOL[dtype]} of it)")
+                  + (f" (tol {TP_LOGIT_TOL[dtype]}), greedy tokens equal" if ref32 is None else "")
+                  + f"; prefill {got['prefill_ms']:.1f} ms, "
+                  f"{got['decode_ms']:.1f} ms a step (one process {ref['prefill_ms']:.1f} / "
+                  f"{ref['decode_ms']:.1f}); launches a rank A1 / A2 / B / C "
+                  f"{[got['launches'][k] for k in ('swa_ring_flash_attention', 'swa_ring_flash_decode_stacked', 'delta_step_fused_stacked', 'delta_rule_chunk_fused')]}; "
+                  f"on '{card}'", flush=True)
+        print(f"[15 tp] the world of two ranks took {t_world:.1f} s (spawn, weights, datasets, "
+              f"steps)", flush=True)
+        del world
+        _free()
+
+        # (c) data 2 x model 2 under fsdp, against phase 14's replicated run at that depth
+        t0 = time.perf_counter()
+        four = spawn_ranks(_par_rank, 4, (dict(job, kind="tp4"),), device="cuda:0",
+                           timeout=PAR_DEADLINE)
+        t_four = time.perf_counter() - t0
+        fc = [w["full"] for w in four]
+        expect_c = layer_launches(TP_SHORT_LAYERS, TP_STEPS)
+        for r, res in enumerate(fc):
+            got_l = {k: res["launches"][k] for k in expect_c}
+            hold(got_l == expect_c, f"(c) rank {r} launches {got_l}, expected {expect_c}")
+            hold(len(res["losses"]) == TP_STEPS and np.isfinite(res["losses"]).all(),
+                    f"(c) rank {r}: losses {res['losses']}")
+            add(res["launches"])
+        lc = fc[0]["losses"]
+        if par12 is not None:
+            e_c = [abs(a - b) / abs(b) for a, b in zip(lc, par12)]
+            hold(len(lc) == len(par12) and all(e <= t for e, t in zip(e_c, TP_LOSS_TOL)),
+                    f"(c) losses {lc} against phase 14's replicated {par12}")
+            versus = (f"phase 14 (b)'s replicated run at the same global batch {par12} "
+                      f"(relative err {[float(f'{e:.2g}') for e in e_c]}, tol {TP_LOSS_TOL})")
+        else:
+            versus = "phase 14 not run in this call: not compared"
+        print(f"[15 tp] (c) full finetuning at {TP_SHORT_LAYERS} layers, T 2,048, data 2 x model "
+              f"2 under fsdp, four gloo ranks sharing the card: losses "
+              f"{[round(x, 6) for x in lc]} against {versus}; ms per step "
+              f"{[res['step_ms'] for res in fc]}, peak {[round(res['peak_gb'], 2) for res in fc]} "
+              f"GB, each rank holds {fc[0]['held_bytes'] / 1e9:.3f} of the sharded leaves' "
+              f"{fc[0]['whole_bytes'] / 1e9:.3f} GB; the world took {t_four:.1f} s; on '{card}'",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
+                 "delta_step_fused_stacked", "delta_rule_chunk_fused", "segment_flash_attention",
+                 "window_flash_attention", "swa_train_flash_attention"):
+        hold(total.get(name, 0) > 0, f"kernel {name} was not launched on its path")
+    require(not missed, "phase 15: " + "; ".join(missed))
+    print(f"[15 tp] two (and four) ranks share one card and move every collective through gloo "
+          f"on the host: these times are not tensor parallelism's speed; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
 
 
@@ -5938,9 +6533,10 @@ def main(argv) -> int:
         phase_mamba2_cross_device(dev)
         phase_mamba2_path(dev, card)
         return 0
-    if "--parallel-only" in argv:  # 4's parallel part, then phase 14 alone
+    if "--parallel-only" in argv:  # 4's parallel part, then phases 14 and 15 alone
         phase_parallel_cross_device(dev)
-        phase_parallel_path(dev, card)
+        par12 = phase_parallel_path(dev, card)[1]
+        phase_tp_path(dev, card, par12=par12)
         return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
@@ -5976,7 +6572,9 @@ def main(argv) -> int:
     _free()
     m2_launches = phase_mamba2_path(dev, card)
     _free()
-    par_launches = phase_parallel_path(dev, card, train["full_2048"]["peak_gb"])
+    par_launches, par12 = phase_parallel_path(dev, card)
+    _free()
+    tp_launches = phase_tp_path(dev, card, train["full_2048"]["peak_gb"], par12)
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -6005,7 +6603,7 @@ def main(argv) -> int:
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
          + serve_launches[name] + train_launches[name] + vit_launches[name]
          + dt_launches.get(name, 0) + pref_launches.get(name, 0) + long_launches.get(name, 0)
-         + m2_launches.get(name, 0) + par_launches.get(name, 0),
+         + m2_launches.get(name, 0) + par_launches.get(name, 0) + tp_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
@@ -6016,14 +6614,16 @@ def main(argv) -> int:
          "launches_pref_path": pref_launches.get(name, 0),
          "launches_long_path": long_launches.get(name, 0),
          "launches_mamba2_path": m2_launches.get(name, 0),
-         # summed over the ranks of phase 14's worlds
+         # summed over the ranks of phase 14's worlds, and of phase 15's
          "launches_parallel_path": par_launches.get(name, 0),
+         "launches_tp_path": tp_launches.get(name, 0),
          **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
              + dt_launches["swa_train_flash_attention_bwd"]
              + pref_launches["swa_train_flash_attention_bwd"]
              + long_launches["swa_train_flash_attention_bwd"]
              + m2_launches["swa_train_flash_attention_bwd"]
-             + par_launches["swa_train_flash_attention_bwd"]}
+             + par_launches["swa_train_flash_attention_bwd"]
+             + tp_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

@@ -7,7 +7,7 @@ Every command runs on the CUDA card; the `cmd_*` functions take
 no benchmark yet) are not ported and raise by name. `train` runs one
 process per rank under torchrun:
   torchrun --nproc_per_node N -m infinitevl_tpu_torch.cli train recipe.yaml
-with `data_parallel: N` in the recipe."""
+with `data_parallel` x `model_parallel` = N in the recipe."""
 
 from __future__ import annotations
 
@@ -18,12 +18,15 @@ import sys
 USAGE = """infinitevl-tpu (PyTorch + CUDA) CLI
   python -m infinitevl_tpu_torch.cli train <config.yaml>   # pt/sft/dt stages
   torchrun --nproc_per_node N -m infinitevl_tpu_torch.cli train <config.yaml>
-                                               # data_parallel: N, one process per rank
+                                               # data_parallel x model_parallel = N, one
+                                               # process per rank
   python -m infinitevl_tpu_torch.cli chat <config.yaml>    # interactive CLI chat
   python -m infinitevl_tpu_torch.cli api <config.yaml>     # OpenAI-compatible server
   python -m infinitevl_tpu_torch.cli eval <config.yaml>    # MCQ evaluator
   python -m infinitevl_tpu_torch.cli export <config.yaml>  # HF safetensors export
   python -m infinitevl_tpu_torch.cli version
+  (add --device cpu to run a command on the CPU's plain versions; under torchrun
+   the ranks then join over gloo)
 """
 
 
@@ -80,7 +83,8 @@ def _tokenizer(args, cfg=None):
 def cmd_train(config_path: str, device=None):
     """Train the yaml's stage. Under torchrun (WORLD_SIZE > 1) each process
     joins the group first (parallel/sharding.maybe_init_distributed, on
-    cuda:LOCAL_RANK) and trains its rank of `data_parallel`."""
+    cuda:LOCAL_RANK) and trains its rank of the (data_parallel,
+    model_parallel) mesh."""
     from .parallel.sharding import maybe_init_distributed
     from .train.trainer import run_exp
 
@@ -209,11 +213,15 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "board: the training web board (serve/webui.py) is not ported to torch yet")
     if cmd in ("train", "chat", "api", "eval", "export"):
+        device = None
+        if "--device" in rest[:-1]:  # the CPU's plain versions: --device cpu
+            i = rest.index("--device")
+            device, rest = rest[i + 1], rest[:i] + rest[i + 2:]
         if not rest:
             print(f"error: {cmd} requires a config.yaml path\n{USAGE}")
             return 2
         {"train": cmd_train, "chat": cmd_chat, "api": cmd_api, "eval": cmd_eval,
-         "export": cmd_export}[cmd](rest[0])
+         "export": cmd_export}[cmd](rest[0], device=device)
         return 0
     print(f"unknown command {cmd!r}\n{USAGE}")
     return 2

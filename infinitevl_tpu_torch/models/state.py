@@ -13,7 +13,13 @@ mamba2 students), so that the deployed state is unchanged:
 
 The model updates the tensors IN PLACE; branching a stream (decoding from
 a snapshot without disturbing the original) needs `clone_state` first;
-`state_row` is the same for one row of a multi-stream state."""
+`state_row` is the same for one row of a multi-stream state.
+
+Under tensor parallelism (parallel/sharding.py) a rank holds its part of
+the state: `init_decoder_state(mesh=...)` makes it (batch rows of its
+data coordinate; the SWA rings of the KV heads its query heads read, its
+DeltaNet heads' states and its conv channels), `sharding.shard_state` cuts
+it from a whole state and `sharding.gather_state` puts the parts back."""
 
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from ..config import TextConfig
 from ..device import Device, resolve_device
+from ..parallel.sharding import local_state_shape
 
 DecoderState = Dict[str, Union[torch.Tensor, int]]
 
@@ -32,8 +39,10 @@ def init_decoder_state(
     batch_size: int,
     dtype: torch.dtype = torch.bfloat16,
     device: Optional[Device] = None,
+    mesh=None,
 ) -> DecoderState:
-    """Zero state; `device=None` means the CUDA card."""
+    """Zero state; `device=None` means the CUDA card. With a `mesh`
+    (parallel/sharding.Mesh) this rank's part of it."""
     device = resolve_device(device)
     S = cfg.num_swa_layers
     L = cfg.num_linear_layers
@@ -41,23 +50,26 @@ def init_decoder_state(
     W = cfg.conv_size
     K = cfg.linear_head_dim
 
-    def zeros(*shape, dt=dtype):
+    def zeros(key, *shape, dt=dtype):
+        if mesh is not None:
+            shape = local_state_shape(key, shape, mesh, cfg.num_attention_heads)
         return torch.zeros(shape, dtype=dt, device=device)
 
     state = {
-        "swa_k": zeros(S, B, cfg.num_key_value_heads, cfg.swa_capacity, cfg.head_dim),
-        "swa_v": zeros(S, B, cfg.num_key_value_heads, cfg.swa_capacity, cfg.head_dim),
-        "delta_h": zeros(L, B, cfg.num_linear_heads, K, cfg.head_v_dim, dt=torch.float32),
-        "conv_q": zeros(L, B, W, cfg.num_linear_heads * K),
-        "conv_k": zeros(L, B, W, cfg.linear_key_dim),
-        "conv_v": zeros(L, B, W, cfg.linear_value_dim),
+        "swa_k": zeros("swa_k", S, B, cfg.num_key_value_heads, cfg.swa_capacity, cfg.head_dim),
+        "swa_v": zeros("swa_v", S, B, cfg.num_key_value_heads, cfg.swa_capacity, cfg.head_dim),
+        "delta_h": zeros("delta_h", L, B, cfg.num_linear_heads, K, cfg.head_v_dim,
+                         dt=torch.float32),
+        "conv_q": zeros("conv_q", L, B, W, cfg.num_linear_heads * K),
+        "conv_k": zeros("conv_k", L, B, W, cfg.linear_key_dim),
+        "conv_v": zeros("conv_v", L, B, W, cfg.linear_value_dim),
         "cum_len": 0,
     }
     M = cfg.num_mamba2_layers
     if M:
         H, Dh = cfg.num_attention_heads, cfg.head_dim
-        state["mamba_conv"] = zeros(M, B, W, 3 * H * Dh)
-        state["mamba_h"] = zeros(M, B, H, Dh, Dh, dt=torch.float32)
+        state["mamba_conv"] = zeros("mamba_conv", M, B, W, 3 * H * Dh)
+        state["mamba_h"] = zeros("mamba_h", M, B, H, Dh, Dh, dt=torch.float32)
     return state
 
 

@@ -38,7 +38,23 @@ outer checkpoint at 32K saved no time and held more memory).
 
 Under FSDP (parallel/sharding.py) `text_forward` gathers the tree's
 top-level leaves once and each layer inside its checkpointed unit; with
-no shard in the process the gathers return their argument."""
+no shard in the process the gathers return their argument.
+
+Under tensor parallelism (the model axis of parallel/sharding.py) a layer
+runs on this rank's slices of its kernels, with its collectives written
+into the forward: q/k/v (and the DeltaNet's a/b/g, the MLP's gate/up) are
+column-parallel behind one `tp_copy` of the normed input, o_proj and down
+row-parallel, their partial outputs summed by `tp_sum` inside `_dense`
+(the LoRA side path added before the sum, the replicated bias after it).
+Head counts come from the local leaves' widths: the rank computes the
+query heads whose o_proj rows it holds; where the k/v projections' split
+cuts a KV head (2 KV heads over 4 ranks) their outputs are gathered whole
+and the KV heads those queries read are kept (`kv_head_range`); the
+DeltaNet's per-head gated norm reads its replicated weight through
+`tp_copy`. The embedding, sharded on D, is gathered after the lookup; the
+head computes partial logits from the rank's D slice and sums them. The
+cached forward runs on the rank's part of the state (its KV heads' rings,
+its DeltaNet heads' states and conv channels)."""
 
 from __future__ import annotations
 
@@ -61,7 +77,15 @@ from ..ops.swa_kernels import (
     swa_ring_flash_attention,
     swa_ring_flash_decode_stacked,
 )
-from ..parallel.sharding import gather_top, gather_tree
+from ..parallel.sharding import (
+    gather_top,
+    gather_tree,
+    kv_head_range,
+    tp_copy,
+    tp_gather,
+    tp_info,
+    tp_sum,
+)
 from .state import DecoderState
 
 Params = Dict[str, Any]
@@ -80,6 +104,17 @@ def _not_ported(p: Params) -> None:
             )
 
 
+def _kernel(p) -> Optional[torch.Tensor]:
+    """A dense node's kernel (bf16 / fp32, or the int8 `kernel_q`)."""
+    return p.get("kernel", p.get("kernel_q")) if isinstance(p, dict) else None
+
+
+def _tp(p) -> Optional[Any]:
+    """The model-axis layout (parallel/sharding.ShardInfo) of a dense node's
+    kernel; None where it is whole."""
+    return tp_info(_kernel(p))
+
+
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     """x @ kernel (+ bias); kernel is [d_in, d_out], stored in the weights'
     dtype, as weight-only int8 (`kernel_q` + `scale`: plain torch, the
@@ -89,8 +124,16 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     side path (x @ a) @ b to the frozen kernel's output, so gradients and
     intermediates stay rank-r sized. `dora_scale` [d_out] (DoRA,
     train/lora.attach_lora) rescales the columns before the bias:
-    y = x @ (m * (W + a b) / ||W + a b||_col) without forming the weight."""
+    y = x @ (m * (W + a b) / ||W + a b||_col) without forming the weight.
+
+    A model-axis slice of the kernel (tensor parallelism): column-parallel
+    (its output columns), x whole and y this rank's columns; row-parallel
+    (its input rows), x this rank's features and y summed over the model
+    group (`tp_sum`) before the replicated bias. The replicated LoRA
+    factors are cut to the kernel's slice and read through `tp_copy`, so
+    their gradients are summed over the group."""
     _not_ported(p)
+    tp = _tp(p)
     if "kernel_q" in p:
         y = (x @ p["kernel_q"].to(x.dtype)) * p["scale"].to(x.dtype)
     elif "kernel_q4" in p or "kernel_q4f" in p:
@@ -98,9 +141,18 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     else:
         y = x @ p["kernel"]
     if "lora_a" in p:
-        y = y + ((x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)).to(y.dtype)
+        a, b = p["lora_a"], p["lora_b"]
+        if tp is not None:  # the factor beside the kernel's sliced dim, cut to its slice
+            a, b = tp_copy(a), tp_copy(b)
+            if tp.dim == 1:
+                b = b.narrow(1, tp.rank * y.shape[-1], y.shape[-1])
+            else:
+                a = a.narrow(0, tp.rank * x.shape[-1], x.shape[-1])
+        y = y + ((x @ a.to(x.dtype)) @ b.to(x.dtype)).to(y.dtype)
     if "dora_scale" in p:
         y = y * p["dora_scale"].to(y.dtype)
+    if tp is not None and tp.dim == 0:
+        y = tp_sum(y)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -112,7 +164,66 @@ def mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
         gu = _dense(x, p["gate_up"])
         inter = gu.shape[-1] // 2
         return _dense(silu(gu[..., :inter]) * gu[..., inter:], p["down"])
+    if _tp(p["gate"]) is not None:
+        x = tp_copy(x)
     return _dense(silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"])
+
+
+def _tp_heads(y: torch.Tensor, node: Params, h0: int, h1: int, d: int) -> torch.Tensor:
+    """Heads [h0, h1) of a column-parallel projection's output `y` (this
+    rank's columns): `y` itself where its columns are those heads, else
+    the model group's columns gathered whole and the heads cut out (the
+    split cuts a head; the gather's backward sums the ranks' parts)."""
+    info = _tp(node)
+    if info is None:
+        raise NotImplementedError(
+            "tensor parallelism with a k/v projection the rules leave whole beside a sharded "
+            "q projection is not ported to torch")
+    n = y.shape[-1]
+    if info.rank * n == h0 * d and n == (h1 - h0) * d:
+        return y
+    return tp_gather(y, summed=True)[..., h0 * d : h1 * d]
+
+
+def _swa_qkv(p: Params, cfg: TextConfig, x: torch.Tensor):
+    """q [B, T, hq, Dh], k and v [B, T, hkv, Dh] of the unfused layout,
+    after the projections: every head, or under tensor parallelism the
+    rank's query heads and the KV heads they read."""
+    B, T, _ = x.shape
+    Dh = cfg.head_dim
+    tp = _tp(p["q_proj"])
+    if tp is not None:
+        x = tp_copy(x)
+    q, k, v = (_dense(x, p[n]) for n in ("q_proj", "k_proj", "v_proj"))
+    if tp is not None:
+        kv0, kv1 = kv_head_range(cfg.num_attention_heads, cfg.num_key_value_heads,
+                                 tp.world, tp.rank)
+        k, v = (_tp_heads(t, p[n], kv0, kv1, Dh) for t, n in ((k, "k_proj"), (v, "v_proj")))
+    return (q.reshape(B, T, -1, Dh), k.reshape(B, T, -1, Dh), v.reshape(B, T, -1, Dh))
+
+
+def _swa_heads(p: Params, cfg: TextConfig) -> Tuple[int, int]:
+    """(query heads, KV heads) this rank computes in an SWA layer."""
+    tp = _tp(p.get("q_proj"))
+    if tp is None:
+        return cfg.num_attention_heads, cfg.num_key_value_heads
+    kv0, kv1 = kv_head_range(cfg.num_attention_heads, cfg.num_key_value_heads, tp.world,
+                             tp.rank)
+    return cfg.num_attention_heads // tp.world, kv1 - kv0
+
+
+def _delta_entry(p: Params, x: torch.Tensor):
+    """(x, o_norm weight) of a DeltaNet layer's unfused layout: under tensor
+    parallelism the input through `tp_copy` and the replicated per-head
+    norm's weight read through it too (each rank normalises its heads)."""
+    tp = _tp(p["q_proj"])
+    if tp is None:
+        return x, p["o_norm"]
+    if _tp(p["a_proj"]) is None:  # H does not divide over the model axis
+        raise NotImplementedError(
+            f"tensor parallelism over {tp.world} ranks with {p['A_log'].shape[0]} "
+            "DeltaNet heads (a split that cuts a head) is not ported to torch")
+    return tp_copy(x), tp_copy(p["o_norm"])
 
 
 def _maybe_checkpoint(fn, *args):
@@ -154,13 +265,13 @@ def swa_attention_forward(
     With rings, layer `layer_idx` of the stacked rings is updated IN PLACE
     with the new tokens' K/V. Returns [B, T, D]."""
     B, T, _ = x.shape
-    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     window = window if window is not None else cfg.sliding_window
     if rings_k is None and "q_proj" in p and T >= 2 * window and seq_chunked(cfg, T):
         # long stateless forward: the layer in window-sized sequence chunks
         # (swa_forward_seq_chunked), gated by the DeltaNet layers' threshold
         return swa_forward_seq_chunked(p, cfg, x, cos, sin, segment_ids, window)
     if "qkv_proj" in p:  # fused layout (models/fuse.py): one matmul
+        Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         qkv = _dense(x, p["qkv_proj"])
         nq, nk = Hq * Dh, Hkv * Dh
         q = qkv[..., :nq].reshape(B, T, Hq, Dh)
@@ -169,9 +280,9 @@ def swa_attention_forward(
         # slice, and the attention kernels read dense rows
         v = qkv[..., nq + nk :].reshape(B, T, Hkv, Dh).contiguous()
     else:
-        q = _dense(x, p["q_proj"]).reshape(B, T, Hq, Dh)
-        k = _dense(x, p["k_proj"]).reshape(B, T, Hkv, Dh)
-        v = _dense(x, p["v_proj"]).reshape(B, T, Hkv, Dh)
+        q, k, v = _swa_qkv(p, cfg, x)
+        if _tp(p["q_proj"]) is not None:  # rope's tables, read per head
+            cos, sin = tp_copy(cos), tp_copy(sin)
     q, k = apply_rotary(q, k, cos, sin)
     if rings_k is None:
         out = swa_prefill_dense(q, k, v, window, segment_ids=segment_ids)
@@ -185,7 +296,7 @@ def swa_attention_forward(
             q, k, v, rings_k[layer_idx], rings_v[layer_idx], cum_len, window
         )
         ring_write_stacked(rings_k, rings_v, layer_idx, k, v, cum_len)
-    return _dense(out.reshape(B, T, Hq * Dh), p["o_proj"])
+    return _dense(out.reshape(B, T, -1), p["o_proj"])
 
 
 def delta_forward(
@@ -211,7 +322,7 @@ def delta_forward(
     pads' own outputs, which no label supervises, differ from the packed
     form's."""
     B, T, _ = x.shape
-    H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
+    K, V = cfg.linear_head_dim, cfg.head_v_dim
     if conv_q is None and "q_proj" in p and seq_chunked(cfg, T):
         # long stateless forward: the whole layer in sequence chunks
         # (delta_forward_seq_chunked); delta_seq_chunk_t gates it and
@@ -219,18 +330,22 @@ def delta_forward(
         return delta_forward_seq_chunked(
             p, cfg, x, segment_ids, min(cfg.delta_seq_chunk_t, cfg.delta_seq_chunk_eval),
             tail_pads_only=tail_pads_only)
+    o_norm = p["o_norm"]
     if "fused_proj" in p:  # fused layout (models/fuse.py): one matmul
+        H = cfg.num_linear_heads
         fused = _dense(x, p["fused_proj"])  # [B, T, 2 HK + VD + 2 H + HV]
         hk, vd = H * K, H * V
         q_raw, k_raw, v_raw, a_lin, b_lin, g_lin = fused.split(
             [hk, hk, vd, H, H, fused.shape[-1] - 2 * hk - vd - 2 * H], dim=-1)
     else:
+        x, o_norm = _delta_entry(p, x)
         q_raw = _dense(x, p["q_proj"])
         k_raw = _dense(x, p["k_proj"])
         v_raw = _dense(x, p["v_proj"])
         a_lin = _dense(x, p["a_proj"])
         b_lin = _dense(x, p["b_proj"])
         g_lin = _dense(x, p["g_proj"])
+        H = a_lin.shape[-1]  # this rank's heads under tensor parallelism
 
     use_cache = conv_q is not None
     decode = use_cache and T == 1
@@ -278,7 +393,7 @@ def delta_forward(
             segment_ids=None if tail_pads_only else segment_ids,
             out_state=slab,
         )
-    o = rms_norm_gated(o, g_lin.reshape(B, T, H, V), p["o_norm"], eps=cfg.norm_eps)
+    o = rms_norm_gated(o, g_lin.reshape(B, T, H, V), o_norm, eps=cfg.norm_eps)
     return _dense(o.reshape(B, T, H * V), p["o_proj"])
 
 
@@ -349,17 +464,16 @@ def _seq_ids(segment_ids: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tens
 def _swa_chunk(p, cfg, window, x_c, cos_c, sin_c, seg_c, pk, pv, pseg):
     """One chunk of swa_forward_seq_chunked: (y_c, k, v)."""
     B, C, _ = x_c.shape
-    Hq, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = _dense(x_c, p["q_proj"]).reshape(B, C, Hq, Dh)
-    k = _dense(x_c, p["k_proj"]).reshape(B, C, Hkv, Dh)
-    v = _dense(x_c, p["v_proj"]).reshape(B, C, Hkv, Dh)
+    q, k, v = _swa_qkv(p, cfg, x_c)
+    if _tp(p["q_proj"]) is not None:
+        cos_c, sin_c = tp_copy(cos_c), tp_copy(sin_c)
     q, k = apply_rotary(q, k, cos_c, sin_c)
     # the query block is padded with inert zero rows so that (prev ++ cur)
     # is square, as kernel H takes it; their outputs are dropped
     out = swa_prefill_dense(
         torch.cat([torch.zeros_like(q), q], dim=1), torch.cat([pk, k], dim=1),
         torch.cat([pv, v], dim=1), window, segment_ids=torch.cat([pseg, seg_c], dim=1))
-    return _dense(out[:, C:].reshape(B, C, Hq * Dh), p["o_proj"]), k, v
+    return _dense(out[:, C:].reshape(B, C, -1), p["o_proj"]), k, v
 
 
 def swa_forward_seq_chunked(
@@ -387,7 +501,7 @@ def swa_forward_seq_chunked(
     chunk across calls (decoder_layer_chunk_forward); they need T % window
     == 0. Returns y [B, T, D], or (y, carry) with `return_carry`."""
     B, T, _ = x.shape
-    Hkv, Dh = cfg.num_key_value_heads, cfg.head_dim
+    Hkv, Dh = _swa_heads(p, cfg)[1], cfg.head_dim
     C = window
     seg = _seq_ids(segment_ids, x)
     pad = (-T) % C
@@ -414,8 +528,10 @@ def swa_forward_seq_chunked(
 def _delta_chunk(p, cfg, x_c, seg_c, rule_ids, s, tq, tk, tv, tseg):
     """One chunk of delta_forward_seq_chunked: (y_c, state, q/k/v tails)."""
     B, C, _ = x_c.shape
-    H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
+    K, V = cfg.linear_head_dim, cfg.head_v_dim
+    H = p["A_log"].shape[0]  # this rank's heads under tensor parallelism
     W = p["conv_q_w"].shape[0]
+    x_c, o_norm = _delta_entry(p, x_c)
     raws, convs = [], []
     for name, tail in (("q", tq), ("k", tk), ("v", tv)):
         raw = _dense(x_c, p[f"{name}_proj"])
@@ -434,7 +550,7 @@ def _delta_chunk(p, cfg, x_c, seg_c, rule_ids, s, tq, tk, tv, tseg):
         convs[0].reshape(B, C, H, K), convs[1].reshape(B, C, H, K),
         convs[2].reshape(B, C, H, V), g, beta, initial_state=s * cont,
         chunk_size=cfg.delta_chunk_size, segment_ids=rule_ids)
-    o = rms_norm_gated(o, _dense(x_c, p["g_proj"]).reshape(B, C, H, V), p["o_norm"],
+    o = rms_norm_gated(o, _dense(x_c, p["g_proj"]).reshape(B, C, H, V), o_norm,
                        eps=cfg.norm_eps)
     y_c = _dense(o.reshape(B, C, H * V), p["o_proj"])
     return (y_c, s_new, *(r[:, C - (W - 1):] for r in raws))
@@ -502,12 +618,12 @@ def init_layer_seq_carry(p: Params, cfg: TextConfig, role: str, B: int, dtype,
     projections) and their segment ids, -1."""
     device = device or p["input_norm"].device
     if role == SLIDING:
-        W, Hkv, Dh = cfg.sliding_window, cfg.num_key_value_heads, cfg.head_dim
+        W, Hkv, Dh = cfg.sliding_window, _swa_heads(p, cfg)[1], cfg.head_dim
         return (torch.zeros((B, W, Hkv, Dh), dtype=dtype, device=device),
                 torch.zeros((B, W, Hkv, Dh), dtype=dtype, device=device),
                 torch.full((B, W), -1, dtype=torch.int32, device=device))
     if role == LINEAR:
-        H, K, V = cfg.num_linear_heads, cfg.linear_head_dim, cfg.head_v_dim
+        H, K, V = p["A_log"].shape[0], cfg.linear_head_dim, cfg.head_v_dim
         W = p["conv_q_w"].shape[0]
         tails = tuple(torch.zeros((B, W - 1, p[f"conv_{n}_w"].shape[1]), dtype=dtype,
                                   device=device) for n in ("q", "k", "v"))
@@ -707,17 +823,34 @@ def lm_head(params: Params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
     if "lm_head_q" in params:  # untied quantized head [hidden, vocab]
         q, s = params["lm_head_q"], params["lm_head_scale"]
     elif "lm_head" in params:
-        return (hidden @ params["lm_head"].to(hidden.dtype)).float()
+        return head_logits(hidden, params["lm_head"], False).float()
     elif "head_q" in params:  # tied quantized table, head copy
         q, s = params["head_q"], params["embed_scale"]
     else:
-        return (hidden @ params["embed"].T.to(hidden.dtype)).float()
+        return head_logits(hidden, params["embed"], True).float()
     return ((hidden @ q.to(hidden.dtype)) * s.to(hidden.dtype)).float()
 
 
+def head_logits(hidden: torch.Tensor, w: torch.Tensor, w_is_vd: bool) -> torch.Tensor:
+    """hidden @ the head weight (lm_head [D, V], or with `w_is_vd` the tied
+    table [V, D]) in the hidden's dtype. A weight sharded on D (tensor
+    parallelism) gives partial logits from the rank's D slice of the
+    hidden, summed over the model group."""
+    info = tp_info(w)
+    if info is not None:
+        n = w.shape[1 if w_is_vd else 0]
+        hidden = tp_copy(hidden).narrow(-1, info.rank * n, n).contiguous()
+    w = w.to(hidden.dtype)
+    logits = hidden @ (w.T if w_is_vd else w)
+    return logits if info is None else tp_sum(logits)
+
+
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    """The token embeddings [.., D]; a table sharded on D (tensor
+    parallelism) is looked up in the rank's columns and gathered whole."""
     if "embed_q" in params:
         # int8 gather + per-row dequant; the output dtype rides on the scale
         s = params["embed_scale"][input_ids]
         return params["embed_q"][input_ids].to(s.dtype) * s[..., None]
-    return params["embed"][input_ids]
+    e = params["embed"][input_ids]
+    return e if tp_info(params["embed"]) is None else tp_gather(e)

@@ -15,7 +15,16 @@ Attention per block:
   over the packed sequence, one segment per image / video frame: dense
   below FLASH_FULL_ATTN_MIN_SEQ tokens, batched per grid when all grids
   are equal, and the segment flash kernel E (ops/vit_kernels.py) from
-  FLASH_FULL_ATTN_MIN_SEQ on."""
+  FLASH_FULL_ATTN_MIN_SEQ on.
+
+Under tensor parallelism (the model axis of parallel/sharding.py) a block
+runs on this rank's slices: the fused qkv kernel is split colwise into
+contiguous slices that cut heads (at model 2 rank 0 holds all of q and half
+of k), so its output is gathered whole (`tp_gather`, summed backward) and
+the rank attends with the heads whose `proj` rows it holds; `proj`, the
+MLP's down and the merger's fc2 are row-parallel (models/text._dense sums
+their partial outputs before the replicated bias). The patch embedding's
+output channels are gathered whole."""
 
 from __future__ import annotations
 
@@ -31,8 +40,8 @@ from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rotary_vision, vision_cos_sin, vision_rot_pos_ids
 from ..ops.swa import attention_dense
 from ..ops.vit_flash import vit_full_attention, vit_window_attention
-from ..parallel.sharding import gather_top, gather_tree
-from .text import _dense
+from ..parallel.sharding import gather_top, gather_tree, tp_copy, tp_gather, tp_info
+from .text import _dense, _kernel, _tp
 
 Params = Dict[str, Any]
 GridTHW = Tuple[Tuple[int, int, int], ...]
@@ -167,6 +176,8 @@ def _vision_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
         gu = _dense(x, p["gate_up"])
         inter = gu.shape[-1] // 2
         return _dense(silu(gu[..., :inter]) * gu[..., inter:], p["down"])
+    if _tp(p["gate"]) is not None:
+        x = tp_copy(x)
     return _dense(silu(_dense(x, p["gate"])) * _dense(x, p["up"]), p["down"])
 
 
@@ -234,14 +245,21 @@ def vision_block_forward(
     S = x.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
     h = rms_norm(x, p["norm1"], 1e-6)
-    qkv = _dense(h, p["qkv"]).reshape(S, 3, H, D)
+    tp = _tp(p["qkv"])
+    if tp is None:
+        qkv = _dense(h, p["qkv"]).reshape(S, 3, H, D)
+    else:  # the heads whose proj rows this rank holds
+        qkv = tp_gather(_dense(tp_copy(h), p["qkv"]), summed=True).reshape(S, 3, H, D)
+        proj = _kernel(p["proj"])
+        n, r = proj.shape[0] // D, tp_info(proj).rank
+        qkv = qkv[:, :, r * n : (r + 1) * n]
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
     q, k = apply_rotary_vision(q, k, tensors["cos"], tensors["sin"])
     if full:
         attn = _full_attention(q, k, v, tensors["seg_full"], plan.equal_frame_len)
     else:
         attn = _window_attention(q, k, v, plan, tensors["token_valid"], tensors["win_seg"])
-    x = x + _dense(attn.reshape(S, H * D), p["proj"])
+    x = x + _dense(attn.reshape(S, -1), p["proj"])
     return x + _vision_mlp(p["mlp"], rms_norm(x, p["norm2"], 1e-6))
 
 
@@ -257,6 +275,8 @@ def vision_forward(
     params = gather_top(params)  # FSDP: the patch embedding and the merger once
     tensors = plan_tensors(plan, pixel_values.device)
     x = pixel_values.to(params["patch_embed"].dtype) @ params["patch_embed"]
+    if tp_info(params["patch_embed"]) is not None:
+        x = tp_gather(x)
     # reorder to window order with pad slots
     x = x.reshape(plan.seq_merged, unit, -1)
     x = x[tensors["merged_gather"]].reshape(plan.pad_seq, -1)
@@ -269,6 +289,8 @@ def vision_forward(
     m = params["merger"]
     h = rms_norm(x, m["ln_q"], 1e-6)
     h = h.reshape(plan.pad_seq_merged, unit * h.shape[-1])
+    if _tp(m["fc1"]) is not None:
+        h = tp_copy(h)
     h = _dense(F.gelu(_dense(h, m["fc1"])), m["fc2"])  # [pad_seq_merged, out]
     # restore the original merged-token order, dropping pad slots
     return h[tensors["merged_inverse"]]

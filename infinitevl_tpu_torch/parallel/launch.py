@@ -8,8 +8,10 @@ fails the launch: every rank still alive is killed and the error names the
 rank and carries its traceback. Nothing is retried or run in fewer ranks.
 
 torchrun is the launch for a training run (`torchrun --nproc_per_node N -m
-infinitevl_tpu_torch.cli train recipe.yaml`); this is for programs that
-drive several worlds in one run (the tests, chip_smoke.py)."""
+infinitevl_tpu_torch.cli train recipe.yaml`, N = data_parallel x
+model_parallel); this is for programs that drive several worlds in one run
+(the tests, chip_smoke.py). A world of `data x model` ranks makes its
+(data, model) mesh with parallel/sharding.create_mesh."""
 
 from __future__ import annotations
 

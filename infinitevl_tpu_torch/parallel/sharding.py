@@ -1,41 +1,68 @@
-"""Data-parallel and FSDP training over torch.distributed (torch port of the
-data axis of infinitevl_tpu/parallel/sharding.py).
+"""Data parallelism, FSDP and tensor parallelism over torch.distributed
+(torch port of infinitevl_tpu/parallel/sharding.py).
 
-One process per rank. Every rank builds the same global batch from the
-same seed and trains its own rows of it (`rank_rows`); losses divide by
-the count of the GLOBAL batch (`global_sum` of the local count, one
-all_reduce), so the gradients summed over the ranks are those of the
-global batch's loss and no rank divides twice.
+One process per rank. The world is a (data, model) mesh: rank r sits at
+(r // model, r % model), the model axis innermost, as JAX reshapes its
+devices (`create_mesh`; `create_hybrid_mesh` keeps each model group
+inside one node). Each data row of the mesh is a model group and each
+model column a data group, every one a process group of its own.
+
+Every rank builds the same global batch from the same seed and trains the
+rows of its DATA coordinate (`rank_rows`): the ranks of one model group
+hold the same rows. Losses divide by the count of the GLOBAL batch
+(`global_sum` of the local count over the data group), so the gradients
+summed over the data group are those of the global batch's loss.
 
 The parameter layout follows JAX's rule table (`param_spec`, copied from
-the JAX package with its `_fit` and warn-once fallback):
-- `replicated` (and `tp` while `model_parallel` is 1): every leaf whole on
-  every rank; the trainable leaves' gradients are summed by all_reduce
-  (`sync_gradients`, called by train/step.Optimizer.update);
-- `fsdp` (ZeRO-3): each leaf the rules shard over `data` lives on each rank
-  as a contiguous slice along that dim (`shard_params`); the optimizer's
-  moments are made from the slices and follow them. A layer's full weights
-  exist only while it runs: `gather_tree` all-gathers them through an
-  autograd Function whose backward reduce-scatters (sums) the gradient into
-  the slice. The models call it per layer inside the per-layer checkpoint
-  (models/text.py, models/vision.py) and once per forward for the top-level
-  leaves (`gather_top`); with no shard in the process both return their
-  argument, so the one-process path computes what it computed before.
+the JAX package with its `_fit` and warn-once fallback). A leaf the rules
+shard holds on each rank the contiguous slice of its coordinate along the
+sharded dim (`shard_params`), tagged with its layout (`ShardInfo`):
+- the model axis (`tp`, and `fsdp`, at model_parallel > 1; tag `_ivl_tp`)
+  is explicit Megatron-style tensor parallelism. The slices stay slices:
+  the forwards of models/text.py and models/vision.py compute with them
+  and place the collectives themselves, over the model group, as
+  autograd Functions: `tp_copy` (identity forward, all_reduce backward)
+  where a replicated input enters column-parallel kernels, `tp_sum`
+  (all_reduce forward, identity backward) after a row-parallel kernel's
+  partial output, `tp_gather` (all_gather forward; slice or
+  reduce_scatter backward) where a rule cuts a dim the next op needs whole
+  (the embedding's D, a fused qkv whose split cuts a head). The hidden
+  state is whole on every rank between blocks. A replicated leaf read
+  inside a head-parallel region (a LoRA factor on a sharded kernel, the
+  DeltaNet's per-head gated norm) goes through `tp_copy` too, so its
+  gradient arrives summed over the model group;
+- the data axis (`fsdp`; tag `_ivl_shard`) is ZeRO-3: a layer's full
+  weights (over data) exist only while it runs: `gather_tree` all-gathers
+  them through an autograd Function whose backward reduce-scatters (sums)
+  the gradient into the slice. The models call it per layer inside the
+  per-layer checkpoint and once per forward for the top-level leaves
+  (`gather_top`); a gathered leaf keeps its model-axis tag. With no shard
+  in the process both return their argument, so the one-process path
+  computes what it computed before.
+Under `replicated` every leaf is whole on every rank; the trainable leaves'
+gradients are summed over the data group (`sync_gradients`, called by
+train/step.Optimizer.update); so are a model-axis slice's (its data group
+holds the same slice). The global gradient norm sums the slices' squares
+over their axes' groups and counts a replicated leaf once (`grad_sq_norm`).
 
-A shard carries its layout as the tensor attribute `_ivl_shard`
-(`ShardInfo`): the optimizer updates leaves in place, so a leaf keeps it
-for its life; a clone must copy it (`copy_shard_info`). rope's `inv_freq`
-stays whole: a constant of the config that the tied forward reads on
-every rank.
+The optimizer updates leaves in place, so a leaf keeps its tags for its
+life; a clone must copy them (`copy_shard_info`). rope's `inv_freq` stays
+whole: a constant of the config that the forward reads on every rank.
+
+The decoder state follows `_STATE_RULES` (`shard_state`, `gather_state`;
+`models/state.init_decoder_state(mesh=...)` makes the local state): batch
+rows on data, heads on model. JAX's rule for the SWA rings names dim 3,
+which in the head-major [S, B, Hkv, cap, Dh] layout is the ring's
+capacity (GSPMD's numbers do not depend on it); the port shards Hkv, the
+dim its comment names and the one the attention kernels read per rank,
+and where Hkv does not divide over the model axis each rank holds the KV
+heads its query heads read (`kv_head_range`).
 
 The collectives are `all_gather_into_tensor`, `reduce_scatter_tensor` and
 `all_reduce` on the tensors' own device: NCCL on CUDA, gloo on the CPU,
-and gloo on CUDA tensors too (two ranks sharing one card, where NCCL
-refuses a second rank on the same GPU; torch's gloo stages them through
-the host itself).
-
-Tensor parallelism (`model_parallel` > 1: the TP rules' model axis, the
-decoder state's rules, `hybrid_device_order`) is not ported yet."""
+and gloo on CUDA tensors too (ranks sharing one card, where NCCL refuses a
+second rank on the same GPU; torch's gloo stages them through the host
+itself)."""
 
 from __future__ import annotations
 
@@ -58,12 +85,6 @@ MODEL = "model"
 Spec = Tuple[Optional[str], ...]
 
 _distributed_initialized = False
-
-
-def _tp_later() -> NotImplementedError:
-    return NotImplementedError(
-        "tensor parallelism (model_parallel > 1: the TP rules' model axis, "
-        "state_shardings, hybrid_device_order) is not ported to torch yet")
 
 
 def maybe_init_distributed(backend: Optional[str] = None, device=None) -> bool:
@@ -112,27 +133,160 @@ def world_rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
+# ---------------------------------------------------------------- the mesh
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The world's (data, model) layout; this process is rank `rank`."""
+    """The world's (data, model) layout; this process is world rank `rank`.
+    `order[d][m]` is the world rank at mesh position (d, m); None is the
+    row-major order of `create_mesh` (rank d x model + m)."""
 
     data: int = 1
     model: int = 1
     rank: int = 0
+    order: Optional[Tuple[Tuple[int, ...], ...]] = None
+
+    def _position(self) -> Tuple[int, int]:
+        if self.order is None:
+            return divmod(self.rank, self.model)
+        for d, row in enumerate(self.order):
+            if self.rank in row:
+                return d, row.index(self.rank)
+        raise ValueError(f"rank {self.rank} is not in the mesh {self.order}")
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's place in its data group (torch.distributed orders a
+        group's ranks ascending; the data coordinate of `create_mesh`)."""
+        m = self._position()[1]
+        return sorted(row[m] for row in self.rows()).index(self.rank)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's place in its model group (its model coordinate)."""
+        return sorted(self.rows()[self._position()[0]]).index(self.rank)
+
+    def rows(self) -> Tuple[Tuple[int, ...], ...]:
+        """order[d][m], the row-major order where none was given."""
+        return self.order or tuple(tuple(d * self.model + m for m in range(self.model))
+                                   for d in range(self.data))
 
 
-def create_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """The (data, model) mesh over the process group's ranks; the world
-    size must be data x model."""
-    if model > 1:
-        raise _tp_later()
+# the process groups of this process's data column and model row (None: the
+# whole world) and the axes' sizes (None: no mesh made, the world)
+_GROUPS: Dict[str, Any] = {DATA: None, MODEL: None}
+_AXIS_SIZE: Dict[str, Optional[int]] = {DATA: None, MODEL: None}
+_MODEL_RANK = 0
+
+
+def _make_groups(mesh: Mesh) -> None:
+    """One process group per model row and one per data column, every rank
+    creating every group in the same order (torch.distributed's rule). An
+    axis that spans the whole world uses the default group."""
+    global _MODEL_RANK
+    rows = mesh.rows()
+    _GROUPS[DATA] = _GROUPS[MODEL] = None
+    _AXIS_SIZE[DATA], _AXIS_SIZE[MODEL] = mesh.data, mesh.model
+    _MODEL_RANK = mesh.model_rank
+    if mesh.model > 1 and mesh.data > 1:
+        for row in rows:
+            g = dist.new_group(sorted(row))
+            if mesh.rank in row:
+                _GROUPS[MODEL] = g
+        for m in range(mesh.model):
+            col = sorted(row[m] for row in rows)
+            g = dist.new_group(col)
+            if mesh.rank in col:
+                _GROUPS[DATA] = g
+
+
+def _check_world(data: int, model: int) -> int:
     world = world_size()
     if world != data * model:
         raise ValueError(
             f"the world holds {world} process(es) but data_parallel x model_parallel is "
-            f"{data} x {model}: launch data_parallel ranks (torchrun --nproc_per_node "
-            f"{data * model}) or set data_parallel to the world size")
-    return Mesh(data, model, world_rank())
+            f"{data} x {model}: launch data_parallel x model_parallel ranks (torchrun "
+            f"--nproc_per_node {data * model}) or set them to the world size")
+    return world
+
+
+def create_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """The (data, model) mesh over the process group's ranks, the model
+    axis innermost (rank r at (r // model, r % model), as JAX reshapes its
+    devices); the world size must be data x model. Makes the mesh's process
+    groups (collective: every rank calls it)."""
+    _check_world(data, model)
+    mesh = Mesh(data, model, world_rank())
+    _make_groups(mesh)
+    return mesh
+
+
+def hybrid_device_order(devices, data: int, model: int):
+    """Device layout for a multi-slice (multi-node) topology, JAX's rule:
+    the model axis (a collective in every layer) stays INSIDE a slice; the
+    data axis (one gradient reduction a step) is the only one allowed to
+    cross slices. Devices (objects with `slice_index` and `id`) are grouped
+    by slice_index; each slice contributes whole model groups; the data
+    axis is slice-major. Returns a [data, model] object array; raises where
+    the model axis would straddle slices."""
+    devices = list(devices)
+    if data * model != len(devices):
+        raise ValueError(f"need {data * model} devices, have {len(devices)}")
+    slices: dict = {}
+    for d in devices:
+        slices.setdefault(getattr(d, "slice_index", 0), []).append(d)
+    if len(slices) == 1:
+        return np.asarray(devices, dtype=object).reshape(data, model)
+    rows = []
+    for sidx in sorted(slices):
+        devs = sorted(slices[sidx], key=lambda d: getattr(d, "id", 0))
+        if len(devs) % model:
+            raise ValueError(
+                f"slice {sidx} has {len(devs)} devices, not a multiple of "
+                f"model={model}: the model axis would cross the DCN boundary")
+        rows.extend(devs[i : i + model] for i in range(0, len(devs), model))
+    if len(rows) != data:
+        raise ValueError(f"slices supply {len(rows)} data rows, expected data={data}")
+    out = np.empty((len(rows), model), dtype=object)
+    for i, row in enumerate(rows):
+        out[i, :] = row
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RankDevice:
+    """A rank as `hybrid_device_order` reads a device: its world rank and
+    its node (the slice)."""
+
+    id: int
+    slice_index: int
+
+
+def node_index() -> int:
+    """This process's node: torchrun's GROUP_RANK, else its rank over
+    LOCAL_WORLD_SIZE, else 0 (one node)."""
+    env = os.environ
+    if env.get("GROUP_RANK") is not None:
+        return int(env["GROUP_RANK"])
+    if env.get("LOCAL_WORLD_SIZE"):
+        return world_rank() // int(env["LOCAL_WORLD_SIZE"])
+    return 0
+
+
+def create_hybrid_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """The mesh for one or several nodes: each model group inside one node,
+    the data axis across nodes (`hybrid_device_order` over the ranks, each
+    rank's node from `node_index`, shared by one all_gather). On one node
+    it is `create_mesh`'s layout. Collective: every rank calls it."""
+    world = _check_world(data, model)
+    nodes = [0] * world
+    if world > 1:
+        dist.all_gather_object(nodes, node_index())
+    order = hybrid_device_order([RankDevice(r, n) for r, n in enumerate(nodes)], data, model)
+    mesh = Mesh(data, model, world_rank(),
+                tuple(tuple(int(d.id) for d in row) for row in order))
+    _make_groups(mesh)
+    return mesh
 
 
 # ---------------------------------------------------------------- the rules
@@ -167,11 +321,20 @@ _RULES: Tuple[Tuple[str, Spec], ...] = (
     (r"visual/merger/fc2/kernel", _ROWWISE),
 )
 
+# decoder state: batch on data, heads on model (the SWA rings on their Hkv
+# dim, 2; JAX's table names dim 3, the ring's capacity: see the docstring)
+_STATE_RULES: Tuple[Tuple[str, Spec], ...] = (
+    (r"swa_[kv]", (None, DATA, MODEL, None, None)),
+    (r"delta_h", (None, DATA, MODEL, None, None)),
+    (r"conv_[qkv]", (None, DATA, None, MODEL)),
+    (r"cum_len", ()),
+)
+
 _FIT_WARNED: set = set()
 
 
-def _match(path: str) -> Optional[Spec]:
-    for pat, spec in _RULES:
+def _match(path: str, rules=_RULES) -> Optional[Spec]:
+    for pat, spec in rules:
         if re.fullmatch(pat, path):
             return spec
     return None
@@ -222,7 +385,8 @@ def param_spec(path: str, shape: Sequence[int], data: int = 1, model: int = 1,
 
 _ACTIVE: Optional[Mesh] = None
 _SPLIT_BATCH = True
-_SHARDED = False  # set once this process holds a shard: the gathers' fast path
+_SHARDED = False  # set once this process holds a data-axis shard: the gathers' fast path
+_TP = False  # set once this process holds a model-axis slice
 
 
 @contextlib.contextmanager
@@ -249,14 +413,21 @@ def whole_batch():
 
 
 def data_parallel() -> bool:
-    """True where the batch's rows are split over more than one rank."""
+    """True where the batch's rows are split over more than one data rank."""
     return _ACTIVE is not None and _ACTIVE.data > 1 and _SPLIT_BATCH
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """A detached copy of `x` summed over every rank (one all_reduce)."""
+def model_parallel() -> bool:
+    """True under a mesh with more than one rank on the model axis."""
+    return _ACTIVE is not None and _ACTIVE.model > 1
+
+
+def all_reduce_sum(x: torch.Tensor, axis: str = DATA) -> torch.Tensor:
+    """A detached copy of `x` summed over this rank's group of `axis` (the
+    data group by default; one all_reduce)."""
     y = x.detach().contiguous().clone()
-    dist.all_reduce(y)
+    if _AXIS_SIZE[axis] != 1:
+        dist.all_reduce(y, group=_GROUPS[axis])
     return y
 
 
@@ -281,39 +452,49 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
-def _gather_raw(shard: torch.Tensor, info: "ShardInfo") -> torch.Tensor:
-    x = (shard if info.dim == 0 else shard.movedim(info.dim, 0)).contiguous()
-    out = x.new_empty((x.shape[0] * info.world,) + tuple(x.shape[1:]))
-    _all_gather(out, x)
-    return out if info.dim == 0 else out.movedim(0, info.dim).contiguous()
-
-
-def _reduce_scatter_raw(grad: torch.Tensor, info: "ShardInfo") -> torch.Tensor:
-    x = (grad if info.dim == 0 else grad.movedim(info.dim, 0)).contiguous()
-    out = x.new_empty((x.shape[0] // info.world,) + tuple(x.shape[1:]))
-    _reduce_scatter(out, x)
-    return out if info.dim == 0 else out.movedim(0, info.dim).contiguous()
-
-
 @dataclasses.dataclass(frozen=True)
 class ShardInfo:
-    """A leaf's slice on this rank: `full` entries along `dim` over `world`
-    ranks, this rank's starting at rank x full / world."""
+    """A leaf's slice on this rank along one mesh axis: `full` entries along
+    `dim` over the axis's `world` ranks, this rank's (coordinate `rank` on
+    the axis) starting at rank x full / world."""
 
     dim: int
     full: int
     world: int
     rank: int
+    axis: str = DATA
+
+
+def _gather_raw(shard: torch.Tensor, info: ShardInfo) -> torch.Tensor:
+    x = (shard if info.dim == 0 else shard.movedim(info.dim, 0)).contiguous()
+    out = x.new_empty((x.shape[0] * info.world,) + tuple(x.shape[1:]))
+    _all_gather(out, x, group=_GROUPS[info.axis])
+    return out if info.dim == 0 else out.movedim(0, info.dim).contiguous()
+
+
+def _reduce_scatter_raw(grad: torch.Tensor, info: ShardInfo) -> torch.Tensor:
+    x = (grad if info.dim == 0 else grad.movedim(info.dim, 0)).contiguous()
+    out = x.new_empty((x.shape[0] // info.world,) + tuple(x.shape[1:]))
+    _reduce_scatter(out, x, group=_GROUPS[info.axis])
+    return out if info.dim == 0 else out.movedim(0, info.dim).contiguous()
 
 
 def shard_info(t: torch.Tensor) -> Optional[ShardInfo]:
+    """The leaf's data-axis (FSDP) layout, None where it is whole over data."""
     return getattr(t, "_ivl_shard", None)
 
 
+def tp_info(t) -> Optional[ShardInfo]:
+    """The leaf's model-axis (tensor-parallel) layout, None where it is
+    whole over the model axis."""
+    return getattr(t, "_ivl_tp", None)
+
+
 def copy_shard_info(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    info = shard_info(src)
-    if info is not None:
-        dst._ivl_shard = info
+    for attr in ("_ivl_shard", "_ivl_tp"):
+        info = getattr(src, attr, None)
+        if info is not None:
+            setattr(dst, attr, info)
     return dst
 
 
@@ -334,13 +515,20 @@ class _GatherShard(torch.autograd.Function):
 
 
 def gather_leaf(t: torch.Tensor) -> torch.Tensor:
+    """The leaf whole over the data axis (its model-axis slice kept, and
+    its tag with it)."""
     info = shard_info(t)
     if info is None:
         return t
     if t.requires_grad and torch.is_grad_enabled():
-        return _GatherShard.apply(t, info)
-    with torch.no_grad():
-        return _gather_raw(t, info)
+        out = _GatherShard.apply(t, info)
+    else:
+        with torch.no_grad():
+            out = _gather_raw(t, info)
+    tp = tp_info(t)
+    if tp is not None:
+        out._ivl_tp = tp
+    return out
 
 
 def gather_tree(tree, memo: Optional[Dict[int, torch.Tensor]] = None):
@@ -374,37 +562,143 @@ def gather_top(tree):
 
 
 @torch.no_grad()
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A leaf whole over both axes (every rank of its groups must call)."""
+    t = gather_leaf(t)
+    info = tp_info(t)
+    return _gather_raw(t, info) if info is not None else t
+
+
+@torch.no_grad()
 def gather_full(tree):
-    """A copy of the tree with every leaf whole and detached (for saving and
-    export): every rank must call it, each gets the full tree. The tree
-    itself where this process holds no shard."""
-    if not _SHARDED:
+    """A copy of the tree with every leaf whole over both axes and detached
+    (for saving and export): every rank must call it, each gets the full
+    tree. The tree itself where this process holds no slice."""
+    if not (_SHARDED or _TP):
         return tree
-    return tree_map(lambda t: gather_leaf(t).detach() if shard_info(t) else t, tree)
+    return tree_map(lambda t: _whole(t).detach() if shard_info(t) or tp_info(t) else t, tree)
+
+
+# ---------------------------------------------------------------- tensor parallelism
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=_GROUPS[MODEL])
+        return g
+
+
+class _Sum(torch.autograd.Function):
+    """The partial results summed over the model group; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=_GROUPS[MODEL])
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+class _Gather(torch.autograd.Function):
+    """The model group's slices along the last dim, whole. Backward: the
+    rank's slice of the gradient (`summed` False: the whole tensor feeds
+    computation every rank repeats, so each holds the whole gradient) or
+    the gradient summed over the group, then sliced (`summed` True: each
+    rank reads its own part of the whole tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, summed):
+        ctx.summed, ctx.n = summed, x.shape[-1]
+        m = _AXIS_SIZE[MODEL]
+        return _gather_raw(x, ShardInfo(x.ndim - 1, x.shape[-1] * m, m, _MODEL_RANK, MODEL))
+
+    @staticmethod
+    def backward(ctx, grad):
+        info = ShardInfo(grad.ndim - 1, grad.shape[-1], _AXIS_SIZE[MODEL], _MODEL_RANK, MODEL)
+        if ctx.summed:
+            return _reduce_scatter_raw(grad, info), None
+        return grad.narrow(-1, _MODEL_RANK * ctx.n, ctx.n).contiguous(), None
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """Where a replicated tensor enters column-parallel work (or a
+    replicated leaf is read inside a head-parallel region): identity
+    forward, all_reduce of the gradient over the model group."""
+    return _Copy.apply(x)
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel kernel's partial output summed over the model group
+    (all_reduce forward, identity backward)."""
+    return _Sum.apply(x)
+
+
+def tp_gather(x: torch.Tensor, summed: bool = False) -> torch.Tensor:
+    """The model group's slices of `x` along its last dim, whole (all_gather
+    forward; backward as `_Gather`)."""
+    return _Gather.apply(x, summed)
+
+
+def kv_head_range(hq: int, hkv: int, model: int, rank: int) -> Tuple[int, int]:
+    """The KV heads [kv0, kv1) that model rank `rank`'s query heads read
+    (GQA: query head h reads KV head h // (hq / hkv)); the rank holds query
+    heads [rank hq / model, (rank + 1) hq / model)."""
+    if hq % model:
+        raise NotImplementedError(
+            f"tensor parallelism over {model} ranks with {hq} query heads (a split "
+            "that cuts a query head) is not ported to torch")
+    nq, g = hq // model, hq // hkv
+    return rank * nq // g, ((rank + 1) * nq - 1) // g + 1
 
 
 # ---------------------------------------------------------------- sharding
 
 _WHOLE = ("inv_freq",)
+# leaves JAX's rules leave whole that a model-sharded layer cannot run with
+_TP_REFUSED = (
+    (re.compile(r".*/(conv_w|conv_b|dt_proj|D)(/.*)?$"),
+     "Mamba2 layers under model_parallel > 1 (JAX's rules shard their q/k/v/g/o but not "
+     "their conv or dt_proj)"),
+    (re.compile(r".*/(kernel_q4|kernel_q4f|scale4)$"),
+     "int4 weights under model_parallel > 1 (no JAX trainer path reaches them)"),
+)
 
 
 def _path(prefix: str, key) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 
 
+def _narrow(t: torch.Tensor, dim: int, n_ranks: int, rank: int) -> torch.Tensor:
+    n = t.shape[dim] // n_ranks
+    return t.narrow(dim, rank * n, n)
+
+
 def shard_params(tree, mesh: Optional[Mesh], param_mode: str = "fsdp",
                  memo: Optional[Dict[int, Any]] = None, prefix: str = ""):
-    """The tree with each leaf that `param_spec` shards over `data` replaced
-    by this rank's contiguous slice along that dim (trainable where the leaf
-    was); other leaves are kept as they are. New containers, the leaves'
-    tensors shared where whole. A leaf reached twice, in this tree or in
-    another sharded with the same `memo` (a student sharing its teacher's
-    tensors), becomes ONE shard. Without a mesh, or at one data rank, or
-    under `replicated` / `tp`, the tree itself."""
-    global _SHARDED
-    if mesh is None or mesh.data <= 1 or param_mode not in ("fsdp",):
-        if param_mode not in ("fsdp", "tp", "replicated"):
-            raise ValueError(f"unknown param_mode {param_mode!r} (tp | fsdp | replicated)")
+    """The tree with each leaf that `param_spec` shards replaced by this
+    rank's contiguous slice: along the model axis (tensor parallelism,
+    `tp` and `fsdp` at model > 1) and, under `fsdp`, along the data axis
+    (trainable where the leaf was; tagged `_ivl_tp` / `_ivl_shard`); other
+    leaves are kept as they are. New containers, the leaves' tensors shared
+    where whole. A leaf reached twice, in this tree or in another sharded
+    with the same `memo` (a student sharing its teacher's tensors), becomes
+    ONE shard. Without a mesh, or where neither axis shards anything, the
+    tree itself. Mamba2 layers and int4 weights raise at model > 1."""
+    global _SHARDED, _TP
+    if param_mode not in ("fsdp", "tp", "replicated"):
+        raise ValueError(f"unknown param_mode {param_mode!r} (tp | fsdp | replicated)")
+    if mesh is None or param_mode == "replicated" or (
+            mesh.model <= 1 and (mesh.data <= 1 or param_mode != "fsdp")):
         return tree
     memo = {} if memo is None else memo
     if isinstance(tree, dict):
@@ -417,31 +711,52 @@ def shard_params(tree, mesh: Optional[Mesh], param_mode: str = "fsdp",
         return tree
     if id(tree) in memo:
         return memo[id(tree)][1]
+    if mesh.model > 1:
+        for pat, what in _TP_REFUSED:
+            if pat.fullmatch(prefix):
+                raise NotImplementedError(f"{what} is not ported to torch yet ({prefix})")
     spec = param_spec(prefix, tree.shape, mesh.data, mesh.model, param_mode)
     out = tree
-    if DATA in spec and prefix.rsplit("/", 1)[-1] not in _WHOLE:
-        dim = spec.index(DATA)
-        n = tree.shape[dim] // mesh.data
-        out = tree.detach().narrow(dim, mesh.rank * n, n).clone(
-            memory_format=torch.contiguous_format)
-        out.requires_grad_(tree.requires_grad)
-        out._ivl_shard = ShardInfo(dim, int(tree.shape[dim]), mesh.data, mesh.rank)
-        _SHARDED = True
+    if prefix.rsplit("/", 1)[-1] not in _WHOLE:
+        out = tree.detach()
+        tags = {}
+        for axis, attr, n, r in ((MODEL, "_ivl_tp", mesh.model, mesh.model_rank),
+                                 (DATA, "_ivl_shard", mesh.data, mesh.data_rank)):
+            if axis in spec and n > 1:  # an axis of one rank holds the leaf whole
+                dim = spec.index(axis)
+                tags[attr] = ShardInfo(dim, int(tree.shape[dim]), n, r, axis)
+                out = _narrow(out, dim, n, r)
+        if tags:
+            out = out.clone(memory_format=torch.contiguous_format)
+            out.requires_grad_(tree.requires_grad)
+            for attr, info in tags.items():
+                setattr(out, attr, info)
+            _TP = _TP or "_ivl_tp" in tags
+            _SHARDED = _SHARDED or "_ivl_shard" in tags
+        else:
+            out = tree
     memo[id(tree)] = (tree, out)  # the source kept alive: ids stay unique
     return out
 
 
+def _infos(t: torch.Tensor) -> List[ShardInfo]:
+    return [i for i in (shard_info(t), tp_info(t)) if i is not None]
+
+
 def local_bytes(tree) -> Tuple[int, int]:
     """(bytes this rank holds, bytes of the same leaves whole) over the
-    sharded leaves of `tree`, each tensor counted once."""
+    sharded leaves of `tree` (either axis), each tensor counted once."""
     seen, held, whole = set(), 0, 0
     for t in _tensors(tree):
-        info = shard_info(t)
-        if info is None or id(t) in seen:
+        infos = _infos(t)
+        if not infos or id(t) in seen:
             continue
         seen.add(id(t))
-        held += t.numel() * t.element_size()
-        whole += t.numel() // t.shape[info.dim] * info.full * t.element_size()
+        n = t.numel() * t.element_size()
+        held += n
+        for info in infos:
+            n = n // t.shape[info.dim] * info.full
+        whole += n
     return held, whole
 
 
@@ -456,13 +771,98 @@ def _tensors(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
+# ---------------------------------------------------------------- the decoder state
+
+def state_spec(key: str, shape: Sequence[int], data: int = 1, model: int = 1) -> Spec:
+    """The mesh axis of each dim of the decoder state's `key`
+    (`_STATE_RULES`, with `_fit`'s fallback)."""
+    spec = _match(key, _STATE_RULES) or ()
+    fitted = _fit(spec, tuple(shape), {DATA: data, MODEL: model})
+    return tuple(fitted) + (None,) * (len(shape) - len(fitted))
+
+
+def _state_slice(key: str, shape, mesh: Mesh, hq: int) -> Dict[int, Tuple[int, int]]:
+    """{dim: (start, stop)} of this rank's part of the state's `key`."""
+    spec = state_spec(key, shape, mesh.data, mesh.model)
+    out = {}
+    for dim, ax in enumerate(spec):
+        if ax == DATA:
+            n = shape[dim] // mesh.data
+            out[dim] = (mesh.data_rank * n, (mesh.data_rank + 1) * n)
+        elif ax == MODEL:
+            n = shape[dim] // mesh.model
+            out[dim] = (mesh.model_rank * n, (mesh.model_rank + 1) * n)
+    if key.startswith("swa_") and mesh.model > 1 and 2 not in out:
+        # Hkv does not divide over the model axis: the KV heads that this
+        # rank's query heads read
+        out[2] = kv_head_range(hq, shape[2], mesh.model, mesh.model_rank)
+    return out
+
+
+def local_state_shape(key: str, shape: Sequence[int], mesh: Optional[Mesh], hq: int
+                      ) -> Tuple[int, ...]:
+    """The shape of this rank's part of the state's `key` (whole `shape`)."""
+    shape = tuple(int(s) for s in shape)
+    if mesh is None:
+        return shape
+    out = list(shape)
+    for dim, (a, b) in _state_slice(key, shape, mesh, hq).items():
+        out[dim] = b - a
+    return tuple(out)
+
+
+def shard_state(state, mesh: Optional[Mesh], hq: int):
+    """This rank's part of a whole decoder state (`hq`: the config's query
+    heads, which place the SWA rings' KV heads): copies of the slices;
+    cum_len as it is."""
+    if mesh is None:
+        return state
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, torch.Tensor):
+            for dim, (a, b) in _state_slice(k, v.shape, mesh, hq).items():
+                v = v.narrow(dim, a, b - a)
+            v = v.clone()
+        out[k] = v
+    return out
+
+
+@torch.no_grad()
+def gather_state(state, mesh: Optional[Mesh], hq: int, whole_shapes: Dict[str, tuple]):
+    """The whole decoder state from every rank's part (every rank calls it
+    and gets the whole state): the parts all-gathered over the world and
+    placed at their slices (a KV head several ranks hold is taken from the
+    first)."""
+    if mesh is None:
+        return state
+    out = {}
+    world = mesh.data * mesh.model
+    for k, v in state.items():
+        if not isinstance(v, torch.Tensor):
+            out[k] = v
+            continue
+        parts = [torch.empty_like(v) for _ in range(world)]
+        dist.all_gather(parts, v.contiguous())
+        whole = v.new_empty(whole_shapes[k])
+        for r, part in enumerate(parts):
+            sl = _state_slice(k, whole_shapes[k], Mesh(mesh.data, mesh.model, r, mesh.order), hq)
+            view = whole
+            for dim, (a, b) in sl.items():
+                view = view.narrow(dim, a, b - a)
+            view.copy_(part)
+        out[k] = whole
+    return out
+
+
 # ---------------------------------------------------------------- gradients
 
 def sync_gradients(leaves: Sequence[torch.Tensor], grads: List[torch.Tensor]
                    ) -> List[torch.Tensor]:
-    """The gradients of the global batch: each replicated leaf's summed over
-    the data ranks (one all_reduce a leaf); a shard's is already summed (its
-    gather's backward). Unchanged where the batch is not split."""
+    """The gradients of the global batch: each leaf that is whole over the
+    data axis (replicated, or a model-axis slice) has its gradient summed
+    over the data group (one all_reduce a leaf); a data-axis shard's is
+    already summed (its gather's backward). Unchanged where the batch is
+    not split."""
     if not data_parallel():
         return grads
     out = []
@@ -472,24 +872,41 @@ def sync_gradients(leaves: Sequence[torch.Tensor], grads: List[torch.Tensor]
 
 
 def grad_sq_norm(leaves: Sequence[torch.Tensor], grads) -> torch.Tensor:
-    """The squared global norm of the gradients: the shards' sums of squares
-    summed over the ranks (one all_reduce), each replicated leaf counted
-    once."""
-    sharded = [g for t, g in zip(leaves, grads) if shard_info(t) is not None]
-    whole = [g for t, g in zip(leaves, grads) if shard_info(t) is None]
-    total = sum((g.float() ** 2).sum() for g in whole) if whole else None
-    if sharded:  # every rank shards the same leaves: all or none of them reduce
-        part = all_reduce_sum(sum((g.float() ** 2).sum() for g in sharded))
-        total = part if total is None else total + part
+    """The squared global norm of the gradients: each slice's sum of squares
+    summed over its axes' groups (the model group, the data group, or both:
+    one all_reduce an axis), each replicated leaf counted once. With no
+    slice in the process, the plain sum."""
+    parts = {(): [], (MODEL,): [], (DATA,): [], (MODEL, DATA): []}
+    for t, g in zip(leaves, grads):
+        key = tuple(ax for ax, i in ((MODEL, tp_info(t)), (DATA, shard_info(t)))
+                    if i is not None)
+        parts[key].append(g)
+    sq = {k: (sum((g.float() ** 2).sum() for g in v) if v else None)
+          for k, v in parts.items()}
+    m, d, both = sq[(MODEL,)], sq[(DATA,)], sq[(MODEL, DATA)]
+    # every rank of a group slices the same leaves: all or none of them reduce
+    for axis, own in ((MODEL, m), (DATA, d)):
+        if own is None and both is None:
+            continue
+        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        v = all_reduce_sum(torch.stack([zero if own is None else own,
+                                        zero if both is None else both]), axis)
+        own, both = (None if own is None else v[0]), (None if both is None else v[1])
+        m, d = (own, d) if axis == MODEL else (m, own)
+    total = sq[()]
+    for part in (m, d, both):
+        if part is not None:
+            total = part if total is None else total + part
     return total
 
 
 # ---------------------------------------------------------------- batches
 
 def rank_rows(batch: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
-    """This rank's rows of a global text batch: rows [r B/n, (r+1) B/n) of
-    every per-row array (position_ids along its dim 1), `_n_tokens`
-    recounted from the rows' segment ids. The batch itself without a mesh."""
+    """This rank's rows of a global text batch: the rows of its data
+    coordinate, [d B/n, (d+1) B/n), of every per-row array (position_ids
+    along its dim 1), `_n_tokens` recounted from the rows' segment ids. The
+    batch itself without a mesh or with one data rank."""
     if mesh is None or mesh.data <= 1:
         return batch
     B = batch["input_ids"].shape[0] if "input_ids" in batch else None
@@ -498,7 +915,7 @@ def rank_rows(batch: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
     if B % mesh.data:
         raise ValueError(f"global batch of {B} rows over {mesh.data} data ranks")
     n = B // mesh.data
-    rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
     out = {}
     for k, v in batch.items():
         if k == "position_ids":
@@ -527,7 +944,7 @@ def rank_rows_mm(item: tuple, mesh: Optional[Mesh], cfg) -> tuple:
     batch, grids = item[0], item[1:]
     ids = np.asarray(batch["input_ids"])
     n = ids.shape[0] // mesh.data
-    lo, hi = mesh.rank * n, (mesh.rank + 1) * n
+    lo, hi = mesh.data_rank * n, (mesh.data_rank + 1) * n
     out = rank_rows({k: v for k, v in batch.items()
                      if k not in ("pixel_values", "pixel_values_videos")}, mesh)
     for key, rows, token in (("pixel_values", "image_rows", cfg.image_token_id),
@@ -551,6 +968,16 @@ def _per_leaf(state: Dict[str, Any], n: int):
 
 
 @torch.no_grad()
+def _whole_like(m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A moment `m` of leaf `t`, whole over the axes `t` is sliced on."""
+    info = shard_info(t)
+    if info is not None:
+        m = _gather_raw(m, info)
+    info = tp_info(t)
+    return _gather_raw(m, info) if info is not None else m
+
+
+@torch.no_grad()
 def gather_opt_state(state: Dict[str, Any], leaves: Sequence[torch.Tensor],
                      keys: Sequence[str] = _PER_LEAF_KEYS) -> Dict[str, Any]:
     """The optimizer state with each per-leaf moment (of `keys`) of a
@@ -558,17 +985,16 @@ def gather_opt_state(state: Dict[str, Any], leaves: Sequence[torch.Tensor],
     it."""
     out = dict(state)
     for k, v in _per_leaf(state, len(leaves)):
-        if k not in keys:
-            continue
-        out[k] = [_gather_raw(m, shard_info(t)) if shard_info(t) is not None else m
-                  for m, t in zip(v, leaves)]
+        if k in keys:
+            out[k] = [_whole_like(m, t) for m, t in zip(v, leaves)]
     return out
 
 
-def _slice_for(full: torch.Tensor, t: torch.Tensor, info: Optional[ShardInfo]) -> torch.Tensor:
-    if info is not None and tuple(full.shape) != tuple(t.shape):
-        n = t.shape[info.dim]
-        full = full.narrow(info.dim, info.rank * n, n)
+def _slice_for(full: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the whole `full` for the leaf (or moment) `t`."""
+    for info in (tp_info(t), shard_info(t)):
+        if info is not None and full.shape[info.dim] == info.full:
+            full = _narrow(full, info.dim, info.world, info.rank)
     if tuple(full.shape) != tuple(t.shape):
         raise ValueError(f"a saved leaf of shape {tuple(full.shape)} for one of "
                          f"{tuple(t.shape)}")
@@ -578,7 +1004,7 @@ def _slice_for(full: torch.Tensor, t: torch.Tensor, info: Optional[ShardInfo]) -
 @torch.no_grad()
 def load_into(dst, src) -> None:
     """Copy a one-process tree (`src`, whole leaves) into `dst` in place:
-    a sharded leaf takes its rank's slice, a whole one the whole leaf."""
+    a sharded leaf takes its rank's slices, a whole one the whole leaf."""
     if isinstance(dst, dict):
         for k, v in dst.items():
             load_into(v, src[k])
@@ -586,19 +1012,19 @@ def load_into(dst, src) -> None:
         for d, s in zip(dst, src):
             load_into(d, s)
     elif isinstance(dst, torch.Tensor):
-        dst.copy_(_slice_for(src, dst, shard_info(dst)))
+        dst.copy_(_slice_for(src, dst))
 
 
 @torch.no_grad()
 def load_opt_state(dst: Dict[str, Any], src: Dict[str, Any],
                    leaves: Sequence[torch.Tensor]) -> None:
     """Copy a one-process optimizer state into `dst` in place, each per-leaf
-    moment of a sharded leaf cut to the rank's slice."""
+    moment of a sharded leaf cut to the rank's slices."""
     per = dict(_per_leaf(dst, len(leaves)))
     for k, v in src.items():
         if k in per:
             for m, s, t in zip(per[k], v, leaves):
-                m.copy_(_slice_for(s, m, shard_info(t)))
+                m.copy_(_slice_for(s, copy_shard_info(m.detach(), t)))
         elif isinstance(dst.get(k), (dict, list, tuple, torch.Tensor)):
             load_into(dst[k], v)
         else:
@@ -607,7 +1033,12 @@ def load_opt_state(dst: Dict[str, Any], src: Dict[str, Any],
 
 def refuse_whole_leaf_optimizer(name: str, leaves: Sequence[torch.Tensor]) -> None:
     """Optimizers whose update reads a whole leaf (an SVD, a projection, a
-    per-head block mean) raise under fsdp where a trainable leaf is a shard."""
+    per-head block mean) raise under model_parallel > 1 and under fsdp
+    where a trainable leaf is a shard."""
+    if model_parallel() or any(tp_info(t) is not None for t in leaves):
+        raise NotImplementedError(
+            f"use_optimizer: {name} under model_parallel > 1 (its update needs each whole "
+            "leaf) is not ported to torch yet; use model_parallel: 1")
     if any(shard_info(t) is not None for t in leaves):
         raise NotImplementedError(
             f"use_optimizer: {name} under param_mode fsdp (its update needs each whole "

@@ -18,8 +18,10 @@ one optimizer step on the k-th, as `optax.MultiSteps` does.
 
 Under data parallelism (parallel/sharding.py) every loss divides by the
 global batch's count, the optimizer sums the replicated leaves' gradients
-over the ranks and clips by the global norm; with one process both are the
-one-process numbers."""
+over the data ranks and clips by the global norm (a model-axis slice's
+squares summed over the model group, a replicated leaf counted once); with
+one process both are the one-process numbers. Under tensor parallelism the
+losses run on the logits that every rank of a model group holds whole."""
 
 from __future__ import annotations
 
@@ -32,9 +34,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import InfiniteVLConfig, TextConfig
-from ..models.text import embed_tokens, lm_head, text_forward
+from ..models.text import embed_tokens, head_logits, lm_head, text_forward
 from ..parallel.sharding import (
-    data_parallel,
     gather_top,
     global_mean,
     global_sum,
@@ -66,8 +67,7 @@ def cross_entropy_loss(
 
 
 def _chunk_logprobs(h_c, lm_w, lb_c, w_is_vd):
-    w = lm_w.to(h_c.dtype)
-    logits = (h_c @ (w.T if w_is_vd else w)).float()
+    logits = head_logits(h_c, lm_w, w_is_vd).float()
     mask = lb_c != IGNORE_INDEX
     safe = torch.where(mask, lb_c, 0)
     tok = torch.gather(F.log_softmax(logits, dim=-1), -1, safe[..., None])[..., 0]
@@ -88,7 +88,10 @@ def chunked_logprobs(
     chunk is made contiguous: torch.matmul runs [B, t, D] @ [D, V] as one
     GEMM or as a batched one depending on the operand's layout and on
     whether the weight requires grad, and the two round differently (a
-    trainable policy and its frozen copy must give bit-equal log-probs)."""
+    trainable policy and its frozen copy must give bit-equal log-probs).
+    Under tensor parallelism each chunk's logits are the model group's
+    partial logits summed (models/text.head_logits): one all_reduce of
+    [B, chunk, V] a chunk, again in the chunk's recompute."""
     T = hidden.shape[1]
     track = torch.is_grad_enabled() and (hidden.requires_grad or lm_w.requires_grad)
     total = hidden.new_zeros(hidden.shape[0], dtype=torch.float32)
@@ -281,8 +284,7 @@ class Optimizer:
             for acc in state["acc"]:
                 acc.zero_()
         if self.grad_clip is not None:
-            g_norm = (torch.sqrt(grad_sq_norm(leaves, grads)) if data_parallel()
-                      else torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+            g_norm = torch.sqrt(grad_sq_norm(leaves, grads))
             if bool(g_norm >= self.grad_clip):
                 # clipped leaf by leaf as _apply reaches it: a clipped copy of
                 # every gradient at once would hold the model's size again

@@ -10,13 +10,15 @@ step functions move each batch to the parameters' device. Stages and
 options that are not ported yet raise NotImplementedError naming
 themselves; none is silently ignored.
 
-`run_sft` and `run_dt` train with `data_parallel` > 1 as one process per
-rank (torchrun, or parallel/launch.spawn_ranks): every rank collates the
-same global batch (per_device_train_batch_size x data_parallel rows, as
-JAX's) and trains its rows of it, under `param_mode` fsdp (the leaves
-sharded, parallel/sharding.py), replicated or tp (replicated while
-model_parallel is 1). Rank 0 alone writes the log, the reporters' files and
-the checkpoints, which hold the gathered state in the one-process format.
+`run_sft` and `run_dt` train on a (data_parallel x model_parallel) mesh
+as one process per rank (torchrun, or parallel/launch.spawn_ranks): every
+rank collates the same global batch (per_device_train_batch_size x
+data_parallel rows, as JAX's) and trains the rows of its data coordinate,
+under `param_mode` tp (the rules' model axis: tensor parallelism),
+fsdp (the model axis and, besides, the leaves sharded over data) or
+replicated (parallel/sharding.py). Rank 0 alone writes the log, the
+reporters' files and the checkpoints, which hold the state gathered over
+both axes in the one-process format; a resume loads each rank's slices.
 `streaming: true` reads, mixes and encodes the datasets lazily
 (`build_dataset_stream`, `collate_stream`)."""
 
@@ -761,14 +763,11 @@ def _refuse_later_options(args: AllArgs) -> None:
     none of them (the stacked layout is not built)."""
     t = args.train
     if t.pipeline_stages > 1:
-        raise _later("parallel/pipeline.py (pipeline_stages > 1; the slice after tensor "
-                     "parallelism)")
-    if t.model_parallel > 1:
-        raise _later("tensor parallelism (model_parallel > 1; the next parallel/ slice)")
+        raise _later("parallel/pipeline.py (pipeline_stages > 1; the next parallel/ slice)")
 
 
 def _maybe_mesh(args: AllArgs) -> Optional[Mesh]:
-    """The data-parallel mesh of sft / pt / dt, None for one process. The
+    """The (data, model) mesh of sft / pt / dt, None for one process. The
     process group's world must be data_parallel x model_parallel."""
     t = args.train
     if t.data_parallel * t.model_parallel <= 1 and world_size() == 1:
@@ -789,7 +788,8 @@ def _refuse_multi_rank(stage: str) -> None:
 def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     """SFT / PT workflow: text-only or multimodal, full / freeze / lora
     finetuning, QLoRA with `quantization_bit: 8`, data parallelism over the
-    process group's ranks (`data_parallel`, `param_mode`). Runs on the CUDA
+    process group's ranks (`data_parallel`, `model_parallel`, `param_mode`).
+    Runs on the CUDA
     card unless `device="cpu"`. Returns the final params (LoRA: merged),
     whole on every rank."""
     _refuse_later_options(args)
@@ -844,6 +844,10 @@ def _run_sft(args: AllArgs, tokenizer, device: torch.device, mesh: Optional[Mesh
             rank=args.finetune.lora_rank, target=args.finetune.lora_target,
             use_dora=args.finetune.use_dora,
         )
+        if args.finetune.use_dora and mesh is not None and mesh.model > 1:
+            raise NotImplementedError(
+                "use_dora under model_parallel > 1 (DoRA's column norms read each whole base "
+                "kernel) is not ported to torch yet; use model_parallel: 1")
         if args.finetune.use_dora and mesh is not None and mode == "fsdp":
             raise NotImplementedError(
                 "use_dora under param_mode fsdp (DoRA's column norms read each whole base "
@@ -1117,8 +1121,9 @@ def run_ppo(args: AllArgs, tokenizer=None, reward_fn=None, device: Optional[Devi
 
 def run_exp(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     """Stage dispatch (tuner.py:53-110). sft / pt / dt train across the
-    process group's ranks, whose number must be data_parallel (ValueError
-    otherwise); the preference stages train in one process."""
+    process group's ranks, whose number must be data_parallel x
+    model_parallel (ValueError otherwise); the preference stages train in
+    one process."""
     stage = args.finetune.stage
     if stage in ("sft", "pt"):
         return run_sft(args, tokenizer, device)

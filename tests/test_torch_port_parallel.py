@@ -138,10 +138,13 @@ def test_maybe_init_distributed_env_parsing(monkeypatch):
 
 
 def test_create_mesh_checks_the_world_and_refuses_tp():
+    """The world must hold data x model ranks, the model axis included (a
+    one-process world refuses model 2 as it refuses data 2; tensor
+    parallelism itself is held by tests/test_torch_port_tp_*.py)."""
     assert tsh.create_mesh(1, 1) == tsh.Mesh(1, 1, 0)
     with pytest.raises(ValueError, match="data_parallel"):
         tsh.create_mesh(2, 1)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="1 x 2"):
         tsh.create_mesh(1, 2)
 
 
@@ -439,8 +442,9 @@ def test_streaming_composes_with_data_parallel(world):
 def test_whole_leaf_updates_and_tp_refuse_by_name(tmp_path):
     """GaLore, APOLLO and Adam-mini read each whole leaf: on an FSDP slice
     they raise by name (under replicated they run, as the trainer tests
-    show); so does DoRA under fsdp, and model_parallel > 1 (tensor
-    parallelism) and pipeline_stages > 1 whatever the world."""
+    show); so does DoRA under fsdp, and pipeline_stages > 1 whatever the
+    world; model_parallel 2 in a world of one process raises for the world
+    (tensor parallelism needs data x model ranks)."""
     import infinitevl_tpu_torch.train.trainer as ttrainer
     from infinitevl_tpu_torch.hparams import parse_args
     from infinitevl_tpu_torch.train.optim import make_custom_optimizer
@@ -456,10 +460,12 @@ def test_whole_leaf_updates_and_tp_refuse_by_name(tmp_path):
                             data_parallel=2))
     with pytest.raises(NotImplementedError, match="use_dora under param_mode fsdp"):
         ttrainer._run_sft(args, None, torch.device("cpu"), tsh.Mesh(2, 1, 0))
-    for over, match in ((dict(model_parallel=2), "tensor parallelism"),
-                        (dict(pipeline_stages=2), "parallel/pipeline.py")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, **over)), device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel/pipeline.py"):
+        ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, pipeline_stages=2)),
+                         device="cpu")
+    with pytest.raises(ValueError, match="data_parallel x model_parallel is 1 x 2"):
+        ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, model_parallel=2)),
+                         device="cpu")
 
 
 def test_a_failing_rank_fails_the_launch(tmp_path):

@@ -15,12 +15,19 @@ import torch
 N_LAYERS = 2  # the tiny preset cut to one SWA and one DeltaNet layer
 
 
-def tiny_cut():
+# the sequence-chunk knobs of tests/test_torch_port_longctx.py: sft_tiny.yaml's
+# cutoff of 64 then runs the chunked SWA, DeltaNet and MLP layers
+CHUNKED = dict(sliding_window=16, delta_chunk_size=8, delta_seq_chunk_t=32,
+               delta_seq_chunk_eval=16, mlp_chunk_t=16)
+
+
+def tiny_cut(chunked=False):
     from infinitevl_tpu_torch.config import tiny_config
 
     cfg = tiny_config()
     return dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, num_hidden_layers=N_LAYERS, layer_types=cfg.text.layer_types[:N_LAYERS]))
+        cfg.text, num_hidden_layers=N_LAYERS, layer_types=cfg.text.layer_types[:N_LAYERS],
+        **(CHUNKED if chunked else {})))
 
 
 def losses(out_dir, key="loss"):
@@ -41,7 +48,8 @@ def leaves_np(tree):
 @contextlib.contextmanager
 def patched(carry):
     """The port's run_sft / run_dt starting from the carried numbers for the
-    duration of a `with`: the cut tiny preset, the model's (or the
+    duration of a `with`: the cut tiny preset (with the sequence-chunk knobs
+    where carry["chunked"]), the model's (or the
     teacher's) weights, the adapters, and the converted student's fresh
     mixers. Everything patched is restored on exit."""
     import infinitevl_tpu_torch.train.lora as tlora
@@ -49,7 +57,7 @@ def patched(carry):
     from infinitevl_tpu_torch.models.params import from_jax_numpy
 
     saved = [(ttrainer, "tiny_config", ttrainer.tiny_config)]
-    ttrainer.tiny_config = tiny_cut
+    ttrainer.tiny_config = lambda: tiny_cut(carry.get("chunked", False))
     if "params" in carry:
         saved.append((ttrainer, "_load_or_init_params", ttrainer._load_or_init_params))
         ttrainer._load_or_init_params = (
@@ -87,15 +95,24 @@ def patched(carry):
 
 def run_job(job):
     """One run_exp (job["conf"]: a yaml dict) from the carried numbers:
-    {"final": its returned params as numpy, "losses": rank 0's log}."""
+    {"final": its returned params as numpy, "losses": rank 0's log,
+    "delta_chunks": the sequence-chunked DeltaNet chunks it ran}."""
     from infinitevl_tpu_torch.hparams import parse_args
     from infinitevl_tpu_torch.parallel.sharding import world_rank
     from infinitevl_tpu_torch.train.trainer import run_exp
 
+    import infinitevl_tpu_torch.models.text as ttext
+
     args = parse_args(job["conf"])
-    with patched(job.get("carry", {})):
-        final = run_exp(args, device="cpu")
-    out = {"final": leaves_np(final)}
+    calls = []
+    real = ttext._delta_chunk
+    ttext._delta_chunk = lambda *a: calls.append(1) or real(*a)
+    try:
+        with patched(job.get("carry", {})):
+            final = run_exp(args, device="cpu")
+    finally:
+        ttext._delta_chunk = real
+    out = {"final": leaves_np(final), "delta_chunks": len(calls)}
     if world_rank() == 0:
         out["losses"] = losses(args.train.output_dir)
         out["eval"] = losses(args.train.output_dir, "eval_loss")
@@ -150,3 +167,98 @@ def raise_on_rank0(rank, world):
         raise RuntimeError("rank 0 fails on purpose")
     torch.distributed.all_reduce(torch.ones(1))
     return None
+
+
+def tp_forwards(rank, world, jobs):
+    """Each job's forwards under tensor parallelism (tests/test_torch_port_tp_model.py):
+    the mesh (data, model) over this world, the port's config, the numpy
+    weights and inputs; returns per job the whole hidden states and logits
+    of the stateless forward, the ViT's features where the job has pixels,
+    and with job["cached"] the prefill and greedy decode steps on this
+    rank's part of the state (logits, tokens, the state gathered whole, the
+    rank's part, and whether cutting the whole state again gives the part
+    bit for bit)."""
+    from infinitevl_tpu_torch.generation import decode_step, prefill
+    from infinitevl_tpu_torch.models.infinitevl import encode_vision
+    from infinitevl_tpu_torch.models.params import from_jax_numpy
+    from infinitevl_tpu_torch.models.state import init_decoder_state
+    from infinitevl_tpu_torch.models.text import embed_tokens, lm_head, text_forward
+    from infinitevl_tpu_torch.parallel import sharding as sh
+
+    out = []
+    for job in jobs:
+        data, model = job["mesh"]
+        mesh = sh.create_mesh(data, model)
+        cfg = job["cfg"]
+        params = sh.shard_params(from_jax_numpy(job["params"], "cpu"), mesh, "tp")
+        res = {"held": sh.local_bytes(params)}
+        ids, pos = torch.as_tensor(job["ids"]), torch.as_tensor(job["pos"])
+        if job.get("stateless", True):
+            h, _ = text_forward(params["text"], cfg.text, embed_tokens(params["text"], ids), pos)
+            res["hidden"] = h.numpy()
+            res["logits"] = lm_head(params["text"], cfg.text, h).numpy()
+        if "pixels" in job:
+            res["vit"] = encode_vision(params, cfg, torch.as_tensor(job["pixels"]),
+                                       job["grid"]).numpy()
+        if "labels" in job:
+            res.update(tp_grads(job, mesh))
+        if job.get("cached"):
+            B = ids.shape[0]
+            hq = cfg.text.num_attention_heads
+            state = init_decoder_state(cfg.text, B, torch.float32, "cpu", mesh=mesh)
+            logits, state = prefill(params, cfg, ids, pos, state)
+            steps, tokens = [logits.numpy()], []
+            zero = torch.zeros((B, 1), dtype=torch.long)
+            for _ in range(job["cached"]):
+                tok = logits.argmax(-1, keepdim=True)
+                tokens.append(tok.numpy())
+                logits, state = decode_step(params, cfg, tok, zero, state)
+                steps.append(logits.numpy())
+            whole_shapes = {k: tuple(v.shape) for k, v in init_decoder_state(
+                cfg.text, B, torch.float32, "cpu").items() if isinstance(v, torch.Tensor)}
+            whole = sh.gather_state(state, mesh, hq, whole_shapes)
+            again = sh.shard_state(whole, mesh, hq)
+            res.update(steps=steps, tokens=tokens, cum_len=state["cum_len"],
+                       state={k: v.numpy() for k, v in whole.items()
+                              if isinstance(v, torch.Tensor)},
+                       part={k: v.numpy() for k, v in state.items()
+                             if isinstance(v, torch.Tensor)},
+                       roundtrip=all(torch.equal(again[k], state[k]) for k in whole_shapes))
+        out.append(res)
+    return out
+
+
+def tp_grads(job, mesh):
+    """The SFT loss's gradient with respect to every leaf of the model
+    (each leaf trainable, sharded as `tp`) and its squared global norm, and
+    with respect to the LoRA
+    factors job["lora"] (rank job["lora_rank"], alpha 16) on the frozen
+    sharded model: every gradient whole (a slice's gathered over the model
+    group), as numpy by path."""
+    from infinitevl_tpu_torch.models.params import from_jax_numpy
+    from infinitevl_tpu_torch.parallel import sharding as sh
+    from infinitevl_tpu_torch.train.lora import attach_lora
+    from infinitevl_tpu_torch.train.step import sft_loss_fn, tree_leaves_with_path
+
+    cfg = job["cfg"].text
+    ids, labels, pos = (torch.as_tensor(job[k]) for k in ("ids", "labels", "pos"))
+    out = {}
+    params = from_jax_numpy(job["params"], "cpu", trainable=True)
+    params = sh.shard_params({"text": params["text"]}, mesh, "tp")
+    named = list(tree_leaves_with_path(params))
+    grads = torch.autograd.grad(sft_loss_fn(params["text"], cfg, ids, labels, pos),
+                                [t for _, t in named], allow_unused=True)
+    out["grads"] = {k: sh.gather_full(sh.copy_shard_info(g, t)).numpy()
+                    for (k, t), g in zip(named, grads) if g is not None}
+    # the clip's squared global norm over the slices (a slice's squares summed
+    # over the model group, a replicated leaf once)
+    have = [(t, g) for (_, t), g in zip(named, grads) if g is not None]
+    out["grad_sq_norm"] = float(sh.grad_sq_norm([t for t, _ in have], [g for _, g in have]))
+    base = sh.shard_params({"text": from_jax_numpy(job["params"], "cpu")["text"]}, mesh, "tp")
+    lora = from_jax_numpy(job["lora"], "cpu", trainable=True)
+    named = list(tree_leaves_with_path(lora))
+    merged = attach_lora(base, lora, 16.0, job["lora_rank"])
+    grads = torch.autograd.grad(sft_loss_fn(merged["text"], cfg, ids, labels, pos),
+                                [t for _, t in named])
+    out["lora_grads"] = {k: g.numpy() for (k, _), g in zip(named, grads)}
+    return out
