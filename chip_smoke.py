@@ -17,12 +17,13 @@ NVIDIA H100.
     python3 chip_smoke.py --mamba2-only --only=h  # phases 1-3, 4's mamba2 and DoRA
                                                   # steps, 13
     python3 chip_smoke.py --parallel-only --only=h  # phases 1-3, 4's two-rank steps, 14, 15
+    python3 chip_smoke.py --pp-only --only=h,c  # phases 1-3, then 16
 
 --kernels-only, --text-only, --train-only, --dt-only, --pref-only, --long-only,
---mamba2-only and --parallel-only are shortcuts for work
+--mamba2-only, --parallel-only and --pp-only are shortcuts for work
 on one part: they stop before the `kernels` line, the card's line and the
 final `{"ok": ...}` line, so only the run without them is the whole check.
---only= is taken with one of the eight and refused otherwise.
+--only= is taken with one of the nine and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -88,14 +89,14 @@ non-zero):
      F and E; then the step's peak memory at windows of 256 and 1,024
      patches, F's backward through its chunked twin and through the
      batched-dense plain version
- 10. checkpoints and distillation, at full 3B width and depth (bf16, random
+ 10. checkpoints and distillation, at 3B width and 12 layers (bf16, random
      weights from seed 0): the all-full_attention teacher twin with the ViT
-     exported as HF safetensors in shards of 4 GB and read back (leaves and
+     exported as HF safetensors in shards of 2 GB and read back (leaves and
      a 64-token prompt's logits bit-equal; bytes, seconds, GB/s); stage 1 of
      examples/train_3b_stage1.yaml through run_dt (teacher_model_path set
-     to that checkpoint, data_parallel 1, 3 steps on packed rows of 8,192);
-     stage 2 (cutoff 2,048, 3 steps) with the handoff from stage 1's train
-     state; one multimodal stage-2 step at 448x448; the teacher held
+     to that checkpoint, data_parallel 1, 2 steps on packed rows of 8,192);
+     stage 2 (cutoff 2,048, 2 steps, no train state written) with the
+     handoff from stage 1's train state; one multimodal stage-2 step at 448x448; the teacher held
      bit-unchanged after each run and the launches per step held to the
      code's count; then the student exported through cli.cmd_export,
      served through cli._build_generator (32 greedy tokens equal to the
@@ -104,8 +105,8 @@ non-zero):
      pads), and one cli.cmd_api request on a loopback port
 11. the preference stages, at full 3B width (bf16, random weights from
      seed 0), through run_exp: rm, dpo (sigmoid, then orpo with no reference
-     built) and kto at the full 36 layers, cutoff 1,024, two pairs (rows) a
-     step, remat, 3 steps each, no train state written (DPO's first loss ln
+     built) and kto at 12 layers, cutoff 1,024, two pairs (rows) a
+     step, remat, 2 steps each, no train state written (DPO's first loss ln
      2, KTO's 0.5, the policy's and its frozen clone's first log-probs
      bit-equal, the clone bit-unchanged after the steps); then rm at 12
      layers from a 12-layer checkpoint with its train state saved, and ppo
@@ -114,13 +115,13 @@ non-zero):
      step held to the code's count
 12. long-context training and the custom optimizers, at 3B (bf16, random
      weights from seed 0, B 1): examples/sft_32k_lora_yarn.yaml at cutoff
-     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (12 layers) (1 step each)
+     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (12 layers each, 1 step each)
      through run_sft with gradient accumulation 8 -> 1, through the
      sequence-chunked SWA (kernel H over 2 windows), DeltaNet (kernel C from
-     the carried state) and MLP layers; at 8 layers one LoRA step at 16,384 chunked
+     the carried state) and MLP layers; at 4 layers one LoRA step at 16,384 chunked
      against the full-T path (loss and LoRA gradients); galore, apollo,
      badam and adam_mini as full finetuning and loraplus on LoRA at 2,048 and
-     8 layers, 3 steps; the frozen base bit-unchanged, no train state written, launches
+     4 layers, 3 steps; the frozen base bit-unchanged, no train state written, launches
      per step held to the code's count; GaLore's SVD of the tied embedding
 13. the Mamba2 conversion mixer and the LoRA variants at 3B (bf16, random
      weights from seed 0, B 1): stage 1 of examples/train_3b_stage1.yaml with
@@ -130,36 +131,49 @@ non-zero):
      student served (16 raw 448x448 frames through StreamingEngine and an
      ask, its state constant and the stream untouched by the ask; a
      1,000-token text request through Generator); DoRA through run_sft at
-     2,048 (its first loss the base model's), pissa_decompose at full depth
+     2,048 (its first loss the base model's), pissa_decompose on 12 layers
      (the base's logits back), loftq_init on 4 layers (below plain int8's
      error on every kernel), one LoRA step each
 14. data parallelism at 3B, in one world of two gloo ranks sharing the card
      (NCCL refuses two ranks on one GPU): (a) stage 1 of
-     examples/train_3b_stage1.yaml at 12 layers, data_parallel 2 under fsdp
+     examples/train_3b_stage1.yaml at 8 layers, data_parallel 2 under fsdp
      (warm-up 100 -> 0, 2 steps on packed rows of 2,048) against the same steps in one
      process at per_device_train_batch_size 2 (losses, and after step 1 the
      trainable leaves and their first moments), the teacher bit-unchanged on
      each rank, each rank holding exactly half the sharded bytes; (b) full
      finetuning through run_sft at 2,048 on data/demo.json streamed, fsdp and
-     replicated at 12 layers (their losses equal); (c) the port's
+     replicated at 8 layers (their losses equal); (c) the port's
      collectives (the layer gather forward and backward, the gradient and
      count all_reduce) in a world of one NCCL rank, bit-equal at world 1
 15. tensor parallelism at 3B (the model axis: Megatron-style slices with
      their collectives in the forwards), gloo ranks sharing the card: in one
      world of two (model_parallel 2) (a) full finetuning through run_sft at
-     36 layers, T 2,048, tp, 2 steps, against one process (losses, exactly
+     12 layers, T 2,048, tp, 2 steps, against one process (losses, exactly
      half the model-sharded bytes a rank, each rank's peak, the all_reduce
      seconds and the head's share), and in fp32 every trainable leaf's
      gradient on the first batch, slice by slice; (b) stage 1 of train_3b_stage1.yaml at 12
      layers and packed rows of 8,192 (the teacher bit-unchanged); (d) one
-     multimodal LoRA step at 12 layers with the ViT's 32 blocks (E and F)
+     multimodal LoRA step at 8 layers with the ViT's 32 blocks (E and F)
      against one process; (e) generation.prefill of 1,000 tokens and 16
      decode_step calls on the sharded params and each rank's part of the
      state, at 4 layers in fp32 (greedy tokens equal, logits <= 1e-3) and
-     36 in bf16 (fed tokens, logits <= 1e-2, beside the fp32 model's); then
+     12 in bf16 (fed tokens, logits <= 1e-2, beside the fp32 model's); then
      in a world of four (data 2 x model 2) (c) full finetuning under fsdp
-     at 12 layers against phase 14 (b)'s replicated run (the same global
+     at 8 layers against phase 14 (b)'s replicated run (the same global
      batch)
+16. pipeline parallelism at 3B (parallel/pipeline.py and pipeline_seq.py
+     through run_sft), one world of three gloo ranks sharing the card, pipe 3
+     (36 layers are 9 pattern periods: 2 stages cannot cut them): (a) in fp32
+     at 12 layers every trainable leaf's gradient on run_sft's first batch (2
+     packed rows of 2,048, 2 microbatches) under gpipe and 1f1b against one
+     process (err_ratio <= 1e-4), then full finetuning at 36 layers in bf16,
+     2 steps under each schedule, against one process (losses within 5e-3;
+     ms a step, peak and bytes held a rank: a third of the layers and the
+     whole replicated leaves); (b) one step of each schedule at 2 and 6
+     microbatches of one row, each step's peak (1f1b's must grow less than
+     gpipe's); (c) pp_microbatch_axis sequence at T 16,384 (two chunks of
+     one window), 12 layers, against the unpipelined chunked run; H and C
+     launched on every rank, held to the code's counts in (a) and (b)
 Phase 3 also holds H on the chunked SWA layer's calls (2 windows, ids -1 /
 row / -2), and A1, A2, H, B, C, E and F at the local shapes of
 model_parallel 2 (GQA 8/1, 8 DeltaNet heads, 8 ViT heads). Phase 4 also takes one distillation step of each stage, one step
@@ -173,7 +187,8 @@ Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
 recipe, the ViT path, every distillation run and CLI command, every preference
 stage, every phase-12 run, phase 13's runs, frames, ask and request, each rank
-of phase 14's and 15's runs, summed) and read just after it. Then a JSON line of per-kernel results, the card's line, and
+of phase 14's, 15's and 16's runs, summed) and read just after it. A `[time]`
+line gives each phase's seconds. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
 
@@ -3602,15 +3617,23 @@ def _require_teacher_unchanged(teacher, path: str, cfg, what: str) -> int:
     return len(leaves)
 
 
-def _dt_recipe(name: str, args, card: str, expect, teacher_cfg, teacher_dir: str) -> dict:
-    """One run_dt call at 3B (as _run_recipe measures it), its student and
-    the teacher it loaded, held bit-equal to the checkpoint afterwards."""
+DT_STEPS = 2  # phase 10: the steps of each stage (the script's time budget's)
+DT_LAYERS = 12  # phase 10: the teacher's and student's depth (the script's time budget's)
+DT_SHARD_BYTES = 2 * 1024**3  # phase 10: the teacher's shards (at 12 layers it is under 4 GB)
+
+
+def _dt_recipe(name: str, args, card: str, expect, teacher_cfg, teacher_dir: str,
+               save: bool = True) -> dict:
+    """One run_dt call at 3B (as _run_recipe measures it; `save` False:
+    Trainer.save replaced), its student and the teacher it loaded, held
+    bit-equal to the checkpoint afterwards."""
     from infinitevl_tpu_torch.train import trainer as T
 
     students = []
+    run = (lambda a: students.append(T.run_dt(a))) if save else (
+        lambda a: students.append(_trainer_records(T, lambda: T.run_dt(a))[0]))
     with _Spy(T, "load_hf_checkpoint") as loads:
-        r = _run_recipe(name, args, card, expect, tag="10 dt",
-                        run=lambda a: students.append(T.run_dt(a)))
+        r = _run_recipe(name, args, card, expect, tag="10 dt", run=run)
     require(len(loads.results) == 1, f"{name}: the teacher was loaded {len(loads.results)} times")
     n_leaves = _require_teacher_unchanged(loads.results[0], teacher_dir, teacher_cfg, name)
     print(f"[10 dt] {name}: the teacher's {n_leaves} leaves bit-equal to its checkpoint after "
@@ -3619,8 +3642,8 @@ def _dt_recipe(name: str, args, card: str, expect, teacher_cfg, teacher_dir: str
 
 
 def phase_dt_path(dev, card: str, profile: bool) -> dict:
-    """Phase 10: checkpoints and distillation at 3B width and depth (bf16,
-    random weights from seed 0): the teacher's HF checkpoint written and
+    """Phase 10: checkpoints and distillation at 3B width, DT_LAYERS deep
+    (bf16, random weights from seed 0): the teacher's HF checkpoint written and
     read back, stage 1 of examples/train_3b_stage1.yaml through run_dt,
     stage 2 with the handoff, one multimodal stage-2 step, then the
     distilled student exported and served through the CLI. Files are
@@ -3656,12 +3679,15 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
     from infinitevl_tpu_torch.utils.checkpoint import export_hf_safetensors, latest_step
 
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = infinitevl_3b()
+    full = infinitevl_3b()
+    cfg = dataclasses.replace(full, text=dataclasses.replace(
+        full.text, num_hidden_layers=DT_LAYERS, layer_types=None))
     tc = cfg.text
     n, n_swa, n_lin = tc.num_hidden_layers, tc.num_swa_layers, tc.num_linear_layers
     teacher_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
         tc, layer_types=("full_attention",) * n))
     total = {}
+    real_3b, T.infinitevl_3b = T.infinitevl_3b, lambda: cfg  # run_dt's preset, DT_LAYERS deep
 
     def add(launches):
         for k, v in launches.items():
@@ -3669,7 +3695,7 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
 
     root = tempfile.mkdtemp(prefix="ivl_dt_")
     try:
-        # 1. the teacher's checkpoint: written in shards of 4 GB, read back
+        # 1. the teacher's checkpoint: written in shards of DT_SHARD_BYTES, read back
         t0 = time.perf_counter()
         teacher = init_params(teacher_cfg, torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
@@ -3689,7 +3715,8 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
         teacher_dir = os.path.join(root, "teacher")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nbytes = export_hf_safetensors(teacher, teacher_cfg, teacher_dir)
+        nbytes = export_hf_safetensors(teacher, teacher_cfg, teacher_dir,
+                                       max_shard_bytes=DT_SHARD_BYTES)
         t_write = time.perf_counter() - t0
         shards = sorted(f for f in os.listdir(teacher_dir) if f.endswith(".safetensors"))
         require(len(shards) >= 2 and os.path.exists(
@@ -3732,6 +3759,10 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
         _packed_text_dataset(data_dir, n=90)
         base = dict(teacher_model_path=teacher_dir, dataset="demo_packed", dataset_dir=data_dir,
                     logging_steps=1, save_steps=10**6)
+        # the recipe's preserved softmax layers (every fourth) that the cut keeps
+        keep = [i for i in load_yaml_args(os.path.join(here, "examples", "train_3b_stage1.yaml"))
+                .finetune.softmax_attention if i < n]
+        base["softmax_attention"] = keep
 
         def recipe(out, **over):
             args = load_yaml_args(os.path.join(here, "examples", "train_3b_stage1.yaml"))
@@ -3741,18 +3772,18 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
                 setattr(group, key, val)
             return args
 
-        args1 = recipe("stage1", data_parallel=1, max_steps=3)
+        args1 = recipe("stage1", data_parallel=1, max_steps=DT_STEPS)
         rows = T.build_dataset(args1)
-        require(len(rows) >= 3 and all(int(np.asarray(r["segment_ids"]).max()) > 1
-                                       for r in rows[:3]),
-                f"packing made {len(rows)} rows, not 3 packed rows of 8192")
+        require(len(rows) >= DT_STEPS and all(int(np.asarray(r["segment_ids"]).max()) > 1
+                                              for r in rows[:DT_STEPS]),
+                f"packing made {len(rows)} rows, not {DT_STEPS} packed rows of 8192")
         full1 = {"swa_train_flash_attention": n + n_swa, "swa_train_flash_attention_bwd": 0,
                  "delta_rule_chunk_fused": n_lin}
-        print(f"[10 dt] stage 1: examples/train_3b_stage1.yaml with data_parallel 8 -> 1 (the "
-              f"port has no parallel/ yet), max_steps 3, {len(rows)} packed rows of 8192 "
-              f"({[int(np.asarray(r['segment_ids']).max()) for r in rows[:3]]} sequences in "
-              f"the first three), warm-up {args1.train.warmup_steps} steps as the recipe has "
-              f"it", flush=True)
+        print(f"[10 dt] stage 1: examples/train_3b_stage1.yaml with data_parallel 8 -> 1, "
+              f"max_steps {DT_STEPS}, {len(rows)} packed rows of 8192 "
+              f"({[int(np.asarray(r['segment_ids']).max()) for r in rows[:DT_STEPS]]} sequences "
+              f"in the first {DT_STEPS}), warm-up {args1.train.warmup_steps} steps as the recipe "
+              f"has it", flush=True)
         r1 = _dt_recipe("stage 1 (layer MSE x 1000, T 8192)", args1, card, full1,
                         teacher_cfg, teacher_dir)
         add(r1["launches"])
@@ -3775,7 +3806,8 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
         del s1, t1, r1, shared, frozen, trained
         _free()
         ckpt1 = os.path.join(root, "stage1", "checkpoints")
-        require(latest_step(ckpt1) == 3, f"stage 1 saved no step-3 train state: {ckpt1}")
+        require(latest_step(ckpt1) == DT_STEPS,
+                f"stage 1 saved no step-{DT_STEPS} train state: {ckpt1}")
 
         # 3. stage 2 with the handoff from stage 1, then one multimodal step
         soft = set(args1.finetune.softmax_attention)
@@ -3798,13 +3830,15 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
                         require(torch.equal(x, y), f"handoff: layer {i} {key}")
             shutil.rmtree(os.path.join(root, "stage1"))
 
-        args2 = recipe("stage2", data_parallel=1, max_steps=3, distill_stage=2, cutoff_len=2048,
-                       checkpoint_path=ckpt1)
+        args2 = recipe("stage2", data_parallel=1, max_steps=DT_STEPS, distill_stage=2,
+                       cutoff_len=2048, checkpoint_path=ckpt1)
         full2 = {"swa_train_flash_attention": n + n_swa,
                  "swa_train_flash_attention_bwd": n_swa, "delta_rule_chunk_fused": n_lin}
         with _Spy(T, "merge_params", check_handoff) as merges:
-            r2 = _dt_recipe("stage 2 (logit KL at T 2 + CE, T 2048, from stage 1's state)",
-                            args2, card, full2, teacher_cfg, teacher_dir)
+            # nothing reads stage 2's train state: Trainer.save replaced
+            r2 = _dt_recipe("stage 2 (logit KL at T 2 + CE, T 2048, from stage 1's state, no "
+                            "train state written)", args2, card, full2, teacher_cfg, teacher_dir,
+                            save=False)
         require(len(merges.results) == 1 and held.get("pristine") == 4 * len(soft),
                 f"stage 2: the handoff merged {len(merges.results)} times, kept "
                 f"{held.get('pristine')} preserved attention leaves as the teacher's")
@@ -3991,6 +4025,7 @@ def phase_dt_path(dev, card: str, profile: bool) -> dict:
               f"{launches['swa_ring_flash_decode_stacked']}, B "
               f"{launches['delta_step_fused_stacked']}", flush=True)
     finally:
+        T.infinitevl_3b = real_3b
         shutil.rmtree(root, ignore_errors=True)
         _free()
     total.setdefault("swa_train_flash_attention_bwd", 0)
@@ -4088,10 +4123,13 @@ def _pref_stage(name: str, args, card: str, expect: dict, positions: int) -> dic
     return r
 
 
+PREF_STEPS = 2  # phase 11: the steps of each stage (the script's time budget's)
+
+
 def phase_pref_path(dev, card: str) -> dict:
     """Phase 11: the preference stages at 3B width through run_exp (bf16,
     random weights from seed 0, remat): rm, dpo (sigmoid and orpo) and kto at
-    the full 36 layers, cutoff 1,024, two pairs (rows) a step, 3 steps each,
+    12 layers, cutoff 1,024, two pairs (rows) a step, PREF_STEPS each,
     no train state written; then rm at 12 layers from a 12-layer checkpoint
     with its train state saved, and ppo (fp32) at 12 layers from that
     checkpoint, scored by that reward model: prompts of 256 tokens, B 4, 64
@@ -4140,7 +4178,7 @@ def phase_pref_path(dev, card: str) -> dict:
         _pref_datasets(data_dir)
         B, cutoff = 2, 1024
         common = dict(dataset_dir=data_dir, cutoff_len=cutoff, per_device_train_batch_size=B,
-                      max_steps=3, remat=True, learning_rate=1e-5, save_steps=10**6)
+                      max_steps=PREF_STEPS, remat=True, learning_rate=1e-5, save_steps=10**6)
         rows = T.build_preference_dataset(_train_args(root, stage="rm", dataset="pref_long",
                                                       **common))
         lens = sorted(len(r[k]) for r in rows for k in ("chosen_ids", "rejected_ids"))
@@ -4150,6 +4188,8 @@ def phase_pref_path(dev, card: str) -> dict:
               f"(data/demo.json's answers repeated), padded to {cutoff}; {B} pairs a step, "
               f"{free / 1e9:.1f} GB of disk free for {need / 1e9:.1f} GB needed", flush=True)
         pair_pos, kto_pos = 2 * B * cutoff, B * cutoff
+        real_3b, T.infinitevl_3b = T.infinitevl_3b, lambda: cfg12  # (a)-(d) at 12 layers
+        tc = cfg12.text
 
         res["rm"] = r = _pref_stage(
             f"(a) rm, {tc.num_hidden_layers} layers, remat, cutoff {cutoff}, {B} pairs", _train_args(
@@ -4170,7 +4210,7 @@ def phase_pref_path(dev, card: str) -> dict:
         print(f"[11 pref] dpo: the first loss {r['losses'][0]:.7f} (ln 2 = {np.log(2):.7f}); "
               f"the policy's and its frozen clone's log-probs bit-equal at step 1 "
               f"({lp[2].tolist()}, {lp[3].tolist()}); the clone's {r['ref_leaves']} leaves "
-              f"bit-unchanged after 3 steps (checksums)", flush=True)
+              f"bit-unchanged after {PREF_STEPS} steps (checksums)", flush=True)
         res["orpo"] = r = _pref_stage(
             f"(c) dpo orpo (no reference), {tc.num_hidden_layers} layers", _train_args(
                 os.path.join(root, "orpo"), stage="dpo", dataset="pref_long", pref_loss="orpo",
@@ -4188,8 +4228,9 @@ def phase_pref_path(dev, card: str) -> dict:
                 f"kto: first loss {r['losses'][0]}, not 0.5, or the log-probs differ")
         print(f"[11 pref] orpo built no reference; kto: the first loss {r['losses'][0]:.7f} "
               f"(0.5), log-probs bit-equal to the clone's at step 1, the clone's "
-              f"{r['ref_leaves']} leaves bit-unchanged after 3 steps", flush=True)
+              f"{r['ref_leaves']} leaves bit-unchanged after {PREF_STEPS} steps", flush=True)
 
+        T.infinitevl_3b = real_3b
         # (e) a 12-layer model: its checkpoint, the reward model on it (train
         # state saved), then ppo from both
         ckpt = os.path.join(root, "ckpt12")
@@ -4207,7 +4248,8 @@ def phase_pref_path(dev, card: str) -> dict:
             expect(cfg12.text, 2, 0), run=T.run_exp, tag="11 pref", positions=pair_pos)
         add(r["launches"])
         rm_ckpt = os.path.join(root, "rm12", "checkpoints")
-        require(latest_step(rm_ckpt) == 3, f"rm at 12 layers saved no step-3 state: {rm_ckpt}")
+        require(latest_step(rm_ckpt) == PREF_STEPS,
+                f"rm at 12 layers saved no step-{PREF_STEPS} state: {rm_ckpt}")
         state_gb = sum(e.stat().st_size for e in os.scandir(rm_ckpt)) / 1e9
 
         R, B_ppo, T_p, iters = 64, 4, 256, 3
@@ -4543,11 +4585,12 @@ LONG_SMALL = dict(sliding_window=128, delta_seq_chunk_t=256, delta_seq_chunk_eva
 # phase 12: the recipes' cuts (PERF.md section 4) and the runs' shapes
 # one step each, timed whole (PERF.md section 4 lists the cuts)
 LONG_32K_STEPS, LONG_64K_STEPS = 1, 1
+LONG_32K_LAYERS = 12  # (a)'s depth (the script's time budget's: PERF.md section 4)
 LONG_64K_LAYERS = 12  # (b)'s depth (at 36 layers it peaked at 18.73-19.29 GB: PERF.md §6)
 LONG_EXACT_T = 16384  # (c): one LoRA step chunked and full-T
 OPTIM_T, OPTIM_STEPS = 2048, 3  # (d)
-# (c)'s and (d)'s depth (at 36, GaLore's refresh alone took 77 s)
-LONG_CD_LAYERS = 8
+# (c)'s and (d)'s depth (at 36, GaLore's refresh alone took 77 s; the script's time budget's)
+LONG_CD_LAYERS = 4
 # galore's gap 3 refreshes its projections once in the 3 steps (at step 1, ~330 SVDs at
 # 3B); phase 4 holds the refresh CPU against card at small size
 OPTIM_RUNS = (("galore", dict(optimizer_update_gap=3)), ("apollo", dict(optimizer_update_gap=2)),
@@ -4732,8 +4775,8 @@ def _long_recipe(name: str, args, card: str, expect=None, tag: str = "12 long") 
 
 def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
     """Phase 12: long-context training and the custom optimizers at 3B
-    (36 layers, full width, bf16, random weights from seed 0, B 1):
-    (a) examples/sft_32k_lora_yarn.yaml at cutoff 32,768 and (b)
+    (full width, bf16, random weights from seed 0, B 1):
+    (a) examples/sft_32k_lora_yarn.yaml at cutoff 32,768 (LONG_32K_LAYERS deep) and (b)
     examples/sft_64k_qlora_yarn.yaml at 65,536 (LONG_64K_LAYERS deep), with gradient_accumulation_steps
     8 -> 1, max_steps 1000 -> 1 and logging_steps 10 -> 1, on one row of
     data/demo.json's outputs repeated to the context; (c) one LoRA step at 16,384 through the chunked layers and through the full-T
@@ -4787,16 +4830,18 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
             setattr(group, key, val)
         return args
 
+    # (a) at LONG_32K_LAYERS, (b) at LONG_64K_LAYERS, (c) and (d) at LONG_CD_LAYERS layers
+    # of the 3B width
+    real_3b = T.infinitevl_3b
+    T.infinitevl_3b = lambda: _cut_3b(LONG_32K_LAYERS)
     a = recipe("sft_32k_lora_yarn.yaml", "a", max_steps=LONG_32K_STEPS)
     tc = T.build_config(a).text
     require(tc.rope_type == "yarn" and tc.max_position_embeddings == 131072,
             f"(a) rope {tc.rope_type} {tc.max_position_embeddings}")
     res["lora_32k"] = _long_recipe(
-        "(a) sft_32k_lora_yarn.yaml at cutoff 32768 (yarn, LoRA r 8, remat)", a, card,
-        _long_expect(tc, 32768))
+        f"(a) sft_32k_lora_yarn.yaml at cutoff 32768 (yarn, LoRA r 8, remat), "
+        f"{LONG_32K_LAYERS} layers", a, card, _long_expect(tc, 32768))
     add(res["lora_32k"])
-    # (b) at LONG_64K_LAYERS, (c) and (d) at LONG_CD_LAYERS layers of the 3B width
-    real_3b = T.infinitevl_3b
     T.infinitevl_3b = lambda: _cut_3b(LONG_64K_LAYERS)
     b = recipe("sft_64k_qlora_yarn.yaml", "b", max_steps=LONG_64K_STEPS)
     res["qlora_64k"] = _long_recipe(
@@ -4966,6 +5011,7 @@ M2_STAGE1_STEPS = 3  # (a): stage 1 on packed rows of 8,192
 M2_FRAMES, M2_TEXT_PROMPT = 16, 1000  # (b)
 LORA_VARIANT_T, DORA_STEPS = 2048, 3  # (c)
 LOFTQ_LAYERS, LOFTQ_ITERS = 4, 4  # (c): loftq_init's default rounds on 4 layers
+PISSA_LAYERS = 12  # (c): pissa_decompose's depth (the script's time budget's: 4 SVDs a layer)
 
 
 class _CallCount:
@@ -5135,8 +5181,8 @@ def phase_mamba2_path(dev, card: str) -> dict:
     (b) the student from (a) served: 16 raw 448x448 frames through
     StreamingEngine and an `ask` of 17 tokens, then a 1,000-token text
     request of 32 new tokens through Generator; (c) the LoRA variants: DoRA
-    through run_sft at 2,048 (r 8, 3 steps), pissa_decompose at full
-    depth, loftq_init on 4 layers, one make_lora_sft_step each for PiSSA
+    through run_sft at 2,048 (r 8, 3 steps), pissa_decompose on
+    PISSA_LAYERS layers, loftq_init on 4 layers, one make_lora_sft_step each for PiSSA
     and LoftQ. Returns the launches of every path, summed."""
     import dataclasses
     import os
@@ -5388,7 +5434,7 @@ def phase_mamba2_path(dev, card: str) -> dict:
         del bases, adapters, data
         _free()
 
-        # PiSSA at full depth: the SVDs timed on their own
+        # PiSSA on the first PISSA_LAYERS layers: the SVDs timed on their own
         svd_s = []
 
         def timed_svd(w, rank, real=L._principal):
@@ -5399,7 +5445,10 @@ def phase_mamba2_path(dev, card: str) -> dict:
             svd_s.append(time.perf_counter() - t0)
             return out
 
-        text = params["text"]
+        c_p = dataclasses.replace(tc, num_hidden_layers=PISSA_LAYERS,
+                                  layer_types=tc.layer_types[:PISSA_LAYERS])
+        cfg_p = dataclasses.replace(cfg, text=c_p)
+        text = {**params["text"], "layers": params["text"]["layers"][:PISSA_LAYERS]}
         t0 = time.perf_counter()
         with _Spy(L, "_principal", replace=timed_svd):
             residual, ad = L.pissa_decompose(text, None, rank=8, alpha=16.0)
@@ -5423,19 +5472,19 @@ def phase_mamba2_path(dev, card: str) -> dict:
                     2 * torch.rand(lp[k]["kernel"].shape, generator=noise, device=dev) - 1))
                     ).to(lp[k]["kernel"].dtype)} for k in L.TARGETS}}
                 for lp in text["layers"]]}
-            want, _ = forward(params, cfg, pids, ppos)
-            e_ref = err_ratio(forward({"text": nudged}, cfg, pids, ppos)[0], want)
+            want, _ = forward({"text": text}, cfg_p, pids, ppos)
+            e_ref = err_ratio(forward({"text": nudged}, cfg_p, pids, ppos)[0], want)
             del nudged
-            back, _ = forward({"text": merged}, cfg, pids, ppos)
-            side, _ = forward({"text": L.attach_lora(residual, ad, 16.0, 8)}, cfg, pids, ppos)
+            back, _ = forward({"text": merged}, cfg_p, pids, ppos)
+            side, _ = forward({"text": L.attach_lora(residual, ad, 16.0, 8)}, cfg_p, pids, ppos)
         e_back, e_side = err_ratio(back, want), err_ratio(side, want)
-        require(n_svd == 4 * n and e_w <= 2.0**-8 and max(e_back, e_side) <= 2 * e_ref,
+        require(n_svd == 4 * PISSA_LAYERS and e_w <= 2.0**-8 and max(e_back, e_side) <= 2 * e_ref,
                 f"(c) PiSSA: {n_svd} SVDs; kernels back err_ratio {e_w:.3g} (tol 2^-8); logits "
                 f"err_ratio merged {e_back:.3g}, attached {e_side:.3g} against the base's, "
                 f"beyond twice one bf16 rounding's {e_ref:.3g}")
         del merged, want, back, side
         tx = make_optimizer(1e-4)
-        step = L.make_lora_sft_step(tc, tx, alpha=16.0, rank=8, remat=True)
+        step = L.make_lora_sft_step(c_p, tx, alpha=16.0, rank=8, remat=True)
         p_sums = _checksum(residual)
 
         def one_step(base, adapter, what):
@@ -5455,7 +5504,7 @@ def phase_mamba2_path(dev, card: str) -> dict:
 
         l_p, ms_p, pk_p, la_p = one_step(residual, ad, "PiSSA")
         require(_checksum(residual) == p_sums, "(c) PiSSA: the residual base changed")
-        print(f"[13 mamba2] (c) PiSSA: pissa_decompose at full depth ({n} layers, q/k/v/o, "
+        print(f"[13 mamba2] (c) PiSSA: pissa_decompose on layers 0-{PISSA_LAYERS - 1} (q/k/v/o, "
               f"r 8, alpha 16): {n_svd} SVDs (fp32, torch.linalg.svd) in {sum(svd_s):.2f} s of "
               f"the call's {t_pissa:.2f} s; apply_lora(residual, adapter)'s kernels against "
               f"the base's: worst err_ratio {e_w:.3g} (two bf16 roundings: tol 2^-8); logits of "
@@ -5519,7 +5568,7 @@ PAR_STEPS = 2  # phase 14's runs
 PAR_DT_ROWS = 2048  # (a): packed rows (the recipe's 8,192, cut to fit the script's time)
 PAR_DT_TOL = (2e-3, 1e-2)  # (a): step 1's and step 2's loss, relative (bf16)
 PAR_DT_LEAF_TOL = 1e-2  # (a): the trainable leaves after step 1, err_ratio
-PAR_SHORT_LAYERS = 12  # (b): the replicated run's depth (two AdamW states fit)
+PAR_SHORT_LAYERS = 8  # (b): the replicated run's depth (the script's time budget's)
 PAR_REPL_TOL = 1e-3  # (b): replicated against fsdp losses at that depth
 PAR_DEADLINE = 900.0  # seconds a world of ranks may take before it is killed
 
@@ -5556,8 +5605,9 @@ class _StepHook:
 
 
 def _trainer_records(T, run):
-    """run() with T.Trainer.save replaced (no train state written) and the
-    Trainer kept: (run's result, the trainer's step records)."""
+    """run() with T.Trainer.save (and a pipelined run's) replaced (no train
+    state written) and the Trainer kept: (run's result, the trainer's step
+    records)."""
     trainers = []
     real_train, real_save = T.Trainer.train, T.Trainer.save
 
@@ -5565,11 +5615,14 @@ def _trainer_records(T, run):
         trainers.append(self)
         return real_train(self, *a, **kw)
 
+    real_pp_save = T._PipeTrainer.save  # a pipelined run's save gathers the stages first
     T.Trainer.train, T.Trainer.save = train, lambda self: None
+    T._PipeTrainer.save = lambda self: None
     try:
         out = run()
     finally:
         T.Trainer.train, T.Trainer.save = real_train, real_save
+        T._PipeTrainer.save = real_pp_save
     return out, [r for r in trainers[0].log.records if "loss" in r]
 
 
@@ -5757,6 +5810,8 @@ def _par_rank(rank, world, job):
         return _tp_world2(job, T, dev)
     if job["kind"] == "tp4":  # phase 15 (c)
         return dict(full=_tp_full(job, T, TP_SHORT_LAYERS, "fsdp", 2, 2))
+    if job["kind"] == "pp3":  # phase 16
+        return _pp_world(job, T, dev)
     raise ValueError(job["kind"])
 
 
@@ -6013,11 +6068,13 @@ def phase_parallel_path(dev, card: str) -> tuple:
 # phase 15: tensor parallelism at 3B, two gloo ranks sharing the card (model 2),
 # then four (data 2 x model 2)
 TP_STEPS = 2  # (a) and (c): full finetuning steps; (b) stage-1 steps
+TP_FULL_LAYERS = 12  # (a): its depth (the script's time budget's)
 TP_DT_LAYERS = 12  # (b): stage 1's depth at T 8,192 (the time budget's)
 TP_DT_ROWS = 8192
-TP_SHORT_LAYERS = 12  # (c) and (d)
+TP_SHORT_LAYERS = PAR_SHORT_LAYERS  # (c), held against phase 14 (b) at its depth, and (d)
 TP_PROMPT, TP_NEW = 1000, 16  # (e): prompt tokens, then greedy (fp32) or forced (bf16) steps
 TP_F32_LAYERS = 4  # (e) in fp32
+TP_BF16_LAYERS = 12  # (e) in bf16 (the script's time budget's)
 TP_LOSS_TOL = PAR_DT_TOL  # (a), (c), (d): step 1's and step 2's loss, relative (bf16)
 # (a): the fp32 model's gradients of every trainable leaf on two ranks against one
 # process, err_ratio (in bf16 at random init both sides move far from the fp32 model's
@@ -6106,7 +6163,7 @@ def _tp_full(job, T, layers: int, mode: str, data: int, model: int):
 
 
 def _tp_grads(job, T, dev, model: int, save=None, ref=None):
-    """(a)'s gradients in fp32 at 36 layers: the SFT loss of run_sft's first
+    """(a)'s gradients in fp32 at TP_FULL_LAYERS: the SFT loss of run_sft's first
     batch (remat) differentiated with respect to every leaf full finetuning
     trains, the weights from the seed as run_sft makes them; in one process
     written whole to `save`, or on `model` ranks under tp held slice by
@@ -6123,8 +6180,8 @@ def _tp_grads(job, T, dev, model: int, save=None, ref=None):
     )
 
     _free()
-    args = _tp_full_args(job, 36, 1, model, bf16=False, steps=1)
-    real_cfg, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(36)
+    args = _tp_full_args(job, TP_FULL_LAYERS, 1, model, bf16=False, steps=1)
+    real_cfg, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(TP_FULL_LAYERS)
     try:
         cfg = T.build_config(args)
     finally:
@@ -6231,7 +6288,7 @@ def _tp_world2(job, T, dev):
     """Phase 15 on one of two ranks (model_parallel 2): (a), (b), (d), (e)."""
     from infinitevl_tpu_torch.parallel.sharding import create_mesh
 
-    out = {"full": _tp_full(job, T, 36, "tp", 1, 2),
+    out = {"full": _tp_full(job, T, TP_FULL_LAYERS, "tp", 1, 2),
            "grads": _tp_grads(job, T, dev, 2, ref=job["grad_file"])}
     out["stage1"] = _par_stage1({
         "data_parallel": 1, "model_parallel": 2, "param_mode": "tp", "per_device": 1,
@@ -6241,7 +6298,8 @@ def _tp_world2(job, T, dev):
     out["mm"] = _tp_mm(job, T, 2)
     mesh = create_mesh(1, 2)
     out["cached"] = {"f32": _tp_cached(dev, TP_F32_LAYERS, torch.float32, mesh),
-                     "bf16": _tp_cached(dev, 36, torch.bfloat16, mesh, _tp_forced_tokens())}
+                     "bf16": _tp_cached(dev, TP_BF16_LAYERS, torch.bfloat16, mesh,
+                                        _tp_forced_tokens())}
     return out
 
 
@@ -6258,11 +6316,11 @@ def _grad_err(parts) -> float:
 
 def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
     """Phase 15: tensor parallelism at 3B, gloo ranks sharing the card. One
-    world of two ranks (model_parallel 2): (a) full finetuning at 36 layers
+    world of two ranks (model_parallel 2): (a) full finetuning at TP_FULL_LAYERS
     under tp against one process, (b) stage 1 of train_3b_stage1.yaml at
     T 8,192 and TP_DT_LAYERS, (d) one multimodal LoRA step with the ViT, (e)
     a cached prefill of TP_PROMPT tokens and TP_NEW decode steps in fp32 at
-    TP_F32_LAYERS and in bf16 at 36 layers against one process; then one
+    TP_F32_LAYERS and in bf16 at TP_BF16_LAYERS against one process; then one
     world of four (data 2 x model 2): (c) full finetuning under fsdp at
     TP_SHORT_LAYERS against phase 14's replicated run at that depth (the
     same global batch). Returns the launches of (a)-(e), summed over the
@@ -6271,12 +6329,10 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
     import shutil
     import tempfile
 
-    from infinitevl_tpu_torch.config import infinitevl_3b
     from infinitevl_tpu_torch.parallel.launch import spawn_ranks
     from infinitevl_tpu_torch.train import trainer as T
 
     t_phase = time.perf_counter()
-    tc = infinitevl_3b().text
     missed = []  # every part runs and prints; the phase fails at its end
 
     def hold(ok: bool, what: str) -> None:
@@ -6304,7 +6360,7 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
 
     try:
         # (a) one process first; its fp32 gradients go to a file the ranks read
-        one = _tp_full(job, T, 36, "tp", 1, 1)
+        one = _tp_full(job, T, TP_FULL_LAYERS, "tp", 1, 1)
         _tp_grads(job, T, dev, 1, save=job["grad_file"])
         _free()
         t0 = time.perf_counter()
@@ -6321,16 +6377,17 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
                 f"(a) losses over two model ranks {l2} against one process {l1}")
         e_grad = _grad_err([w["grads"] for w in world])
         hold(e_grad <= TP_GRAD_TOL, f"(a) fp32 gradients err_ratio {e_grad:.3g}")
-        expect = layer_launches(36, TP_STEPS)
+        expect = layer_launches(TP_FULL_LAYERS, TP_STEPS)
         for r, res in enumerate(full):
             hold(2 * res["held_bytes"] == res["whole_bytes"],
                     f"(a) rank {r} holds {res['held_bytes']} of {res['whole_bytes']} bytes")
             got_l = {k: res["launches"][k] for k in expect}
             hold(got_l == expect, f"(a) rank {r} launches {got_l}, expected {expect}")
             add(res["launches"])
-        vs8 = (f"phase 8's one-process full_2048 peak {full_peak_gb:.2f} GB" if full_peak_gb
+        vs8 = (f"phase 8's one-process full_2048 peak at 36 layers {full_peak_gb:.2f} GB"
+               if full_peak_gb
                else "phase 8's peak not measured in this run")
-        print(f"[15 tp] (a) full finetuning through run_sft at 3B ({tc.num_hidden_layers} "
+        print(f"[15 tp] (a) full finetuning through run_sft at 3B ({TP_FULL_LAYERS} "
               f"layers, T 2,048, data/demo.json streamed, remat, lr 1e-5, {TP_STEPS} steps), "
               f"model_parallel 2 under tp, two gloo ranks sharing the card: losses "
               f"{[round(x, 6) for x in l2]}, one process {[round(x, 6) for x in l1]} "
@@ -6398,7 +6455,8 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
 
         # (e) against one process
         for key, layers, dtype, forced in (("f32", TP_F32_LAYERS, torch.float32, None),
-                                           ("bf16", 36, torch.bfloat16, _tp_forced_tokens())):
+                                           ("bf16", TP_BF16_LAYERS, torch.bfloat16,
+                                            _tp_forced_tokens())):
             ref = _tp_cached(dev, layers, dtype, None, forced)
             # bf16: the same steps of the fp32 model, the yardstick of both bf16 runs
             ref32 = None if forced is None else _tp_cached(dev, layers, torch.float32, None,
@@ -6478,16 +6536,413 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
     return total
 
 
+# phase 16: pipeline parallelism at 3B, three gloo ranks sharing the card (pipe 3)
+PP_STAGES = 3  # 36 layers are 9 pattern periods: 2 stages cannot cut them, 3 can
+PP_STEPS = 2
+PP_ROWS = 2048  # packed rows of (a) and (b)
+PP_M, PP_M_BIG = 2, 6  # (a)'s microbatches; (b)'s (one row each)
+PP_GRAD_LAYERS = 12  # (a) in fp32: 3 periods, one a stage
+PP_GRAD_TOL = 1e-4  # (a) fp32 gradients, three stages against one process, err_ratio
+PP_LOSS_TOL = 5e-3  # (a) and (c) bf16 step losses, relative
+PP_SEQ_T, PP_SEQ_M, PP_SEQ_LAYERS = 16384, 2, 12  # (c): chunks of 8,192 = the window
+# k_proj's bias has no gradient in exact arithmetic (the softmax removes a shift of every
+# key's score): what it gets is rounding noise, reported and not held
+PP_NO_GRADIENT = ("k_proj/bias",)
+
+
+def _pp_args(job, name, layers, M, S=PP_STAGES, steps=PP_STEPS, bf16=True, **over):
+    """run_sft's arguments of phase 16: full finetuning on packed rows of
+    PP_ROWS (M rows a step, M microbatches of one row), remat, lr 1e-5."""
+    conf = dict(cutoff_len=PP_ROWS, max_steps=steps, remat=True, learning_rate=1e-5,
+                dataset="demo_packed", dataset_dir=job["data_dir"], packing=True, bf16=bf16,
+                per_device_train_batch_size=M, pipeline_stages=S, n_microbatches=M)
+    conf.update(over)
+    return _train_args(f"{job['out']}/{name}_{layers}_{S}", **conf)
+
+
+def _held_split(text) -> tuple:
+    """(bytes of the decoder layers this process holds, of the other leaves)."""
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    n = lambda tree: sum(t.numel() * t.element_size() for _, t in tree_leaves_with_path(tree))
+    return n(text["layers"]), n({k: v for k, v in text.items() if k != "layers"})
+
+
+def _pp_run(job, T, layers, args):
+    """run_sft at 3B width, `layers` deep (Trainer.save replaced): losses,
+    ms per step, the run's peak (its whole-model init included), the bytes
+    held (the rank's layers, the replicated leaves), launches."""
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+
+    held = {}
+    real_init, real_cfg = T.Trainer.__init__, T.infinitevl_3b
+
+    def init(self, step_fn, params, *a, **kw):
+        held["params"] = params
+        real_init(self, step_fn, params, *a, **kw)
+
+    T.Trainer.__init__, T.infinitevl_3b = init, lambda: _cut_3b(layers)
+    _free()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        final, recs = _trainer_records(T, lambda: T.run_sft(args))
+    finally:
+        T.Trainer.__init__, T.infinitevl_3b = real_init, real_cfg
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    launches["swa_train_flash_attention_bwd"] = h.launches_bwd
+    layer_b, top_b = _held_split(held.pop("params")["text"])
+    n_final = len(final["text"]["layers"])
+    del final
+    _free()
+    return dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+                layer_bytes=layer_b, top_bytes=top_b, final_layers=n_final)
+
+
+def _pp_grads(job, T, dev, S, save=None, ref=None):
+    """(a)'s gradients in fp32 at PP_GRAD_LAYERS: the SFT loss of run_sft's
+    first batch differentiated with respect to every leaf full finetuning
+    trains, the weights from the seed as run_sft makes them; in one process
+    (S 1, remat) written whole to `save`, or on S pipe ranks through each
+    schedule held leaf by leaf against `ref`: {schedule: {path: (sum |g - r|,
+    sum |r|)}} and the losses."""
+    from infinitevl_tpu_torch.data.loader import resolve_tokenizer
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.parallel import pipeline as pl
+    from infinitevl_tpu_torch.parallel.sharding import create_pp_mesh, use_mesh
+    from infinitevl_tpu_torch.train.step import (
+        batch_to_device,
+        full_finetune_leaf,
+        set_trainable,
+        sft_loss_fn,
+        trainable_leaves,
+    )
+
+    _free()
+    args = _pp_args(job, "grads", PP_GRAD_LAYERS, PP_M, S=S, steps=1, bf16=False)
+    real_cfg, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(PP_GRAD_LAYERS)
+    try:
+        cfg = T.build_config(args)
+    finally:
+        T.infinitevl_3b = real_cfg
+    mesh = create_pp_mesh(S) if S > 1 else None
+    data = T.build_dataset(args, resolve_tokenizer(args, cfg, None), cfg=cfg)
+    b = batch_to_device(next(iter(T._batches(args, data, cfg, False, mesh))), dev)
+    text = init_text_params(cfg.text, torch.Generator(device=dev).manual_seed(args.train.seed),
+                            dev, torch.float32)
+    set_trainable({"text": text}, full_finetune_leaf)
+    inputs = (b["input_ids"], b["labels"], b["position_ids"])
+    if save is not None:
+        named = trainable_leaves({"text": text})
+        loss = sft_loss_fn(text, cfg.text, *inputs, b.get("segment_ids"), remat=True,
+                           segment_layout=b.get("segment_layout"))
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        torch.save({k: g.cpu() for (k, _), g in zip(named, grads)}, save)
+        out = {"loss": float(loss)}
+        del text, grads, loss
+        _free()
+        return out
+    params = {"text": pl.shard_stage(text, cfg.text, S, mesh)}
+    del text
+    _free()
+    want = torch.load(ref, map_location="cpu", mmap=True, weights_only=True)
+    out = {"losses": {}, "sums": {}, "seconds": {}}
+    pp = pl.stack_stage_params(params["text"], cfg.text, S)
+    with use_mesh(mesh):
+        for name, fn in (("gpipe", pl.pp_sft_value_and_grad_gpipe),
+                         ("1f1b", pl.pp_sft_value_and_grad_1f1b)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = fn(pp, cfg.text, *inputs, PP_M, b.get("segment_ids"), mesh=mesh,
+                             segment_layout=b.get("segment_layout"))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            by_id = {id(t): g for (_, t), g in zip(trainable_leaves(pp), grads)}
+            sums = {}
+            for k, t in trainable_leaves(params):
+                g, r = by_id[id(t)], want[k].to(dev)
+                sums[k] = (float((g - r).abs().sum()), float(r.abs().sum()))
+            out["losses"][name], out["sums"][name] = float(loss), sums
+            out["seconds"][name] = (t1 - t0, time.perf_counter() - t1)
+            del grads, by_id
+            _free()
+    del params, pp, want
+    _free()
+    return out
+
+
+def _pp_peaks(job, T, dev):
+    """(b) on one pipe rank: one step of each schedule at PP_M and PP_M_BIG
+    microbatches of one row, on one 36-layer stage of run_sft's make-up
+    (shard_stage, the optimizer's state), through make_pp_sft_train_step:
+    each step's peak above the memory held before it, its ms, its loss,
+    and its launches."""
+    from infinitevl_tpu_torch.data.loader import resolve_tokenizer
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+    from infinitevl_tpu_torch.parallel import pipeline as pl
+    from infinitevl_tpu_torch.parallel.sharding import create_pp_mesh, use_mesh
+    from infinitevl_tpu_torch.train.step import full_finetune_leaf, set_trainable
+
+    _free()
+    args = _pp_args(job, "peaks", 36, PP_M_BIG, steps=1)
+    cfg = T.build_config(args)
+    mesh = create_pp_mesh(PP_STAGES)
+    data = T.build_dataset(args, resolve_tokenizer(args, cfg, None), cfg=cfg)
+    rows = next(iter(T._batches(args, data, cfg, False, mesh)))
+    out = {}
+    with use_mesh(mesh):
+        text = init_text_params(cfg.text, torch.Generator(device=dev).manual_seed(0), dev)
+        set_trainable({"text": text}, full_finetune_leaf)
+        params = {"text": pl.shard_stage(text, cfg.text, PP_STAGES, mesh)}
+        del text
+        _free()
+        tx = T._make_tx(args, 4)
+        opt = tx.init(params)
+        for M in (PP_M, PP_M_BIG):
+            batch = {k: (v[:, :M] if k == "position_ids" else v[:M])
+                     if isinstance(v, np.ndarray) and v.ndim else v for k, v in rows.items()}
+            batch.pop("_n_tokens", None)
+            for sched in ("gpipe", "1f1b"):
+                step = pl.make_pp_sft_train_step(cfg.text, tx, M, PP_STAGES, mesh=mesh,
+                                                 remat=True, schedule=sched)
+                _free()
+                _reset_launches()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                _, _, loss = step(params, opt, dict(batch))
+                torch.cuda.synchronize()
+                launches = _launch_counts()
+                launches["swa_train_flash_attention_bwd"] = h.launches_bwd
+                out[f"{sched}_{M}"] = dict(
+                    above_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    ms=(time.perf_counter() - t0) * 1e3, loss=float(loss), launches=launches)
+    del params, opt
+    _free()
+    return out
+
+
+def _pp_seq_args(job, S):
+    return _train_args(
+        f"{job['out']}/seq_{S}", cutoff_len=PP_SEQ_T, max_steps=PP_STEPS, remat=True,
+        learning_rate=1e-5, dataset="demo_long", dataset_dir=job["long_dir"], packing=False,
+        pipeline_stages=S, n_microbatches=PP_SEQ_M, pp_microbatch_axis="sequence")
+
+
+def _pp_world(job, T, dev):
+    """Phase 16 on one of PP_STAGES ranks: (a) fp32 gradients, (a) the
+    36-layer runs under gpipe and 1f1b, (b) the step peaks, (c) the
+    sequence axis."""
+    t0 = time.perf_counter()
+    out = {"grads": _pp_grads(job, T, dev, PP_STAGES, ref=job["grad_file"])}
+    out["grads"]["job_s"] = time.perf_counter() - t0
+    for sched in ("gpipe", "1f1b"):
+        out[sched] = _pp_run(job, T, 36, _pp_args(job, sched, 36, PP_M,
+                                                  pipeline_schedule=sched))
+    out["peaks"] = _pp_peaks(job, T, dev)
+    out["seq"] = _pp_run(job, T, PP_SEQ_LAYERS, _pp_seq_args(job, PP_STAGES))
+    return out
+
+
+def phase_pp_path(dev, card: str) -> dict:
+    """Phase 16: pipeline parallelism at 3B, PP_STAGES gloo ranks sharing
+    the card (pipe 3, 12 layers a stage at 36; NCCL refuses ranks sharing a
+    GPU). In one process first: the fp32 gradients of (a)'s first batch at
+    PP_GRAD_LAYERS, (a)'s bf16 steps at 36 layers, (c)'s unpipelined
+    chunked steps (PR 12's path). Then one world of three ranks: (a) the
+    fp32 gradients through both schedules, the 36-layer run_sft steps under
+    gpipe and 1f1b; (b) one step of each schedule at M 2 and 6 (one row a
+    microbatch), each step's peak; (c) the sequence axis at T 16,384 (two
+    chunks of one window), 12 layers. Returns the launches, summed over the
+    ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    from infinitevl_tpu_torch.parallel.launch import spawn_ranks
+    from infinitevl_tpu_torch.train import trainer as T
+
+    t_phase = time.perf_counter()
+    missed = []
+
+    def hold(ok: bool, what: str) -> None:
+        if not ok:
+            missed.append(what)
+            print(f"[16 pp] CHECK FAILED: {what}", flush=True)
+
+    root = tempfile.mkdtemp(prefix="ivl_pp_")
+    job = {"out": os.path.join(root, "runs"), "data_dir": os.path.join(root, "packed"),
+           "long_dir": os.path.join(root, "long"),
+           "grad_file": os.path.join(root, "grads_one_fp32.pt")}
+    _packed_text_dataset(job["data_dir"], n=90)
+    _long_text_dataset(job["long_dir"], PP_SEQ_T)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    try:
+        # one process: (a)'s fp32 gradients to a file the ranks read, (a)'s and (c)'s steps
+        g_one = _pp_grads(job, T, dev, 1, save=job["grad_file"])
+        one = _pp_run(job, T, 36, _pp_args(job, "one", 36, PP_M, S=1))
+        seq_one = _pp_run(job, T, PP_SEQ_LAYERS, _pp_seq_args(job, 1))
+        _free()
+        t0 = time.perf_counter()
+        world = spawn_ranks(_par_rank, PP_STAGES, (dict(job, kind="pp3"),), device="cuda:0",
+                            timeout=PAR_DEADLINE)
+        t_world = time.perf_counter() - t0
+        os.remove(job["grad_file"])
+
+        # (a) fp32 gradients: each leaf from the rank that holds it (the replicated ones
+        # from every rank, the same after the pipe group's sum)
+        for sched in ("gpipe", "1f1b"):
+            sums = {}
+            for w in world:
+                sums.update(w["grads"]["sums"][sched])
+            errs = {k: d / r for k, (d, r) in sums.items() if r > 0}
+            worst = max((e, k) for k, e in errs.items() if not k.endswith(PP_NO_GRADIENT))
+            noise = max((e for k, e in errs.items() if k.endswith(PP_NO_GRADIENT)), default=0.0)
+            losses = [w["grads"]["losses"][sched] for w in world]
+            secs = world[0]["grads"]["seconds"][sched]
+            e_loss = max(rel(losses, [g_one["loss"]] * len(losses)))
+            hold(worst[0] <= PP_GRAD_TOL and e_loss <= 1e-5,
+                 f"(a) fp32 {sched}: gradients err_ratio {worst}, loss {losses} against "
+                 f"{g_one['loss']}")
+            print(f"[16 pp] (a) fp32, {PP_GRAD_LAYERS} layers at 3B width, run_sft's first "
+                  f"batch ({PP_M} packed rows of {PP_ROWS}, {PP_M} microbatches), three stages "
+                  f"under {sched} against one process: loss {losses[0]:.7f} (one process "
+                  f"{g_one['loss']:.7f}, relative {e_loss:.2g}), the gradients of the "
+                  f"{len(sums)} trainable leaves, the largest leaf's err_ratio {worst[0]:.3g} "
+                  f"({worst[1]}; tol {PP_GRAD_TOL}); k_proj's bias, no gradient in exact "
+                  f"arithmetic, {noise:.3g} (not held); rank 0: the schedule {secs[0]:.1f} s, "
+                  f"the comparison {secs[1]:.1f} s, the whole fp32 job (both schedules, the "
+                  f"weights, the batch) {world[0]['grads']['job_s']:.1f} s", flush=True)
+
+        # (a) bf16, 36 layers, run_sft under both schedules against one process
+        n_swa = sum(1 for t in _cut_3b(36).text.layer_types if t != "linear_attention")
+        n_lin = 36 - n_swa
+        per_rank = (n_swa // PP_STAGES, n_lin // PP_STAGES)  # a stage's SWA / DeltaNet layers
+
+        def expect(sched, M, steps):  # launches a rank: forwards a layer a microbatch
+            f = 2 if sched == "gpipe" else 3  # 1f1b: the no-grad forward, then the recompute's
+            return {"swa_train_flash_attention": f * per_rank[0] * M * steps,
+                    "swa_train_flash_attention_bwd": per_rank[0] * M * steps,
+                    "delta_rule_chunk_fused": f * per_rank[1] * M * steps}
+
+        for sched in ("gpipe", "1f1b"):
+            runs = [w[sched] for w in world]
+            e_l = rel(runs[0]["losses"], one["losses"])
+            hold(len(e_l) == PP_STEPS and max(e_l) <= PP_LOSS_TOL,
+                 f"(a) {sched} losses {runs[0]['losses']} against {one['losses']}")
+            hold(all(r["losses"] == runs[0]["losses"] for r in runs),
+                 f"(a) {sched}: the ranks logged different losses")
+            hold(sum(r["layer_bytes"] for r in runs) == one["layer_bytes"]
+                 and all(r["layer_bytes"] == runs[0]["layer_bytes"]
+                         and r["top_bytes"] == one["top_bytes"] for r in runs),
+                 f"(a) {sched}: bytes held {[(r['layer_bytes'], r['top_bytes']) for r in runs]}"
+                 f" against one process's {(one['layer_bytes'], one['top_bytes'])}")
+            hold(all(r["final_layers"] == 36 for r in runs),
+                 f"(a) {sched}: a rank returned {[r['final_layers'] for r in runs]} layers")
+            want = expect(sched, PP_M, PP_STEPS)
+            for r, res in enumerate(runs):
+                got_l = {k: res["launches"][k] for k in want}
+                hold(got_l == want, f"(a) {sched} rank {r} launches {got_l}, expected {want}")
+                add(res["launches"])
+            print(f"[16 pp] (a) full finetuning through run_sft at 3B (36 layers, {PP_M} packed "
+                  f"rows of {PP_ROWS}, {PP_M} microbatches, remat, lr 1e-5, {PP_STEPS} steps), "
+                  f"pipeline_stages {PP_STAGES} under {sched}, three gloo ranks sharing the "
+                  f"card: losses {[round(x, 6) for x in runs[0]['losses']]}, one process "
+                  f"{[round(x, 6) for x in one['losses']]} (relative "
+                  f"{[float(f'{e:.2g}') for e in e_l]}, tol {PP_LOSS_TOL})", flush=True)
+            for r, res in enumerate(runs):
+                print(f"[16 pp] (a) {sched} rank {r} (stage {r}): ms per step {res['step_ms']} "
+                      f"(step 1 from the trainer's start), the run's peak {res['peak_gb']:.2f} "
+                      f"GB (its whole-model init and the final gather of the stages included), "
+                      f"holds {res['layer_bytes'] / 1e9:.3f} GB of the layers (one process "
+                      f"{one['layer_bytes'] / 1e9:.3f}: a third) and {res['top_bytes'] / 1e9:.3f}"
+                      f" GB of the replicated leaves (one process {one['top_bytes'] / 1e9:.3f}), "
+                      f"H fwd / bwd / C launches {[res['launches'][k] for k in want]}; on "
+                      f"'{card}'", flush=True)
+        print(f"[16 pp] (a) one process: ms per step {one['step_ms']}, peak {one['peak_gb']:.2f}"
+              f" GB on '{card}'", flush=True)
+
+        # (b) the step peaks at M 2 and 6
+        for r, w in enumerate(world):
+            pk = w["peaks"]
+            grow = {s: pk[f"{s}_{PP_M_BIG}"]["above_gb"] - pk[f"{s}_{PP_M}"]["above_gb"]
+                    for s in ("gpipe", "1f1b")}
+            hold(grow["1f1b"] < grow["gpipe"],
+                 f"(b) rank {r}: 1f1b's step peak grew {grow['1f1b']:.3f} GB from M {PP_M} to "
+                 f"{PP_M_BIG}, gpipe's {grow['gpipe']:.3f}")
+            for key, res in pk.items():
+                sched, M = key.split("_")
+                want = expect(sched, int(M), 1)
+                got_l = {k: res["launches"][k] for k in want}
+                hold(got_l == want, f"(b) {key} rank {r} launches {got_l}, expected {want}")
+                hold(np.isfinite(res["loss"]), f"(b) {key} rank {r} loss {res['loss']}")
+                add(res["launches"])
+            print(f"[16 pp] (b) rank {r} (stage {r}), 36 layers, one step a schedule on "
+                  f"microbatches of one packed row of {PP_ROWS}: the step's peak above the "
+                  f"memory held before it (params, moments) at M {PP_M} / {PP_M_BIG}: gpipe "
+                  f"{pk[f'gpipe_{PP_M}']['above_gb']:.3f} / {pk[f'gpipe_{PP_M_BIG}']['above_gb']:.3f}"
+                  f" GB, 1f1b {pk[f'1f1b_{PP_M}']['above_gb']:.3f} / "
+                  f"{pk[f'1f1b_{PP_M_BIG}']['above_gb']:.3f} GB (growth {grow['gpipe']:.3f} "
+                  f"against {grow['1f1b']:.3f}); absolute peaks "
+                  f"{[round(pk[k]['peak_gb'], 2) for k in sorted(pk)]} GB ({sorted(pk)}); ms "
+                  f"{[round(pk[k]['ms']) for k in sorted(pk)]}; on '{card}'", flush=True)
+
+        # (c) the sequence axis against the unpipelined chunked run
+        seq = [w["seq"] for w in world]
+        e_s = rel(seq[0]["losses"], seq_one["losses"])
+        hold(len(e_s) == PP_STEPS and max(e_s) <= PP_LOSS_TOL,
+             f"(c) losses {seq[0]['losses']} against {seq_one['losses']}")
+        for r, res in enumerate(seq):
+            for k in ("swa_train_flash_attention", "swa_train_flash_attention_bwd",
+                      "delta_rule_chunk_fused"):
+                hold(res["launches"][k] > 0, f"(c) rank {r}: {k} not launched")
+            add(res["launches"])
+        print(f"[16 pp] (c) pp_microbatch_axis sequence through run_sft at 3B width "
+              f"({PP_SEQ_LAYERS} layers, one row of {PP_SEQ_T}, {PP_SEQ_M} chunks of "
+              f"{PP_SEQ_T // PP_SEQ_M}, gpipe, remat, {PP_STEPS} steps), three stages: losses "
+              f"{[round(x, 6) for x in seq[0]['losses']]}, the unpipelined chunked run "
+              f"{[round(x, 6) for x in seq_one['losses']]} (relative "
+              f"{[float(f'{e:.2g}') for e in e_s]}, tol {PP_LOSS_TOL}); ms per step "
+              f"{[res['step_ms'] for res in seq]} (one process {seq_one['step_ms']}), peak "
+              f"{[round(res['peak_gb'], 2) for res in seq]} GB (one process "
+              f"{seq_one['peak_gb']:.2f}); H fwd / bwd / C launches a rank "
+              f"{[[res['launches'][k] for k in ('swa_train_flash_attention', 'swa_train_flash_attention_bwd', 'delta_rule_chunk_fused')] for res in seq]};"
+              f" on '{card}'", flush=True)
+        print(f"[16 pp] the world of three ranks took {t_world:.1f} s (spawn, weights, "
+              f"datasets, steps)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("swa_train_flash_attention", "delta_rule_chunk_fused"):
+        hold(total.get(name, 0) > 0, f"kernel {name} was not launched on its path")
+    require(not missed, "phase 16: " + "; ".join(missed))
+    print(f"[16 pp] three ranks share one card and hand activations through gloo on the host: "
+          f"these times are not pipeline parallelism's speed; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
     text_only = "--text-only" in argv
     if only and not (kernels_only or text_only or "--train-only" in argv
                      or "--dt-only" in argv or "--pref-only" in argv or "--long-only" in argv
-                     or "--mamba2-only" in argv or "--parallel-only" in argv):
+                     or "--mamba2-only" in argv or "--parallel-only" in argv
+                     or "--pp-only" in argv):
         print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only, "
-              "--dt-only, --pref-only, --long-only, --mamba2-only or --parallel-only (the "
-              "whole run reports every kernel)", file=sys.stderr)
+              "--dt-only, --pref-only, --long-only, --mamba2-only, --parallel-only or "
+              "--pp-only (the whole run reports every kernel)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
@@ -6501,9 +6956,17 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    clock = [time.perf_counter()]
+
+    def took(what: str) -> None:  # each phase's wall seconds, for the time budget
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     card = phase_env()
     phase_build()
     res = phase_kernels(dev, only)
+    took("phases 1-3")
     if kernels_only:
         return 0
     if text_only:  # the text path alone (phase 5, with the decode-step profile)
@@ -6538,6 +7001,9 @@ def main(argv) -> int:
         par12 = phase_parallel_path(dev, card)[1]
         phase_tp_path(dev, card, par12=par12)
         return 0
+    if "--pp-only" in argv:  # phase 16 alone
+        phase_pp_path(dev, card)
+        return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
     phase_dt_cross_device(dev)
@@ -6545,6 +7011,7 @@ def main(argv) -> int:
     phase_long_cross_device(dev)
     phase_mamba2_cross_device(dev)
     phase_parallel_cross_device(dev)
+    took("phase 4")
 
     cfg = infinitevl_3b()
     t0 = time.perf_counter()
@@ -6557,24 +7024,35 @@ def main(argv) -> int:
     stream_launches, image_launches = phase_stream_path(
         dev, card, params, cfg, "--profile" in argv)
     serve_launches = phase_serve_path(dev, card, params, cfg, "--profile" in argv)
+    took("phases 5-7")
     del params  # phase 8 makes its own weights from the seed, recipe by recipe
     _free()
     train = phase_train_path(dev, card, "--profile" in argv)
     train_launches = train["total_launches"]
     vit_launches, vit_peaks = phase_vit_window_path(dev, card)
     res["f"]["vit_train_step_peaks"] = vit_peaks
+    took("phases 8-9")
     _free()
     dt_launches = phase_dt_path(dev, card, "--profile" in argv)
+    took("phase 10")
     _free()
     pref_launches = phase_pref_path(dev, card)["total_launches"]
+    took("phase 11")
     _free()
     long_launches = phase_long_path(dev, card, train["full_2048"]["peak_gb"])["total_launches"]
+    took("phase 12")
     _free()
     m2_launches = phase_mamba2_path(dev, card)
+    took("phase 13")
     _free()
     par_launches, par12 = phase_parallel_path(dev, card)
+    took("phase 14")
     _free()
     tp_launches = phase_tp_path(dev, card, train["full_2048"]["peak_gb"], par12)
+    took("phase 15")
+    _free()
+    pp_launches = phase_pp_path(dev, card)
+    took("phase 16")
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -6603,7 +7081,8 @@ def main(argv) -> int:
          "launches": text_launches[name] + stream_launches[name] + image_launches[name]
          + serve_launches[name] + train_launches[name] + vit_launches[name]
          + dt_launches.get(name, 0) + pref_launches.get(name, 0) + long_launches.get(name, 0)
-         + m2_launches.get(name, 0) + par_launches.get(name, 0) + tp_launches.get(name, 0),
+         + m2_launches.get(name, 0) + par_launches.get(name, 0) + tp_launches.get(name, 0)
+         + pp_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
@@ -6617,13 +7096,16 @@ def main(argv) -> int:
          # summed over the ranks of phase 14's worlds, and of phase 15's
          "launches_parallel_path": par_launches.get(name, 0),
          "launches_tp_path": tp_launches.get(name, 0),
+         # summed over the ranks of phase 16's world
+         "launches_pp_path": pp_launches.get(name, 0),
          **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
              + dt_launches["swa_train_flash_attention_bwd"]
              + pref_launches["swa_train_flash_attention_bwd"]
              + long_launches["swa_train_flash_attention_bwd"]
              + m2_launches["swa_train_flash_attention_bwd"]
              + par_launches["swa_train_flash_attention_bwd"]
-             + tp_launches["swa_train_flash_attention_bwd"]}
+             + tp_launches["swa_train_flash_attention_bwd"]
+             + pp_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

@@ -272,8 +272,15 @@ def from_jax_numpy(params_np: Any, device: Optional[Device] = None,
     text tree may carry the preference stages' `value_head`: {'kernel':
     [D, 1]}), or a LoRA adapter tree (`init_lora` output: {'a', 'b'} nodes, `{}` for a
     layer without adapters), which `trainable=True` marks as trainable
-    leaves. None leaves stay None."""
+    leaves. None leaves stay None. A pipelined tree (JAX's
+    parallel/pipeline.stack_stage_params: `stage_stacks`, leaves [S, G / S,
+    ...]) comes across with its per-layer `layers` list
+    (parallel/pipeline.unstack_stage_params)."""
     device = resolve_device(device)
+    if isinstance(params_np, dict) and "stage_stacks" in params_np:
+        from ..parallel.pipeline import unstack_stage_params
+
+        params_np = unstack_stage_params(params_np)
     if isinstance(params_np, dict):
         return {k: from_jax_numpy(v, device, trainable) for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):

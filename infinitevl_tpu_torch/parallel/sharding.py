@@ -5,7 +5,13 @@ One process per rank. The world is a (data, model) mesh: rank r sits at
 (r // model, r % model), the model axis innermost, as JAX reshapes its
 devices (`create_mesh`; `create_hybrid_mesh` keeps each model group
 inside one node). Each data row of the mesh is a model group and each
-model column a data group, every one a process group of its own.
+model column a data group, every one a process group of its own. A
+pipelined run (parallel/pipeline.py) puts a pipe axis outermost
+(`create_pp_mesh`): rank r is stage r // (data x model), and each stage
+keeps the (data, model) groups over its own ranks; one pipe group a
+(data, model) position joins the stages (the replicated leaves'
+gradients are summed there), and a two-rank group per pair of adjacent
+stages carries the activations and their gradients (`pipe_handoff`).
 
 Every rank builds the same global batch from the same seed and trains the
 rows of its DATA coordinate (`rank_rows`): the ranks of one model group
@@ -81,6 +87,7 @@ from ..utils.checkpoint import tree_map
 
 DATA = "data"
 MODEL = "model"
+PIPE = "pipe"
 
 Spec = Tuple[Optional[str], ...]
 
@@ -139,16 +146,29 @@ def world_rank() -> int:
 class Mesh:
     """The world's (data, model) layout; this process is world rank `rank`.
     `order[d][m]` is the world rank at mesh position (d, m); None is the
-    row-major order of `create_mesh` (rank d x model + m)."""
+    row-major order of `create_mesh` (rank d x model + m). With `pipe` > 1
+    (`create_pp_mesh`) the (data, model) layout repeats once a stage, the
+    pipe axis outermost: rank p x data x model + d x model + m."""
 
     data: int = 1
     model: int = 1
     rank: int = 0
     order: Optional[Tuple[Tuple[int, ...], ...]] = None
+    pipe: int = 1
+
+    @property
+    def pipe_rank(self) -> int:
+        """This rank's stage (its coordinate on the pipe axis)."""
+        return self.rank // (self.data * self.model)
+
+    def pipe_ranks(self) -> Tuple[int, ...]:
+        """The world ranks of this rank's (data, model) position, stage by stage."""
+        n = self.data * self.model
+        return tuple(p * n + self.rank % n for p in range(self.pipe))
 
     def _position(self) -> Tuple[int, int]:
         if self.order is None:
-            return divmod(self.rank, self.model)
+            return divmod(self.rank % (self.data * self.model), self.model)
         for d, row in enumerate(self.order):
             if self.rank in row:
                 return d, row.index(self.rank)
@@ -167,37 +187,59 @@ class Mesh:
         return sorted(self.rows()[self._position()[0]]).index(self.rank)
 
     def rows(self) -> Tuple[Tuple[int, ...], ...]:
-        """order[d][m], the row-major order where none was given."""
-        return self.order or tuple(tuple(d * self.model + m for m in range(self.model))
+        """order[d][m], the row-major order of this rank's stage where none
+        was given."""
+        base = self.pipe_rank * self.data * self.model
+        return self.order or tuple(tuple(base + d * self.model + m for m in range(self.model))
                                    for d in range(self.data))
 
 
-# the process groups of this process's data column and model row (None: the
-# whole world) and the axes' sizes (None: no mesh made, the world)
-_GROUPS: Dict[str, Any] = {DATA: None, MODEL: None}
-_AXIS_SIZE: Dict[str, Optional[int]] = {DATA: None, MODEL: None}
+# the process groups of this process's data column, model row and pipe
+# column (None: the whole world), the axes' sizes (None: no mesh made, the
+# world), and the two-rank groups of this process's adjacent stages
+# (_PAIRS[s]: stages s and s + 1)
+_GROUPS: Dict[str, Any] = {DATA: None, MODEL: None, PIPE: None}
+_AXIS_SIZE: Dict[str, Optional[int]] = {DATA: None, MODEL: None, PIPE: None}
+_PAIRS: Dict[int, Any] = {}
 _MODEL_RANK = 0
 
 
 def _make_groups(mesh: Mesh) -> None:
-    """One process group per model row and one per data column, every rank
-    creating every group in the same order (torch.distributed's rule). An
-    axis that spans the whole world uses the default group."""
+    """One process group per model row and one per data column (of every
+    stage), and with a pipe axis one per pipe column and per pair of
+    adjacent stages in it, every rank creating every group in the same
+    order (torch.distributed's rule). An axis that spans the whole world
+    uses the default group."""
     global _MODEL_RANK
-    rows = mesh.rows()
-    _GROUPS[DATA] = _GROUPS[MODEL] = None
-    _AXIS_SIZE[DATA], _AXIS_SIZE[MODEL] = mesh.data, mesh.model
+    _GROUPS[DATA] = _GROUPS[MODEL] = _GROUPS[PIPE] = None
+    _PAIRS.clear()
+    _AXIS_SIZE[DATA], _AXIS_SIZE[MODEL], _AXIS_SIZE[PIPE] = mesh.data, mesh.model, mesh.pipe
     _MODEL_RANK = mesh.model_rank
-    if mesh.model > 1 and mesh.data > 1:
-        for row in rows:
-            g = dist.new_group(sorted(row))
-            if mesh.rank in row:
-                _GROUPS[MODEL] = g
-        for m in range(mesh.model):
-            col = sorted(row[m] for row in rows)
-            g = dist.new_group(col)
-            if mesh.rank in col:
-                _GROUPS[DATA] = g
+    n = mesh.data * mesh.model
+    for p in range(mesh.pipe):
+        rows = dataclasses.replace(mesh, rank=p * n).rows()
+        if mesh.model > 1 and (mesh.data > 1 or mesh.pipe > 1):
+            for row in rows:
+                g = dist.new_group(sorted(row))
+                if mesh.rank in row:
+                    _GROUPS[MODEL] = g
+        if mesh.data > 1 and (mesh.model > 1 or mesh.pipe > 1):
+            for m in range(mesh.model):
+                col = sorted(row[m] for row in rows)
+                g = dist.new_group(col)
+                if mesh.rank in col:
+                    _GROUPS[DATA] = g
+    if mesh.pipe > 1:
+        for pos in range(n):
+            col = [p * n + pos for p in range(mesh.pipe)]
+            if n > 1:
+                g = dist.new_group(col)
+                if mesh.rank in col:
+                    _GROUPS[PIPE] = g
+            for p in range(mesh.pipe - 1):
+                g = dist.new_group(col[p : p + 2])
+                if mesh.rank in col:
+                    _PAIRS[p] = g
 
 
 def _check_world(data: int, model: int) -> int:
@@ -219,6 +261,41 @@ def create_mesh(data: int = 1, model: int = 1) -> Mesh:
     mesh = Mesh(data, model, world_rank())
     _make_groups(mesh)
     return mesh
+
+
+def create_pp_mesh(pipe: int, data: int = 1, model: int = 1) -> Mesh:
+    """The (pipe, data, model) mesh of a pipelined run, the pipe axis
+    outermost as JAX's create_pp_mesh lays out its devices: rank r runs
+    stage r // (data x model) at the (data, model) position of r within
+    its stage. The world size must be pipe x data x model. Makes the
+    mesh's process groups (collective: every rank calls it)."""
+    n, world = pipe * data * model, world_size()
+    if world != n:
+        raise ValueError(f"need {n} ranks (pipe x data x model = {pipe} x {data} x {model}), "
+                         f"have {world}")
+    mesh = Mesh(data, model, world_rank(), pipe=pipe)
+    _make_groups(mesh)
+    return mesh
+
+
+def pipe_handoff(x: torch.Tensor, pair: int, src: int) -> torch.Tensor:
+    """Stage `src` (`pair` or `pair` + 1) hands `x` to the other stage of
+    the pair: one broadcast in the pair's two-rank group; on the receiving
+    rank `x` is a buffer of the right shape, filled and returned. Every
+    backend takes it as it is: gloo's send / recv take CPU tensors only,
+    its broadcast CUDA tensors too (staged through the host by gloo
+    itself), which ranks sharing one card need, and NCCL's broadcast runs
+    between cards."""
+    x = x.detach().contiguous()
+    dist.broadcast(x, src=_ACTIVE.pipe_ranks()[src], group=_PAIRS[pair])
+    return x
+
+
+def pipe_broadcast(x: torch.Tensor, stage: int) -> torch.Tensor:
+    """`x` from stage `stage` to every stage of this rank's pipe group (one
+    broadcast; elsewhere `x` is a buffer, filled and returned)."""
+    dist.broadcast(x, src=_ACTIVE.pipe_ranks()[stage], group=_GROUPS[PIPE])
+    return x
 
 
 def hybrid_device_order(devices, data: int, model: int):
@@ -491,7 +568,7 @@ def tp_info(t) -> Optional[ShardInfo]:
 
 
 def copy_shard_info(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    for attr in ("_ivl_shard", "_ivl_tp"):
+    for attr in ("_ivl_shard", "_ivl_tp", "_ivl_pipe"):
         info = getattr(src, attr, None)
         if info is not None:
             setattr(dst, attr, info)
@@ -871,33 +948,33 @@ def sync_gradients(leaves: Sequence[torch.Tensor], grads: List[torch.Tensor]
     return out
 
 
+def _sum_axes(t: torch.Tensor) -> Tuple[str, ...]:
+    """The axes over whose groups a leaf's squares are summed: the model
+    and data axes it is sliced on, and the pipe axis for a stage's layer."""
+    return tuple(ax for ax, on in ((MODEL, tp_info(t) is not None),
+                                   (DATA, shard_info(t) is not None),
+                                   (PIPE, getattr(t, "_ivl_pipe", False))) if on)
+
+
 def grad_sq_norm(leaves: Sequence[torch.Tensor], grads) -> torch.Tensor:
     """The squared global norm of the gradients: each slice's sum of squares
-    summed over its axes' groups (the model group, the data group, or both:
-    one all_reduce an axis), each replicated leaf counted once. With no
-    slice in the process, the plain sum."""
-    parts = {(): [], (MODEL,): [], (DATA,): [], (MODEL, DATA): []}
+    summed over its axes' groups (the model group, the data group, or both),
+    a stage's layers' over the pipe group (one all_reduce an axis), each
+    replicated leaf counted once. With no slice in the process, the plain
+    sum."""
+    parts: Dict[Tuple[str, ...], list] = {}
     for t, g in zip(leaves, grads):
-        key = tuple(ax for ax, i in ((MODEL, tp_info(t)), (DATA, shard_info(t)))
-                    if i is not None)
-        parts[key].append(g)
-    sq = {k: (sum((g.float() ** 2).sum() for g in v) if v else None)
-          for k, v in parts.items()}
-    m, d, both = sq[(MODEL,)], sq[(DATA,)], sq[(MODEL, DATA)]
-    # every rank of a group slices the same leaves: all or none of them reduce
-    for axis, own in ((MODEL, m), (DATA, d)):
-        if own is None and both is None:
-            continue
-        zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        v = all_reduce_sum(torch.stack([zero if own is None else own,
-                                        zero if both is None else both]), axis)
-        own, both = (None if own is None else v[0]), (None if both is None else v[1])
-        m, d = (own, d) if axis == MODEL else (m, own)
-    total = sq[()]
-    for part in (m, d, both):
-        if part is not None:
-            total = part if total is None else total + part
-    return total
+        parts.setdefault(_sum_axes(t), []).append(g)
+    sq = {k: sum((g.float() ** 2).sum() for g in v) for k, v in parts.items()}
+    # every rank of a group holds leaves of the same kinds (the same rules on
+    # the same shapes; each stage the same layers' structure): all or none
+    # of them reduce, the same kinds in the same order
+    for axis in (MODEL, DATA, PIPE):
+        keys = sorted(k for k in sq if axis in k)
+        if keys:
+            v = all_reduce_sum(torch.stack([sq[k] for k in keys]), axis)
+            sq.update({k: v[i] for i, k in enumerate(keys)})
+    return sum(sq.values())
 
 
 # ---------------------------------------------------------------- batches

@@ -320,13 +320,11 @@ def run_ppo(args, tokenizer=None, reward_fn=None, device: Optional[Device] = Non
     from ..utils.logging import TrainerLog
     from .trainer import (
         _policy_params,
-        _refuse_later_options,
         _refuse_multi_rank,
         build_config,
         frozen_copy,
     )
 
-    _refuse_later_options(args)
     _refuse_multi_rank("ppo")
     if reward_fn is None and not args.finetune.reward_model_path:
         raise ValueError(

@@ -93,10 +93,6 @@ logger = get_logger(__name__)
 ABORT_EVENT = None
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to torch yet")
-
-
 def build_config(args: AllArgs) -> InfiniteVLConfig:
     ckpt_cfg = (
         os.path.join(args.model.model_name_or_path, "config.json")
@@ -755,17 +751,6 @@ def predict_and_score(params, cfg, data, tokenizer, args: AllArgs, device=None):
     return scores
 
 
-def _refuse_later_options(args: AllArgs) -> None:
-    """Options of the JAX package that the port does not have yet raise by
-    name. scan_layers / scan_unroll / remat_mode / remat_barrier are
-    accepted: they pick a memory layout of the JAX layer loop and change no
-    number, and the torch layer loop with per-layer checkpointing needs
-    none of them (the stacked layout is not built)."""
-    t = args.train
-    if t.pipeline_stages > 1:
-        raise _later("parallel/pipeline.py (pipeline_stages > 1; the next parallel/ slice)")
-
-
 def _maybe_mesh(args: AllArgs) -> Optional[Mesh]:
     """The (data, model) mesh of sft / pt / dt, None for one process. The
     process group's world must be data_parallel x model_parallel."""
@@ -788,12 +773,13 @@ def _refuse_multi_rank(stage: str) -> None:
 def run_sft(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     """SFT / PT workflow: text-only or multimodal, full / freeze / lora
     finetuning, QLoRA with `quantization_bit: 8`, data parallelism over the
-    process group's ranks (`data_parallel`, `model_parallel`, `param_mode`).
+    process group's ranks (`data_parallel`, `model_parallel`, `param_mode`),
+    pipeline parallelism with `pipeline_stages` > 1 (`_run_sft_pipeline`).
     Runs on the CUDA
     card unless `device="cpu"`. Returns the final params (LoRA: merged),
     whole on every rank."""
-    _refuse_later_options(args)
-    mesh = _maybe_mesh(args)
+    # a pipelined run makes its (pipe, data, model) mesh once its checks pass
+    mesh = None if args.train.pipeline_stages > 1 else _maybe_mesh(args)
     with use_mesh(mesh):
         return _run_sft(args, tokenizer, resolve_device(device), mesh)
 
@@ -812,6 +798,8 @@ def _run_sft(args: AllArgs, tokenizer, device: torch.device, mesh: Optional[Mesh
     mm = False if args.data.streaming else is_multimodal(data)
     data, eval_data = _split_val(args, data, mm)
     predict = args.train.do_predict and not mm and not args.data.streaming
+    if args.train.pipeline_stages > 1:
+        return _run_sft_pipeline(args, cfg, data, tokenizer, mm, dtype, device, predict)
     params = _load_or_init_params(args, cfg, mm, dtype, device)
     if args.model.quantization_bit is not None:
         # QLoRA: int8 frozen base + rank-r adapters
@@ -910,6 +898,110 @@ def _run_sft(args: AllArgs, tokenizer, device: torch.device, mesh: Optional[Mesh
     return final
 
 
+class _PipeTrainer(Trainer):
+    """The Trainer of a pipelined run: a checkpoint holds the whole model
+    in the one-process layout (every stage's layers gathered over the pipe
+    group, every slice over the data and model axes), which any run of the
+    port resumes; a resume cuts it back into this rank's stage."""
+
+    def resume(self, path: Optional[str] = None):
+        from ..parallel.pipeline import load_pipeline_state
+
+        step, state = restore_train_state(path or os.path.join(self.output_dir, "checkpoints"))
+        if state is not None:
+            load_pipeline_state(self.params, self.opt_state, state)
+            self.step = step
+            logger.info(f"resumed from step {step}")
+
+    def save(self):
+        from ..parallel.pipeline import pipeline_state
+
+        state = pipeline_state(self.params, self.opt_state, self.mesh)  # every rank gathers
+        if self.main:
+            save_train_state(os.path.join(self.output_dir, "checkpoints"), self.step, state)
+        if self.mesh is not None:
+            dist.barrier()
+
+
+def _run_sft_pipeline(args: AllArgs, cfg, data, tokenizer, mm: bool, dtype,
+                      device: torch.device, predict: bool):
+    """Pipelined SFT / PT (JAX's `_run_sft_pipeline`): `pipeline_stages`
+    stages over a (pipe, data, model) world of ranks (parallel/pipeline.py,
+    one process per rank), `n_microbatches` microbatches on the batch axis
+    (`pipeline_schedule` gpipe or 1f1b) or on the sequence axis
+    (`pp_microbatch_axis: sequence`, gpipe; parallel/pipeline_seq.py). In
+    one process (a world of one, data and model 1) every stage runs in
+    turn. Text-only full finetuning: the stage cut is of the decoder's
+    layers. Rank 0 logs the loss (every rank holds it: the last stage's,
+    summed over the pipe group) and writes checkpoints of the whole model
+    in the one-process layout. Returns the whole per-layer params on every
+    rank."""
+    from ..parallel.pipeline import (
+        create_pp_mesh,
+        gather_stages,
+        make_pp_sft_train_step,
+        shard_stage,
+    )
+    from ..parallel.pipeline_seq import make_seq_pp_sft_train_step
+
+    tcfg, t = cfg.text, args.train
+    if mm:
+        raise ValueError(
+            "pipeline_stages > 1 is text-only (the ViT is not stage-cut); train multimodal "
+            "recipes with data/model parallelism instead")
+    if args.finetune.finetuning_type != "full":
+        raise ValueError(
+            "pipeline_stages > 1 requires finetuning_type: full (the stage cut is of the "
+            "decoder's layers; adapters and freezing are not cut with it)")
+    if args.model.quantization_bit is not None:
+        raise ValueError("pipeline_stages > 1 does not compose with QLoRA")
+    S, M, axis = t.pipeline_stages, t.n_microbatches, t.pp_microbatch_axis
+    if axis not in ("batch", "sequence"):
+        raise ValueError(f"unknown pp_microbatch_axis {axis!r} (batch | sequence)")
+    if axis == "sequence":
+        if t.pipeline_schedule != "gpipe":
+            raise ValueError(
+                "pp_microbatch_axis: sequence supports the gpipe schedule only (the 1f1b "
+                "hand-schedule is batch-axis)")
+        T = args.data.cutoff_len
+        if T % M or (T // M) % tcfg.sliding_window:
+            raise ValueError(
+                f"sequence microbatching needs cutoff_len ({T}) divisible by n_microbatches "
+                f"({M}) into chunks that are multiples of the sliding window "
+                f"({tcfg.sliding_window})")
+    else:
+        B = t.per_device_train_batch_size * max(t.data_parallel, 1)
+        if B % M:
+            raise ValueError(
+                f"global batch {B} (= per_device x data_parallel) must be divisible by "
+                f"n_microbatches {M}")
+        if (B // max(t.data_parallel, 1)) % M:
+            raise ValueError(
+                f"a data rank's {B // t.data_parallel} rows must be divisible by n_microbatches "
+                f"{M} (each rank splits its own rows)")
+    one = world_size() == 1 and t.data_parallel * t.model_parallel == 1
+    mesh = None if one else create_pp_mesh(S, t.data_parallel, t.model_parallel)
+    with use_mesh(mesh):
+        params = _load_or_init_params(args, cfg, False, dtype, device)
+        set_trainable(params, full_finetune_leaf)
+        params = {"text": shard_stage(params["text"], tcfg, S, mesh, t.param_mode)}
+        steps = _total_steps(args, data)
+        tx = _make_tx(args, steps)
+        opt_state = tx.init(params)
+        step_fn = (make_seq_pp_sft_train_step(tcfg, tx, M, S, mesh=mesh, remat=t.remat)
+                   if axis == "sequence" else
+                   make_pp_sft_train_step(tcfg, tx, M, S, mesh=mesh, remat=t.remat,
+                                          schedule=t.pipeline_schedule))
+        trainer = _PipeTrainer(step_fn, params, opt_state, t.output_dir, t.logging_steps,
+                               t.save_steps, report_to=t.report_to, mesh=mesh)
+        _maybe_resume(trainer, args)
+        final = trainer.train(_batches(args, data, cfg, False, mesh), max_steps=steps)
+        merged = gather_stages(final, mesh)
+    if predict:
+        predict_and_score(merged, cfg, data, tokenizer, args, device)
+    return merged
+
+
 def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
            device: Optional[Device] = None):
     """Distillation stage 1 or 2 (`stage: dt`, `distill_stage`). The teacher
@@ -925,7 +1017,6 @@ def run_dt(args: AllArgs, tokenizer=None, teacher_params=None, teacher_cfg=None,
     of the global batch; under fsdp a leaf the student shares with the
     teacher is sharded once. Runs on the CUDA card unless `device="cpu"`.
     Returns the student's text params, whole on every rank."""
-    _refuse_later_options(args)
     mesh = _maybe_mesh(args)
     # the teacher passes on in a holder: no frame but _run_dt's keeps the whole
     # tree alive once it is sharded
@@ -1041,7 +1132,6 @@ def run_rm(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     `device="cpu"`. Returns the text tree with its `value_head`."""
     from .dpo import make_rm_step
 
-    _refuse_later_options(args)
     _refuse_multi_rank('rm')
     device = resolve_device(device)
     cfg = build_config(args)
@@ -1069,7 +1159,6 @@ def run_dpo(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     card unless `device="cpu"`. Returns the policy's text tree."""
     from .dpo import make_dpo_step, needs_reference
 
-    _refuse_later_options(args)
     _refuse_multi_rank('dpo')
     device = resolve_device(device)
     cfg = build_config(args)
@@ -1095,7 +1184,6 @@ def run_kto(args: AllArgs, tokenizer=None, device: Optional[Device] = None):
     card unless `device="cpu"`. Returns the policy's text tree."""
     from .dpo import make_kto_step
 
-    _refuse_later_options(args)
     _refuse_multi_rank('kto')
     device = resolve_device(device)
     cfg = build_config(args)

@@ -442,9 +442,10 @@ def test_streaming_composes_with_data_parallel(world):
 def test_whole_leaf_updates_and_tp_refuse_by_name(tmp_path):
     """GaLore, APOLLO and Adam-mini read each whole leaf: on an FSDP slice
     they raise by name (under replicated they run, as the trainer tests
-    show); so does DoRA under fsdp, and pipeline_stages > 1 whatever the
-    world; model_parallel 2 in a world of one process raises for the world
-    (tensor parallelism needs data x model ranks)."""
+    show); so does DoRA under fsdp; pipeline_stages > 1 with LoRA raises
+    JAX's ValueError (a pipeline trains full finetuning only); model_parallel
+    2 in a world of one process raises for the world (tensor parallelism
+    needs data x model ranks)."""
     import infinitevl_tpu_torch.train.trainer as ttrainer
     from infinitevl_tpu_torch.hparams import parse_args
     from infinitevl_tpu_torch.train.optim import make_custom_optimizer
@@ -460,9 +461,9 @@ def test_whole_leaf_updates_and_tp_refuse_by_name(tmp_path):
                             data_parallel=2))
     with pytest.raises(NotImplementedError, match="use_dora under param_mode fsdp"):
         ttrainer._run_sft(args, None, torch.device("cpu"), tsh.Mesh(2, 1, 0))
-    with pytest.raises(NotImplementedError, match="parallel/pipeline.py"):
-        ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, pipeline_stages=2)),
-                         device="cpu")
+    with pytest.raises(ValueError, match="finetuning_type: full"):
+        ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, pipeline_stages=2,
+                                          finetuning_type="lora")), device="cpu")
     with pytest.raises(ValueError, match="data_parallel x model_parallel is 1 x 2"):
         ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, model_parallel=2)),
                          device="cpu")

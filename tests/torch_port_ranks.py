@@ -1,4 +1,5 @@
-"""What the ranks of tests/test_torch_port_parallel.py run: importable by the
+"""What the ranks of tests/test_torch_port_parallel.py, test_torch_port_tp_*.py
+and test_torch_port_pipeline_ranks.py run: importable by the
 processes that infinitevl_tpu_torch.parallel.launch.spawn_ranks starts, and
 free of jax, so a rank loads the port alone. The JAX side's numbers
 (weights, adapters, the converted student's fresh mixers) come in as
@@ -21,12 +22,12 @@ CHUNKED = dict(sliding_window=16, delta_chunk_size=8, delta_seq_chunk_t=32,
                delta_seq_chunk_eval=16, mlp_chunk_t=16)
 
 
-def tiny_cut(chunked=False):
+def tiny_cut(chunked=False, layers=N_LAYERS):
     from infinitevl_tpu_torch.config import tiny_config
 
     cfg = tiny_config()
     return dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, num_hidden_layers=N_LAYERS, layer_types=cfg.text.layer_types[:N_LAYERS],
+        cfg.text, num_hidden_layers=layers, layer_types=cfg.text.layer_types[:layers],
         **(CHUNKED if chunked else {})))
 
 
@@ -48,8 +49,9 @@ def leaves_np(tree):
 @contextlib.contextmanager
 def patched(carry):
     """The port's run_sft / run_dt starting from the carried numbers for the
-    duration of a `with`: the cut tiny preset (with the sequence-chunk knobs
-    where carry["chunked"]), the model's (or the
+    duration of a `with`: the cut tiny preset (carry["layers"] deep, default
+    N_LAYERS; with the sequence-chunk knobs where carry["chunked"]), the
+    model's (or the
     teacher's) weights, the adapters, and the converted student's fresh
     mixers. Everything patched is restored on exit."""
     import infinitevl_tpu_torch.train.lora as tlora
@@ -57,7 +59,8 @@ def patched(carry):
     from infinitevl_tpu_torch.models.params import from_jax_numpy
 
     saved = [(ttrainer, "tiny_config", ttrainer.tiny_config)]
-    ttrainer.tiny_config = lambda: tiny_cut(carry.get("chunked", False))
+    ttrainer.tiny_config = lambda: tiny_cut(carry.get("chunked", False),
+                                            carry.get("layers", N_LAYERS))
     if "params" in carry:
         saved.append((ttrainer, "_load_or_init_params", ttrainer._load_or_init_params))
         ttrainer._load_or_init_params = (
@@ -146,15 +149,71 @@ def cli_train(path):
     return losses(load_yaml_args(path).train.output_dir) if world_rank() == 0 else None
 
 
+def pp_grads(job):
+    """One pipelined loss-and-gradient evaluation on this world's (pipe,
+    data, model) mesh (tests/test_torch_port_pipeline_ranks.py): the tiny
+    preset from seed 0 in fp32, full finetuning's trainable leaves, the
+    rank's stage sharded under job["mode"], the rank's rows of the global
+    batch job["batch"] (numpy), job["schedule"] gpipe / 1f1b / seq.
+    Returns the global loss, the clip's squared global norm and, on rank 0,
+    every gradient as the optimizer takes it (summed over the data group)
+    whole (over the data and model slices and the stages), by one-process
+    path."""
+    import torch
+
+    from infinitevl_tpu_torch.config import tiny_config
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.parallel import pipeline as pl
+    from infinitevl_tpu_torch.parallel import sharding as sh
+    from infinitevl_tpu_torch.parallel.pipeline_seq import seq_pp_sft_value_and_grad
+    from infinitevl_tpu_torch.train.step import (
+        full_finetune_leaf,
+        set_trainable,
+        trainable_leaves,
+    )
+    from infinitevl_tpu_torch.utils.checkpoint import tree_map
+
+    S, data, model = job["mesh"]
+    mesh = sh.create_pp_mesh(S, data, model)
+    cfg = tiny_config().text
+    text = init_text_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    set_trainable({"text": text}, full_finetune_leaf)
+    params = {"text": pl.shard_stage(text, cfg, S, mesh, job["mode"])}
+    b = sh.rank_rows(dict(job["batch"]), mesh)
+    ids, labels, pos, seg = (torch.as_tensor(b[k]) for k in ("input_ids", "labels",
+                                                              "position_ids", "segment_ids"))
+    fn = {"gpipe": pl.pp_sft_value_and_grad_gpipe, "1f1b": pl.pp_sft_value_and_grad_1f1b,
+          "seq": seq_pp_sft_value_and_grad}[job["schedule"]]
+    pp = pl.stack_stage_params(params["text"], cfg, S)
+    with sh.use_mesh(mesh):
+        loss, grads = fn(pp, cfg, ids, labels, pos, job["M"], seg, mesh=mesh)
+        loss = sh.global_sum(loss)
+        by_id = {id(t): g for (_, t), g in zip(trainable_leaves(pp), grads)}
+        leaves = [t for _, t in trainable_leaves(params)]
+        # the optimizer's view: the replicated leaves' sums over the data group
+        synced = sh.sync_gradients(leaves, [by_id[id(t)] for t in leaves])
+        by_id = {id(t): g for t, g in zip(leaves, synced)}
+        sq = sh.grad_sq_norm(leaves, synced)
+        gtree = tree_map(lambda t: sh.copy_shard_info(by_id[id(t)].detach(), t)
+                            if id(t) in by_id else None, params)
+        whole = pl.gather_stages(gtree, mesh)
+    out = {"loss": float(loss), "grad_sq_norm": float(sq)}
+    if sh.world_rank() == 0:
+        out["grads"] = leaves_np(whole)
+    return out
+
+
 def jobs(rank, world, job_list):
-    """Run each job in order: a run_exp ("run"), the CE check ("ce") or a
-    `cli train` ("cli")."""
+    """Run each job in order: a run_exp ("run"), the CE check ("ce"), a
+    `cli train` ("cli") or a pipelined gradient ("pp_grads")."""
     out = []
     for job in job_list:
         if job["kind"] == "ce":
             out.append(global_ce_parts(job["rows"]))
         elif job["kind"] == "cli":
             out.append(cli_train(job["path"]))
+        elif job["kind"] == "pp_grads":
+            out.append(pp_grads(job))
         else:
             out.append(run_job(job))
     return out
