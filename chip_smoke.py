@@ -71,7 +71,10 @@ non-zero):
      wraps after 32), an `ask` in the middle and one at the end, the
      frames-ask-frames state held bit for bit against the same frames with
      no ask; then one Generator request with a 1344x1344 image, which
-     reaches kernel E; under --profile a steady frame, the image's ViT and
+     reaches kernel E; the native host preprocessing (infinitevl_tpu_torch
+     .native, built with g++) on 8 of the raw frames against
+     data/processing.preprocess_image, with FramePipeline, host ms a frame
+     of each; under --profile a steady frame, the image's ViT and
      one `ask` (its device kernels and those of the T <= 64 recurrence)
   7. serving path, at full 3B width and depth: the weights quantised to
      int4 on the card, an HTTP chat server on a loopback port answering
@@ -136,41 +139,50 @@ non-zero):
      error on every kernel), one LoRA step each
 14. data parallelism at 3B, in one world of two gloo ranks sharing the card
      (NCCL refuses two ranks on one GPU): (a) stage 1 of
-     examples/train_3b_stage1.yaml at 8 layers, data_parallel 2 under fsdp
+     examples/train_3b_stage1.yaml at 4 layers, data_parallel 2 under fsdp
      (warm-up 100 -> 0, 2 steps on packed rows of 2,048) against the same steps in one
      process at per_device_train_batch_size 2 (losses, and after step 1 the
      trainable leaves and their first moments), the teacher bit-unchanged on
      each rank, each rank holding exactly half the sharded bytes; (b) full
      finetuning through run_sft at 2,048 on data/demo.json streamed, fsdp and
-     replicated at 8 layers (their losses equal); (c) the port's
+     replicated at 4 layers (their losses equal); (d) DoRA, GaLore (its
+     projection refresh), APOLLO and Adam-mini through run_sft at 2 layers,
+     2 steps, data_parallel 2 under fsdp, each against one process at the
+     same global batch; (c) the port's
      collectives (the layer gather forward and backward, the gradient and
      count all_reduce) in a world of one NCCL rank, bit-equal at world 1
 15. tensor parallelism at 3B (the model axis: Megatron-style slices with
      their collectives in the forwards), gloo ranks sharing the card: in one
      world of two (model_parallel 2) (a) full finetuning through run_sft at
-     12 layers, T 2,048, tp, 2 steps, against one process (losses, exactly
+     8 layers, T 2,048, tp, 2 steps, against one process (losses, exactly
      half the model-sharded bytes a rank, each rank's peak, the all_reduce
      seconds and the head's share), and in fp32 every trainable leaf's
-     gradient on the first batch, slice by slice; (b) stage 1 of train_3b_stage1.yaml at 12
+     gradient on the first batch, slice by slice; (b) stage 1 of train_3b_stage1.yaml at 8
      layers and packed rows of 8,192 (the teacher bit-unchanged); (d) one
-     multimodal LoRA step at 8 layers with the ViT's 32 blocks (E and F)
+     multimodal LoRA step at 4 layers with the ViT's 32 blocks (E and F)
      against one process; (e) generation.prefill of 1,000 tokens and 16
      decode_step calls on the sharded params and each rank's part of the
      state, at 4 layers in fp32 (greedy tokens equal, logits <= 1e-3) and
-     12 in bf16 (fed tokens, logits <= 1e-2, beside the fp32 model's); then
+     8 in bf16 (fed tokens, logits <= 1e-2, beside the fp32 model's); (f)
+     stage 1 with mixer mamba2 at 8 layers, packed rows of 2,048, against
+     one process; (g) the Mamba2 student's prefill of 1,000 tokens and 16
+     greedy decode steps in fp32 at 4 layers against one process (logits
+     <= 1e-3, tokens equal, each rank exactly half of mamba_conv and
+     mamba_h, the state's bytes flat); (h) DoRA, Adam-mini, GaLore and QLoRA
+     through run_sft at 2 layers, 2 steps each, against one process; then
      in a world of four (data 2 x model 2) (c) full finetuning under fsdp
-     at 8 layers against phase 14 (b)'s replicated run (the same global
+     at 4 layers against phase 14 (b)'s replicated run (the same global
      batch)
 16. pipeline parallelism at 3B (parallel/pipeline.py and pipeline_seq.py
      through run_sft), one world of three gloo ranks sharing the card, pipe 3
      (36 layers are 9 pattern periods: 2 stages cannot cut them): (a) in fp32
      at 12 layers every trainable leaf's gradient on run_sft's first batch (2
      packed rows of 2,048, 2 microbatches) under gpipe and 1f1b against one
-     process (err_ratio <= 1e-4), then full finetuning at 36 layers in bf16,
+     process (err_ratio <= 1e-4), then full finetuning at 12 layers in bf16,
      2 steps under each schedule, against one process (losses within 5e-3;
      ms a step, peak and bytes held a rank: a third of the layers and the
      whole replicated leaves); (b) one step of each schedule at 2 and 6
-     microbatches of one row, each step's peak (1f1b's must grow less than
+     microbatches of one row at 36 layers, each step's peak (1f1b's must grow less than
      gpipe's); (c) pp_microbatch_axis sequence at T 16,384 (two chunks of
      one window), 12 layers, against the unpipelined chunked run; H and C
      launched on every rank, held to the code's counts in (a) and (b)
@@ -301,6 +313,8 @@ G_CASE = dict(shapes=((2048, 11008, 128), (11008, 2048, 128), (2048, 256, 128),
               timed=tuple((d_in, d_out, M) for d_in, d_out in ((2048, 11008), (11008, 2048))
                           for M in (1, 9, 257, 2048))
               + ((1280, 3420, 1024), (3420, 1280, 1024)))
+NATIVE_FRAMES = 8  # phase 6: frames through the native host preprocessing
+NATIVE_TOL = 1e-5  # its difference from the numpy path (tests/test_native.py's, same-size resize)
 HIRES_HW = 1344
 HIRES_NEW_TOKENS = 8
 # phase 7
@@ -2749,11 +2763,49 @@ def phase_stream_path(dev, card: str, params, cfg, profile: bool) -> tuple:
           f"patches -> {n_img} tokens, prompt {ids.shape[1]} tokens): prefill "
           f"{(t_first - t0) * 1e3:.1f} ms incl. first token, launches {image_launches}; "
           f"peak memory over phases 5-6 {peak_gb:.2f} GB on '{card}'", flush=True)
+    _native_frames(frames[:NATIVE_FRAMES], card)
     if profile:
         _profile_frames(eng, frames[:5], float(np.median(times)), card)
         _profile_image_vit(params, cfg, pixels, grid, card)
         _profile_ask(eng, question, card)
     return stream_launches, image_launches
+
+
+def _native_frames(frames, card: str) -> None:
+    """Phase 6's host preprocessing: infinitevl_tpu_torch.native (built with
+    g++ here) on 448x448 frames against data/processing.preprocess_image
+    within NATIVE_TOL, FramePipeline's results by ticket equal to the
+    single calls; host ms per frame of each."""
+    from infinitevl_tpu_torch import native
+    from infinitevl_tpu_torch.data.processing import preprocess_image
+
+    t0 = time.perf_counter()
+    require(native.available(), "phase 6 native: the preprocessing library did not build")
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = [native.preprocess_frame(f, (448, 448)) for f in frames]
+    t_nat = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    want = [preprocess_image(f)[0] for f in frames]
+    t_np = (time.perf_counter() - t0) * 1e3 / len(frames)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    require(all(g.shape == w.shape for g, w in zip(got, want)) and err <= NATIVE_TOL,
+            f"phase 6 native: max abs err {err:.3g} against preprocess_image (tol {NATIVE_TOL})")
+    pipe = native.FramePipeline(workers=4)
+    try:
+        t0 = time.perf_counter()
+        tickets = [pipe.submit(f, (448, 448)) for f in frames]
+        piped = [pipe.collect(t, (448, 448)) for t in tickets]
+        t_pipe = (time.perf_counter() - t0) * 1e3 / len(frames)
+    finally:
+        pipe.close()
+    require(tickets == sorted(tickets) and all(np.array_equal(a, b) for a, b in zip(piped, got)),
+            "phase 6 native: FramePipeline's results differ from the single calls")
+    print(f"[6 stream path] native host preprocessing of {len(frames)} raw 448x448 frames "
+          f"(g++ build {t_build:.1f} s): {t_nat:.2f} ms a frame, FramePipeline with 4 workers "
+          f"{t_pipe:.2f} ms a frame, the numpy path (data/processing.preprocess_image) "
+          f"{t_np:.2f} ms a frame; max abs err {err:.2g} (tol {NATIVE_TOL}); the pipeline's "
+          f"results by ticket bit-equal to the single calls; host clock on '{card}'", flush=True)
 
 
 def _forced_speculative(g, ids, want, new_tokens, draft_k, stats, eos=None):
@@ -5568,7 +5620,7 @@ PAR_STEPS = 2  # phase 14's runs
 PAR_DT_ROWS = 2048  # (a): packed rows (the recipe's 8,192, cut to fit the script's time)
 PAR_DT_TOL = (2e-3, 1e-2)  # (a): step 1's and step 2's loss, relative (bf16)
 PAR_DT_LEAF_TOL = 1e-2  # (a): the trainable leaves after step 1, err_ratio
-PAR_SHORT_LAYERS = 8  # (b): the replicated run's depth (the script's time budget's)
+PAR_SHORT_LAYERS = 4  # (a) and (b): their depth (the script's time budget's)
 PAR_REPL_TOL = 1e-3  # (b): replicated against fsdp losses at that depth
 PAR_DEADLINE = 900.0  # seconds a world of ranks may take before it is killed
 
@@ -5727,7 +5779,8 @@ def _dt_args(job):
 
     here = os.path.dirname(os.path.abspath(__file__))
     args = load_yaml_args(os.path.join(here, "examples", "train_3b_stage1.yaml"))
-    for group, key, val in ((args.train, "data_parallel", job["data_parallel"]),
+    for group, key, val in ((args.finetune, "mixer", job.get("mixer", args.finetune.mixer)),
+                            (args.train, "data_parallel", job["data_parallel"]),
                             (args.train, "model_parallel", job.get("model_parallel", 1)),
                             (args.train, "param_mode", job.get("param_mode", "fsdp")),
                             (args.train, "per_device_train_batch_size", job["per_device"]),
@@ -5802,8 +5855,10 @@ def _par_rank(rank, world, job):
     dev = torch.device("cuda", 0)
     if job["kind"] == "small":
         return _par_small(job, T)
-    if job["kind"] == "phase14":  # (a), then (b), in one world
-        return dict(stage1=_par_stage1(job, T, dev), full=_par_full(job, T))
+    if job["kind"] == "phase14":  # (a), (b), then (d), in one world
+        return dict(stage1=_par_stage1(job, T, dev), full=_par_full(job, T),
+                    sliced={name: _sliced_run(job, T, name, 2, 1, "fsdp", 2)
+                            for name in PAR_SLICED})
     if job["kind"] == "nccl":
         return _par_nccl(dev)
     if job["kind"] == "tp2":  # phase 15 (a), (b), (d), (e), in one world
@@ -6043,8 +6098,22 @@ def phase_parallel_path(dev, card: str) -> tuple:
                       f"{res['held_bytes'] / 1e9:.3f} GB of the params' sharded "
                       f"{res['whole_bytes'] / 1e9:.3f} GB; on '{card}'", flush=True)
         print(f"[14 parallel] (b) replicated against fsdp at {PAR_SHORT_LAYERS} layers: losses "
-              f"{lr} / {lf}, relative err {e_r:.2g} (tol {PAR_REPL_TOL}); the world of (a) "
-              f"and (b) took {t_world:.1f} s (spawn, weights, datasets, steps)", flush=True)
+              f"{lr} / {lf}, relative err {e_r:.2g} (tol {PAR_REPL_TOL}); the world of (a), "
+              f"(b) and (d) took {t_world:.1f} s (spawn, weights, datasets, steps)", flush=True)
+
+        # (d) DoRA, GaLore, APOLLO and Adam-mini on FSDP slices against one process
+        missed = []
+
+        def hold(ok: bool, what: str) -> None:
+            if not ok:
+                missed.append(what)
+                print(f"[14 parallel] CHECK FAILED: {what}", flush=True)
+
+        job = {"out": os.path.join(root, "one"), "repo_data": os.path.join(here, "data")}
+        one_d = {name: _sliced_run(job, T, name, 1, 1, "fsdp", 2) for name in PAR_SLICED}
+        _sliced_hold(hold, "[14 parallel] (d)", {n: [w["sliced"][n] for w in world]
+                                                 for n in one_d}, one_d, card, add)
+        require(not missed, "phase 14 (d): " + "; ".join(missed))
 
         # (c) the port's collectives on NCCL, a world of one
         nc = spawn_ranks(_par_rank, 1, ({"kind": "nccl"},), backend="nccl", device="cuda:0",
@@ -6068,13 +6137,13 @@ def phase_parallel_path(dev, card: str) -> tuple:
 # phase 15: tensor parallelism at 3B, two gloo ranks sharing the card (model 2),
 # then four (data 2 x model 2)
 TP_STEPS = 2  # (a) and (c): full finetuning steps; (b) stage-1 steps
-TP_FULL_LAYERS = 12  # (a): its depth (the script's time budget's)
-TP_DT_LAYERS = 12  # (b): stage 1's depth at T 8,192 (the time budget's)
+TP_FULL_LAYERS = 8  # (a): its depth (the script's time budget's)
+TP_DT_LAYERS = 8  # (b): stage 1's depth at T 8,192 (the time budget's)
 TP_DT_ROWS = 8192
 TP_SHORT_LAYERS = PAR_SHORT_LAYERS  # (c), held against phase 14 (b) at its depth, and (d)
 TP_PROMPT, TP_NEW = 1000, 16  # (e): prompt tokens, then greedy (fp32) or forced (bf16) steps
 TP_F32_LAYERS = 4  # (e) in fp32
-TP_BF16_LAYERS = 12  # (e) in bf16 (the script's time budget's)
+TP_BF16_LAYERS = 8  # (e) in bf16 (the script's time budget's)
 TP_LOSS_TOL = PAR_DT_TOL  # (a), (c), (d): step 1's and step 2's loss, relative (bf16)
 # (a): the fp32 model's gradients of every trainable leaf on two ranks against one
 # process, err_ratio (in bf16 at random init both sides move far from the fp32 model's
@@ -6300,7 +6369,170 @@ def _tp_world2(job, T, dev):
     out["cached"] = {"f32": _tp_cached(dev, TP_F32_LAYERS, torch.float32, mesh),
                      "bf16": _tp_cached(dev, TP_BF16_LAYERS, torch.bfloat16, mesh,
                                         _tp_forced_tokens())}
+    out["m2_stage1"] = _par_stage1(_m2_stage1_job(job, 1, 2), T, dev)
+    _free()
+    out["m2_cached"] = _tp_m2_cached(dev, mesh)
+    out["sliced"] = {name: _sliced_run(job, T, name, 1, 2, "tp", 1) for name in TP_SLICED}
     return out
+
+
+def _m2_stage1_job(job, per_device: int, model: int) -> dict:
+    """(f): stage 1 of train_3b_stage1.yaml with mixer mamba2, TP_M2_LAYERS
+    deep on packed rows of TP_M2_ROWS, on `model` ranks (1: one process)."""
+    return {"data_parallel": 1, "model_parallel": model, "param_mode": "tp",
+            "per_device": per_device, "layers": TP_M2_LAYERS, "rows": TP_M2_ROWS,
+            "mixer": "mamba2", "data_dir": job["data_dir"],
+            "out": f"{job['out']}/m2_stage1_{model}", "step1_file": None}
+
+
+# phase 15 (f)-(h) and phase 14 (d): configurations whose refusal the port lifted
+TP_M2_LAYERS = 8  # (f): stage 1 with mixer mamba2 (2 SWA, 6 Mamba2 layers)
+TP_M2_ROWS = 2048  # (f): packed rows
+TP_M2_F32_LAYERS = 4  # (g): the student's cached path in fp32 (1 SWA, 3 Mamba2 layers)
+SLICED_LAYERS = 2  # (h) and phase 14 (d): one SWA and one DeltaNet layer at 3B width
+SLICED_STEPS = 2
+SLICED_RUNS = {  # name: run_sft's options
+    "dora": dict(finetuning_type="lora", lora_rank=8, lora_alpha=16, use_dora=True),
+    "adam_mini": dict(use_optimizer="adam_mini"),
+    # gap 2: step 1 refreshes every projection (an SVD of each 2-D leaf's gradient)
+    "galore": dict(use_optimizer="galore", optimizer_rank=8, optimizer_update_gap=2),
+    "apollo": dict(use_optimizer="apollo", optimizer_rank=8, optimizer_update_gap=2),
+    "qlora": dict(finetuning_type="lora", lora_rank=8, lora_alpha=16, quantization_bit=8),
+}
+TP_SLICED = ("dora", "adam_mini", "galore", "qlora")  # (h), model 2 under tp
+PAR_SLICED = ("dora", "galore", "apollo", "adam_mini")  # phase 14 (d), data 2 under fsdp
+
+
+def _sliced_run(job, T, name: str, data: int, model: int, mode: str, rows: int):
+    """(h) / phase 14 (d): run_sft at 3B width, SLICED_LAYERS deep, T 2,048 on
+    data/demo.json streamed (remat, lr 1e-5, SLICED_STEPS steps, bf16, a
+    global batch of `rows` rows) with SLICED_RUNS[name], on a (data, model)
+    mesh under `mode` (1 x 1: one process); Trainer.save replaced."""
+    real_cfg = T.infinitevl_3b
+    T.infinitevl_3b = lambda: _cut_3b(SLICED_LAYERS)
+    _free()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        final, recs = _trainer_records(T, lambda: T.run_sft(_train_args(
+            f"{job['out']}/{name}_{data}x{model}", cutoff_len=2048, max_steps=SLICED_STEPS,
+            remat=True, learning_rate=1e-5, dataset="demo", dataset_dir=job["repo_data"],
+            streaming=True, packing=False, data_parallel=data, model_parallel=model,
+            param_mode=mode, per_device_train_batch_size=rows // data, **SLICED_RUNS[name])))
+    finally:
+        T.infinitevl_3b = real_cfg
+    torch.cuda.synchronize()
+    del final
+    _free()
+    return dict(losses=[r["loss"] for r in recs], step_ms=_step_ms(recs),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=_launch_counts())
+
+
+def _sliced_expect(name: str) -> dict:
+    """H forward / backward and C launches a rank of a SLICED_LAYERS-deep run
+    (remat: each layer's forward twice a step)."""
+    n_swa = sum(1 for t in _cut_3b(SLICED_LAYERS).text.layer_types if t != "linear_attention")
+    return {"swa_train_flash_attention": 2 * n_swa * SLICED_STEPS,
+            "swa_train_flash_attention_bwd": n_swa * SLICED_STEPS,
+            "delta_rule_chunk_fused": 2 * (SLICED_LAYERS - n_swa) * SLICED_STEPS}
+
+
+def _sliced_hold(hold, tag: str, got: dict, one: dict, card: str, add) -> None:
+    """Each rank's run against one process's: both step losses within
+    TP_LOSS_TOL, the launches of _sliced_expect; printed."""
+    for name, ref in one.items():
+        expect = _sliced_expect(name)
+        for r, res in enumerate(got[name]):
+            e = [abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"])]
+            hold(len(res["losses"]) == len(ref["losses"]) == SLICED_STEPS
+                 and all(x <= t for x, t in zip(e, TP_LOSS_TOL)),
+                 f"{tag} {name} rank {r}: losses {res['losses']} against {ref['losses']}")
+            got_l = {k: res["launches"][k] for k in expect}
+            hold(got_l == expect, f"{tag} {name} rank {r}: launches {got_l}, expected {expect}")
+            add(res["launches"])
+        res = got[name][0]
+        print(f"{tag} {name} ({SLICED_RUNS[name]}) through run_sft at 3B width, {SLICED_LAYERS} "
+              f"layers, T 2,048, {SLICED_STEPS} steps, bf16: losses "
+              f"{[round(x, 6) for x in res['losses']]}, one process "
+              f"{[round(x, 6) for x in ref['losses']]} (relative err "
+              f"{[float(f'{abs(a - b) / abs(b):.2g}') for a, b in zip(res['losses'], ref['losses'])]}"
+              f", tol {TP_LOSS_TOL}); ms per step {[g['step_ms'] for g in got[name]]} (one "
+              f"process {ref['step_ms']}), peak {[round(g['peak_gb'], 2) for g in got[name]]} GB "
+              f"a rank (one process {ref['peak_gb']:.2f}); H fwd / bwd / C launches a rank "
+              f"{[res['launches'][k] for k in expect]}; on '{card}'", flush=True)
+
+
+def _m2_student(dev, layers: int, dtype, gen_seed: int = 0):
+    """(g): a Mamba2 student of the 3B width, `layers` deep (layer 0 kept
+    SWA, the rest converted), from the all-full_attention teacher of seed 0,
+    its conv taps and dt_proj drawn from a seed beside the mimic init (so
+    that every channel and head differs); (params, full config)."""
+    import dataclasses
+
+    from infinitevl_tpu_torch.models.convert import convert_attention
+    from infinitevl_tpu_torch.models.params import init_text_params
+
+    cfg = _cut_3b(layers)
+    tcfg = dataclasses.replace(cfg.text, layer_types=("full_attention",) * layers)
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    teacher = init_text_params(tcfg, gen, dev, dtype)
+    student, scfg = convert_attention(teacher, tcfg, gen, softmax_attention=(0,), mixer="mamba2")
+    with torch.no_grad():
+        for lp in student["layers"]:
+            if "conv_w" in lp:
+                lp["conv_w"] = lp["conv_w"] + 0.1 * torch.randn(
+                    lp["conv_w"].shape, generator=gen, device=dev, dtype=dtype)
+                lp["dt_proj"] = {"kernel": 0.02 * torch.randn(
+                    lp["dt_proj"]["kernel"].shape, generator=gen, device=dev, dtype=dtype)}
+    return {"text": student}, dataclasses.replace(cfg, text=scfg)
+
+
+def _tp_m2_cached(dev, mesh=None) -> dict:
+    """(g) the Mamba2 student's library path in fp32, TP_M2_F32_LAYERS deep:
+    generation.prefill of a TP_PROMPT-token prompt into a fresh state (with
+    `mesh`: the params sharded and the rank's part of the state), then
+    TP_NEW greedy decode_step calls. The logits, tokens, ms, the state's
+    bytes after the prefill and after every step, and the Mamba2 keys'
+    elements held against their whole count."""
+    from infinitevl_tpu_torch.generation import decode_step, prefill
+    from infinitevl_tpu_torch.models.state import init_decoder_state, state_bytes
+    from infinitevl_tpu_torch.parallel.sharding import shard_params
+
+    params, cfg = _m2_student(dev, TP_M2_F32_LAYERS, torch.float32)
+    if mesh is not None:
+        params = shard_params(params, mesh, "tp")
+    state = init_decoder_state(cfg.text, 1, torch.float32, dev, mesh=mesh)
+    tc = cfg.text
+    M, W, H, Dh = tc.num_mamba2_layers, tc.conv_size, tc.num_attention_heads, tc.head_dim
+    whole = {"mamba_conv": M * W * 3 * H * Dh, "mamba_h": M * H * Dh * Dh}
+    held = {k: state[k].numel() for k in whole}
+    ids = torch.randint(0, 150000, (1, TP_PROMPT), generator=torch.Generator().manual_seed(5))
+    ids = ids.to(dev)
+    pos = torch.arange(TP_PROMPT, device=dev)[None, None].expand(3, 1, TP_PROMPT)
+    zero = torch.zeros((1, 1), dtype=torch.long, device=dev)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, cfg, ids, pos, state)
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) * 1e3
+    sizes = [state_bytes(state)]
+    out, fed = [logits.float().cpu()], []
+    t0 = time.perf_counter()
+    for _ in range(TP_NEW):
+        tok = logits.argmax(-1, keepdim=True)
+        fed.append(tok.cpu())
+        logits, state = decode_step(params, cfg, tok, zero, state)
+        out.append(logits.float().cpu())
+        sizes.append(state_bytes(state))
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) * 1e3 / TP_NEW
+    res = dict(logits=torch.stack(out), tokens=torch.cat(fed, 1), prefill_ms=t_pre,
+               decode_ms=t_dec, sizes=sizes, held=held, whole=whole,
+               launches=_launch_counts(), n_m2=M)
+    del params, state
+    _free()
+    return res
 
 
 def _grad_err(parts) -> float:
@@ -6489,6 +6721,72 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
                   f"{ref['decode_ms']:.1f}); launches a rank A1 / A2 / B / C "
                   f"{[got['launches'][k] for k in ('swa_ring_flash_attention', 'swa_ring_flash_decode_stacked', 'delta_step_fused_stacked', 'delta_rule_chunk_fused')]}; "
                   f"on '{card}'", flush=True)
+        # (f) stage 1 with mixer mamba2 against one process
+        f2 = [w["m2_stage1"] for w in world]
+        f1 = _par_stage1(_m2_stage1_job(job, 1, 1), T, dev)
+        _free()
+        n_swa_f = sum(1 for t in _cut_3b(TP_M2_LAYERS).text.layer_types
+                      if t != "linear_attention")
+        expect_f = {"swa_train_flash_attention": (TP_M2_LAYERS + n_swa_f) * PAR_STEPS,
+                    "swa_train_flash_attention_bwd": 0, "delta_rule_chunk_fused": 0}
+        e_f = [abs(a - b) / abs(b) for a, b in zip(f2[0]["losses"], f1["losses"])]
+        hold(len(e_f) == PAR_STEPS and all(e <= t for e, t in zip(e_f, TP_LOSS_TOL)),
+             f"(f) losses over two model ranks {f2[0]['losses']} against one process "
+             f"{f1['losses']}")
+        for r, res in enumerate(f2):
+            hold(res["unchanged"], f"(f) the teacher changed on rank {r}")
+            got_l = {k: res["launches"][k] for k in expect_f}
+            hold(got_l == expect_f, f"(f) rank {r} launches {got_l}, expected {expect_f}")
+            add(res["launches"])
+        hold(f2[0]["losses"] == f2[1]["losses"], "(f) the ranks logged different losses")
+        print(f"[15 tp] (f) stage 1 of train_3b_stage1.yaml with mixer mamba2 at 3B width, "
+              f"{TP_M2_LAYERS} layers ({n_swa_f} kept SWA, the rest Mamba2 students: q / k / v / "
+              f"g_proj and A_log / dt_bias sliced, conv_w / conv_b / dt_proj / D whole a rank), "
+              f"packed rows of {TP_M2_ROWS}, model_parallel 2 under tp, {PAR_STEPS} steps: "
+              f"losses {[round(x, 6) for x in f2[0]['losses']]}, one process "
+              f"{[round(x, 6) for x in f1['losses']]} (relative err "
+              f"{[float(f'{e:.2g}') for e in e_f]}, tol {TP_LOSS_TOL}); ms per step "
+              f"{f2[0]['step_ms']} / {f2[1]['step_ms']} (one process {f1['step_ms']}), peak "
+              f"{f2[0]['peak_gb']:.2f} / {f2[1]['peak_gb']:.2f} GB a rank (one process "
+              f"{f1['peak_gb']:.2f}); H fwd / bwd / C launches a rank "
+              f"{[f2[0]['launches'][k] for k in expect_f]}; the teacher bit-unchanged; on "
+              f"'{card}'", flush=True)
+
+        # (g) the Mamba2 student's cached path against one process
+        g1 = _tp_m2_cached(dev)
+        for r, w in enumerate(world):
+            got = w["m2_cached"]
+            e = err_ratio(got["logits"], g1["logits"])
+            hold(e <= TP_LOGIT_TOL[torch.float32],
+                 f"(g) rank {r}: logits err_ratio {e:.3g} (tol {TP_LOGIT_TOL[torch.float32]})")
+            hold(torch.equal(got["tokens"], g1["tokens"]),
+                 f"(g) rank {r}: tokens {got['tokens']} against {g1['tokens']}")
+            hold(all(2 * got["held"][k] == got["whole"][k] for k in got["whole"]),
+                 f"(g) rank {r} holds {got['held']} of {got['whole']} Mamba2 state elements")
+            hold(len(set(got["sizes"])) == 1, f"(g) rank {r}: state bytes {set(got['sizes'])}")
+            for name in ("swa_ring_flash_attention", "swa_ring_flash_decode_stacked"):
+                hold(got["launches"][name] > 0, f"(g) rank {r}: {name} not launched")
+            add(got["launches"])
+        got = world[0]["m2_cached"]
+        print(f"[15 tp] (g) the Mamba2 student in fp32 at 3B width, {TP_M2_F32_LAYERS} layers "
+              f"(1 SWA, {got['n_m2']} Mamba2; conv taps and dt_proj drawn beside the mimic init): "
+              f"generation.prefill of {TP_PROMPT} tokens, then {TP_NEW} greedy decode_step calls "
+              f"on each rank's part of the state (its heads of mamba_h, its [v | k | q] channels "
+              f"of mamba_conv: {got['held']} of {got['whole']} elements): logits err_ratio "
+              f"against one process "
+              f"{max(err_ratio(w['m2_cached']['logits'], g1['logits']) for w in world):.3g} (tol "
+              f"{TP_LOGIT_TOL[torch.float32]}), greedy tokens equal; state "
+              f"{got['sizes'][0] / 1e6:.2f} MB a rank after the prefill and after every step "
+              f"(one process {g1['sizes'][0] / 1e6:.2f}); prefill {got['prefill_ms']:.1f} ms, "
+              f"{got['decode_ms']:.1f} ms a step (one process {g1['prefill_ms']:.1f} / "
+              f"{g1['decode_ms']:.1f}); A1 / A2 launches a rank "
+              f"{[got['launches'][k] for k in ('swa_ring_flash_attention', 'swa_ring_flash_decode_stacked')]}; "
+              f"on '{card}'", flush=True)
+
+        # (h) DoRA, Adam-mini, GaLore and QLoRA on the model axis against one process
+        one_h = {name: _sliced_run(job, T, name, 1, 1, "tp", 1) for name in TP_SLICED}
+        _sliced_hold(hold, "[15 tp] (h)", {n: [w["sliced"][n] for w in world] for n in one_h},
+                     one_h, card, add)
         print(f"[15 tp] the world of two ranks took {t_world:.1f} s (spawn, weights, datasets, "
               f"steps)", flush=True)
         del world
@@ -6538,6 +6836,10 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
 
 # phase 16: pipeline parallelism at 3B, three gloo ranks sharing the card (pipe 3)
 PP_STAGES = 3  # 36 layers are 9 pattern periods: 2 stages cannot cut them, 3 can
+PP_FULL_LAYERS = 12  # (a) bf16: a period a stage (the script's time budget's)
+# (b): 3 periods a stage; at 2 the optimizer's step temporaries, not the kept microbatch
+# inputs, set a stage's step peak, and no growth from M 2 to 6 shows
+PP_PEAK_LAYERS = 36
 PP_STEPS = 2
 PP_ROWS = 2048  # packed rows of (a) and (b)
 PP_M, PP_M_BIG = 2, 6  # (a)'s microbatches; (b)'s (one row each)
@@ -6675,7 +6977,7 @@ def _pp_grads(job, T, dev, S, save=None, ref=None):
 
 def _pp_peaks(job, T, dev):
     """(b) on one pipe rank: one step of each schedule at PP_M and PP_M_BIG
-    microbatches of one row, on one 36-layer stage of run_sft's make-up
+    microbatches of one row, on one stage of a PP_PEAK_LAYERS-deep run_sft's make-up
     (shard_stage, the optimizer's state), through make_pp_sft_train_step:
     each step's peak above the memory held before it, its ms, its loss,
     and its launches."""
@@ -6687,8 +6989,12 @@ def _pp_peaks(job, T, dev):
     from infinitevl_tpu_torch.train.step import full_finetune_leaf, set_trainable
 
     _free()
-    args = _pp_args(job, "peaks", 36, PP_M_BIG, steps=1)
-    cfg = T.build_config(args)
+    args = _pp_args(job, "peaks", PP_PEAK_LAYERS, PP_M_BIG, steps=1)
+    real_cfg, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(PP_PEAK_LAYERS)
+    try:
+        cfg = T.build_config(args)
+    finally:
+        T.infinitevl_3b = real_cfg
     mesh = create_pp_mesh(PP_STAGES)
     data = T.build_dataset(args, resolve_tokenizer(args, cfg, None), cfg=cfg)
     rows = next(iter(T._batches(args, data, cfg, False, mesh)))
@@ -6736,13 +7042,13 @@ def _pp_seq_args(job, S):
 
 def _pp_world(job, T, dev):
     """Phase 16 on one of PP_STAGES ranks: (a) fp32 gradients, (a) the
-    36-layer runs under gpipe and 1f1b, (b) the step peaks, (c) the
+    PP_FULL_LAYERS-deep runs under gpipe and 1f1b, (b) the step peaks, (c) the
     sequence axis."""
     t0 = time.perf_counter()
     out = {"grads": _pp_grads(job, T, dev, PP_STAGES, ref=job["grad_file"])}
     out["grads"]["job_s"] = time.perf_counter() - t0
     for sched in ("gpipe", "1f1b"):
-        out[sched] = _pp_run(job, T, 36, _pp_args(job, sched, 36, PP_M,
+        out[sched] = _pp_run(job, T, PP_FULL_LAYERS, _pp_args(job, sched, PP_FULL_LAYERS, PP_M,
                                                   pipeline_schedule=sched))
     out["peaks"] = _pp_peaks(job, T, dev)
     out["seq"] = _pp_run(job, T, PP_SEQ_LAYERS, _pp_seq_args(job, PP_STAGES))
@@ -6751,11 +7057,11 @@ def _pp_world(job, T, dev):
 
 def phase_pp_path(dev, card: str) -> dict:
     """Phase 16: pipeline parallelism at 3B, PP_STAGES gloo ranks sharing
-    the card (pipe 3, 12 layers a stage at 36; NCCL refuses ranks sharing a
+    the card (pipe 3, a third of the layers a stage; NCCL refuses ranks sharing a
     GPU). In one process first: the fp32 gradients of (a)'s first batch at
-    PP_GRAD_LAYERS, (a)'s bf16 steps at 36 layers, (c)'s unpipelined
+    PP_GRAD_LAYERS, (a)'s bf16 steps at PP_FULL_LAYERS, (c)'s unpipelined
     chunked steps (PR 12's path). Then one world of three ranks: (a) the
-    fp32 gradients through both schedules, the 36-layer run_sft steps under
+    fp32 gradients through both schedules, the PP_FULL_LAYERS-deep run_sft steps under
     gpipe and 1f1b; (b) one step of each schedule at M 2 and 6 (one row a
     microbatch), each step's peak; (c) the sequence axis at T 16,384 (two
     chunks of one window), 12 layers. Returns the launches, summed over the
@@ -6791,7 +7097,7 @@ def phase_pp_path(dev, card: str) -> dict:
     try:
         # one process: (a)'s fp32 gradients to a file the ranks read, (a)'s and (c)'s steps
         g_one = _pp_grads(job, T, dev, 1, save=job["grad_file"])
-        one = _pp_run(job, T, 36, _pp_args(job, "one", 36, PP_M, S=1))
+        one = _pp_run(job, T, PP_FULL_LAYERS, _pp_args(job, "one", PP_FULL_LAYERS, PP_M, S=1))
         seq_one = _pp_run(job, T, PP_SEQ_LAYERS, _pp_seq_args(job, 1))
         _free()
         t0 = time.perf_counter()
@@ -6825,16 +7131,15 @@ def phase_pp_path(dev, card: str) -> dict:
                   f"the comparison {secs[1]:.1f} s, the whole fp32 job (both schedules, the "
                   f"weights, the batch) {world[0]['grads']['job_s']:.1f} s", flush=True)
 
-        # (a) bf16, 36 layers, run_sft under both schedules against one process
-        n_swa = sum(1 for t in _cut_3b(36).text.layer_types if t != "linear_attention")
-        n_lin = 36 - n_swa
-        per_rank = (n_swa // PP_STAGES, n_lin // PP_STAGES)  # a stage's SWA / DeltaNet layers
-
-        def expect(sched, M, steps):  # launches a rank: forwards a layer a microbatch
+        # (a) bf16, PP_FULL_LAYERS deep, run_sft under both schedules against one process
+        def expect(sched, M, steps, layers=PP_FULL_LAYERS):
+            """Launches a rank: forwards a layer a microbatch, a stage's share."""
+            n_swa = sum(1 for t in _cut_3b(layers).text.layer_types if t != "linear_attention")
+            swa, lin = n_swa // PP_STAGES, (layers - n_swa) // PP_STAGES
             f = 2 if sched == "gpipe" else 3  # 1f1b: the no-grad forward, then the recompute's
-            return {"swa_train_flash_attention": f * per_rank[0] * M * steps,
-                    "swa_train_flash_attention_bwd": per_rank[0] * M * steps,
-                    "delta_rule_chunk_fused": f * per_rank[1] * M * steps}
+            return {"swa_train_flash_attention": f * swa * M * steps,
+                    "swa_train_flash_attention_bwd": swa * M * steps,
+                    "delta_rule_chunk_fused": f * lin * M * steps}
 
         for sched in ("gpipe", "1f1b"):
             runs = [w[sched] for w in world]
@@ -6848,14 +7153,14 @@ def phase_pp_path(dev, card: str) -> dict:
                          and r["top_bytes"] == one["top_bytes"] for r in runs),
                  f"(a) {sched}: bytes held {[(r['layer_bytes'], r['top_bytes']) for r in runs]}"
                  f" against one process's {(one['layer_bytes'], one['top_bytes'])}")
-            hold(all(r["final_layers"] == 36 for r in runs),
+            hold(all(r["final_layers"] == PP_FULL_LAYERS for r in runs),
                  f"(a) {sched}: a rank returned {[r['final_layers'] for r in runs]} layers")
             want = expect(sched, PP_M, PP_STEPS)
             for r, res in enumerate(runs):
                 got_l = {k: res["launches"][k] for k in want}
                 hold(got_l == want, f"(a) {sched} rank {r} launches {got_l}, expected {want}")
                 add(res["launches"])
-            print(f"[16 pp] (a) full finetuning through run_sft at 3B (36 layers, {PP_M} packed "
+            print(f"[16 pp] (a) full finetuning through run_sft at 3B ({PP_FULL_LAYERS} layers, {PP_M} packed "
                   f"rows of {PP_ROWS}, {PP_M} microbatches, remat, lr 1e-5, {PP_STEPS} steps), "
                   f"pipeline_stages {PP_STAGES} under {sched}, three gloo ranks sharing the "
                   f"card: losses {[round(x, 6) for x in runs[0]['losses']]}, one process "
@@ -6883,12 +7188,12 @@ def phase_pp_path(dev, card: str) -> dict:
                  f"{PP_M_BIG}, gpipe's {grow['gpipe']:.3f}")
             for key, res in pk.items():
                 sched, M = key.split("_")
-                want = expect(sched, int(M), 1)
+                want = expect(sched, int(M), 1, PP_PEAK_LAYERS)
                 got_l = {k: res["launches"][k] for k in want}
                 hold(got_l == want, f"(b) {key} rank {r} launches {got_l}, expected {want}")
                 hold(np.isfinite(res["loss"]), f"(b) {key} rank {r} loss {res['loss']}")
                 add(res["launches"])
-            print(f"[16 pp] (b) rank {r} (stage {r}), 36 layers, one step a schedule on "
+            print(f"[16 pp] (b) rank {r} (stage {r}), {PP_PEAK_LAYERS} layers, one step a schedule on "
                   f"microbatches of one packed row of {PP_ROWS}: the step's peak above the "
                   f"memory held before it (params, moments) at M {PP_M} / {PP_M_BIG}: gpipe "
                   f"{pk[f'gpipe_{PP_M}']['above_gb']:.3f} / {pk[f'gpipe_{PP_M_BIG}']['above_gb']:.3f}"

@@ -485,6 +485,62 @@ def load_video(
     return load_media(path), None
 
 
+def _encode_supervised_family_mm(
+    examples: Iterable[Dict[str, Any]],
+    tokenizer,
+    template: Template,
+    plugin,  # mm_plugin.FamilyMMPlugin
+    cutoff_len: int,
+    dataset_dir: str,
+) -> List[Dict[str, np.ndarray]]:
+    """Supervised encoding under a non-Qwen family plugin (paligemma /
+    gemma3; data/mm_plugin.py): fixed-count token expansion, fixed-resize
+    SigLIP pixels [N, 3, S, S]. Mirrors reference PaliGemmaPlugin
+    (mm_plugin.py:913 — placeholders stripped, image tokens PREPENDED with
+    IGNORE labels) and Gemma3Plugin (:407 — placeholder -> boi + soft
+    tokens + eoi in place). Videos raise (neither reference plugin takes
+    them)."""
+    out = []
+    for ex in examples:
+        if ex.get("videos"):
+            raise ValueError(
+                f"{plugin.name}: video inputs are not supported by this "
+                f"family's mm_plugin (image-only; reference "
+                f"mm_plugin.py:913/:407)"
+            )
+        image_paths = ex.get("images") or []
+        pix = [
+            plugin.preprocess_image(load_media(os.path.join(dataset_dir, p)))
+            for p in image_paths
+        ]
+        messages = plugin.expand_messages(ex["messages"], len(image_paths))
+        ids, labels = template.encode_turns(tokenizer, messages)
+        pre_ids, _ = plugin.prefix_ids(tokenizer, len(image_paths))
+        if pre_ids:
+            ids = pre_ids + ids
+            labels = [IGNORE_INDEX] * len(pre_ids) + labels
+        if pix and len(ids) > cutoff_len:
+            raise ValueError(
+                f"multimodal example length {len(ids)} exceeds cutoff_len "
+                f"{cutoff_len}; raise cutoff_len (image runs must not be "
+                f"truncated)"
+            )
+        out.append(
+            {
+                "input_ids": np.asarray(ids[:cutoff_len], np.int64),
+                "labels": np.asarray(labels[:cutoff_len], np.int64),
+                # HF family layout [N, 3, S, S] — NOT InfiniteVL flat
+                # patches; see mm_plugin.py module docstring
+                "pixel_values": np.stack(pix) if pix else None,
+                "image_grid_thw": None,
+                "pixel_values_videos": None,
+                "video_grid_thw": None,
+                "second_per_grid_ts": None,
+            }
+        )
+    return out
+
+
 def encode_supervised_mm(
     examples: Iterable[Dict[str, Any]],
     tokenizer,
@@ -523,14 +579,17 @@ def encode_supervised_mm(
         template = get_template(template)
     # The Qwen2VL vision token scheme (<|vision_start|> + grid/merge^2 pad
     # tokens + <|vision_end|>, the scheme InfiniteVL deploys) is the native
-    # path. Every other family's template is text-parity only: training it
-    # on image data would emit token ids its checkpoints never saw, so it
-    # is refused.
-    if template.name in ("paligemma", "gemma3"):
-        raise NotImplementedError(
-            f"the {template.name} mm_plugin (fixed-count vision tokens, SigLIP "
-            "pixels) is not ported to torch yet"
-        )
+    # path. paligemma / gemma3 have minimal per-family plugins
+    # (data/mm_plugin.py: fixed-count token expansion + fixed-resize SigLIP
+    # pixels). Every other family's template is text-parity only: training
+    # it on image data would emit token ids its checkpoints never saw, so
+    # it is refused.
+    from .mm_plugin import get_mm_plugin
+
+    family_plugin = get_mm_plugin(template.name)
+    if family_plugin is not None:
+        return _encode_supervised_family_mm(examples, tokenizer, template, family_plugin,
+                                            cutoff_len, dataset_dir)
     if template.name not in ("qwen2_vl", "qwen_text", "custom", "empty"):
         raise ValueError(
             f"multimodal encoding supports the Qwen2VL vision token scheme "

@@ -18,7 +18,8 @@ a snapshot without disturbing the original) needs `clone_state` first;
 Under tensor parallelism (parallel/sharding.py) a rank holds its part of
 the state: `init_decoder_state(mesh=...)` makes it (batch rows of its
 data coordinate; the SWA rings of the KV heads its query heads read, its
-DeltaNet heads' states and its conv channels), `sharding.shard_state` cuts
+DeltaNet heads' states and its conv channels, its Mamba2 heads' states and
+their channels of the fused conv's history), `sharding.shard_state` cuts
 it from a whole state and `sharding.gather_state` puts the parts back."""
 
 from __future__ import annotations

@@ -51,10 +51,14 @@ query heads whose o_proj rows it holds; where the k/v projections' split
 cuts a KV head (2 KV heads over 4 ranks) their outputs are gathered whole
 and the KV heads those queries read are kept (`kv_head_range`); the
 DeltaNet's per-head gated norm reads its replicated weight through
-`tp_copy`. The embedding, sharded on D, is gathered after the lookup; the
-head computes partial logits from the rank's D slice and sums them. The
-cached forward runs on the rank's part of the state (its KV heads' rings,
-its DeltaNet heads' states and conv channels)."""
+`tp_copy`. A Mamba2 layer runs the rank's heads: its q / k / v / g columns,
+its channels of the whole conv (three blocks of [v | k | q]) and its heads
+of the whole dt_proj and D, each whole leaf read through `tp_copy`
+(`_mamba2_entry`). The embedding, sharded on D, is gathered after the
+lookup; the head computes partial logits from the rank's D slice and sums
+them. The cached forward runs on the rank's part of the state (its KV
+heads' rings, its DeltaNet heads' states and conv channels, its Mamba2
+heads' states and conv channels)."""
 
 from __future__ import annotations
 
@@ -115,6 +119,23 @@ def _tp(p) -> Optional[Any]:
     return tp_info(_kernel(p))
 
 
+def dora_column_norms(kernel: torch.Tensor, a: torch.Tensor, b_scaled: torch.Tensor,
+                      row_sum=None) -> torch.Tensor:
+    """DoRA's column L2 norms of W + a @ b_scaled (train/lora.py) in fp32
+    without forming the [d_in, d_out] product: ||W_j||^2 + 2 (W^T a b)_jj +
+    (b^T a^T a b)_jj, two [*, r] products a weight. Differentiable in a, b.
+    Each term is a sum
+    over W's rows: `row_sum` (tensor parallelism's `tp_sum`) adds the
+    squares of a slice of the rows (W's and a's) over the ranks holding the
+    others before the root."""
+    w, af, bf = kernel.float(), a.float(), b_scaled.float()
+    t1 = (w * w).sum(dim=0)  # [d_out]
+    t2 = ((w.T @ af) * bf.T).sum(dim=1)
+    t3 = ((af.T @ af @ bf) * bf).sum(dim=0)
+    sq = t1 + 2.0 * t2 + t3
+    return torch.sqrt(torch.clamp(sq if row_sum is None else row_sum(sq), min=1e-12))
+
+
 def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     """x @ kernel (+ bias); kernel is [d_in, d_out], stored in the weights'
     dtype, as weight-only int8 (`kernel_q` + `scale`: plain torch, the
@@ -122,16 +143,21 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     (`kernel_q4` / `kernel_q4f` + `scale4`: kernel G on a CUDA tensor).
     `lora_a` [d_in, r] and `lora_b` [r, d_out] (pre-scaled) add the low-rank
     side path (x @ a) @ b to the frozen kernel's output, so gradients and
-    intermediates stay rank-r sized. `dora_scale` [d_out] (DoRA,
+    intermediates stay rank-r sized. `dora_m` [d_out] (DoRA,
     train/lora.attach_lora) rescales the columns before the bias:
-    y = x @ (m * (W + a b) / ||W + a b||_col) without forming the weight.
+    y = x @ (m * (W + a b) / ||W + a b||_col) without forming the weight,
+    the norms taken here from the kernel as the layer holds it.
 
     A model-axis slice of the kernel (tensor parallelism): column-parallel
     (its output columns), x whole and y this rank's columns; row-parallel
     (its input rows), x this rank's features and y summed over the model
     group (`tp_sum`) before the replicated bias. The replicated LoRA
     factors are cut to the kernel's slice and read through `tp_copy`, so
-    their gradients are summed over the group."""
+    their gradients are summed over the group. DoRA on a column-parallel
+    slice: its columns are whole, so their norms are local (m read through
+    `tp_copy`, cut to them); on a row-parallel slice the squared partial
+    norms are summed over the group (`tp_sum`) and the scale multiplies
+    the summed output."""
     _not_ported(p)
     tp = _tp(p)
     if "kernel_q" in p:
@@ -140,6 +166,7 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
         y = int4_matmul_fused(x, p)
     else:
         y = x @ p["kernel"]
+    scale = None
     if "lora_a" in p:
         a, b = p["lora_a"], p["lora_b"]
         if tp is not None:  # the factor beside the kernel's sliced dim, cut to its slice
@@ -149,10 +176,18 @@ def _dense(x: torch.Tensor, p: Params) -> torch.Tensor:
             else:
                 a = a.narrow(0, tp.rank * x.shape[-1], x.shape[-1])
         y = y + ((x @ a.to(x.dtype)) @ b.to(x.dtype)).to(y.dtype)
-    if "dora_scale" in p:
-        y = y * p["dora_scale"].to(y.dtype)
+        if "dora_m" in p:
+            m = p["dora_m"].float()
+            if tp is not None and tp.dim == 1:
+                m = tp_copy(m).narrow(0, tp.rank * y.shape[-1], y.shape[-1])
+            scale = m / dora_column_norms(p["kernel"], a, b, row_sum=(
+                tp_sum if tp is not None and tp.dim == 0 else None))
+    if scale is not None and (tp is None or tp.dim == 1):
+        y = y * scale.to(y.dtype)
     if tp is not None and tp.dim == 0:
         y = tp_sum(y)
+        if scale is not None:
+            y = y * scale.to(y.dtype)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -413,26 +448,31 @@ def mamba2_forward(
     conv's history read with cfg.conv_carry, as the DeltaNet layer's), or a
     T = 1 decode step; with a state, layer `layer_idx` of the stacked conv
     history and SSM state is updated IN PLACE. Plain torch on every device
-    (the JAX package has no kernel for it). Returns [B, T, D]."""
+    (the JAX package has no kernel for it). Returns [B, T, D].
+
+    Under tensor parallelism the rank runs its heads (`_mamba2_entry`): its
+    columns of q / k / v / g, its channels of the conv, its heads of
+    dt_proj, D and the SSM state; o_proj sums the heads' parts."""
     B, T, _ = x.shape
-    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    x, conv_w, conv_b, dt_proj, D, o_norm = _mamba2_entry(p, x)
+    H = p["A_log"].shape[0]  # this rank's heads under tensor parallelism
     HD = H * Dh
     vkq = torch.cat([_dense(x, p["v_proj"]), _dense(x, p["k_proj"]), _dense(x, p["q_proj"])],
                     dim=-1)
     use_cache = conv_state is not None
     decode = use_cache and T == 1
     if decode:
-        y1, new_cs = short_conv_step(vkq[:, 0], p["conv_w"], p.get("conv_b"),
-                                     conv_state[layer_idx])
+        y1, new_cs = short_conv_step(vkq[:, 0], conv_w, conv_b, conv_state[layer_idx])
         vkq = y1[:, None]
     else:
-        vkq, new_cs = short_conv(vkq, p["conv_w"], p.get("conv_b"),
+        vkq, new_cs = short_conv(vkq, conv_w, conv_b,
                                  conv_state[layer_idx] if use_cache else None,
                                  carry_history=cfg.conv_carry, segment_ids=segment_ids)
     if use_cache:
         conv_state[layer_idx].copy_(new_cs)
     v, k, q = (t.reshape(B, T, H, Dh) for t in vkq.split(HD, dim=-1))
-    dt = F.softplus(_dense(x, p["dt_proj"]).float() + p["dt_bias"].float())  # [B, T, H]
+    dt = F.softplus(_dense(x, dt_proj).float() + p["dt_bias"].float())  # [B, T, H]
     A = -torch.exp(p["A_log"].float())
     if decode:
         y1, new_h = mamba2_step(v[:, 0], dt[:, 0], A, k[:, 0], q[:, 0], h_state[layer_idx])
@@ -443,10 +483,45 @@ def mamba2_forward(
             chunk_size=cfg.delta_chunk_size, segment_ids=segment_ids)
     if use_cache:
         h_state[layer_idx].copy_(new_h)
-    y = y + p["D"].to(y.dtype)[None, None, :, None] * v
-    o = rms_norm_gated(y, _dense(x, p["g_proj"]).reshape(B, T, H, Dh), p["o_norm"],
+    y = y + D.to(y.dtype)[None, None, :, None] * v
+    o = rms_norm_gated(y, _dense(x, p["g_proj"]).reshape(B, T, H, Dh), o_norm,
                        eps=cfg.norm_eps)
     return _dense(o.reshape(B, T, HD), p["o_proj"])
+
+
+def _mamba2_entry(p: Params, x: torch.Tensor):
+    """(x, conv_w, conv_b, dt_proj node, D, o_norm) of a Mamba2 layer. Under
+    tensor parallelism JAX's rules slice q / k / v / g_proj (columns),
+    o_proj (rows), A_log and dt_bias (heads) and leave the rest whole: the
+    input goes through `tp_copy` and each whole leaf is read through it and
+    cut to this rank's heads (conv_w's and conv_b's channels are three
+    blocks of the fused [v | k | q] stream, dt_proj's columns, D's
+    entries; the per-head norm's weight whole), so every whole leaf's
+    gradient is summed over the model group."""
+    tp = _tp(p["q_proj"])
+    if tp is None:
+        return x, p["conv_w"], p.get("conv_b"), p["dt_proj"], p["D"], p["o_norm"]
+    if tp_info(p["A_log"]) is None:  # H does not divide over the model axis
+        raise NotImplementedError(
+            f"tensor parallelism over {tp.world} ranks with {p['A_log'].shape[0]} Mamba2 "
+            "heads (a split that cuts a head) is not ported to torch")
+    Hl = p["A_log"].shape[0]
+    h0 = tp.rank * Hl
+    third = p["conv_w"].shape[-1] // 3
+    n = third // tp.world
+
+    def channels(t):  # this rank's channels of v, of k and of q
+        t = tp_copy(t)
+        return torch.cat([t.narrow(-1, j * third + tp.rank * n, n) for j in range(3)], dim=-1)
+
+    dt = {}
+    for key, val in p["dt_proj"].items():  # its output columns: the rank's heads
+        if isinstance(val, torch.Tensor):
+            val = tp_copy(val).narrow(val.ndim - 1, h0, Hl)
+        dt[key] = val
+    conv_b = p.get("conv_b")
+    return (tp_copy(x), channels(p["conv_w"]), None if conv_b is None else channels(conv_b),
+            dt, tp_copy(p["D"]).narrow(0, h0, Hl), tp_copy(p["o_norm"]))
 
 
 def _pad_time(x: torch.Tensor, pad: int, value=0) -> torch.Tensor:

@@ -62,7 +62,11 @@ which in the head-major [S, B, Hkv, cap, Dh] layout is the ring's
 capacity (GSPMD's numbers do not depend on it); the port shards Hkv, the
 dim its comment names and the one the attention kernels read per rank,
 and where Hkv does not divide over the model axis each rank holds the KV
-heads its query heads read (`kv_head_range`).
+heads its query heads read (`kv_head_range`). JAX's table names neither
+Mamba2 key, so JAX holds both whole; a rank of the port holds its heads of
+`mamba_h` and, of `mamba_conv`'s [v | k | q] channels, its heads' columns
+of each third (the layout differs, the numbers do not: `gather_state`
+gives JAX's whole state).
 
 The collectives are `all_gather_into_tensor`, `reduce_scatter_tensor` and
 `all_reduce` on the tensors' own device: NCCL on CUDA, gloo on the CPU,
@@ -74,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import os
 import re
@@ -399,11 +404,16 @@ _RULES: Tuple[Tuple[str, Spec], ...] = (
 )
 
 # decoder state: batch on data, heads on model (the SWA rings on their Hkv
-# dim, 2; JAX's table names dim 3, the ring's capacity: see the docstring)
+# dim, 2; JAX's table names dim 3, the ring's capacity: see the docstring).
+# JAX's table names neither Mamba2 key and holds both whole; the port holds
+# a rank's heads of the SSM state and its channels of the fused conv's
+# history (three blocks of [v | k | q], `_state_slice`)
 _STATE_RULES: Tuple[Tuple[str, Spec], ...] = (
     (r"swa_[kv]", (None, DATA, MODEL, None, None)),
     (r"delta_h", (None, DATA, MODEL, None, None)),
     (r"conv_[qkv]", (None, DATA, None, MODEL)),
+    (r"mamba_h", (None, DATA, MODEL, None, None)),
+    (r"mamba_conv", (None, DATA, None, MODEL)),
     (r"cum_len", ()),
 )
 
@@ -741,11 +751,8 @@ def kv_head_range(hq: int, hkv: int, model: int, rank: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------- sharding
 
 _WHOLE = ("inv_freq",)
-# leaves JAX's rules leave whole that a model-sharded layer cannot run with
+# leaves that no model-sharded path takes
 _TP_REFUSED = (
-    (re.compile(r".*/(conv_w|conv_b|dt_proj|D)(/.*)?$"),
-     "Mamba2 layers under model_parallel > 1 (JAX's rules shard their q/k/v/g/o but not "
-     "their conv or dt_proj)"),
     (re.compile(r".*/(kernel_q4|kernel_q4f|scale4)$"),
      "int4 weights under model_parallel > 1 (no JAX trainer path reaches them)"),
 )
@@ -770,7 +777,7 @@ def shard_params(tree, mesh: Optional[Mesh], param_mode: str = "fsdp",
     where whole. A leaf reached twice, in this tree or in another sharded
     with the same `memo` (a student sharing its teacher's tensors), becomes
     ONE shard. Without a mesh, or where neither axis shards anything, the
-    tree itself. Mamba2 layers and int4 weights raise at model > 1."""
+    tree itself. int4 weights raise at model > 1."""
     global _SHARDED, _TP
     if param_mode not in ("fsdp", "tp", "replicated"):
         raise ValueError(f"unknown param_mode {param_mode!r} (tp | fsdp | replicated)")
@@ -858,22 +865,52 @@ def state_spec(key: str, shape: Sequence[int], data: int = 1, model: int = 1) ->
     return tuple(fitted) + (None,) * (len(shape) - len(fitted))
 
 
-def _state_slice(key: str, shape, mesh: Mesh, hq: int) -> Dict[int, Tuple[int, int]]:
-    """{dim: (start, stop)} of this rank's part of the state's `key`."""
+Ranges = Tuple[Tuple[int, int], ...]
+
+
+def _state_slice(key: str, shape, mesh: Mesh, hq: int) -> Dict[int, Ranges]:
+    """{dim: ((start, stop), ...)} of this rank's part of the state's `key`:
+    one range a dim, but three along the Mamba2 conv history's channels
+    (this rank's heads' columns of v, of k and of q)."""
     spec = state_spec(key, shape, mesh.data, mesh.model)
     out = {}
     for dim, ax in enumerate(spec):
         if ax == DATA:
             n = shape[dim] // mesh.data
-            out[dim] = (mesh.data_rank * n, (mesh.data_rank + 1) * n)
+            out[dim] = ((mesh.data_rank * n, (mesh.data_rank + 1) * n),)
         elif ax == MODEL:
             n = shape[dim] // mesh.model
-            out[dim] = (mesh.model_rank * n, (mesh.model_rank + 1) * n)
+            out[dim] = ((mesh.model_rank * n, (mesh.model_rank + 1) * n),)
     if key.startswith("swa_") and mesh.model > 1 and 2 not in out:
         # Hkv does not divide over the model axis: the KV heads that this
         # rank's query heads read
-        out[2] = kv_head_range(hq, shape[2], mesh.model, mesh.model_rank)
+        out[2] = (kv_head_range(hq, shape[2], mesh.model, mesh.model_rank),)
+    if key == "mamba_conv" and 3 in out:
+        third = shape[3] // 3
+        if third % mesh.model:
+            del out[3]  # the heads do not divide over the model axis: whole
+        else:
+            n, r = third // mesh.model, mesh.model_rank
+            out[3] = tuple((j * third + r * n, j * third + (r + 1) * n) for j in range(3))
     return out
+
+
+def _blocks(sl: Dict[int, Ranges]) -> Iterator[List[Tuple[int, int, int, int]]]:
+    """Each block of a slice: per sliced dim (dim, start in the whole,
+    length, start in the part)."""
+    dims = sorted(sl)
+    for idx in itertools.product(*(range(len(sl[d])) for d in dims)):
+        block = []
+        for d, i in zip(dims, idx):
+            a, b = sl[d][i]
+            block.append((d, a, b - a, sum(y - x for x, y in sl[d][:i])))
+        yield block
+
+
+def _view(t: torch.Tensor, block, whole: bool) -> torch.Tensor:
+    for d, a, n, off in block:
+        t = t.narrow(d, a if whole else off, n)
+    return t
 
 
 def local_state_shape(key: str, shape: Sequence[int], mesh: Optional[Mesh], hq: int
@@ -883,8 +920,8 @@ def local_state_shape(key: str, shape: Sequence[int], mesh: Optional[Mesh], hq: 
     if mesh is None:
         return shape
     out = list(shape)
-    for dim, (a, b) in _state_slice(key, shape, mesh, hq).items():
-        out[dim] = b - a
+    for dim, ranges in _state_slice(key, shape, mesh, hq).items():
+        out[dim] = sum(b - a for a, b in ranges)
     return tuple(out)
 
 
@@ -897,9 +934,11 @@ def shard_state(state, mesh: Optional[Mesh], hq: int):
     out = {}
     for k, v in state.items():
         if isinstance(v, torch.Tensor):
-            for dim, (a, b) in _state_slice(k, v.shape, mesh, hq).items():
-                v = v.narrow(dim, a, b - a)
-            v = v.clone()
+            sl = _state_slice(k, v.shape, mesh, hq)
+            part = v.new_empty(local_state_shape(k, v.shape, mesh, hq))
+            for block in _blocks(sl):
+                _view(part, block, False).copy_(_view(v, block, True))
+            v = part
         out[k] = v
     return out
 
@@ -923,10 +962,8 @@ def gather_state(state, mesh: Optional[Mesh], hq: int, whole_shapes: Dict[str, t
         whole = v.new_empty(whole_shapes[k])
         for r, part in enumerate(parts):
             sl = _state_slice(k, whole_shapes[k], Mesh(mesh.data, mesh.model, r, mesh.order), hq)
-            view = whole
-            for dim, (a, b) in sl.items():
-                view = view.narrow(dim, a, b - a)
-            view.copy_(part)
+            for block in _blocks(sl):
+                _view(whole, block, True).copy_(_view(part, block, False))
         out[k] = whole
     return out
 
@@ -1035,7 +1072,10 @@ def rank_rows_mm(item: tuple, mesh: Optional[Mesh], cfg) -> tuple:
 
 # ---------------------------------------------------------------- optimizer state
 
-_PER_LEAF_KEYS = ("mu", "nu", "m", "v", "acc")
+# the optimizers' per-leaf state: a list with one entry a trainable leaf, the
+# entry a tensor (AdamW's mu / nu, Adam-mini's m / v, the accumulator) or a
+# list of tensors (GaLore's `leaves`, APOLLO's `mv`)
+_PER_LEAF_KEYS = ("mu", "nu", "m", "v", "acc", "leaves", "mv")
 
 
 def _per_leaf(state: Dict[str, Any], n: int):
@@ -1044,9 +1084,33 @@ def _per_leaf(state: Dict[str, Any], n: int):
             yield k, v
 
 
+def hold_whole(t: torch.Tensor) -> torch.Tensor:
+    """Mark an optimizer state tensor of a sliced leaf that every rank holds
+    whole (a whole-leaf update's projection, its low-rank moments, a block
+    second moment): the state's gather and load leave it as it is."""
+    t._ivl_whole = True
+    return t
+
+
+def _held_whole(m: torch.Tensor) -> bool:
+    return getattr(m, "_ivl_whole", False)
+
+
+def whole_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of the leaf `t` whole over the axes it is sliced on."""
+    shape = list(t.shape)
+    for info in _infos(t):
+        shape[info.dim] = info.full
+    return tuple(shape)
+
+
 @torch.no_grad()
-def _whole_like(m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """A moment `m` of leaf `t`, whole over the axes `t` is sliced on."""
+def whole_like(m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A tensor shaped as this rank's slice of leaf `t` (its gradient, a
+    moment), whole over the axes `t` is sliced on: all-gathered over the
+    data group, then over the model group (every rank of those groups must
+    call it, for the same leaves in the same order); `m` itself where `t`
+    is whole."""
     info = shard_info(t)
     if info is not None:
         m = _gather_raw(m, info)
@@ -1054,16 +1118,21 @@ def _whole_like(m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return _gather_raw(m, info) if info is not None else m
 
 
+def _map_entry(entry, fn):
+    return [fn(m) for m in entry] if isinstance(entry, list) else fn(entry)
+
+
 @torch.no_grad()
 def gather_opt_state(state: Dict[str, Any], leaves: Sequence[torch.Tensor],
                      keys: Sequence[str] = _PER_LEAF_KEYS) -> Dict[str, Any]:
-    """The optimizer state with each per-leaf moment (of `keys`) of a
-    sharded leaf made whole (the one-process format); every rank must call
-    it."""
+    """The optimizer state with each per-leaf tensor (of `keys`) of a sliced
+    leaf made whole (the one-process format), those held whole as they
+    are; every rank must call it."""
     out = dict(state)
     for k, v in _per_leaf(state, len(leaves)):
         if k in keys:
-            out[k] = [_whole_like(m, t) for m, t in zip(v, leaves)]
+            out[k] = [_map_entry(e, lambda m, t=t: m if _held_whole(m) else whole_like(m, t))
+                      for e, t in zip(v, leaves)]
     return out
 
 
@@ -1076,6 +1145,12 @@ def _slice_for(full: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"a saved leaf of shape {tuple(full.shape)} for one of "
                          f"{tuple(t.shape)}")
     return full
+
+
+def slice_like(full: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of `full`, a tensor shaped as the leaf `t` whole
+    (the inverse of `whole_like`; `full` itself where `t` is whole)."""
+    return _slice_for(full, t) if _infos(t) else full
 
 
 @torch.no_grad()
@@ -1096,27 +1171,19 @@ def load_into(dst, src) -> None:
 def load_opt_state(dst: Dict[str, Any], src: Dict[str, Any],
                    leaves: Sequence[torch.Tensor]) -> None:
     """Copy a one-process optimizer state into `dst` in place, each per-leaf
-    moment of a sharded leaf cut to the rank's slices."""
+    tensor of a sliced leaf cut to the rank's slices (those held whole
+    copied whole)."""
     per = dict(_per_leaf(dst, len(leaves)))
+
+    def put(m, s, t):
+        m.copy_(s if _held_whole(m) else _slice_for(s, copy_shard_info(m.detach(), t)))
+
     for k, v in src.items():
         if k in per:
-            for m, s, t in zip(per[k], v, leaves):
-                m.copy_(_slice_for(s, copy_shard_info(m.detach(), t)))
+            for e, s, t in zip(per[k], v, leaves):
+                for m, sm in (zip(e, s) if isinstance(e, list) else ((e, s),)):
+                    put(m, sm, t)
         elif isinstance(dst.get(k), (dict, list, tuple, torch.Tensor)):
             load_into(dst[k], v)
         else:
             dst[k] = v
-
-
-def refuse_whole_leaf_optimizer(name: str, leaves: Sequence[torch.Tensor]) -> None:
-    """Optimizers whose update reads a whole leaf (an SVD, a projection, a
-    per-head block mean) raise under model_parallel > 1 and under fsdp
-    where a trainable leaf is a shard."""
-    if model_parallel() or any(tp_info(t) is not None for t in leaves):
-        raise NotImplementedError(
-            f"use_optimizer: {name} under model_parallel > 1 (its update needs each whole "
-            "leaf) is not ported to torch yet; use model_parallel: 1")
-    if any(shard_info(t) is not None for t in leaves):
-        raise NotImplementedError(
-            f"use_optimizer: {name} under param_mode fsdp (its update needs each whole "
-            "leaf) is not ported to torch yet; use param_mode: replicated")

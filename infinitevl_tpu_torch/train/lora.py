@@ -6,7 +6,7 @@ Adapters are a tree of their own, mirroring the params' structure:
 {path: {'a': [d_in, r], 'b': [r, d_out]}} (DoRA adds 'm' [d_out]).
 Training optimises only that tree: `attach_lora` hangs the factors on the
 frozen dense nodes as low-rank side paths (`lora_a`, `lora_b`, and DoRA's
-`dora_scale`), so no weight-shaped copy or weight-shaped gradient ever
+`dora_m`), so no weight-shaped copy or weight-shaped gradient ever
 exists; `merge_lora` folds the adapters into the base weights for export.
 PiSSA and LoftQ are library functions, as in JAX: no hparam reaches them."""
 
@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models.quant import dequantize_kernel, quantize_kernel
+from ..models.text import dora_column_norms as _dora_column_norms
 from .step import (
     AdamW,
     apply_gradients,
@@ -36,18 +37,6 @@ def lora_scale(alpha: float, rank: int, use_rslora: bool = False) -> float:
     if use_rslora:
         return alpha / float(rank) ** 0.5
     return alpha / rank
-
-
-def _dora_column_norms(kernel: torch.Tensor, a: torch.Tensor, b_scaled: torch.Tensor
-                       ) -> torch.Tensor:
-    """Column L2 norms of W + a @ b_scaled in fp32 without forming the
-    [d_in, d_out] product: ||W_j||^2 + 2 (W^T a b)_jj + (b^T a^T a b)_jj,
-    two [*, r] products a weight. Differentiable in a, b."""
-    w, af, bf = kernel.float(), a.float(), b_scaled.float()
-    t1 = (w * w).sum(dim=0)  # [d_out]
-    t2 = ((w.T @ af) * bf.T).sum(dim=1)
-    t3 = ((af.T @ af @ bf) * bf).sum(dim=0)
-    return torch.sqrt(torch.clamp(t1 + 2.0 * t2 + t3, min=1e-12))
 
 
 def _is_target(k, v, target) -> bool:
@@ -271,10 +260,13 @@ def attach_lora(
     matched nodes gain lora_a [d_in, r] and lora_b [r, d_out] (pre-scaled by
     alpha / rank, or alpha / sqrt(rank) with rsLoRA), and the dense helper
     adds (x @ a) @ b to the frozen kernel's output. A DoRA adapter also
-    attaches dora_scale [d_out] = m / ||W + a b||_col (fp32, computed here
-    once a step, differentiable in a, b and m), by which the dense helper
-    multiplies the output before the bias. Differentiable with respect to
-    the adapter leaves; the base tensors are shared, not copied."""
+    attaches its magnitude as dora_m [d_out]: the dense helper multiplies
+    the output by m / ||W + a b||_col (fp32, differentiable in a, b and m)
+    before the bias, computing the norms where the layer runs, from the
+    kernel as the layer holds it (under FSDP gathered inside its
+    checkpoint; under tensor parallelism the rank's slice). Differentiable
+    with respect to the adapter leaves; the base tensors are shared, not
+    copied."""
     scale = lora_scale(alpha, rank, use_rslora)
 
     def patch(v, ad):
@@ -282,8 +274,7 @@ def attach_lora(
         new["lora_a"] = ad["a"]
         new["lora_b"] = ad["b"] * scale
         if "m" in ad:
-            new["dora_scale"] = ad["m"].float() / _dora_column_norms(
-                v["kernel"], ad["a"], new["lora_b"])
+            new["dora_m"] = ad["m"]
         return new
 
     return _walk_pairs(params, lora, patch)

@@ -23,11 +23,18 @@ picks its treatment where JAX's path does.
   and 1-D leaves).
 
 Under data parallelism every one of them sees the global batch's gradients
-(train/step.Optimizer.update). Under `param_mode: fsdp` LoRA+ and BAdam
-update each slice of a sharded leaf elementwise, as on the whole leaf;
-GaLore, APOLLO and Adam-mini read each whole leaf (an SVD, a projection,
-a per-head block) and raise NotImplementedError where a trainable leaf is
-sharded (`whole_leaf`); under `replicated` all five run."""
+(train/step.Optimizer.update). On a leaf sliced over the data axis (fsdp)
+or the model axis (tensor parallelism) LoRA+, BAdam and every plain-Adam
+leaf update the slice elementwise, as on the whole leaf. Where GaLore,
+APOLLO and Adam-mini read a whole leaf (an SVD, a projection, a block
+mean), the rank gathers the leaf's gradient over the axes it is sliced on
+(`parallel/sharding.whole_like`, leaf by leaf in the same order on every
+rank), runs the whole-leaf update as every rank of its groups does (the
+same numbers: GaLore's SVD of the same gradient, APOLLO's draw from the
+same seed) and keeps its slice of the result (`slice_like`). The state
+that update needs stays whole on every rank (`hold_whole`): GaLore's
+projection and low-rank moments, APOLLO's low-rank moments, Adam-mini's
+block second moments; the per-coordinate moments are the slice's."""
 
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..parallel.sharding import hold_whole, slice_like, whole_like, whole_shape
 from .step import Optimizer, bias_corrections
 
 LR = Union[float, Callable[[int], float]]
@@ -84,9 +92,8 @@ class GaLore(Optimizer):
     state is (proj [d, r], m, v) in fp32, d the smaller side: O(r max(m,
     n)) instead of O(m n). The projection is the top-r singular vectors of
     the gradient at steps 1, 1 + gap, ... (torch.linalg.svd in fp32, the
-    default routine)."""
-
-    whole_leaf = True
+    default routine). A sliced leaf is judged, projected and updated whole
+    (the module's docstring)."""
 
     def __init__(self, learning_rate: LR, rank: int = 8, update_proj_gap: int = 200,
                  scale: float = 0.25, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -97,7 +104,8 @@ class GaLore(Optimizer):
         self.b1, self.b2, self.eps, self.min_dim = b1, b2, eps, min_dim
 
     def is_galore(self, x) -> bool:
-        return x.ndim == 2 and min(x.shape) >= max(self.rank * 2, self.min_dim)
+        shape = whole_shape(x)
+        return len(shape) == 2 and min(shape) >= max(self.rank * 2, self.min_dim)
 
     def _init(self, named) -> Dict[str, Any]:
         leaves = []
@@ -105,11 +113,12 @@ class GaLore(Optimizer):
             if not self.is_galore(x):
                 leaves.append([torch.zeros_like(x), torch.zeros_like(x)])
                 continue
-            d = min(x.shape)
-            shape = _low_rank_shape(x.shape, self.rank)
+            whole = whole_shape(x)
+            shape = _low_rank_shape(whole, self.rank)
             f32 = dict(dtype=torch.float32, device=x.device)
-            leaves.append([torch.zeros((d, self.rank), **f32), torch.zeros(shape, **f32),
-                           torch.zeros(shape, **f32)])
+            leaves.append([hold_whole(torch.zeros((min(whole), self.rank), **f32)),
+                           hold_whole(torch.zeros(shape, **f32)),
+                           hold_whole(torch.zeros(shape, **f32))])
         return {"leaves": leaves}
 
     def svd_proj(self, g, left: bool):
@@ -124,17 +133,18 @@ class GaLore(Optimizer):
         c1, c2 = bias_corrections(self.b1, self.b2, step)
         refresh = (step - 1) % self.gap == 0
         for (_, p), g, st in zip(named, grads, state["leaves"]):
-            if not self.is_galore(g):
+            if not self.is_galore(p):
                 _adam_leaf(p, g, st[0], st[1], self.b1, self.b2, self.eps, lr, c1, c2)
                 continue
             proj, m, v = st
+            g = whole_like(g, p)
             left = _left(g.shape)
             if refresh:
                 proj.copy_(self.svd_proj(g, left))
             gp = _project(g.float(), proj, left)
             upd = _project_back(_low_rank_adam(gp, m, v, self.b1, self.b2, self.eps, c1, c2),
                                 proj, left)
-            p.add_((-lr * self.scale * upd).to(g.dtype).to(p.dtype))
+            p.add_((-lr * self.scale * slice_like(upd, p)).to(g.dtype).to(p.dtype))
 
 
 def apollo_projection(seed: int, index: int, window: int, d: int, rank: int,
@@ -155,9 +165,9 @@ class Apollo(Optimizer):
     gradient scaled per channel (the side not projected) by
     ||projected Adam update|| / (||projected gradient|| + eps). Other
     leaves take plain Adam. `projection(path, index, window, d, rank,
-    device)` draws the projection; the default is `apollo_projection`."""
-
-    whole_leaf = True
+    device)` draws the projection; the default is `apollo_projection`. A
+    sliced leaf is judged, projected and scaled whole (the module's
+    docstring)."""
 
     def __init__(self, learning_rate: LR, rank: int = 8, update_proj_gap: int = 200,
                  scale: float = 1.0, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -171,14 +181,15 @@ class Apollo(Optimizer):
             apollo_projection(self.seed, index, window, d, rank, device))
 
     def is_low_rank(self, x) -> bool:
-        return x.ndim == 2 and min(x.shape) >= self.rank * 2
+        shape = whole_shape(x)
+        return len(shape) == 2 and min(shape) >= self.rank * 2
 
     def _init(self, named) -> Dict[str, Any]:
         mv = []
         for _, x in named:
             if self.is_low_rank(x):
-                shape = _low_rank_shape(x.shape, self.rank)
-                mv.append([torch.zeros(shape, dtype=torch.float32, device=x.device)
+                shape = _low_rank_shape(whole_shape(x), self.rank)
+                mv.append([hold_whole(torch.zeros(shape, dtype=torch.float32, device=x.device))
                            for _ in range(2)])
             else:
                 mv.append([torch.zeros_like(x), torch.zeros_like(x)])
@@ -190,19 +201,19 @@ class Apollo(Optimizer):
         c1, c2 = bias_corrections(self.b1, self.b2, step)
         window = (step - 1) // self.gap
         for idx, ((path, p), g, (m, v)) in enumerate(zip(named, grads, state["mv"])):
-            if not self.is_low_rank(g):
+            if not self.is_low_rank(p):
                 _adam_leaf(p, g, m, v, self.b1, self.b2, self.eps, lr, c1, c2)
                 continue
-            left = _left(g.shape)
-            proj = self.projection(path, idx, window, min(g.shape), self.rank, g.device)
-            gf = g.float()
+            gf = whole_like(g, p).float()
+            left = _left(gf.shape)
+            proj = self.projection(path, idx, window, min(gf.shape), self.rank, g.device)
             gp = _project(gf, proj, left)
             up = _low_rank_adam(gp, m, v, self.b1, self.b2, self.eps, c1, c2)
             ax = 0 if left else 1  # the projected axis; the channels are the other
             s = torch.linalg.vector_norm(up, dim=ax) / (
                 torch.linalg.vector_norm(gp, dim=ax) + self.eps)
             s = s[None, :] if left else s[:, None]
-            p.add_((-lr * self.scale * gf * s).to(g.dtype).to(p.dtype))
+            p.add_(slice_like(-lr * self.scale * gf * s, p).to(g.dtype).to(p.dtype))
 
 
 def loraplus_label(path: str) -> str:
@@ -282,12 +293,13 @@ PER_COORD, PER_HEAD, PER_COL = 0, 1, 2
 def adam_mini_rule(path: str, x: torch.Tensor, head_dim: int = 128) -> int:
     """A leaf's Hessian block rule: per coordinate for embed / lm_head
     leaves and 1-D leaves, per head (columns in groups of head_dim) for the
-    q_proj / k_proj kernels, per output column for every other kernel."""
-    parts = path.split("/")
-    if "embed" in parts or "lm_head" in parts or x.ndim < 2:
+    q_proj / k_proj kernels, per output column for every other kernel; a
+    sliced leaf by its whole shape."""
+    parts, shape = path.split("/"), whole_shape(x)
+    if "embed" in parts or "lm_head" in parts or len(shape) < 2:
         return PER_COORD
     if len(parts) >= 2 and parts[-1] == "kernel" and parts[-2] in ("q_proj", "k_proj") \
-            and x.shape[-1] % head_dim == 0:
+            and shape[-1] % head_dim == 0:
         return PER_HEAD
     return PER_COL
 
@@ -295,9 +307,8 @@ def adam_mini_rule(path: str, x: torch.Tensor, head_dim: int = 128) -> int:
 class AdamMini(Optimizer):
     """Adam-mini: fp32 momentum per coordinate, the second moment one
     scalar per block of adam_mini_rule (the mean of g^2 over the block),
-    decoupled weight decay on every leaf."""
-
-    whole_leaf = True
+    decoupled weight decay on every leaf. A sliced leaf's block means are
+    taken over its whole gradient (the module's docstring)."""
 
     def __init__(self, learning_rate: LR, head_dim: int = 128, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
@@ -321,21 +332,28 @@ class AdamMini(Optimizer):
         return v.expand(shape)
 
     def _init(self, named) -> Dict[str, Any]:
-        f32 = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)  # noqa: E731
-        return {"m": [f32(t) for _, t in named],
-                "v": [self._block_mean(f32(t), adam_mini_rule(path, t, self.head_dim))
-                      for path, t in named]}
+        f32 = lambda shape, t: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
+                                           device=t.device)
+        v = []
+        for path, t in named:
+            rule = adam_mini_rule(path, t, self.head_dim)
+            v.append(f32(t.shape, t) if rule == PER_COORD
+                     else hold_whole(self._block_mean(f32(whole_shape(t), t), rule)))
+        return {"m": [f32(t.shape, t) for _, t in named], "v": v}
 
     def _apply(self, named, grads, state) -> None:
         step = state["count"] + 1
         lr = _lr(self.lr, step)
         c1, c2 = bias_corrections(self.b1, self.b2, step)
         for (path, p), g, m, v in zip(named, grads, state["m"], state["v"]):
-            rule = adam_mini_rule(path, g, self.head_dim)
+            rule = adam_mini_rule(path, p, self.head_dim)
             gf = g.float()
             m.mul_(self.b1).add_(gf * (1 - self.b1))
-            v.mul_(self.b2).add_(self._block_mean(gf * gf, rule) * (1 - self.b2))
-            vh = self._broadcast(v / c2, rule, g.shape)
+            gw = gf if rule == PER_COORD else whole_like(gf, p)
+            v.mul_(self.b2).add_(self._block_mean(gw * gw, rule) * (1 - self.b2))
+            vh = self._broadcast(v / c2, rule, gw.shape)
+            if rule != PER_COORD:
+                vh = slice_like(vh, p)
             u = -lr * ((m / c1) / (torch.sqrt(vh) + self.eps) + self.weight_decay * p.float())
             p.add_(u.to(g.dtype).to(p.dtype))
 

@@ -40,7 +40,6 @@ from ..parallel.sharding import (
     global_mean,
     global_sum,
     grad_sq_norm,
-    refuse_whole_leaf_optimizer,
     sync_gradients,
 )
 
@@ -245,18 +244,12 @@ class Optimizer:
     ((path, tensor) in tree order); `grads` is an iterable to be walked
     once, in that order."""
 
-    # the update reads each whole leaf (an SVD, a projection, a block mean):
-    # refused on the slices of FSDP
-    whole_leaf = False
-
     def __init__(self, grad_clip: Optional[float] = 1.0, accumulation_steps: int = 1):
         self.grad_clip = grad_clip
         self.accumulation_steps = max(int(accumulation_steps), 1)
 
     def init(self, params) -> Dict[str, Any]:
         named = trainable_leaves(params)
-        if self.whole_leaf:
-            refuse_whole_leaf_optimizer(type(self).__name__, [t for _, t in named])
         state = {"count": 0, **self._init(named)}
         if self.accumulation_steps > 1:
             state["mini_step"] = 0

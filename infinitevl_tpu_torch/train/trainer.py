@@ -832,14 +832,6 @@ def _run_sft(args: AllArgs, tokenizer, device: torch.device, mesh: Optional[Mesh
             rank=args.finetune.lora_rank, target=args.finetune.lora_target,
             use_dora=args.finetune.use_dora,
         )
-        if args.finetune.use_dora and mesh is not None and mesh.model > 1:
-            raise NotImplementedError(
-                "use_dora under model_parallel > 1 (DoRA's column norms read each whole base "
-                "kernel) is not ported to torch yet; use model_parallel: 1")
-        if args.finetune.use_dora and mesh is not None and mode == "fsdp":
-            raise NotImplementedError(
-                "use_dora under param_mode fsdp (DoRA's column norms read each whole base "
-                "kernel) is not ported to torch yet; use param_mode: replicated")
         params = shard_params(params, mesh, mode)
         opt_state = tx.init(lora)
         step_fn = make_lora_sft_step(cfg, tx, remat=args.train.remat,
@@ -1078,10 +1070,14 @@ def _run_dt(args: AllArgs, tokenizer, holder: list, teacher_cfg, device: torch.d
         step_fn = make_stage2_step(student_cfg, teacher_cfg, tx,
                                    args.finetune.distill_temperature, full_cfg=full_cfg,
                                    remat=args.train.remat, remat_group=args.train.remat_group)
-    # one memo: a tensor the student shares with the teacher becomes one shard
+    # one memo: a tensor the student shares with the teacher becomes one
+    # shard; a text tree is sharded under the paths the rules name
+    # (`text/layers/...`), so a converted layer's leaves are all sliced or
+    # all whole, its shared q / o_proj (Mamba2's) with them
     memo: Dict[int, Any] = {}
-    teacher_params = shard_params(teacher_params, mesh, args.train.param_mode, memo)
-    student = shard_params(student, mesh, args.train.param_mode, memo)
+    teacher_params = shard_params(teacher_params, mesh, args.train.param_mode, memo,
+                                  "" if "text" in teacher_params else "text")
+    student = shard_params(student, mesh, args.train.param_mode, memo, "text")
     del memo
     apply_trainable_mask(student, mask, teacher_params)
     trainer = Trainer(

@@ -21,6 +21,7 @@ import infinitevl_tpu.models.quant as jquant
 import infinitevl_tpu.train.lora as jlora
 import infinitevl_tpu.train.step as jstep
 import infinitevl_tpu_torch.models.quant as tquant
+import infinitevl_tpu_torch.models.text as tmodel_text
 import infinitevl_tpu_torch.train.lora as tlora
 import infinitevl_tpu_torch.train.step as tstep
 from infinitevl_tpu.config import tiny_config
@@ -217,7 +218,9 @@ def test_lora_eval_fn_and_later_methods_raise(weights):
     dora = {"text": {"layers": [{"q_proj": {"a": torch.zeros(d_in, 2), "b": torch.zeros(2, d_out),
                                             "m": torch.ones(d_out)}}]}}
     q = tlora.attach_lora(tp, dora)["text"]["layers"][0]["q_proj"]
-    assert torch.allclose(q["dora_scale"], 1.0 / w.norm(dim=0), rtol=1e-6)
+    # m = 1 and b = 0: the layer's output is x @ W with unit columns
+    y = tmodel_text._dense(torch.eye(d_in), q)
+    assert torch.allclose(y, w / w.norm(dim=0), rtol=1e-5, atol=1e-6)
 
 
 def _jpaths(tree, prefix=""):

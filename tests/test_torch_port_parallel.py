@@ -439,28 +439,48 @@ def test_streaming_composes_with_data_parallel(world):
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) < 1e-5, (got, want)
 
 
-def test_whole_leaf_updates_and_tp_refuse_by_name(tmp_path):
+def test_whole_leaf_updates_and_tp_refuse_by_name(tmp_path, monkeypatch):
     """GaLore, APOLLO and Adam-mini read each whole leaf: on an FSDP slice
-    they raise by name (under replicated they run, as the trainer tests
-    show); so does DoRA under fsdp; pipeline_stages > 1 with LoRA raises
-    JAX's ValueError (a pipeline trains full finetuning only); model_parallel
-    2 in a world of one process raises for the world (tensor parallelism
-    needs data x model ranks)."""
+    their update is the whole-leaf update sliced (the rank's slice of two
+    updates of the whole leaf, the gradient's gather stood in for;
+    tests/test_torch_port_sliced_updates.py gathers over real ranks); LoRA+
+    and BAdam run elementwise on the slices; DoRA on an FSDP slice computes
+    its scale in the layer, from the kernel gathered there, as one process
+    does; pipeline_stages > 1
+    with LoRA raises JAX's ValueError (a pipeline trains full finetuning
+    only); model_parallel 2 in a world of one process raises for the world
+    (tensor parallelism needs data x model ranks)."""
     import infinitevl_tpu_torch.train.trainer as ttrainer
     from infinitevl_tpu_torch.hparams import parse_args
     from infinitevl_tpu_torch.train.optim import make_custom_optimizer
+    from torch_port_helpers import slice_update_err
 
+    info = tsh.ShardInfo(0, 32, 2, 1)
+    for name, kw in (("galore", dict(rank=4, update_proj_gap=1, min_dim=8)),
+                     ("apollo", dict(rank=4)), ("adam_mini", dict(head_dim=16))):
+        err, whole = slice_update_err(name, "_ivl_shard", info, monkeypatch, kw)
+        assert err == 0.0 and whole == (32, 64), (name, err)
     shard = torch.zeros(4, 32, requires_grad=True)
     shard._ivl_shard = tsh.ShardInfo(0, 8, 2, 0)
-    for name in ("galore", "apollo", "adam_mini"):
-        with pytest.raises(NotImplementedError, match="fsdp"):
-            make_custom_optimizer(name, 1e-3).init({"text": {"w": shard}})
     for name in ("loraplus", "badam"):  # elementwise on the slices
         assert make_custom_optimizer(name, 1e-3).init({"text": {"w": shard}})["count"] == 0
-    args = parse_args(_conf("sft_tiny.yaml", tmp_path, finetuning_type="lora", use_dora=True,
-                            data_parallel=2))
-    with pytest.raises(NotImplementedError, match="use_dora under param_mode fsdp"):
-        ttrainer._run_sft(args, None, torch.device("cpu"), tsh.Mesh(2, 1, 0))
+    # DoRA on an FSDP slice of its kernel: the node carries m, and the layer,
+    # which holds the kernel gathered, computes the one-process output
+    from infinitevl_tpu_torch.models.text import _dense
+    from infinitevl_tpu_torch.train.lora import attach_lora, init_lora
+
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(16, 8, generator=gen)
+    ad = init_lora({"q_proj": {"kernel": w}}, gen, rank=2, use_dora=True)
+    with torch.no_grad():
+        ad["q_proj"]["b"].normal_(generator=gen)
+    part = w[8:].clone()
+    part._ivl_shard = tsh.ShardInfo(0, 16, 2, 1)
+    node = attach_lora({"q_proj": {"kernel": part}}, ad, 16.0, 2)["q_proj"]
+    assert "dora_m" in node
+    x = torch.randn(3, 16, generator=gen)
+    one = _dense(x, attach_lora({"q_proj": {"kernel": w}}, ad, 16.0, 2)["q_proj"])
+    assert torch.allclose(_dense(x, dict(node, kernel=w)), one, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="finetuning_type: full"):
         ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, pipeline_stages=2,
                                           finetuning_type="lora")), device="cpu")

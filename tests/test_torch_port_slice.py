@@ -175,11 +175,14 @@ def test_paths_of_later_slices_raise(weights):
     x, w, a, b = (torch.randn(*s) for s in ((3, 4), (4, 5), (4, 2), (2, 5)))
     assert torch.allclose(_dense(x, {"kernel": w, "lora_a": a, "lora_b": b}),
                           x @ w + (x @ a) @ b, atol=1e-6)
-    # DoRA's column scale is ported (train/lora.attach_lora): it multiplies
-    # the output before the bias; the biased int4 layout still raises
-    s, bias = torch.randn(5), torch.randn(5)
-    assert torch.allclose(_dense(x, {"kernel": w, "lora_a": a, "lora_b": b, "dora_scale": s,
-                                     "bias": bias}), (x @ w + (x @ a) @ b) * s + bias, atol=1e-6)
+    # DoRA's column scale is ported (train/lora.attach_lora attaches m): m
+    # over the columns' norms of W + a b multiplies the output before the
+    # bias; the biased int4 layout still raises
+    m, bias = torch.randn(5), torch.randn(5)
+    s = m / (w + a @ b).norm(dim=0)
+    assert torch.allclose(_dense(x, {"kernel": w, "lora_a": a, "lora_b": b, "dora_m": m,
+                                     "bias": bias}), (x @ w + (x @ a) @ b) * s + bias,
+                          atol=1e-5)
     with pytest.raises(NotImplementedError, match="kernel_q4b"):
         _dense(torch.zeros(1, 4), {"kernel_q4b": torch.zeros(4, 4), "kernel": torch.zeros(4, 4)})
     with pytest.raises(NotImplementedError, match="layer_stacks"):

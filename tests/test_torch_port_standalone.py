@@ -55,7 +55,7 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "eval.text_metrics", "ops.swa_kernels", "cli", "eval.mcq",
                "models.convert", "train.distill", "utils.safetensors_io", "train.dpo",
                "train.ppo", "train.optim", "ops.mamba2", "parallel.sharding",
-               "parallel.launch"):
+               "parallel.launch", "data.mm_plugin", "native"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -136,6 +136,38 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "infinitevl_tpu"))
 print("FOREIGN_MODULES", bad)
 """
+
+
+MM_NATIVE_PROGRAM = r"""
+import sys
+import numpy as np
+from infinitevl_tpu_torch import native
+from infinitevl_tpu_torch.config import tiny_config
+from infinitevl_tpu_torch.data import loader, mm_plugin
+rows = [{"messages": [{"role": "user", "content": "<image>What is it?"},
+                      {"role": "assistant", "content": "red"}],
+         "images": ["images/red_square.png"]}]
+for name in ("paligemma", "gemma3"):
+    assert mm_plugin.get_mm_plugin(name) is not None
+    enc = loader.encode_supervised_mm(rows, loader.SimpleTokenizer(), tiny_config(),
+                                      template=name, cutoff_len=2048, dataset_dir="data")
+    assert enc[0]["pixel_values"].ndim == 4
+if native.available():
+    out = native.preprocess_frame(np.zeros((56, 56, 3), np.uint8), (56, 56))
+    assert out.shape == (16, 1176), out.shape
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "infinitevl_tpu"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+def test_mm_plugin_and_native_load_nothing_of_jax():
+    """The paligemma / gemma3 encodings and the native preprocessing load
+    neither jax nor the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", MM_NATIVE_PROGRAM], cwd=REPO, env=ENV,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
 
 
 def test_preference_stages_load_nothing_of_jax():

@@ -345,17 +345,26 @@ def test_state_rule_shards_the_rings_heads_not_their_capacity():
 
 
 def test_what_does_not_run_under_model_parallel_raises_by_name(monkeypatch):
-    """Mamba2 layers and int4 weights raise in shard_params at model > 1;
-    GaLore, APOLLO and Adam-mini (whole-leaf updates) raise under a mesh
-    with a model axis; LoRA+ and BAdam run on the slices; DoRA raises in
-    run_sft (tests/test_torch_port_tp_train.py)."""
+    """int4 weights raise in shard_params at model > 1; a Mamba2 layer
+    shards by JAX's rules (its q / k / v / g / o_proj, A_log and dt_bias
+    sliced, conv_w, conv_b, dt_proj and D whole:
+    tests/test_torch_port_tp_mamba2.py runs it); GaLore, APOLLO and
+    Adam-mini update a model-axis slice as the whole leaf's update sliced
+    (the gradient's gather stood in for; over real ranks in
+    tests/test_torch_port_sliced_updates.py); LoRA+ and BAdam run on the
+    slices; DoRA runs too (tests/test_torch_port_tp_train.py)."""
+    from torch_port_helpers import slice_update_err
+
     from infinitevl_tpu_torch.train.optim import make_custom_optimizer
 
     monkeypatch.setattr(tsh, "_TP", tsh._TP)  # this process's flag, restored after
     mesh = tsh.Mesh(1, 2, 0)
-    layer = {"conv_w": torch.zeros(4, 8), "dt_proj": {"kernel": torch.zeros(8, 2)}}
-    with pytest.raises(NotImplementedError, match="Mamba2 layers under model_parallel"):
-        tsh.shard_params({"text": {"layers": [layer]}}, mesh, "tp")
+    layer = {"conv_w": torch.zeros(4, 24), "dt_proj": {"kernel": torch.zeros(8, 2)},
+             "A_log": torch.zeros(2), "q_proj": {"kernel": torch.zeros(8, 8)}}
+    out = tsh.shard_params({"text": {"layers": [layer]}}, mesh, "tp")["text"]["layers"][0]
+    assert out["conv_w"] is layer["conv_w"] and out["dt_proj"]["kernel"] is layer["dt_proj"][
+        "kernel"]
+    assert tuple(out["A_log"].shape) == (1,) and tuple(out["q_proj"]["kernel"].shape) == (8, 4)
     q4 = {"o_proj": {"kernel_q4": torch.zeros(8, 4, dtype=torch.uint8)}}
     with pytest.raises(NotImplementedError, match="int4 weights under model_parallel"):
         tsh.shard_params({"text": {"layers": [q4]}}, mesh, "tp")
@@ -364,10 +373,12 @@ def test_what_does_not_run_under_model_parallel_raises_by_name(monkeypatch):
                            mesh, "tp")
     assert tsh.tp_info(out["text"]["layers"][0]["q_proj"]["kernel"]) == tsh.ShardInfo(
         1, 8, 2, 0, "model")
+    for name, kw in (("galore", dict(rank=4, update_proj_gap=1, min_dim=8)),
+                     ("apollo", dict(rank=4)), ("adam_mini", dict(head_dim=16))):
+        for info in (tsh.ShardInfo(1, 64, 2, 1, "model"), tsh.ShardInfo(0, 32, 2, 0, "model")):
+            err, whole = slice_update_err(name, "_ivl_tp", info, monkeypatch, kw)
+            assert err == 0.0 and whole == (32, 64), (name, info, err)
     w = torch.zeros(4, 32, requires_grad=True)
     with tsh.use_mesh(mesh):
-        for name in ("galore", "apollo", "adam_mini"):
-            with pytest.raises(NotImplementedError, match="model_parallel > 1"):
-                make_custom_optimizer(name, 1e-3).init({"text": {"w": w}})
         for name in ("loraplus", "badam"):
             assert make_custom_optimizer(name, 1e-3).init({"text": {"w": w}})["count"] == 0

@@ -20,8 +20,9 @@ optimizer with inv_freq frozen, as the port's full finetuning leaves it).
   and, saved again (gathered over both axes), is bit-equal;
 - `cli train` on a recipe with model_parallel 2, in a world of two ranks,
   takes the steps of one process within 1e-5;
-- DoRA raises under model_parallel > 1, a world that is not data x model
-  raises, and create_mesh builds a model axis."""
+- DoRA on a column-parallel slice gives the one-process output's columns,
+  a world that is not data x model raises, and create_mesh builds a model
+  axis."""
 
 import dataclasses
 import os
@@ -29,11 +30,10 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 import torch_port_ranks as ranks
-from torch_port_helpers import err_ratio
+from torch_port_helpers import err_ratio, freeze_inv_freq
 
 import infinitevl_tpu.train.lora as jlora
 import infinitevl_tpu.train.trainer as jtrainer
@@ -73,17 +73,6 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _freeze_inv_freq(real):
-    def make_tx(args, steps):
-        label = lambda tree: jax.tree_util.tree_map_with_path(
-            lambda p, _: "frozen" if getattr(p[-1], "key", None) == "inv_freq" else "train",
-            tree)
-        return optax.multi_transform({"train": real(args, steps),
-                                      "frozen": optax.set_to_zero()}, label)
-
-    return make_tx
-
-
 TP = dict(model_parallel=2, param_mode="tp")
 CASES = {
     # name: (yaml, overrides on both sides, the carried numbers, world size);
@@ -114,7 +103,7 @@ def world(tmp_path_factory):
             "text": jax.tree.map(jnp.array, text)})
         mp.setattr(jtrainer, "init_text_params", lambda key, c, dtype: jax.tree.map(
             jnp.array, teacher))
-        mp.setattr(jtrainer, "_make_tx", _freeze_inv_freq(jtrainer._make_tx))
+        mp.setattr(jtrainer, "_make_tx", freeze_inv_freq(jtrainer._make_tx))
 
         def record(key, real, conv):
             def call(*a, **kw):
@@ -221,13 +210,31 @@ def test_one_process_state_resumes_in_slices_and_saves_whole(world):
 
 
 def test_dora_and_a_wrong_world_raise_and_create_mesh_takes_a_model_axis(tmp_path):
+    """DoRA on a column-parallel slice of its kernel computes, in the layer,
+    the one-process output's columns (its norms local, m cut to them; the
+    row-parallel sum over real ranks is in
+    tests/test_torch_port_sliced_updates.py); a world that is not data x
+    model raises; create_mesh builds a model axis."""
     import infinitevl_tpu_torch.train.trainer as ttrainer
     from infinitevl_tpu_torch.hparams import parse_args
+    from infinitevl_tpu_torch.models.text import _dense
+    from infinitevl_tpu_torch.train.lora import attach_lora, init_lora
 
-    args = parse_args(_conf("sft_tiny.yaml", tmp_path, finetuning_type="lora", use_dora=True,
-                            **TP))
-    with pytest.raises(NotImplementedError, match="use_dora under model_parallel > 1"):
-        ttrainer._run_sft(args, None, torch.device("cpu"), tsh.Mesh(1, 2, 0))
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(8, 16, generator=gen)
+    ad = init_lora({"q_proj": {"kernel": w}}, gen, rank=2, use_dora=True)
+    with torch.no_grad():
+        ad["q_proj"]["b"].normal_(generator=gen)
+    x = torch.randn(3, 8, generator=gen)
+    one = _dense(x, attach_lora({"q_proj": {"kernel": w}}, ad, 16.0, 2)["q_proj"])
+    for r in range(2):
+        part = w[:, r * 8 : (r + 1) * 8].clone()
+        part._ivl_tp = tsh.ShardInfo(1, 16, 2, r, "model")
+        node = attach_lora({"q_proj": {"kernel": part}}, ad, 16.0, 2)["q_proj"]
+        assert "dora_m" in node
+        with torch.no_grad():  # the column-parallel forward runs no collective
+            got = _dense(x, node)
+        assert torch.allclose(got, one[:, r * 8 : (r + 1) * 8], rtol=1e-6, atol=1e-6)
     # one process asked for model_parallel 2: the world must hold data x model ranks
     with pytest.raises(ValueError, match="data_parallel x model_parallel is 1 x 2"):
         ttrainer.run_exp(parse_args(_conf("sft_tiny.yaml", tmp_path, **TP)), device="cpu")

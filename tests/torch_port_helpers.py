@@ -79,3 +79,59 @@ def tree_err(port_tree, jax_tree):
     assert set(got) == set(want), set(got) ^ set(want)
     return max(err_ratio(got[p], want[p]) if np.abs(want[p]).sum() > 0
                else float(np.abs(got[p].detach().numpy()).max()) for p in want)
+
+
+def slice_update_err(name, attr, info, monkeypatch, kw=None):
+    """The largest difference between two updates of the optimizer `name`
+    (train/optim.py, no clip) on one rank's slice of a leaf, tagged
+    `attr` = `info` (a parallel/sharding.ShardInfo), and the rank's slice
+    of the same updates on the whole leaf, in one process: the gather of
+    the whole gradient (`whole_like`) is stood in for by the whole gradient
+    itself."""
+    import numpy as np
+    import torch
+
+    import infinitevl_tpu_torch.train.optim as toptim
+    from infinitevl_tpu_torch.parallel import sharding as tsh
+
+    rng = np.random.RandomState(0)
+    shape = [32, 64]
+    w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.1)
+    grads = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(2)]
+    kw = dict(grad_clip=None, **(kw or {}))
+    monkeypatch.setattr(toptim, "whole_like", tsh.whole_like)
+    whole = {"text": {"layers": [{"q_proj": {"kernel": w.clone().requires_grad_(True)}}]}}
+    tx = toptim.make_custom_optimizer(name, 1e-2, **kw)
+    state = tx.init(whole)
+    for g in grads:
+        tx.update([g], state, whole)
+    n = info.full // info.world
+    part = w.narrow(info.dim, info.rank * n, n).clone().requires_grad_(True)
+    setattr(part, attr, info)
+    sliced = {"text": {"layers": [{"q_proj": {"kernel": part}}]}}
+    tx = toptim.make_custom_optimizer(name, 1e-2, **kw)
+    state = tx.init(sliced)
+    for g in grads:
+        monkeypatch.setattr(toptim, "whole_like", lambda m, t, g=g: g.to(m.dtype))
+        tx.update([g.narrow(info.dim, info.rank * n, n).clone()], state, sliced)
+    want = whole["text"]["layers"][0]["q_proj"]["kernel"].detach()
+    want = want.narrow(info.dim, info.rank * n, n)
+    assert not torch.equal(want, w.narrow(info.dim, info.rank * n, n))
+    return float((part.detach() - want).abs().max()), tsh.whole_shape(part)
+
+
+def freeze_inv_freq(real):
+    """JAX's `_make_tx` factory `real` with rope's inv_freq masked out of the
+    optimizer (optax.multi_transform), as the port's full finetuning leaves
+    it frozen."""
+    import jax
+    import optax
+
+    def make_tx(args, steps):
+        label = lambda tree: jax.tree_util.tree_map_with_path(  # noqa: E731
+            lambda p, _: "frozen" if getattr(p[-1], "key", None) == "inv_freq" else "train",
+            tree)
+        return optax.multi_transform({"train": real(args, steps),
+                                      "frozen": optax.set_to_zero()}, label)
+
+    return make_tx

@@ -57,6 +57,7 @@ def patched(carry):
     import infinitevl_tpu_torch.train.lora as tlora
     import infinitevl_tpu_torch.train.trainer as ttrainer
     from infinitevl_tpu_torch.models.params import from_jax_numpy
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
 
     saved = [(ttrainer, "tiny_config", ttrainer.tiny_config)]
     ttrainer.tiny_config = lambda: tiny_cut(carry.get("chunked", False),
@@ -73,6 +74,19 @@ def patched(carry):
         saved.append((tlora, "init_lora", tlora.init_lora))
         tlora.init_lora = lambda params, gen, **kw: from_jax_numpy(carry["lora"], "cpu",
                                                                    trainable=True)
+    if "apollo_draws" in carry:  # JAX's projections, by leaf path and window
+        import infinitevl_tpu_torch.train.optim as toptim
+
+        real_init = toptim.Apollo.__init__
+        saved.append((toptim.Apollo, "__init__", real_init))
+        draws = carry["apollo_draws"]
+
+        def init(self, *a, **kw):
+            kw["projection"] = lambda path, index, window, d, rank, device: torch.from_numpy(
+                draws[path][window]).to(device)
+            real_init(self, *a, **kw)
+
+        toptim.Apollo.__init__ = init
     if "student" in carry:
         real = ttrainer.convert_attention
         saved.append((ttrainer, "convert_attention", real))
@@ -81,10 +95,14 @@ def patched(carry):
             student, scfg = real(teacher, cfg, gen, softmax_attention=softmax_attention,
                                  mixer=mixer)
             carried = from_jax_numpy(carry["student"], "cpu")
+            shared = {id(t) for _, t in tree_leaves_with_path(teacher)}
             for i, lp in enumerate(student["layers"]):
                 if i not in softmax_attention:
                     for k in list(lp):
-                        if k not in ("mlp", "input_norm", "post_norm"):
+                        # a leaf the conversion shares with the teacher (Mamba2's
+                        # q / o_proj, copies in JAX) stays shared, as run_dt has it
+                        if k not in ("mlp", "input_norm", "post_norm") and not all(
+                                id(t) in shared for _, t in tree_leaves_with_path(lp[k])):
                             lp[k] = carried["layers"][i][k]
             return student, scfg
 
@@ -205,7 +223,9 @@ def pp_grads(job):
 
 def jobs(rank, world, job_list):
     """Run each job in order: a run_exp ("run"), the CE check ("ce"), a
-    `cli train` ("cli") or a pipelined gradient ("pp_grads")."""
+    `cli train` ("cli"), a pipelined gradient ("pp_grads"), the forwards
+    under tensor parallelism ("tp_forwards") or an optimizer's update on
+    slices ("sliced_update")."""
     out = []
     for job in job_list:
         if job["kind"] == "ce":
@@ -214,6 +234,10 @@ def jobs(rank, world, job_list):
             out.append(cli_train(job["path"]))
         elif job["kind"] == "pp_grads":
             out.append(pp_grads(job))
+        elif job["kind"] == "tp_forwards":
+            out.append(tp_forwards(rank, world, [job])[0])
+        elif job["kind"] == "sliced_update":
+            out.append(sliced_update(job))
         else:
             out.append(run_job(job))
     return out
@@ -291,8 +315,9 @@ def tp_grads(job, mesh):
     """The SFT loss's gradient with respect to every leaf of the model
     (each leaf trainable, sharded as `tp`) and its squared global norm, and
     with respect to the LoRA
-    factors job["lora"] (rank job["lora_rank"], alpha 16) on the frozen
-    sharded model: every gradient whole (a slice's gathered over the model
+    factors job["lora"] where the job has them (rank job["lora_rank"],
+    alpha 16; DoRA's where they carry `m`) on the frozen sharded model:
+    every gradient whole (a slice's gathered over the model
     group), as numpy by path."""
     from infinitevl_tpu_torch.models.params import from_jax_numpy
     from infinitevl_tpu_torch.parallel import sharding as sh
@@ -313,6 +338,8 @@ def tp_grads(job, mesh):
     # over the model group, a replicated leaf once)
     have = [(t, g) for (_, t), g in zip(named, grads) if g is not None]
     out["grad_sq_norm"] = float(sh.grad_sq_norm([t for t, _ in have], [g for _, g in have]))
+    if "lora" not in job:
+        return out
     base = sh.shard_params({"text": from_jax_numpy(job["params"], "cpu")["text"]}, mesh, "tp")
     lora = from_jax_numpy(job["lora"], "cpu", trainable=True)
     named = list(tree_leaves_with_path(lora))
@@ -321,3 +348,48 @@ def tp_grads(job, mesh):
                                 [t for _, t in named])
     out["lora_grads"] = {k: g.numpy() for (k, _), g in zip(named, grads)}
     return out
+
+
+def sliced_update(job):
+    """Two updates of the optimizer job["name"] (train/optim.py, keyword
+    arguments job["kw"]) on this rank's slices of job["leaves"] (numpy, by
+    path), sliced on the (data, model) mesh job["mesh"] under job["mode"],
+    fed this rank's slices of the whole gradients job["grads"] (a list of
+    steps; under fsdp a data-axis shard's gradient comes summed, so the
+    whole gradient is cut as it is; a leaf whole over data takes its half
+    of the data group's sum, which `sync_gradients` adds back): the leaves
+    after the updates, gathered whole, and the optimizer state in the
+    one-process format (gather_opt_state)."""
+    from infinitevl_tpu_torch.parallel import sharding as sh
+    from infinitevl_tpu_torch.train.optim import make_custom_optimizer
+    from infinitevl_tpu_torch.train.step import trainable_leaves
+
+    data, model = job["mesh"]
+    mesh = sh.create_mesh(data, model)
+    tree = {"text": {k: torch.from_numpy(v).requires_grad_(True)
+                     for k, v in job["leaves"].items()}}
+    tree = sh.shard_params(tree, mesh, job["mode"])
+    tx = make_custom_optimizer(job["name"], 1e-2, **job["kw"])
+    with sh.use_mesh(mesh):
+        state = tx.init(tree)
+        named = trainable_leaves(tree)
+        for grads in job["grads"]:
+            g = []
+            for path, t in named:
+                full = torch.from_numpy(grads[path.split("/", 1)[1]])
+                if sh.shard_info(t) is None:
+                    full = full / data
+                g.append(sh.slice_like(full, t).clone())
+            tx.update(g, state, tree)
+        leaves = [t for _, t in named]
+        whole = {path: sh.whole_like(t.detach(), t).numpy() for path, t in named}
+        opt = sh.gather_opt_state(state, leaves)
+    return {"leaves": whole, "state": _np_tree(opt)}
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return tree.detach().numpy() if isinstance(tree, torch.Tensor) else tree
