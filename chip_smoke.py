@@ -18,12 +18,13 @@ NVIDIA H100.
                                                   # steps, 13
     python3 chip_smoke.py --parallel-only --only=h  # phases 1-3, 4's two-rank steps, 14, 15
     python3 chip_smoke.py --pp-only --only=h,c  # phases 1-3, then 16
+    python3 chip_smoke.py --board-only --only=h  # phases 1-3, then 17
 
 --kernels-only, --text-only, --train-only, --dt-only, --pref-only, --long-only,
---mamba2-only, --parallel-only and --pp-only are shortcuts for work
-on one part: they stop before the `kernels` line, the card's line and the
-final `{"ok": ...}` line, so only the run without them is the whole check.
---only= is taken with one of the nine and refused otherwise.
+--mamba2-only, --parallel-only, --pp-only and --board-only are shortcuts for
+work on one part: they stop before the `kernels` line, the card's line and
+the final `{"ok": ...}` line, so only the run without them is the whole
+check. --only= is taken with one of the ten and refused otherwise.
 
 Phases (each prints its lines; any failure raises and the exit code is
 non-zero):
@@ -83,7 +84,8 @@ non-zero):
      speculative decoding against greedy, beam search, a BatchingEngine
      burst of 8 requests; then per weight format (int4, bf16, int8, fused)
      one text request and 13 streamed frames
-  8. training path, at full 3B width and depth, through run_sft / Trainer:
+  8. training path, at 3B width and 12 layers (3 hybrid periods), through
+     run_sft / Trainer:
      LoRA at 2,048 and 8,192 tokens, LoRA on packed rows (packing: true),
      QLoRA (int8 base), full finetuning,
      multimodal LoRA steps at 448x448 and 1344x1344, save / resume
@@ -92,7 +94,7 @@ non-zero):
      F and E; then the step's peak memory at windows of 256 and 1,024
      patches, F's backward through its chunked twin and through the
      batched-dense plain version
- 10. checkpoints and distillation, at 3B width and 12 layers (bf16, random
+ 10. checkpoints and distillation, at 3B width and 4 layers (bf16, random
      weights from seed 0): the all-full_attention teacher twin with the ViT
      exported as HF safetensors in shards of 2 GB and read back (leaves and
      a 64-token prompt's logits bit-equal; bytes, seconds, GB/s); stage 1 of
@@ -108,17 +110,17 @@ non-zero):
      pads), and one cli.cmd_api request on a loopback port
 11. the preference stages, at full 3B width (bf16, random weights from
      seed 0), through run_exp: rm, dpo (sigmoid, then orpo with no reference
-     built) and kto at 12 layers, cutoff 1,024, two pairs (rows) a
+     built) and kto at 4 layers, cutoff 1,024, two pairs (rows) a
      step, remat, 2 steps each, no train state written (DPO's first loss ln
      2, KTO's 0.5, the policy's and its frozen clone's first log-probs
-     bit-equal, the clone bit-unchanged after the steps); then rm at 12
-     layers from a 12-layer checkpoint with its train state saved, and ppo
-     (fp32) at 12 layers from both: B 4 prompts of 256 tokens, 64 tokens
+     bit-equal, the clone bit-unchanged after the steps); then rm at 4
+     layers from a 4-layer checkpoint with its train state saved, and ppo
+     (fp32) at 4 layers from both: B 4 prompts of 256 tokens, 64 tokens
      sampled at temperature 1, 3 iterations, the first KL 0; launches per
      step held to the code's count
 12. long-context training and the custom optimizers, at 3B (bf16, random
      weights from seed 0, B 1): examples/sft_32k_lora_yarn.yaml at cutoff
-     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (12 layers each, 1 step each)
+     32,768 and examples/sft_64k_qlora_yarn.yaml at 65,536 (4 layers each, 1 step each)
      through run_sft with gradient accumulation 8 -> 1, through the
      sequence-chunked SWA (kernel H over 2 windows), DeltaNet (kernel C from
      the carried state) and MLP layers; at 4 layers one LoRA step at 16,384 chunked
@@ -126,16 +128,17 @@ non-zero):
      badam and adam_mini as full finetuning and loraplus on LoRA at 2,048 and
      4 layers, 3 steps; the frozen base bit-unchanged, no train state written, launches
      per step held to the code's count; GaLore's SVD of the tied embedding
-13. the Mamba2 conversion mixer and the LoRA variants at 3B (bf16, random
-     weights from seed 0, B 1): stage 1 of examples/train_3b_stage1.yaml with
+13. the Mamba2 conversion mixer and the LoRA variants at 3B width and 12
+     layers (bf16, random weights from seed 0, B 1): stage 1 of
+     examples/train_3b_stage1.yaml with
      mixer mamba2 (data_parallel 1, 3 steps on packed rows of 8,192, the
      teacher the all-full_attention twin with the ViT; the weight copy held
      before step 1, the teacher and frozen leaves bit-unchanged after), the
      student served (16 raw 448x448 frames through StreamingEngine and an
      ask, its state constant and the stream untouched by the ask; a
      1,000-token text request through Generator); DoRA through run_sft at
-     2,048 (its first loss the base model's), pissa_decompose on 12 layers
-     (the base's logits back), loftq_init on 4 layers (below plain int8's
+     2,048 (its first loss the base model's), pissa_decompose on 4 layers
+     (the base's logits back), loftq_init on 2 layers (below plain int8's
      error on every kernel), one LoRA step each
 14. data parallelism at 3B, in one world of two gloo ranks sharing the card
      (NCCL refuses two ranks on one GPU): (a) stage 1 of
@@ -157,14 +160,14 @@ non-zero):
      8 layers, T 2,048, tp, 2 steps, against one process (losses, exactly
      half the model-sharded bytes a rank, each rank's peak, the all_reduce
      seconds and the head's share), and in fp32 every trainable leaf's
-     gradient on the first batch, slice by slice; (b) stage 1 of train_3b_stage1.yaml at 8
+     gradient on the first batch, slice by slice; (b) stage 1 of train_3b_stage1.yaml at 4
      layers and packed rows of 8,192 (the teacher bit-unchanged); (d) one
      multimodal LoRA step at 4 layers with the ViT's 32 blocks (E and F)
      against one process; (e) generation.prefill of 1,000 tokens and 16
      decode_step calls on the sharded params and each rank's part of the
      state, at 4 layers in fp32 (greedy tokens equal, logits <= 1e-3) and
      8 in bf16 (fed tokens, logits <= 1e-2, beside the fp32 model's); (f)
-     stage 1 with mixer mamba2 at 8 layers, packed rows of 2,048, against
+     stage 1 with mixer mamba2 at 4 layers, packed rows of 2,048, against
      one process; (g) the Mamba2 student's prefill of 1,000 tokens and 16
      greedy decode steps in fp32 at 4 layers against one process (logits
      <= 1e-3, tokens equal, each rank exactly half of mamba_conv and
@@ -186,6 +189,21 @@ non-zero):
      gpipe's); (c) pp_microbatch_axis sequence at T 16,384 (two chunks of
      one window), 12 layers, against the unpipelined chunked run; H and C
      launched on every rank, held to the code's counts in (a) and (b)
+17. the training web board (serve/webui.py) at 3B width and 4 layers (one
+     hybrid period, with the ViT; bf16, random weights from seed 0), in this
+     process on a loopback port: the model exported as HF safetensors, then
+     through the board's routes a LoRA run of 3 steps at cutoff 1,024 on
+     data/demo.json (one log line a step, finite losses, the base
+     bit-unchanged; its steps timed by utils/profiling.StepTimer, the MFU
+     against the H100's 989 TFLOP/s), a second run aborted after its first
+     logged step, an MCQ eval and a predict-mode eval, chat (a greedy text
+     turn of 16 tokens equal to Generator.generate's, one turn with a
+     448x448 image; the state's size constant), one chat turn under
+     profiling.trace() read back for its CUDA kernel events, a decode step
+     against decode_hbm_floor_ms of decode_weight_read_bytes, /api/export
+     reloaded (the same greedy tokens); then scripts/torch_prefill_bench.py
+     (LoRA step at 2,048), torch_cal_mfu.py --measure and
+     torch_batch_infer.py on the exported checkpoint, all at 4 layers
 Phase 3 also holds H on the chunked SWA layer's calls (2 windows, ids -1 /
 row / -2), and A1, A2, H, B, C, E and F at the local shapes of
 model_parallel 2 (GQA 8/1, 8 DeltaNet heads, 8 ViT heads). Phase 4 also takes one distillation step of each stage, one step
@@ -194,12 +212,16 @@ through the sequence-chunked layers and three of each custom optimizer, a
 hybrid with Mamba2 layers (cached prefill, decode, greedy tokens), one
 stage-1 step of the mamba2 conversion and one DoRA step on the small fp32
 model, CPU against card, and two run_sft steps over two gloo ranks on the
-card against one process at the same global batch (fsdp, packed rows).
+card against one process at the same global batch (fsdp, packed rows; the
+ranks' half runs first in phase 14's world). Every process the script
+starts reads and writes Python bytecode under PYCACHE, filled beside the
+kernels' compilers in phase 2.
 Launch counts are set to 0 just before each path (the text requests, the
 stream, the image request, the int4 serving requests, every training
 recipe, the ViT path, every distillation run and CLI command, every preference
 stage, every phase-12 run, phase 13's runs, frames, ask and request, each rank
-of phase 14's, 15's and 16's runs, summed) and read just after it. A `[time]`
+of phase 14's, 15's and 16's runs, summed, phase 17's routes and scripts) and
+read just after it. A `[time]`
 line gives each phase's seconds. Then a JSON line of per-kernel results, the card's line, and
 as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero and prints no result."""
@@ -207,6 +229,7 @@ exits non-zero and prints no result."""
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -435,14 +458,58 @@ def phase_env() -> str:
     return card
 
 
-def phase_build() -> None:
+# Python's bytecode for every process of the run, kept under the checkout's
+# build directory: where site-packages holds no bytecode that the interpreter
+# can use or write, each process compiles torch's modules from source, and
+# phases 4 and 14-16 start a fresh interpreter for every rank of every world
+PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "infinitevl_tpu_torch",
+                       "_build", "pycache")
+# what a rank imports: at its start, at its first collective and first backward
+WARM_IMPORTS = ("torch", "torch.distributed", "torch.distributed.fsdp",
+                "torch.distributed.tensor", "torch._dynamo",
+                "torch.fx.experimental.symbolic_shapes", "sympy", "numpy",
+                "infinitevl_tpu_torch.train.trainer", "infinitevl_tpu_torch.parallel.launch",
+                "infinitevl_tpu_torch.parallel.pipeline", "infinitevl_tpu_torch.parallel.pipeline_seq",
+                "infinitevl_tpu_torch.serve.webui", "infinitevl_tpu_torch.cli")
+
+
+def start_bytecode_cache() -> subprocess.Popen:
+    """Point this process and every process it starts at PYCACHE, and start
+    one interpreter that imports WARM_IMPORTS into it (phase_build waits for
+    it, so it runs beside the kernels' compilers)."""
+    os.makedirs(PYCACHE, exist_ok=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.pycache_prefix = PYCACHE
+    sys.dont_write_bytecode = False
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONDONTWRITEBYTECODE"}
+    prog = ("import importlib, sys\n"
+            f"for m in {WARM_IMPORTS!r}:\n"
+            "    try:\n"
+            "        importlib.import_module(m)\n"
+            "    except Exception as e:\n"
+            "        print(f'{m}: {e!r}', file=sys.stderr)\n")
+    return subprocess.Popen([sys.executable, "-c", prog], env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def phase_build(warm: subprocess.Popen = None) -> None:
     from infinitevl_tpu_torch.ops import _build
 
     cached = _build.library_path().exists()
     t0 = time.perf_counter()
-    _build.load_library()
+    try:
+        _build.load_library()
+    finally:
+        if warm is not None:
+            _, err = warm.communicate()
     print(f"[2 build] {'loaded cached' if cached else 'built'} "
           f"{_build.library_path().name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    if warm is not None:
+        n = sum(len(files) for _, _, files in os.walk(PYCACHE))
+        print(f"[2 build] bytecode cache: {n} files under {PYCACHE} (exit code "
+              f"{warm.returncode}{'; ' + err.strip() if err.strip() else ''}), waited for "
+              f"with the build", flush=True)
 
 
 def _a1_cases(dev, gen):
@@ -3294,13 +3361,25 @@ def _run_recipe(name: str, args, card: str, expect_launches=None, run=None,
                 positions_s=ntok / step_ms * 1e3 if len(times) else float("nan"))
 
 
+TRAIN_LAYERS = 12  # phase 8: the decoder's depth, 3 hybrid periods (the script's time budget's)
+
+
 def phase_train_path(dev, card: str, profile: bool) -> dict:
-    """Phase 8: SFT at 3B width and depth through run_sft / Trainer."""
+    """Phase 8: SFT at 3B width and TRAIN_LAYERS deep through run_sft / Trainer."""
+    from infinitevl_tpu_torch.train import trainer as T
+
+    real_3b, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(TRAIN_LAYERS)
+    try:
+        return _train_path(dev, card, profile)
+    finally:
+        T.infinitevl_3b = real_3b
+
+
+def _train_path(dev, card: str, profile: bool) -> dict:
     import os
     import shutil
     import tempfile
 
-    from infinitevl_tpu_torch.config import infinitevl_3b
     from infinitevl_tpu_torch.data.loader import resolve_tokenizer
     from infinitevl_tpu_torch.train import trainer as T
     from infinitevl_tpu_torch.train.lora import init_lora, make_lora_sft_step
@@ -3312,7 +3391,7 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
         tree_leaves_with_path,
     )
 
-    tc = infinitevl_3b().text
+    tc = T.infinitevl_3b().text
     n_swa, n_lin = tc.num_swa_layers, tc.num_linear_layers
     root = tempfile.mkdtemp(prefix="ivl_train_")
     repo_data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -3320,7 +3399,8 @@ def phase_train_path(dev, card: str, profile: bool) -> dict:
     _long_text_dataset(data_dir, 8192)
     text = dict(dataset="demo_long", dataset_dir=data_dir)
     lora = dict(finetuning_type="lora", lora_rank=8, lora_alpha=16, remat=True)
-    # remat runs every layer's forward twice: 2 x 9 H forwards, 9 H backwards, 2 x 27 C
+    # remat runs every layer's forward twice: 2 H forwards and 1 H backward a SWA
+    # layer, 2 C a DeltaNet layer
     remat_launches = {"swa_train_flash_attention": 2 * n_swa,
                       "swa_train_flash_attention_bwd": n_swa,
                       "delta_rule_chunk_fused": 2 * n_lin}
@@ -3670,8 +3750,9 @@ def _require_teacher_unchanged(teacher, path: str, cfg, what: str) -> int:
 
 
 DT_STEPS = 2  # phase 10: the steps of each stage (the script's time budget's)
-DT_LAYERS = 12  # phase 10: the teacher's and student's depth (the script's time budget's)
-DT_SHARD_BYTES = 2 * 1024**3  # phase 10: the teacher's shards (at 12 layers it is under 4 GB)
+DT_LAYERS = 4  # phase 10: the teacher's and student's depth, one hybrid period (the script's
+#   time budget's)
+DT_SHARD_BYTES = 2 * 1024**3  # phase 10: the teacher's shards (at 4 layers 2.58 GB: two)
 
 
 def _dt_recipe(name: str, args, card: str, expect, teacher_cfg, teacher_dir: str,
@@ -4178,12 +4259,15 @@ def _pref_stage(name: str, args, card: str, expect: dict, positions: int) -> dic
 PREF_STEPS = 2  # phase 11: the steps of each stage (the script's time budget's)
 
 
+PREF_LAYERS = 4  # phase 11: the depth of every stage (the script's time budget's)
+
+
 def phase_pref_path(dev, card: str) -> dict:
     """Phase 11: the preference stages at 3B width through run_exp (bf16,
     random weights from seed 0, remat): rm, dpo (sigmoid and orpo) and kto at
-    12 layers, cutoff 1,024, two pairs (rows) a step, PREF_STEPS each,
-    no train state written; then rm at 12 layers from a 12-layer checkpoint
-    with its train state saved, and ppo (fp32) at 12 layers from that
+    PREF_LAYERS layers, cutoff 1,024, two pairs (rows) a step, PREF_STEPS
+    each, no train state written; then rm from a PREF_LAYERS-layer checkpoint
+    with its train state saved, and ppo (fp32) at that depth from that
     checkpoint, scored by that reward model: prompts of 256 tokens, B 4, 64
     sampled tokens, 3 iterations. Launches per step held to the code's
     count, the reference bit-unchanged. Files go as soon as nothing reads
@@ -4202,8 +4286,8 @@ def phase_pref_path(dev, card: str) -> dict:
 
     cfg = infinitevl_3b()
     tc = cfg.text
-    cfg12 = dataclasses.replace(cfg, text=dataclasses.replace(
-        tc, num_hidden_layers=12, layer_types=None))
+    cfg_p = dataclasses.replace(cfg, text=dataclasses.replace(
+        tc, num_hidden_layers=PREF_LAYERS, layer_types=None))
     total, res = {}, {}
 
     def add(launches):
@@ -4219,10 +4303,10 @@ def phase_pref_path(dev, card: str) -> dict:
 
     root = tempfile.mkdtemp(prefix="ivl_pref_")
     try:
-        n12 = param_count(init_text_params(cfg12.text, None, "meta"))
-        # on disk at once: the 12-layer checkpoint (bf16 text) and the 12-layer
+        n_p = param_count(init_text_params(cfg_p.text, None, "meta"))
+        # on disk at once: the cut model's checkpoint (bf16 text) and its
         # reward model's train state (weights and two bf16 moments)
-        need = 2 * n12 + 3 * 2 * (n12 + tc.hidden_size)
+        need = 2 * n_p + 3 * 2 * (n_p + tc.hidden_size)
         free = shutil.disk_usage(root).free
         require(free >= need, f"phase 11 needs {need / 1e9:.1f} GB of disk under {root}, "
                               f"{free / 1e9:.1f} GB are free")
@@ -4240,8 +4324,8 @@ def phase_pref_path(dev, card: str) -> dict:
               f"(data/demo.json's answers repeated), padded to {cutoff}; {B} pairs a step, "
               f"{free / 1e9:.1f} GB of disk free for {need / 1e9:.1f} GB needed", flush=True)
         pair_pos, kto_pos = 2 * B * cutoff, B * cutoff
-        real_3b, T.infinitevl_3b = T.infinitevl_3b, lambda: cfg12  # (a)-(d) at 12 layers
-        tc = cfg12.text
+        real_3b, T.infinitevl_3b = T.infinitevl_3b, lambda: cfg_p  # (a)-(d) at PREF_LAYERS
+        tc = cfg_p.text
 
         res["rm"] = r = _pref_stage(
             f"(a) rm, {tc.num_hidden_layers} layers, remat, cutoff {cutoff}, {B} pairs", _train_args(
@@ -4283,25 +4367,25 @@ def phase_pref_path(dev, card: str) -> dict:
               f"{r['ref_leaves']} leaves bit-unchanged after {PREF_STEPS} steps", flush=True)
 
         T.infinitevl_3b = real_3b
-        # (e) a 12-layer model: its checkpoint, the reward model on it (train
+        # (e) the cut model: its checkpoint, the reward model on it (train
         # state saved), then ppo from both
-        ckpt = os.path.join(root, "ckpt12")
-        text12 = init_text_params(cfg12.text, torch.Generator(device=dev).manual_seed(0), dev,
+        ckpt = os.path.join(root, "ckpt")
+        text_p = init_text_params(cfg_p.text, torch.Generator(device=dev).manual_seed(0), dev,
                                   torch.bfloat16)
-        export_hf_safetensors({"text": text12}, cfg12, ckpt)
-        del text12
+        export_hf_safetensors({"text": text_p}, cfg_p, ckpt)
+        del text_p
         _free()
-        args = _train_args(os.path.join(root, "rm12"), stage="rm", dataset="pref_long",
+        args = _train_args(os.path.join(root, "rm_e"), stage="rm", dataset="pref_long",
                            model_name_or_path=ckpt, **common)
-        require(T.build_config(args) == cfg12, "the 12-layer checkpoint reads back to another "
+        require(T.build_config(args) == cfg_p, "the cut model's checkpoint reads back to another "
                                                "config")
-        res["rm12"] = r = _run_recipe(
-            f"(e) rm, 12 layers ({n12 / 1e9:.3f} B parameters), train state saved", args, card,
-            expect(cfg12.text, 2, 0), run=T.run_exp, tag="11 pref", positions=pair_pos)
+        res["rm_saved"] = r = _run_recipe(
+            f"(e) rm, {PREF_LAYERS} layers ({n_p / 1e9:.3f} B parameters), train state saved", args, card,
+            expect(cfg_p.text, 2, 0), run=T.run_exp, tag="11 pref", positions=pair_pos)
         add(r["launches"])
-        rm_ckpt = os.path.join(root, "rm12", "checkpoints")
+        rm_ckpt = os.path.join(root, "rm_e", "checkpoints")
         require(latest_step(rm_ckpt) == PREF_STEPS,
-                f"rm at 12 layers saved no step-{PREF_STEPS} state: {rm_ckpt}")
+                f"rm at {PREF_LAYERS} layers saved no step-{PREF_STEPS} state: {rm_ckpt}")
         state_gb = sum(e.stat().st_size for e in os.scandir(rm_ckpt)) / 1e9
 
         R, B_ppo, T_p, iters = 64, 4, 256, 3
@@ -4336,14 +4420,14 @@ def phase_pref_path(dev, card: str) -> dict:
             policy, stats = T.run_exp(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        shutil.rmtree(os.path.join(root, "rm12"))  # read: the reward model is on the card
+        shutil.rmtree(os.path.join(root, "rm_e"))  # read: the reward model is on the card
         launches = _read_launches(("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
                                    "delta_step_fused_stacked", "delta_rule_chunk_fused",
                                    "swa_train_flash_attention"))
         launches["swa_train_flash_attention_bwd"] = h.launches_bwd
         add(launches)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        n_swa, n_lin = cfg12.text.num_swa_layers, cfg12.text.num_linear_layers
+        n_swa, n_lin = cfg_p.text.num_swa_layers, cfg_p.text.num_linear_layers
         # per iteration: the prefill (A1, C), R decode steps (A2, B), the reward
         # model's forward, the policy's and the reference's scoring forwards and
         # the update's (H, C), the update's backward (H)
@@ -4367,7 +4451,8 @@ def phase_pref_path(dev, card: str) -> dict:
                           positions_s=B_ppo * (T_p + R) / step_ms * 1e3,
                           tokens_s=B_ppo * R / roll * 1e3, stats=[dataclasses.asdict(s)
                                                                   for s in stats])
-        print(f"[11 pref] (e) ppo, 12 layers, fp32, from the 12-layer checkpoint and the reward "
+        print(f"[11 pref] (e) ppo, {PREF_LAYERS} layers, fp32, from the {PREF_LAYERS}-layer "
+              f"checkpoint and the reward "
               f"model's train state ({state_gb:.2f} GB, deleted once read): {iters} iterations "
               f"of B {B_ppo} prompts of {T_p} tokens, {R} tokens sampled at temperature 1.0; "
               f"stats {[(round(s.loss, 6), round(s.mean_reward, 4), round(s.kl, 6)) for s in stats]} "
@@ -4637,8 +4722,8 @@ LONG_SMALL = dict(sliding_window=128, delta_seq_chunk_t=256, delta_seq_chunk_eva
 # phase 12: the recipes' cuts (PERF.md section 4) and the runs' shapes
 # one step each, timed whole (PERF.md section 4 lists the cuts)
 LONG_32K_STEPS, LONG_64K_STEPS = 1, 1
-LONG_32K_LAYERS = 12  # (a)'s depth (the script's time budget's: PERF.md section 4)
-LONG_64K_LAYERS = 12  # (b)'s depth (at 36 layers it peaked at 18.73-19.29 GB: PERF.md §6)
+LONG_32K_LAYERS = 4  # (a)'s depth (the script's time budget's: PERF.md section 4)
+LONG_64K_LAYERS = 4  # (b)'s depth (at 36 layers it peaked at 18.73-19.29 GB: PERF.md §6)
 LONG_EXACT_T = 16384  # (c): one LoRA step chunked and full-T
 OPTIM_T, OPTIM_STEPS = 2048, 3  # (d)
 # (c)'s and (d)'s depth (at 36, GaLore's refresh alone took 77 s; the script's time budget's)
@@ -5022,7 +5107,7 @@ def phase_long_path(dev, card: str, full_adamw_peak=None) -> dict:
             r["svd_s"] = sum(svd_s)
             extra = f", {len(svd_s)} SVDs in its refreshes took {sum(svd_s):.2f} s over the run"
         print(f"[12 long] (d) {name}: peak {r['peak_gb']:.2f} GB at {LONG_CD_LAYERS} layers "
-              f"(AdamW's full finetune at 36 layers, phase 8 (d): "
+              f"(AdamW's full finetune at {TRAIN_LAYERS} layers, phase 8 (d): "
               f"{full_adamw_peak if full_adamw_peak is not None else 'not run'}){extra}",
               flush=True)
         res[f"optim_{name}"] = r
@@ -5062,8 +5147,8 @@ M2_LAYERS = ("sliding_attention", "mamba2", "linear_attention", "mamba2")  # pha
 M2_STAGE1_STEPS = 3  # (a): stage 1 on packed rows of 8,192
 M2_FRAMES, M2_TEXT_PROMPT = 16, 1000  # (b)
 LORA_VARIANT_T, DORA_STEPS = 2048, 3  # (c)
-LOFTQ_LAYERS, LOFTQ_ITERS = 4, 4  # (c): loftq_init's default rounds on 4 layers
-PISSA_LAYERS = 12  # (c): pissa_decompose's depth (the script's time budget's: 4 SVDs a layer)
+LOFTQ_LAYERS, LOFTQ_ITERS = 2, 4  # (c): loftq_init's default rounds on 2 layers (SWA, DeltaNet)
+PISSA_LAYERS = 4  # (c): pissa_decompose's depth (the script's time budget's: 4 SVDs a layer)
 
 
 class _CallCount:
@@ -5225,8 +5310,11 @@ def phase_mamba2_cross_device(dev) -> None:
           f"H fwd / bwd / C launches {got}", flush=True)
 
 
+M2_DEPTH = 12  # phase 13: the teacher's and student's depth (the script's time budget's)
+
+
 def phase_mamba2_path(dev, card: str) -> dict:
-    """Phase 13 at 3B width and depth (bf16, random weights from seed 0,
+    """Phase 13 at 3B width, M2_DEPTH deep (bf16, random weights from seed 0,
     B 1): (a) stage 1 of examples/train_3b_stage1.yaml with mixer mamba2
     (data_parallel 8 -> 1, 3 steps on packed rows of 8,192, Trainer.save
     replaced), the teacher the all-full_attention twin with the ViT;
@@ -5234,15 +5322,25 @@ def phase_mamba2_path(dev, card: str) -> dict:
     StreamingEngine and an `ask` of 17 tokens, then a 1,000-token text
     request of 32 new tokens through Generator; (c) the LoRA variants: DoRA
     through run_sft at 2,048 (r 8, 3 steps), pissa_decompose on
-    PISSA_LAYERS layers, loftq_init on 4 layers, one make_lora_sft_step each for PiSSA
+    PISSA_LAYERS layers, loftq_init on LOFTQ_LAYERS, one make_lora_sft_step each for PiSSA
     and LoftQ. Returns the launches of every path, summed."""
+    from infinitevl_tpu_torch.train import trainer as T
+
+    real_3b, T.infinitevl_3b = T.infinitevl_3b, lambda: _cut_3b(M2_DEPTH)
+    try:
+        return _mamba2_path(dev, card)
+    finally:
+        T.infinitevl_3b = real_3b
+
+
+def _mamba2_path(dev, card: str) -> dict:
     import dataclasses
     import os
     import shutil
     import tempfile
 
     import infinitevl_tpu_torch.models.text as text_mod
-    from infinitevl_tpu_torch.config import MAMBA2, infinitevl_3b
+    from infinitevl_tpu_torch.config import MAMBA2
     from infinitevl_tpu_torch.data.loader import resolve_tokenizer
     from infinitevl_tpu_torch.generation import Generator
     from infinitevl_tpu_torch.hparams import load_yaml_args
@@ -5264,7 +5362,7 @@ def phase_mamba2_path(dev, card: str) -> dict:
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = infinitevl_3b()
+    cfg = T.infinitevl_3b()
     tc = cfg.text
     n, n_swa, n_lin = tc.num_hidden_layers, tc.num_swa_layers, tc.num_linear_layers
     teacher_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
@@ -5399,7 +5497,7 @@ def phase_mamba2_path(dev, card: str) -> dict:
         for key, t in _state_tensors(eng.state).items():
             require(bool(torch.isfinite(t.float()).all()), f"(b) state {key} not finite")
         times = np.asarray(eng.frame_times_ms[1:])
-        print(f"[13 mamba2] (b) StreamingEngine on the student (9 SWA + {n_m2} mamba2 layers, "
+        print(f"[13 mamba2] (b) StreamingEngine on the student ({n_swa} SWA + {n_m2} mamba2 layers, "
               f"ViT 32 blocks, bf16), 448x448 push_frame_raw x {M2_FRAMES}: per-frame median "
               f"{np.median(times):.2f} ms, mean {times.mean():.2f} ms (first "
               f"{eng.frame_times_ms[0]:.1f} ms excluded); state {expect_bytes / 1e6:.1f} MB "
@@ -5570,7 +5668,7 @@ def phase_mamba2_path(dev, card: str) -> dict:
         del residual, ad
         _free()
 
-        # LoftQ on the first 4 layers at 3B width
+        # LoftQ on the first LOFTQ_LAYERS layers at 3B width
         roles = tuple(tc.layer_role(i) for i in range(LOFTQ_LAYERS))
         c4 = dataclasses.replace(tc, num_hidden_layers=LOFTQ_LAYERS, layer_types=roles)
         sub = {**text, "layers": text["layers"][:LOFTQ_LAYERS]}
@@ -5846,17 +5944,17 @@ def _par_full(job, T):
 
 
 def _par_rank(rank, world, job):
-    """One rank of a spawned world of phases 4 and 14 (module level, so that
-    the spawned process can import it): its job on cuda:0, its results."""
+    """One rank of a spawned world of phases 14-16 (phase 14's also runs phase
+    4's two-rank steps; module level, so that the spawned process can import
+    it): its job on cuda:0, its results."""
     from infinitevl_tpu_torch.train import trainer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if job["kind"] == "small":
-        return _par_small(job, T)
-    if job["kind"] == "phase14":  # (a), (b), then (d), in one world
-        return dict(stage1=_par_stage1(job, T, dev), full=_par_full(job, T),
+    if job["kind"] == "phase14":  # phase 4's two-rank steps, (a), (b), then (d), in one world
+        return dict(small=_par_small({"args": job["small"]}, T),
+                    stage1=_par_stage1(job, T, dev), full=_par_full(job, T),
                     sliced={name: _sliced_run(job, T, name, 2, 1, "fsdp", 2)
                             for name in PAR_SLICED})
     if job["kind"] == "nccl":
@@ -5915,30 +6013,32 @@ def _par_nccl(dev):
                 backend=dist.get_backend(), nccl=".".join(map(str, torch.cuda.nccl.version())))
 
 
-def phase_parallel_cross_device(dev) -> None:
-    """Phase 4's parallel part: two gloo ranks on the card run two run_sft
-    steps (fsdp, packed rows, the small fp32 model), held against the same
-    steps in one process at the global batch: losses, then the weights,
-    within PAR_TOL (leaves zero before the steps are reported, not held)."""
-    import os
-    import tempfile
-
-    from infinitevl_tpu_torch.models.params import init_text_params
-    from infinitevl_tpu_torch.parallel.launch import spawn_ranks
-    from infinitevl_tpu_torch.train import trainer as T
-    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
-
-    root = tempfile.mkdtemp(prefix="ivl_par4_")
-    data_dir = os.path.join(root, "data")
+def _par_small_job(root: str) -> dict:
+    """Phase 4's parallel part, made ready under `root`: the packed rows and
+    the run_sft arguments of the small fp32 model (fsdp), for the two ranks
+    (`two`, data_parallel 2) and for one process (`common` + the global batch)."""
+    data_dir = os.path.join(root, "small_data")
     _packed_text_dataset(data_dir, n=14)
     common = dict(config_preset="tiny", bf16=False, cutoff_len=1024, packing=True,
                   dataset="demo_packed", dataset_dir=data_dir, max_steps=PAR_SMALL_STEPS,
                   learning_rate=1e-3, param_mode="fsdp")
-    t0 = time.perf_counter()
-    two = spawn_ranks(_par_rank, 2, ({"kind": "small", "args": dict(
-        out_dir=os.path.join(root, "two"), data_parallel=2, **common)},),
-        device="cuda:0", timeout=PAR_DEADLINE)
-    t_two = time.perf_counter() - t0
+    return {"root": root, "common": common,
+            "two": dict(out_dir=os.path.join(root, "small_two"), data_parallel=2, **common)}
+
+
+def phase_parallel_cross_device(dev, small: dict, two: list, t_world: float) -> None:
+    """Phase 4's parallel part: two gloo ranks on the card ran two run_sft
+    steps (fsdp, packed rows, the small fp32 model; `two`, their results),
+    held here against the same steps in one process at the global batch:
+    losses, then the weights, within PAR_TOL (leaves zero before the steps
+    are reported, not held). The ranks' half runs first in phase 14's world
+    of two, so the run starts one world fewer (each rank of a world is a
+    fresh interpreter)."""
+    from infinitevl_tpu_torch.models.params import init_text_params
+    from infinitevl_tpu_torch.train import trainer as T
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+
+    root, common = small["root"], small["common"]
     one = _par_small({"args": dict(out_dir=os.path.join(root, "one"),
                                    per_device_train_batch_size=2, **common)}, T)
     l1, l2 = one["losses"], two[0]["losses"]
@@ -5960,8 +6060,8 @@ def phase_parallel_cross_device(dev) -> None:
           f"process at the same global batch of 2 rows, tol {PAR_TOL}: losses {l2} (one "
           f"process {l1}, err {e_loss:.2g}), weights err_ratio {e_par:.2g} over "
           f"{len(errs) - len(zero)} leaves (zero before the steps, the update alone: "
-          f"{e_zero:.2g}, not held); the ranks' weights bit-equal; the world took "
-          f"{t_two:.1f} s", flush=True)
+          f"{e_zero:.2g}, not held); the ranks' weights bit-equal; run first in phase "
+          f"14's world of two, which took {t_world:.1f} s", flush=True)
 
 
 def phase_parallel_path(dev, card: str) -> tuple:
@@ -5998,12 +6098,15 @@ def phase_parallel_path(dev, card: str) -> tuple:
 
     try:
         step1 = os.path.join(root, "step1_two.pt")
+        small = _par_small_job(root)
         t0 = time.perf_counter()
         world = spawn_ranks(_par_rank, 2, ({
             "kind": "phase14", "data_parallel": 2, "per_device": 1, "data_dir": data_dir,
             "layers": n, "out": os.path.join(root, "ranks"), "step1_file": step1,
-            "repo_data": os.path.join(here, "data")},), device="cuda:0", timeout=PAR_DEADLINE)
+            "repo_data": os.path.join(here, "data"), "small": small["two"]},),
+            device="cuda:0", timeout=PAR_DEADLINE)
         t_world = time.perf_counter() - t0
+        phase_parallel_cross_device(dev, small, [w["small"] for w in world], t_world)
         two, full = [w["stage1"] for w in world], [w["full"] for w in world]
 
         # (a) the same two steps in one process at the global batch
@@ -6138,7 +6241,7 @@ def phase_parallel_path(dev, card: str) -> tuple:
 # then four (data 2 x model 2)
 TP_STEPS = 2  # (a) and (c): full finetuning steps; (b) stage-1 steps
 TP_FULL_LAYERS = 8  # (a): its depth (the script's time budget's)
-TP_DT_LAYERS = 8  # (b): stage 1's depth at T 8,192 (the time budget's)
+TP_DT_LAYERS = 4  # (b): stage 1's depth at T 8,192 (the time budget's)
 TP_DT_ROWS = 8192
 TP_SHORT_LAYERS = PAR_SHORT_LAYERS  # (c), held against phase 14 (b) at its depth, and (d)
 TP_PROMPT, TP_NEW = 1000, 16  # (e): prompt tokens, then greedy (fp32) or forced (bf16) steps
@@ -6386,7 +6489,7 @@ def _m2_stage1_job(job, per_device: int, model: int) -> dict:
 
 
 # phase 15 (f)-(h) and phase 14 (d): configurations whose refusal the port lifted
-TP_M2_LAYERS = 8  # (f): stage 1 with mixer mamba2 (2 SWA, 6 Mamba2 layers)
+TP_M2_LAYERS = 4  # (f): stage 1 with mixer mamba2 (1 SWA, 3 Mamba2 layers)
 TP_M2_ROWS = 2048  # (f): packed rows
 TP_M2_F32_LAYERS = 4  # (g): the student's cached path in fp32 (1 SWA, 3 Mamba2 layers)
 SLICED_LAYERS = 2  # (h) and phase 14 (d): one SWA and one DeltaNet layer at 3B width
@@ -6616,7 +6719,8 @@ def phase_tp_path(dev, card: str, full_peak_gb=None, par12=None) -> dict:
             got_l = {k: res["launches"][k] for k in expect}
             hold(got_l == expect, f"(a) rank {r} launches {got_l}, expected {expect}")
             add(res["launches"])
-        vs8 = (f"phase 8's one-process full_2048 peak at 36 layers {full_peak_gb:.2f} GB"
+        vs8 = (f"phase 8's one-process full_2048 peak at {TRAIN_LAYERS} layers "
+               f"{full_peak_gb:.2f} GB"
                if full_peak_gb
                else "phase 8's peak not measured in this run")
         print(f"[15 tp] (a) full finetuning through run_sft at 3B ({TP_FULL_LAYERS} "
@@ -7237,6 +7341,355 @@ def phase_pp_path(dev, card: str) -> dict:
     return total
 
 
+BOARD_LAYERS = 4  # phase 17: one hybrid period (3 DeltaNet layers and 1 SWA layer) at 3B width
+BOARD_CUTOFF = 1024  # phase 17: the board's LoRA run
+BOARD_STEPS = 3
+BOARD_CHAT_TOKENS = 16
+
+
+def _board_wait(port: int, path: str, done, what: str, limit_s: float = 600.0) -> dict:
+    """Poll a board route until `done(status)`; fails after `limit_s`."""
+    t0 = time.perf_counter()
+    while True:
+        code, st = _http(port, path=path)
+        require(code == 200, f"{what}: GET {path} answered {code}")
+        if done(st):
+            return st
+        require(time.perf_counter() - t0 < limit_s, f"{what}: not done after {limit_s:.0f} s: {st}")
+        time.sleep(0.1)
+
+
+def _board_losses(port: int, run: str) -> list:
+    code, log = _http(port, path=f"/api/log?run={run}")
+    require(code == 200, f"/api/log of {run} answered {code}: {log}")
+    return [(r["current_steps"], r["loss"]) for r in log["records"] if "loss" in r]
+
+
+def _script_module(name: str):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _board_image_uri(hw: int) -> str:
+    """data/images/red_square.png resized to hw x hw, as a PNG data URI."""
+    import base64
+    import io
+    import os
+
+    from PIL import Image
+
+    img = Image.open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "images",
+                                  "red_square.png")).convert("RGB").resize((hw, hw))
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def phase_board_path(dev, card: str) -> dict:
+    """Phase 17: the training web board (serve/webui.py) at 3B width and
+    BOARD_LAYERS deep, through its HTTP routes on a loopback port: LoRA SFT,
+    an aborted run, MCQ and predict evals, chat with text and a 448x448
+    image, export and reload; utils/profiling's StepTimer, mfu, trace and
+    weight-read floor; the three card-side script twins."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import infinitevl_tpu_torch.train.trainer as T
+    from infinitevl_tpu_torch.generation import Generator, decode_step
+    from infinitevl_tpu_torch.models.params import init_params, load_hf_checkpoint, param_count
+    from infinitevl_tpu_torch.models.state import init_decoder_state, state_bytes
+    from infinitevl_tpu_torch.serve.webui import create_board_server
+    from infinitevl_tpu_torch.train.step import tree_leaves_with_path
+    from infinitevl_tpu_torch.utils.checkpoint import export_hf_safetensors
+    from infinitevl_tpu_torch.utils.profiling import (
+        H100_PEAK_BF16,
+        StepTimer,
+        decode_hbm_floor_ms,
+        decode_weight_read_bytes,
+        mfu,
+        trace,
+    )
+
+    tag = "17 board"
+    cfg = _cut_3b(BOARD_LAYERS)
+    tc = cfg.text
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    root = tempfile.mkdtemp(prefix="ivl_board_")
+    server = None
+    real_train = T.Trainer.train
+    try:
+        _free()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))  # bf16
+        n_params = param_count(params)
+        # on disk at once: the checkpoint, the export, two LoRA train states
+        need = 3 * 2 * n_params
+        free = shutil.disk_usage(root).free
+        require(free >= need, f"phase 17 needs {need / 1e9:.1f} GB of disk under {root}, "
+                              f"{free / 1e9:.1f} GB are free")
+        ckpt = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        nbytes = export_hf_safetensors(params, cfg, ckpt)
+        print(f"[{tag}] 3B width, {BOARD_LAYERS} layers ({', '.join(tc.layer_types)}) with the "
+              f"ViT, bf16 from seed 0: {n_params / 1e9:.3f} B parameters exported as HF "
+              f"safetensors ({nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s on "
+              f"'{card}'", flush=True)
+        base = dict(model_name_or_path=ckpt, template="qwen2_vl", bf16=True,
+                    dataset_dir=data_dir)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t_phase = time.perf_counter()
+        server = create_board_server(host="127.0.0.1", port=0, runs_root=root)
+        require(server.runner.device.type == "cuda", f"the board's device is {server.runner.device}")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        port = server.server_address[1]
+        code, ds = _http(port, path=f"/api/datasets?dir={data_dir}")
+        require(code == 200 and "demo" in [d["name"] for d in ds["datasets"]], f"datasets {ds}")
+        code, prev = _http(port, path=f"/api/dataset?name=demo&dir={data_dir}&template=qwen2_vl")
+        require(code == 200 and prev["count"] > 0, f"dataset preview {prev}")
+
+        # 1. LoRA SFT through /api/train; the Trainer's steps timed by
+        # StepTimer, its base tree kept for the bit-equality check
+        timer = StepTimer(dev, warmup=1)
+        bases = []
+
+        def timed_train(self, batches, max_steps=None):
+            fn = self.step_fn
+            bases.append(self.extra[0] if self.extra else None)
+
+            def step(*a):
+                with timer:
+                    return fn(*a)
+
+            self.step_fn = step
+            return real_train(self, batches, max_steps)
+
+        T.Trainer.train = timed_train
+        run1 = os.path.join(root, "run1")
+        train_cfg = dict(base, stage="sft", finetuning_type="lora", dataset="demo",
+                         cutoff_len=BOARD_CUTOFF, per_device_train_batch_size=1,
+                         max_steps=BOARD_STEPS, logging_steps=1, save_steps=10**6,
+                         learning_rate=1e-4, output_dir=run1)
+        code, res = _http(port, train_cfg, path="/api/train")
+        require(code == 200 and res.get("ok"), f"/api/train: {code} {res}")
+        st = _board_wait(port, "/api/status", lambda s: not s["running"], "the LoRA run")
+        require(not st.get("error"), f"the LoRA run failed: {st}")
+        losses = _board_losses(port, run1)
+        require([s for s, _ in losses] == list(range(1, BOARD_STEPS + 1))
+                and all(np.isfinite([l for _, l in losses])),
+                f"the LoRA run's log: {losses} (one line a step, finite)")
+        require(len(timer.times_ms) == BOARD_STEPS, f"{len(timer.times_ms)} steps timed")
+        ours = dict(tree_leaves_with_path(params))
+        held = dict(tree_leaves_with_path(bases[0]))
+        require(held.keys() == {k for k in ours if k.startswith("text/")}  # a text-only run
+                and all(torch.equal(v, ours[k]) for k, v in held.items()),
+                "the LoRA run's base weights are not bit-equal to the checkpoint's")
+        summ = timer.summary()
+        tps = BOARD_CUTOFF / (summ["avg_ms"] / 1e3)
+        print(f"[{tag}] /api/train LoRA, cutoff {BOARD_CUTOFF}, {BOARD_STEPS} steps: losses "
+              f"{[round(l, 6) for _, l in losses]}, base bit-unchanged ({len(held)} leaves); "
+              f"StepTimer {[round(t, 1) for t in timer.times_ms]} ms, steps 2.. avg "
+              f"{summ['avg_ms']:.1f} ms, p50 {summ['p50_ms']:.1f}, {tps:.0f} positions/s, MFU "
+              f"{100 * mfu(3 * tps, cfg, H100_PEAK_BF16):.2f}% of {H100_PEAK_BF16 / 1e12:.0f} "
+              f"TFLOP/s (fwd + bwd = 3x the forward's matmul FLOPs, remat's recompute and "
+              f"the pads' share counted as work) on '{card}'", flush=True)
+        timer.print_summary(f"[{tag}] LoRA steps on '{card}'")
+        T.Trainer.train = real_train
+
+        # 2. a second run, aborted after its first logged step
+        run2 = os.path.join(root, "run2")
+        code, res = _http(port, dict(train_cfg, max_steps=1000, output_dir=run2),
+                          path="/api/train")
+        require(code == 200 and res.get("ok"), f"/api/train (run 2): {code} {res}")
+        _board_wait(port, "/api/status",
+                    lambda s: not s["running"] or bool(_board_losses(port, run2)), "run 2's step 1")
+        code, res = _http(port, {}, path="/api/abort")
+        require(code == 200 and res.get("ok"), f"/api/abort: {res}")
+        st = _board_wait(port, "/api/status", lambda s: not s["running"], "the aborted run")
+        steps2 = _board_losses(port, run2)
+        require(not st.get("error") and 1 <= len(steps2) < 1000,
+                f"the aborted run: status {st}, {len(steps2)} logged steps")
+        print(f"[{tag}] run 2 aborted through /api/abort after {len(steps2)} logged step(s); "
+              f"status {st.get('running')} with no error", flush=True)
+
+        # 3. MCQ eval, then predict mode
+        t0 = time.perf_counter()
+        code, res = _http(port, dict(base, dataset="mcq_demo", n_shot=2, eval_batch_size=2),
+                          path="/api/eval")
+        require(code == 200 and res.get("ok"), f"/api/eval: {res}")
+        st = _board_wait(port, "/api/eval/status", lambda s: s["state"] in ("done", "error"),
+                         "the MCQ eval")
+        acc = st.get("results", {}).get("accuracy")
+        require(st["state"] == "done" and acc is not None and 0.0 <= acc <= 1.0,
+                f"the MCQ eval: {st}")
+        t_mcq = time.perf_counter() - t0
+        code, res = _http(port, dict(base, mode="predict", dataset="demo", cutoff_len=BOARD_CUTOFF,
+                                     predict_samples=2, output_dir=os.path.join(root, "predict")),
+                          path="/api/eval")
+        require(code == 200 and res.get("ok"), f"/api/eval predict: {res}")
+        st = _board_wait(port, "/api/eval/status", lambda s: s["state"] in ("done", "error"),
+                         "the predict eval")
+        pr = st.get("results", {})
+        require(st["state"] == "done" and pr.get("samples", 0) > 0
+                and all(np.isfinite(v) for k, v in pr.items() if k != "samples"),
+                f"the predict eval: {st}")
+        print(f"[{tag}] /api/eval MCQ on mcq_demo: accuracy {acc} ({t_mcq:.1f} s); predict "
+              f"mode: {pr} on '{card}'", flush=True)
+
+        # 4. chat: a greedy text turn against Generator.generate, an image turn
+        code, res = _http(port, base, path="/api/chat/load")
+        require(code == 200 and res.get("ok"), f"/api/chat/load: {res}")
+        st = _board_wait(port, "/api/chat/status", lambda s: s["state"] in ("ready", "error"),
+                         "the chat model's load")
+        require(st["state"] == "ready", f"the chat model: {st}")
+        chat_gen = server.chatter.model.generator
+        calls, states = [], []
+        real_generate, real_prefill = chat_gen.generate, chat_gen.prefill_prompt
+
+        def generate(ids, *a, **kw):
+            out = real_generate(ids, *a, **kw)
+            calls.append((np.asarray(ids), out))
+            return out
+
+        def prefill_prompt(*a, **kw):
+            out = real_prefill(*a, **kw)
+            states.append(out[1])
+            return out
+
+        chat_gen.generate, chat_gen.prefill_prompt = generate, prefill_prompt
+        expect_bytes = _expected_state_bytes(tc)
+        turn = {"messages": [{"role": "user", "content": "Describe a red square in one line."}],
+                "max_new_tokens": BOARD_CHAT_TOKENS, "temperature": 0.0}
+        t0 = time.perf_counter()
+        code, res = _http(port, turn, path="/api/chat")
+        t_text = time.perf_counter() - t0
+        require(code == 200 and "content" in res, f"/api/chat: {res}")
+        require(len(calls) == 1 and state_bytes(states[-1]) == expect_bytes,
+                "the text turn's call or its state size")
+        ids, board_tokens = calls[0]
+        direct = Generator(params, cfg).generate(ids, max_new_tokens=BOARD_CHAT_TOKENS,
+                                                 temperature=0.0)
+        require(board_tokens.shape[1] >= 1 and np.array_equal(board_tokens, direct),
+                f"the board's greedy tokens {board_tokens.tolist()} differ from "
+                f"Generator.generate's {direct.tolist()}")
+        image_turn = {"messages": [{"role": "user", "content": "<image>What is in it?"}],
+                      "images": [_board_image_uri(SERVE_IMAGE_HW)],
+                      "max_new_tokens": BOARD_CHAT_TOKENS, "temperature": 0.0}
+        launches_e = _read_launches(())["segment_flash_attention"]
+        t0 = time.perf_counter()
+        code, res = _http(port, image_turn, path="/api/chat")
+        t_image = time.perf_counter() - t0
+        require(code == 200 and "content" in res, f"/api/chat with an image: {res}")
+        require(len(calls) == 2 and state_bytes(states[-1]) == expect_bytes,
+                "the image turn's call or its state size")
+        require(_read_launches(())["segment_flash_attention"] > launches_e,
+                "the image turn launched no E")
+        print(f"[{tag}] /api/chat greedy text turn: {board_tokens.shape[1]} tokens equal to "
+              f"Generator.generate's ({t_text:.2f} s); image turn at {SERVE_IMAGE_HW}x"
+              f"{SERVE_IMAGE_HW} (ViT: E and F) {calls[1][1].shape[1]} tokens ({t_image:.2f} s); "
+              f"state {expect_bytes / 1e6:.1f} MB in each turn on '{card}'", flush=True)
+
+        # 5. profiling: one chat turn under trace(), a decode step against its floor
+        logdir = os.path.join(root, "trace")
+        with trace(logdir):
+            torch.cuda._sleep(1000)  # a session can lose its first kernel (_device_profile)
+            code, res = _http(port, dict(turn, max_new_tokens=2), path="/api/chat")
+            torch.cuda.synchronize()
+        require(code == 200 and "content" in res, f"/api/chat under trace(): {res}")
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        require(len(files) == 1, f"trace() wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "spin_kernel" not in e.get("name", "")]
+        by_name = {}
+        for e in kernels:
+            key = next((k for k in ("swa_prefill", "swa_decode", "delta_step", "delta_chunk")
+                        if k in e["name"]), None)
+            if key:
+                by_name[key] = by_name.get(key, 0) + 1
+        require(len(kernels) > 0, "the trace holds no CUDA kernel event")
+        wbytes = decode_weight_read_bytes(params["text"])
+        floor = decode_hbm_floor_ms(wbytes, dtype_bytes=1)
+        state = init_decoder_state(tc, 1, torch.bfloat16)
+        tok = torch.as_tensor(ids[:, -1:], device=dev)
+        pos = torch.zeros((1, 1), dtype=torch.long, device=dev)
+        dtimer = StepTimer(dev, warmup=2)
+        for i in range(8):
+            with dtimer:
+                _, state = decode_step(params, cfg, tok, pos + i, state)
+        dstep = dtimer.summary()
+        require(dstep["p50_ms"] >= floor, f"a decode step ({dstep['p50_ms']:.3f} ms) is below "
+                                          f"its weight-read floor ({floor:.3f} ms)")
+        print(f"[{tag}] trace(): {len(kernels)} CUDA kernel events in {os.path.basename(files[0])} "
+              f"({by_name}); decode_weight_read_bytes {wbytes / 1e9:.3f} GB -> "
+              f"decode_hbm_floor_ms {floor:.3f} ms at 3.35 TB/s; a B 1 decode step (StepTimer, "
+              f"steps 3..8) p50 {dstep['p50_ms']:.3f} ms, avg {dstep['avg_ms']:.3f} ms on '{card}'",
+              flush=True)
+
+        # 6. export through the board, reloaded: the same greedy tokens
+        out = os.path.join(root, "export")
+        code, res = _http(port, dict(base, output_dir=out), path="/api/export")
+        require(code == 200 and "error" not in res, f"/api/export: {res}")
+        st = _board_wait(port, "/api/export/status", lambda s: s["state"] in ("done", "error"),
+                         "the export")
+        require(st["state"] == "done" and os.path.exists(os.path.join(out, "Modelfile")),
+                f"the export: {st}")
+        reloaded = load_hf_checkpoint(out, cfg)
+        again = Generator(reloaded, cfg).generate(ids, max_new_tokens=BOARD_CHAT_TOKENS,
+                                                  temperature=0.0)
+        require(np.array_equal(again, direct), "the reloaded export's greedy tokens differ")
+        del reloaded
+        print(f"[{tag}] /api/export reloaded: greedy tokens equal to the in-memory model's",
+              flush=True)
+        server.shutdown()
+        server.server_close()
+        server = None
+        del params, chat_gen
+        _free()
+
+        # 7. the card-side script twins, in this process
+        pb = _script_module("torch_prefill_bench").main(seqlen=2048, layers=BOARD_LAYERS,
+                                                         train=True)
+        cm = _script_module("torch_cal_mfu").main(measure=True, layers=BOARD_LAYERS)
+        rows = _script_module("torch_batch_infer").main(
+            ["--dataset", "demo", "--dataset_dir", data_dir, "--checkpoint", ckpt,
+             "--max_new_tokens", str(BOARD_CHAT_TOKENS),
+             "--save_name", os.path.join(root, "preds.jsonl")])
+        require(np.isfinite(pb["ms"]) and pb["ms"] > 0 and np.isfinite(cm["mfu"])
+                and len(rows) > 0, f"the script twins: {pb} {cm} {len(rows)} rows")
+        print(f"[{tag}] scripts: torch_prefill_bench LoRA step T 2048 {pb['ms']:.1f} ms; "
+              f"torch_cal_mfu --measure {cm['tokens_per_sec']:.0f} tok/s, MFU "
+              f"{100 * cm['mfu']:.2f}%; torch_batch_infer {len(rows)} rows on '{card}'",
+              flush=True)
+        torch.cuda.synchronize()
+        launches = _read_launches(("swa_ring_flash_attention", "swa_ring_flash_decode_stacked",
+                                   "delta_step_fused_stacked", "delta_rule_chunk_fused",
+                                   "segment_flash_attention", "window_flash_attention",
+                                   "swa_train_flash_attention"))
+        from infinitevl_tpu_torch.ops.swa_kernels import swa_train_flash_attention as h
+
+        launches["swa_train_flash_attention_bwd"] = h.launches_bwd
+        print(f"[{tag}] the phase's routes and scripts in {time.perf_counter() - t_phase:.1f} s; "
+              f"launches {launches} on '{card}'", flush=True)
+        return launches
+    finally:
+        T.Trainer.train = real_train
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     only = next((a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")), None)
@@ -7244,10 +7697,11 @@ def main(argv) -> int:
     if only and not (kernels_only or text_only or "--train-only" in argv
                      or "--dt-only" in argv or "--pref-only" in argv or "--long-only" in argv
                      or "--mamba2-only" in argv or "--parallel-only" in argv
-                     or "--pp-only" in argv):
+                     or "--pp-only" in argv or "--board-only" in argv):
         print("chip_smoke: --only= needs --kernels-only, --text-only, --train-only, "
-              "--dt-only, --pref-only, --long-only, --mamba2-only, --parallel-only or "
-              "--pp-only (the whole run reports every kernel)", file=sys.stderr)
+              "--dt-only, --pref-only, --long-only, --mamba2-only, --parallel-only, "
+              "--pp-only or --board-only (the whole run reports every kernel)",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available (torch.cuda.is_available() is "
@@ -7269,7 +7723,7 @@ def main(argv) -> int:
         clock[0] = now
 
     card = phase_env()
-    phase_build()
+    phase_build(start_bytecode_cache())
     res = phase_kernels(dev, only)
     took("phases 1-3")
     if kernels_only:
@@ -7301,21 +7755,22 @@ def main(argv) -> int:
         phase_mamba2_cross_device(dev)
         phase_mamba2_path(dev, card)
         return 0
-    if "--parallel-only" in argv:  # 4's parallel part, then phases 14 and 15 alone
-        phase_parallel_cross_device(dev)
+    if "--parallel-only" in argv:  # phases 14 (with 4's two-rank steps) and 15 alone
         par12 = phase_parallel_path(dev, card)[1]
         phase_tp_path(dev, card, par12=par12)
         return 0
     if "--pp-only" in argv:  # phase 16 alone
         phase_pp_path(dev, card)
         return 0
+    if "--board-only" in argv:  # phase 17 alone
+        phase_board_path(dev, card)
+        return 0
     phase_cross_device(dev)
     phase_train_cross_device(dev)
     phase_dt_cross_device(dev)
     phase_pref_cross_device(dev)
     phase_long_cross_device(dev)
-    phase_mamba2_cross_device(dev)
-    phase_parallel_cross_device(dev)
+    phase_mamba2_cross_device(dev)  # (its two-rank steps run in phase 14's world)
     took("phase 4")
 
     cfg = infinitevl_3b()
@@ -7358,6 +7813,9 @@ def main(argv) -> int:
     _free()
     pp_launches = phase_pp_path(dev, card)
     took("phase 16")
+    _free()
+    board_launches = phase_board_path(dev, card)
+    took("phase 17")
     rows = [
         ("swa_ring_flash_attention", "swa_ring_flash.cu",
          "infinitevl_tpu/ops/swa_pallas.py:113", res["a1"]),
@@ -7387,7 +7845,7 @@ def main(argv) -> int:
          + serve_launches[name] + train_launches[name] + vit_launches[name]
          + dt_launches.get(name, 0) + pref_launches.get(name, 0) + long_launches.get(name, 0)
          + m2_launches.get(name, 0) + par_launches.get(name, 0) + tp_launches.get(name, 0)
-         + pp_launches.get(name, 0),
+         + pp_launches.get(name, 0) + board_launches.get(name, 0),
          "launches_text_path": text_launches[name],
          "launches_stream_path": stream_launches[name],
          "launches_image_path": image_launches[name],
@@ -7403,6 +7861,7 @@ def main(argv) -> int:
          "launches_tp_path": tp_launches.get(name, 0),
          # summed over the ranks of phase 16's world
          "launches_pp_path": pp_launches.get(name, 0),
+         "launches_board_path": board_launches.get(name, 0),
          **({"launches_bwd": train_launches["swa_train_flash_attention_bwd"]
              + dt_launches["swa_train_flash_attention_bwd"]
              + pref_launches["swa_train_flash_attention_bwd"]
@@ -7410,7 +7869,8 @@ def main(argv) -> int:
              + m2_launches["swa_train_flash_attention_bwd"]
              + par_launches["swa_train_flash_attention_bwd"]
              + tp_launches["swa_train_flash_attention_bwd"]
-             + pp_launches["swa_train_flash_attention_bwd"]}
+             + pp_launches["swa_train_flash_attention_bwd"]
+             + board_launches["swa_train_flash_attention_bwd"]}
             if name == "swa_train_flash_attention" else {}), **r}
         for name, src, rep, r in rows
     ]}))

@@ -3,9 +3,9 @@ subcommands train / chat / api / eval / export / version.
 
 Every command runs on the CUDA card; the `cmd_*` functions take
 `device="cpu"` for the plain versions on the CPU (what the tests do).
-`board` (the training web board, serve/webui.py) and `bench` (the port has
-no benchmark yet) are not ported and raise by name. `train` runs one
-process per rank under torchrun:
+`board` serves the training web board (serve/webui.py) on the same
+device. `bench` (the port has no benchmark yet) raises by name. `train`
+runs one process per rank under torchrun:
   torchrun --nproc_per_node N -m infinitevl_tpu_torch.cli train recipe.yaml
 with `data_parallel` x `model_parallel` = N in the recipe."""
 
@@ -24,6 +24,7 @@ USAGE = """infinitevl-tpu (PyTorch + CUDA) CLI
   python -m infinitevl_tpu_torch.cli api <config.yaml>     # OpenAI-compatible server
   python -m infinitevl_tpu_torch.cli eval <config.yaml>    # MCQ evaluator
   python -m infinitevl_tpu_torch.cli export <config.yaml>  # HF safetensors export
+  python -m infinitevl_tpu_torch.cli board [port]          # training web board (7860)
   python -m infinitevl_tpu_torch.cli version
   (add --device cpu to run a command on the CPU's plain versions; under torchrun
    the ranks then join over gloo)
@@ -209,14 +210,16 @@ def main(argv=None) -> int:
     if cmd == "bench":
         raise NotImplementedError(
             "bench: the port has no benchmark yet (the JAX package's runs bench.py)")
+    device = None
+    if "--device" in rest[:-1]:  # the CPU's plain versions: --device cpu
+        i = rest.index("--device")
+        device, rest = rest[i + 1], rest[:i] + rest[i + 2:]
     if cmd == "board":
-        raise NotImplementedError(
-            "board: the training web board (serve/webui.py) is not ported to torch yet")
+        from .serve.webui import run_board
+
+        run_board(port=int(rest[0]) if rest else 7860, device=device)
+        return 0
     if cmd in ("train", "chat", "api", "eval", "export"):
-        device = None
-        if "--device" in rest[:-1]:  # the CPU's plain versions: --device cpu
-            i = rest.index("--device")
-            device, rest = rest[i + 1], rest[:i] + rest[i + 2:]
         if not rest:
             print(f"error: {cmd} requires a config.yaml path\n{USAGE}")
             return 2

@@ -41,11 +41,15 @@ def save_train_state(path: str, step: int, state: Dict[str, Any]) -> None:
     os.replace(tmp, final)
 
 
-def latest_step(path: str) -> Optional[int]:
+def list_steps(path: str) -> List[int]:
+    """The steps of the checkpoints under directory `path`, ascending."""
     if not os.path.isdir(path):
-        return None
-    steps = [int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(path)) if m]
-    return max(steps, default=None)
+        return []
+    return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(path)) if m)
+
+
+def latest_step(path: str) -> Optional[int]:
+    return max(list_steps(path), default=None)
 
 
 def _like(template, loaded):

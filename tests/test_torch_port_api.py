@@ -21,6 +21,7 @@ import pytest
 import torch
 from PIL import Image
 from torch_port_helpers import to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.data.processing as jproc
 import infinitevl_tpu.serve.api as japi

@@ -23,6 +23,7 @@ import pytest
 import torch
 import yaml
 from torch_port_helpers import err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.cli as jcli
 import infinitevl_tpu.eval.mcq as jmcq

@@ -23,6 +23,7 @@ from infinitevl_tpu.ops.delta_pallas import delta_rule_chunk_fused as j_delta_ch
 from infinitevl_tpu_torch.ops import delta_kernels as dk
 from infinitevl_tpu_torch.ops.delta_rule import delta_rule_chunk
 from torch_port_helpers import err_ratio
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.models.convert as jconvert
 import infinitevl_tpu.train.distill as jdistill

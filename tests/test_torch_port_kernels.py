@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 from infinitevl_tpu.models.quant import int4_matmul as j_int4_matmul
 from infinitevl_tpu.models.quant import quantize_kernel_int4 as j_quantize_int4

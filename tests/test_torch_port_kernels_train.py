@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import err_ratio
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.ops.delta_rule as jdr
 import infinitevl_tpu.ops.swa as jswa

@@ -7,7 +7,8 @@ within 1e-4 (err_ratio). Rows: one sequence, one padded at its tail, and
 packed segments, one of which spans a chunk edge; T a multiple of the
 chunk and T with a pad. Then the dispatch on and off against the port's
 full-T path, and SFT steps at a cutoff above delta_seq_chunk_t against
-JAX's trainer."""
+JAX's trainer. The conv with the history's ids, the chunked MLP and the
+layer chunk from a carry are in test_torch_port_longctx_layers.py."""
 
 import dataclasses
 import json
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import carry_train_state, err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.models.text as jtext
 import infinitevl_tpu.train.step as jstep
@@ -30,9 +32,7 @@ import infinitevl_tpu_torch.train.trainer as ttrainer
 from infinitevl_tpu.config import LINEAR, SLIDING, tiny_config
 from infinitevl_tpu.models.params import init_delta_layer, init_params, init_swa_layer
 from infinitevl_tpu.ops.rope import mrope_cos_sin as jcos_sin
-from infinitevl_tpu.ops.short_conv import causal_conv1d as jconv
 from infinitevl_tpu_torch.models.params import from_jax_numpy
-from infinitevl_tpu_torch.ops.short_conv import causal_conv1d as tconv
 from infinitevl_tpu_torch.train.step import tree_leaves_with_path
 
 torch.set_num_threads(2)
@@ -152,37 +152,6 @@ def _compare(jfn, tfn, p_np, args_np, mask=None):
     return y_err, g_err
 
 
-def test_causal_conv1d_with_history_segment_ids_matches_jax():
-    """A segment that continues from the history keeps its taps; one that
-    starts on the edge, and the -1 history, see none."""
-    rng = np.random.RandomState(0)
-    T, D, Wc = 12, 24, 4
-    x = rng.standard_normal((B, T, D)).astype(np.float32)
-    w = rng.standard_normal((Wc, D)).astype(np.float32)
-    b = rng.standard_normal((D,)).astype(np.float32)
-    hist = rng.standard_normal((B, Wc, D)).astype(np.float32)
-    seg = np.asarray([[3] * 5 + [4] * 7, [9] * T], np.int32)
-    hseg = np.asarray([[-1, 3, 3], [8, 8, 8]], np.int32)
-    want = jconv(x, w, b, initial_state=hist, segment_ids=seg,
-                 initial_state_segment_ids=hseg)
-    got = tconv(*(torch.from_numpy(a) for a in (x, w, b)), initial_state=torch.from_numpy(hist),
-                segment_ids=torch.from_numpy(seg),
-                initial_state_segment_ids=torch.from_numpy(hseg))
-    assert err_ratio(got, want) <= OUT_TOL
-    # without history ids the history is invisible, as before
-    plain = tconv(*(torch.from_numpy(a) for a in (x, w, b)),
-                  initial_state=torch.from_numpy(hist), segment_ids=torch.from_numpy(seg))
-    assert err_ratio(plain, jconv(x, w, b, initial_state=hist, segment_ids=seg)) <= OUT_TOL
-    assert not torch.allclose(plain[:, :3], got[:, :3])
-
-
-def test_mlp_forward_chunked_matches_jax():
-    p = _layer(LINEAR)["mlp"]
-    y_err, g_err = _compare(lambda p, x: jtext.mlp_forward_chunked(p, x, 16),
-                            lambda p, x: ttext.mlp_forward_chunked(p, x, 16), p, [_x(64)])
-    assert y_err <= OUT_TOL and g_err <= GRAD_TOL, (y_err, g_err)
-
-
 CASES = [(T, kind) for T in (64, 53) for kind in ("one", "tail", "packed")]
 
 
@@ -209,53 +178,6 @@ def test_delta_forward_seq_chunked_matches_jax(T, kind):
         lambda p, x, sg: ttext.delta_forward_seq_chunked(p, TCFG, x, sg, CHUNK,
                                                          tail_pads_only=tail),
         _layer(LINEAR), [_x(T), seg], mask=(seg != 0) if tail else None)
-    assert y_err <= OUT_TOL and g_err <= GRAD_TOL, (y_err, g_err)
-
-
-def _carry(role, seed):
-    """A nonzero carry, as a chunk past the first hands on: random K/V or
-    state and tails, with the segment ids of a packed row whose segment 2
-    continues into the next call."""
-    rng = np.random.RandomState(seed)
-    jc = jtext.init_layer_seq_carry(_layer(role), JCFG, role, B, jnp.float32)
-    out = []
-    for t in jc:
-        t = np.asarray(t)
-        if t.dtype == np.int32:
-            t = np.full(t.shape, 2, np.int32)
-            t[1] = 5
-            if role == LINEAR:
-                t[0, 0] = 1
-        else:
-            t = (rng.standard_normal(t.shape) * (0.1 if t.ndim == 4 and role == LINEAR
-                                                  else 0.3)).astype(np.float32)
-        out.append(t)
-    return out
-
-
-@pytest.mark.parametrize("role", [SLIDING, LINEAR])
-def test_decoder_layer_chunk_forward_matches_jax(role):
-    """One call of the carry form from a nonzero carry over a packed row
-    whose segment crosses the call's edge: the output, the carry out and
-    the gradients of the input, the carry in (the state's included) and
-    every leaf."""
-    T = 32
-    seg = np.asarray([[2] * 10 + [3] * 22, [5] * T], np.int32)
-    cos, sin = _cos_sin(T)
-    carry = _carry(role, 3)
-    nc = len(carry)
-
-    def run(mod, cfg):
-        def f(p, x, c, s, sg, *cr):
-            y, out = mod.decoder_layer_chunk_forward(p, cfg, role, x, c, s, sg, tuple(cr))
-            lib = jnp if mod is jtext else torch
-            floats = [t for t in out if t.dtype == lib.float32]
-            return lib.concatenate([y.reshape(-1)] + [t.reshape(-1) for t in floats])
-        return f
-
-    y_err, g_err = _compare(run(jtext, JCFG), run(ttext, TCFG), _layer(role),
-                            [_x(T), cos, sin, seg, *carry])
-    assert nc == (3 if role == SLIDING else 5)
     assert y_err <= OUT_TOL and g_err <= GRAD_TOL, (y_err, g_err)
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import carry_train_state, err_ratio, to_port_config, tree_err
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.models.quant as jquant
 import infinitevl_tpu.train.lora as jlora

@@ -1,7 +1,7 @@
 """The Mamba2 conversion mixer in the port against the JAX package on the
-CPU in fp32: the SSD scan (chunk form on aligned, unaligned and packed
-rows and from a nonzero state, the decode step, the recurrence, the
-gradient of every input against jax.grad), `mamba2_forward` inside the
+CPU in fp32: the SSD scan (the decode step, the recurrence, the gradient
+of every input against jax.grad; the chunk form on aligned, unaligned and
+packed rows and from a nonzero state is in test_torch_port_mamba2_scan.py), `mamba2_forward` inside the
 hybrid model of tests/test_mamba2.py (stateless with packed rows, cached
 chunked prefill in two calls, decode, StreamingEngine), the decoder state's
 mamba keys, the conversion's weight copy, the handoff filter and the HF
@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.hparams as jhparams
 import infinitevl_tpu.models.convert as jconvert
@@ -100,48 +101,6 @@ def _packed(B, T):
 
 
 # ---------------------------------------------------------------- ops
-
-
-@pytest.mark.parametrize("T,packed,init", [(24, False, False), (21, False, False),
-                                           (24, True, False), (21, False, True),
-                                           (21, True, True)],
-                         ids=["aligned", "unaligned", "packed", "initial_state",
-                              "packed_initial_state"])
-def test_chunk_scan_matches_jax(T, packed, init):
-    x, dt, A, b, c, h0 = _scan_inputs(T=T)
-    seg = _packed(2, T) if packed else None
-    want_y, want_h = jm2.mamba2_chunk_scan(
-        *map(jnp.asarray, (x, dt, A, b, c)), initial_state=jnp.asarray(h0) if init else None,
-        chunk_size=8, segment_ids=None if seg is None else jnp.asarray(seg))
-    y, h = tm2.mamba2_chunk_scan(
-        *map(torch.from_numpy, (x, dt, A, b, c)),
-        initial_state=torch.from_numpy(h0) if init else None, chunk_size=8,
-        segment_ids=None if seg is None else torch.from_numpy(seg))
-    assert y.shape == (2, T, 2, 8) and h.dtype == torch.float32
-    assert err_ratio(y, want_y) < OP_TOL and err_ratio(h, want_h) < OP_TOL
-    # chunk-size invariant, and the recurrence's numbers (no segments)
-    if not packed:
-        y4, _ = tm2.mamba2_chunk_scan(*map(torch.from_numpy, (x, dt, A, b, c)),
-                                      initial_state=torch.from_numpy(h0) if init else None,
-                                      chunk_size=4)
-        yr, hr = tm2.mamba2_recurrent(*map(torch.from_numpy, (x, dt, A, b, c)),
-                                      initial_state=torch.from_numpy(h0) if init else None)
-        assert err_ratio(y4, y) < OP_TOL and err_ratio(yr, y) < OP_TOL
-        assert err_ratio(hr, h) < OP_TOL
-
-
-def test_chunk_scan_bf16_inputs_accumulate_in_fp32():
-    x, dt, A, b, c, _ = _scan_inputs(T=40)
-    bf = [torch.from_numpy(t).bfloat16() for t in (x, b, c)]
-    y, h = tm2.mamba2_chunk_scan(bf[0], torch.from_numpy(dt), torch.from_numpy(A), bf[1], bf[2],
-                                 chunk_size=16)
-    want_y, want_h = jm2.mamba2_chunk_scan(
-        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in bf[:1]),
-        jnp.asarray(dt), jnp.asarray(A),
-        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in bf[1:]), chunk_size=16)
-    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
-    assert err_ratio(h, np.asarray(want_h)) < OP_TOL
-    assert err_ratio(y.float(), np.asarray(want_y.astype(jnp.float32))) < 1e-2  # y rounded
 
 
 def test_step_and_recurrent_match_jax():

@@ -21,6 +21,7 @@ from infinitevl_tpu import native as jnative
 from infinitevl_tpu.config import tiny_config
 from infinitevl_tpu_torch import native as tnative
 from torch_port_helpers import to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 DATA_DIR = "data"
 

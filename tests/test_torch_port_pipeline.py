@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.parallel.pipeline as jpp
 import infinitevl_tpu.parallel.pipeline_seq as jseq

@@ -20,6 +20,7 @@ import pytest
 import torch
 import yaml
 from torch_port_helpers import carry_train_state, err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.train.ppo as jppo
 import infinitevl_tpu.train.step as jstep

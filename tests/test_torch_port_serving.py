@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.speculative as jspec
 import infinitevl_tpu_torch.speculative as tspec

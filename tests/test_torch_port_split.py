@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import err_ratio
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 from infinitevl_tpu.ops.swa_pallas import swa_ring_flash_attention as j_ring_prefill
 from infinitevl_tpu_torch.ops.swa import swa_cached_attention_split

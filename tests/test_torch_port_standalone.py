@@ -55,7 +55,8 @@ for needed in ("config", "device", "streaming", "generation", "data.processing",
                "eval.text_metrics", "ops.swa_kernels", "cli", "eval.mcq",
                "models.convert", "train.distill", "utils.safetensors_io", "train.dpo",
                "train.ppo", "train.optim", "ops.mamba2", "parallel.sharding",
-               "parallel.launch", "data.mm_plugin", "native"):
+               "parallel.launch", "data.mm_plugin", "native", "serve.webui",
+               "utils.profiling"):
     assert pkg.__name__ + "." + needed in names, needed
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -161,63 +162,127 @@ print("FOREIGN_MODULES", bad)
 """
 
 
-def test_mm_plugin_and_native_load_nothing_of_jax():
+BOARD_AND_SCRIPTS_PROGRAM = r"""
+import importlib.util, json, sys, threading, urllib.request
+import torch
+from infinitevl_tpu_torch.serve.webui import create_board_server
+from infinitevl_tpu_torch.utils import profiling
+torch.set_num_threads(1)
+server = create_board_server(host="127.0.0.1", port=0, runs_root="/nonexistent", device="cpu")
+threading.Thread(target=server.serve_forever, daemon=True).start()
+url = f"http://127.0.0.1:{server.server_address[1]}/api/status"
+assert json.loads(urllib.request.urlopen(url).read()) == {"running": False}
+server.shutdown()
+twins = {}
+for name in ("cal_flops", "cal_mfu", "cal_ppl", "llama_pro", "batch_infer", "length_cdf",
+             "prefill_bench", "eval_bleu_rouge"):
+    spec = importlib.util.spec_from_file_location(name, f"scripts/torch_{name}.py")
+    twins["torch_" + name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twins["torch_" + name])
+    assert callable(twins["torch_" + name].main), name
+twins["torch_cal_flops"].main()
+twins["torch_cal_mfu"].main(tokens_per_sec=4294.0)
+twins["torch_length_cdf"].main("examples/sft_tiny.yaml")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "infinitevl_tpu"))
+print("FOREIGN_MODULES", bad)
+"""
+
+
+# every program in its own interpreter, all started at once (they share
+# nothing); each test waits for its own and reads what it printed
+PROGRAMS = {
+    "board_and_scripts": (BOARD_AND_SCRIPTS_PROGRAM, {}),
+    "mm_native": (MM_NATIVE_PROGRAM, {}),
+    "preference": (PREFERENCE_PROGRAM, {}),
+    "checkpoint": (CHECKPOINT_PROGRAM, {}),
+    "training": (TRAINING_PROGRAM, {"CUDA_VISIBLE_DEVICES": ""}),
+    "no_jax": (NO_JAX_PROGRAM, {}),
+    "nothing_of_jax": (NOTHING_OF_JAX_PROGRAM, {}),
+}
+
+
+@pytest.fixture(scope="module")
+def started(tmp_path_factory):
+    out = tmp_path_factory.mktemp("programs")
+    procs = {}
+    for name, (program, env) in PROGRAMS.items():
+        with open(out / f"{name}.out", "w") as so, open(out / f"{name}.err", "w") as se:
+            procs[name] = subprocess.Popen([sys.executable, "-c", program], cwd=REPO,
+                                           env={**ENV, **env}, stdout=so, stderr=se, text=True)
+    yield out, procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _finished(started, name):
+    """(exit code, stdout, stderr) of program `name`."""
+    out, procs = started
+    code = procs[name].wait(timeout=300)
+    return code, (out / f"{name}.out").read_text(), (out / f"{name}.err").read_text()
+
+
+def test_board_profiling_and_script_twins_load_nothing_of_jax(started):
+    """`serve/webui`, `utils/profiling` and the eight scripts/torch_*.py twins,
+    imported and run (the board answering on the CPU, cal_flops, cal_mfu,
+    length_cdf), load neither jax nor the JAX package."""
+    code, out, err = _finished(started, "board_and_scripts")
+    assert code == 0, err
+    assert "FOREIGN_MODULES []" in out, out
+
+
+def test_mm_plugin_and_native_load_nothing_of_jax(started):
     """The paligemma / gemma3 encodings and the native preprocessing load
     neither jax nor the JAX package."""
-    proc = subprocess.run([sys.executable, "-c", MM_NATIVE_PROGRAM], cwd=REPO, env=ENV,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+    code, out, err = _finished(started, "mm_native")
+    assert code == 0, err
+    assert "FOREIGN_MODULES []" in out, out
 
 
-def test_preference_stages_load_nothing_of_jax():
+def test_preference_stages_load_nothing_of_jax(started):
     """rm, dpo, kto and ppo (from the rm checkpoint) through run_exp load
     neither jax, optax nor the JAX package."""
-    proc = subprocess.run([sys.executable, "-c", PREFERENCE_PROGRAM], cwd=REPO, env=ENV,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+    code, out, err = _finished(started, "preference")
+    assert code == 0, err
+    assert "FOREIGN_MODULES []" in out, out
 
 
-def test_checkpoint_and_distillation_path_loads_no_safetensors_or_transformers():
+def test_checkpoint_and_distillation_path_loads_no_safetensors_or_transformers(started):
     """Export, load, a distillation step and `cli export` need neither the
     `safetensors` nor the `transformers` package (the card's machine has
     neither), nor anything of JAX."""
-    proc = subprocess.run([sys.executable, "-c", CHECKPOINT_PROGRAM], cwd=REPO, env=ENV,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+    code, out, err = _finished(started, "checkpoint")
+    assert code == 0, err
+    assert "FOREIGN_MODULES []" in out, out
 
 
-def test_training_entry_point_loads_nothing_of_jax_and_defaults_to_the_card():
+def test_training_entry_point_loads_nothing_of_jax_and_defaults_to_the_card(started):
     """`import infinitevl_tpu_torch.train.trainer` and a run_sft call load
     neither jax, optax nor the JAX package; with no device named, run_sft
     asks for the CUDA card (and raises where there is none)."""
-    proc = subprocess.run([sys.executable, "-c", TRAINING_PROGRAM], cwd=REPO,
-                          env={**ENV, "CUDA_VISIBLE_DEVICES": ""},
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+    code, out, err = _finished(started, "training")
+    assert code == 0, err
+    assert "FOREIGN_MODULES []" in out, out
 
 
-def test_port_never_loads_jax():
-    proc = subprocess.run([sys.executable, "-c", NO_JAX_PROGRAM], cwd=REPO, env=ENV,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+def test_port_never_loads_jax(started):
+    code, out, err = _finished(started, "no_jax")
+    assert code == 0, err
+    assert "JAX_MODULES []" in out, out
 
 
-def test_importing_the_port_loads_nothing_of_jax_or_the_jax_package():
-    proc = subprocess.run([sys.executable, "-c", NOTHING_OF_JAX_PROGRAM], cwd=REPO,
-                          env=ENV, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+def test_importing_the_port_loads_nothing_of_jax_or_the_jax_package(started):
+    code, out, err = _finished(started, "nothing_of_jax")
+    assert code == 0, err
+    assert "FOREIGN_MODULES []" in out, out
 
 
 def test_no_jax_import_lines_in_the_port():
     pattern = re.compile(
         r"^\s*(import jax|from jax|import infinitevl_tpu\b|from infinitevl_tpu[. ])", re.M)
-    files = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+    files = [*PKG.rglob("*.py"), REPO / "chip_smoke.py", *REPO.glob("scripts/torch_*.py")]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert offenders == []
 

@@ -14,6 +14,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.data.loader as jloader
 import infinitevl_tpu.hparams as jhparams

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 from infinitevl_tpu.config import VisionConfig, tiny_config
 from infinitevl_tpu.models.params import init_params

@@ -27,6 +27,7 @@ same numpy weights on both sides.
 - the options that do not run under model_parallel > 1 raise by name."""
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ import pytest
 import torch
 import torch_port_ranks as ranks
 from torch_port_helpers import err_ratio, to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu_torch.parallel.sharding as tsh
 from infinitevl_tpu.config import VisionConfig, infinitevl_3b, tiny_config
@@ -180,8 +182,9 @@ def _weights(cfg):
 
 @pytest.fixture(scope="module")
 def world():
-    """JAX's sharded forwards on each mesh, then two launches of the port's
-    ranks: two for (1, 2), four for (2, 2) and (1, 4)."""
+    """Two launches of the port's ranks, two for (1, 2) and four for (2, 2)
+    and (1, 4), on a thread while JAX's sharded forwards run on each mesh
+    (the ranks need only the inputs)."""
     cfg = _cfg()
     tcfg = to_port_config(cfg)
     params = _weights(cfg)
@@ -208,43 +211,49 @@ def world():
     grad = jax.jit(jax.grad(loss))
     lora_grad = jax.jit(jax.grad(lambda l, p: loss(apply_lora(p, l, 16.0, LORA_RANK))))
     cached = jax.jit(lambda p, ids, pos, st: jforward(p, cfg, ids, pos, st, logits_to_keep=1))
-    want = {}
-    for data, model in MESHES:
-        mesh = create_mesh(data=data, model=model)
-        sp = shard_params(jax.tree.map(jnp.asarray, params), mesh, param_mode="tp")
-        h, lg = fwd(sp, jnp.asarray(ids), jnp.asarray(pos))
-        want[(data, model)] = {"hidden": np.asarray(h), "logits": np.asarray(lg)}
-        if data == 1:
-            want[(data, model)]["vit"] = np.asarray(vit(sp, jnp.asarray(pixels)))
-        if (data, model) == (1, 2):
-            flat = jax.tree_util.tree_flatten_with_path(grad({"text": sp["text"]}))[0]
-            want[(1, 2)]["grads"] = {_path_str(k): np.asarray(v) for k, v in flat}
-            flat = jax.tree_util.tree_flatten_with_path(
-                lora_grad(jax.tree.map(jnp.asarray, lora), {"text": sp["text"]}))[0]
-            want[(1, 2)]["lora_grads"] = {_path_str(k): np.asarray(v) for k, v in flat}
-        if (data, model) == (1, 2):
-            st = shard_state(jinit_state(cfg.text, B, jnp.float32), mesh)
-            lg, st = cached(sp, jnp.asarray(ids), jnp.asarray(pos), st)
-            steps, tokens = [np.asarray(lg[:, 0])], []
-            for _ in range(DECODE_STEPS):
-                tok = jnp.argmax(lg[:, 0], axis=-1)[:, None]
-                tokens.append(np.asarray(tok))
-                at = jnp.full((3, B, 1), int(st["cum_len"]))
-                lg, st = cached(sp, tok, at, st)
-                steps.append(np.asarray(lg[:, 0]))
-            want[(1, 2)].update(steps=steps, tokens=tokens,
-                                state={k: np.asarray(v) for k, v in st.items()})
 
     def job(mesh, **kw):
         return dict(mesh=mesh, cfg=tcfg, params=params, ids=ids, pos=pos, **kw)
 
-    two = spawn_ranks(ranks.tp_forwards, 2, ([job((1, 2), pixels=pixels, grid=GRID,
-                                                  cached=DECODE_STEPS, labels=labels,
-                                                  lora=lora, lora_rank=LORA_RANK)],),
-                      timeout=DEADLINE, threads=1)
-    four = spawn_ranks(ranks.tp_forwards, 4, ([job((2, 2)), job((1, 4), pixels=pixels,
-                                                               grid=GRID)],),
-                       timeout=DEADLINE, threads=1)
+    def launch():
+        two = spawn_ranks(ranks.tp_forwards, 2, ([job((1, 2), pixels=pixels, grid=GRID,
+                                                      cached=DECODE_STEPS, labels=labels,
+                                                      lora=lora, lora_rank=LORA_RANK)],),
+                          timeout=DEADLINE, threads=1)
+        four = spawn_ranks(ranks.tp_forwards, 4, ([job((2, 2)), job((1, 4), pixels=pixels,
+                                                                   grid=GRID)],),
+                           timeout=DEADLINE, threads=1)
+        return two, four
+
+    with ThreadPoolExecutor(1) as pool:
+        launched = pool.submit(launch)
+        want = {}
+        for data, model in MESHES:
+            mesh = create_mesh(data=data, model=model)
+            sp = shard_params(jax.tree.map(jnp.asarray, params), mesh, param_mode="tp")
+            h, lg = fwd(sp, jnp.asarray(ids), jnp.asarray(pos))
+            want[(data, model)] = {"hidden": np.asarray(h), "logits": np.asarray(lg)}
+            if data == 1:
+                want[(data, model)]["vit"] = np.asarray(vit(sp, jnp.asarray(pixels)))
+            if (data, model) == (1, 2):
+                flat = jax.tree_util.tree_flatten_with_path(grad({"text": sp["text"]}))[0]
+                want[(1, 2)]["grads"] = {_path_str(k): np.asarray(v) for k, v in flat}
+                flat = jax.tree_util.tree_flatten_with_path(
+                    lora_grad(jax.tree.map(jnp.asarray, lora), {"text": sp["text"]}))[0]
+                want[(1, 2)]["lora_grads"] = {_path_str(k): np.asarray(v) for k, v in flat}
+            if (data, model) == (1, 2):
+                st = shard_state(jinit_state(cfg.text, B, jnp.float32), mesh)
+                lg, st = cached(sp, jnp.asarray(ids), jnp.asarray(pos), st)
+                steps, tokens = [np.asarray(lg[:, 0])], []
+                for _ in range(DECODE_STEPS):
+                    tok = jnp.argmax(lg[:, 0], axis=-1)[:, None]
+                    tokens.append(np.asarray(tok))
+                    at = jnp.full((3, B, 1), int(st["cum_len"]))
+                    lg, st = cached(sp, tok, at, st)
+                    steps.append(np.asarray(lg[:, 0]))
+                want[(1, 2)].update(steps=steps, tokens=tokens,
+                                    state={k: np.asarray(v) for k, v in st.items()})
+        two, four = launched.result()
     got = {(1, 2): [r[0] for r in two], (2, 2): [r[0] for r in four],
            (1, 4): [r[1] for r in four]}
     return dict(want=want, got=got, cfg=cfg)

@@ -34,6 +34,7 @@ import pytest
 import torch
 import torch_port_ranks as ranks
 from torch_port_helpers import err_ratio, freeze_inv_freq
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.train.lora as jlora
 import infinitevl_tpu.train.trainer as jtrainer

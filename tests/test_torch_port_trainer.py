@@ -1,29 +1,25 @@
 """The training slice as a whole against the JAX package on the CPU in
 fp32: the port's dataset pipeline and collators (batches equal the JAX
-collators' arrays exactly), `Trainer` loss curves from JAX-initialised
-weights carried across (<= 1e-4 of JAX's), `run_sft` on the two tiny
-recipes end to end, resume (bit-equal continuation), a full finetune
-read back from its HF export bit-equal, and the options and commands of
-later slices, which raise by name."""
+collators' arrays exactly), `run_sft` on the two tiny recipes end to end,
+resume (bit-equal continuation), a full finetune read back from its HF
+export bit-equal, `cli board`, and the options and commands of later
+slices, which raise by name. The recipes' parsing and the `Trainer` loss
+curves are in test_torch_port_trainer_curves.py."""
 
 import glob
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import carry_train_state, to_port_config
+from torch_port_helpers import to_port_config
+from torch_port_helpers import jax_compile_cache  # noqa: F401 (autouse)
 
 import infinitevl_tpu.hparams as jhparams
-import infinitevl_tpu.train.step as jstep
 import infinitevl_tpu.train.trainer as jtrainer
 import infinitevl_tpu_torch.hparams as thparams
-import infinitevl_tpu_torch.train.step as tstep
 import infinitevl_tpu_torch.train.trainer as ttrainer
-from infinitevl_tpu.models.params import init_params
 from infinitevl_tpu_torch.train.step import tree_leaves_with_path
 from infinitevl_tpu_torch.utils.checkpoint import latest_step, restore_train_state
 
@@ -43,18 +39,6 @@ def _args(mod, name, tmp_path=None, **over):
                      if hasattr(g, key))
         setattr(group, key, val)
     return args
-
-
-@pytest.mark.parametrize("path", YAMLS, ids=[os.path.basename(p) for p in YAMLS])
-def test_every_example_yaml_parses_as_in_jax(path):
-    import dataclasses
-
-    want, got = jhparams.load_yaml_args(path), thparams.load_yaml_args(path)
-    for group in ("model", "data", "train", "finetune", "gen", "eval"):
-        assert dataclasses.asdict(getattr(got, group)) == dataclasses.asdict(
-            getattr(want, group)), group
-    with pytest.raises(ValueError, match="unknown config keys"):
-        thparams.parse_args({"no_such_key": 1})
 
 
 def _same_batches(jbatches, tbatches, n):
@@ -99,55 +83,6 @@ def test_multimodal_dataset_and_collate_equal_jax():
     assert len(jd) == len(td) and ttrainer.is_multimodal(td)
     _same_batches(jtrainer.collate_mm(jd, jcfg, 1, 256, seed=0, epochs=1.0),
                   ttrainer.collate_mm(td, tcfg, 1, 256, seed=0, epochs=1.0), len(td))
-
-
-def _jax_losses(args, cfg, data, params, mm, n_steps):
-    tx = jtrainer._make_tx(args, n_steps)
-    state = tx.init(params)
-    if mm:
-        step = jax.jit(jstep.make_mm_sft_train_step(cfg, tx), static_argnums=(3, 4))
-    else:
-        step = jax.jit(jstep.make_sft_train_step(cfg.text, tx))
-    losses = []
-    for item in jtrainer._batches(args, data, cfg, mm):
-        if len(losses) == n_steps:
-            break
-        batch, rest = (item[0], item[1:]) if isinstance(item, tuple) else (item, ())
-        batch.pop("_n_tokens")
-        params, state, loss = step(params, state, batch, *rest)
-        losses.append(float(loss))
-    return losses
-
-
-@pytest.mark.parametrize("name,n_steps", [("sft_tiny.yaml", 8), ("mm_sft_tiny.yaml", 4)])
-def test_trainer_loss_curve_matches_jax(tmp_path, name, n_steps):
-    """`Trainer` + step over the batches the port's own pipeline makes,
-    from JAX-initialised weights carried across: every step's loss within
-    1e-4 of the JAX step's (packed text rows; image and video batches)."""
-    ja = _args(jhparams, name, num_train_epochs=8.0, max_steps=n_steps)
-    ta = _args(thparams, name, tmp_path, num_train_epochs=8.0, max_steps=n_steps,
-               logging_steps=1)
-    jcfg = jtrainer.build_config(ja)
-    tcfg = ttrainer.build_config(ta)
-    jdata = jtrainer.build_dataset(ja, cfg=jcfg)
-    tdata = ttrainer.build_dataset(ta, cfg=tcfg)
-    mm = ttrainer.is_multimodal(tdata)
-    jp = init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
-    if not mm:
-        jp = {"text": jp["text"]}
-    want = _jax_losses(ja, jcfg, jdata, jp, mm, n_steps)
-    tp, _ = carry_train_state(jp)
-    tx = ttrainer._make_tx(ta, n_steps)
-    step = (tstep.make_mm_sft_train_step(tcfg, tx) if mm
-            else tstep.make_sft_train_step(tcfg.text, tx))
-    trainer = ttrainer.Trainer(step, tp, tx.init(tp), str(tmp_path), logging_steps=1,
-                               save_steps=1000)
-    trainer.train(ttrainer._batches(ta, tdata, tcfg, mm), max_steps=n_steps)
-    got = [r["loss"] for r in trainer.log.records if "loss" in r]
-    assert len(got) == len(want) == n_steps
-    assert max(abs(a - b) / b for a, b in zip(got, want)) < 1e-4, (got, want)
-    assert all(r["tokens_per_sec"] > 0 for r in trainer.log.records if "loss" in r)
-    assert latest_step(os.path.join(str(tmp_path), "checkpoints")) == n_steps
 
 
 @pytest.mark.parametrize("name,over", [
@@ -275,13 +210,12 @@ def test_full_finetune_survives_the_hf_export(tmp_path):
 
 
 @pytest.mark.parametrize("argv,env,match", [
-    (["board"], {}, "serve/webui.py"),
     (["bench"], {}, "no benchmark"),
     # ported since (parallel/): `train` joins the launcher's world, and a world
     # above one without its address raises by name instead of training alone
     (["train", "sft_tiny.yaml"], {"WORLD_SIZE": "2"}, (ValueError, "MASTER_ADDR")),
     (["train", "sft_tiny.yaml"], {"NUM_PROCESSES": "4"}, (ValueError, "COORDINATOR_ADDRESS")),
-], ids=["board", "bench", "world_size", "num_processes"])
+], ids=["bench", "world_size", "num_processes"])
 def test_cli_commands_of_later_slices_raise(monkeypatch, argv, env, match):
     from infinitevl_tpu_torch.cli import main
 
@@ -294,6 +228,45 @@ def test_cli_commands_of_later_slices_raise(monkeypatch, argv, env, match):
     error, match = match if isinstance(match, tuple) else (NotImplementedError, match)
     with pytest.raises(error, match=match):
         main(argv)
+
+
+def test_cli_board_serves_the_ports_board(monkeypatch, tmp_path):
+    """`cli board 0 --device cpu` starts the port's board server (on a free
+    port), which answers /api/status; without a card and without --device
+    the command raises instead of running on the CPU."""
+    import threading
+    import urllib.request
+
+    from infinitevl_tpu_torch.cli import main
+    from infinitevl_tpu_torch.serve import webui
+
+    made = []
+
+    def create(host, port, runs_root, device):  # on loopback, runs under tmp_path
+        made.append(webui_create("127.0.0.1", port, str(tmp_path), device))
+        return made[-1]
+
+    webui_create = webui.create_board_server
+    monkeypatch.setattr(webui, "create_board_server", create)
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(main(["board", "0", "--device", "cpu"])),
+                         daemon=True)
+    t.start()
+    for _ in range(200):
+        if made:
+            break
+        t.join(0.05)
+    server = made[0]
+    assert server.runner.device == torch.device("cpu")
+    url = f"http://127.0.0.1:{server.server_address[1]}/api/status"
+    with urllib.request.urlopen(url, timeout=30) as r:
+        assert json.loads(r.read()) == {"running": False}
+    server.shutdown()
+    t.join(30)
+    assert not t.is_alive() and rc == [0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["board", "0"])
 
 
 def test_memory_knobs_are_accepted_and_int4_training_refused(tmp_path):

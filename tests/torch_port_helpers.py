@@ -1,6 +1,10 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_port_*.py)."""
 
 import dataclasses
+import os
+import tempfile
+
+import pytest
 
 
 def to_port_config(jcfg):
@@ -135,3 +139,29 @@ def freeze_inv_freq(real):
                                       "frozen": optax.set_to_zero()}, label)
 
     return make_tx
+
+
+_CACHE_OPTIONS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+                  "jax_persistent_cache_min_entry_size_bytes")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_compile_cache():
+    """JAX's persistent compilation cache while a port test module runs
+    (autouse in every module that imports it), in one directory for all the
+    run's workers: the port's modules compile many of the same JAX references
+    (the tiny model's forwards, steps and gradients), and each is then
+    compiled once a run. JAX's settings are restored after the module."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID", str(os.getpid()))
+    saved = {name: getattr(jax.config, name) for name in _CACHE_OPTIONS}
+    for name, value in zip(_CACHE_OPTIONS, (
+            os.path.join(tempfile.gettempdir(), f"ivl_jax_cache_{run}"), 0.0, 0)):
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
+    yield
+    for name, value in saved.items():
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
